@@ -1,18 +1,24 @@
-"""Single-folder pose inference with the PyTorch port, without GGS.
+"""Single-folder pose inference with the PyTorch port, with or without GGS.
 
 Same CLI as demo.py (a config name, then dotted overrides):
 
     python demo_torch.py image_folder=samples/apple GGS.enable=False ckpt=random
+    python demo_torch.py image_folder=samples/apple GGS.matches_file=m.npz ckpt=random
 
 Pipeline: load + preprocess the images -> 100-step diffusion sampling (ViT
-trunk and sampler on the CUDA kernels when ``device`` is a card) -> decode
-to cameras -> 7-DoF alignment to gt_cameras.npz, if present -> absolute
-rotation error -> ``<out_dir>/predictions.npz``.
+trunk and sampler on the CUDA kernels when ``device`` is a card), whose last
+``GGS.start_step`` steps are geometry-guided when ``GGS.enable`` is set and
+``GGS.matches_file`` names an npz of matches (``kp1``, ``kp2`` (M, 2) pixels,
+``i12`` (M, 2) frame pairs with i < j; the GGS phases on the GGS kernels on
+a card) -> decode to cameras -> 7-DoF alignment to gt_cameras.npz, if
+present -> absolute rotation error -> ``<out_dir>/predictions.npz``.
 
 ``ckpt`` is a reference ``.pth`` (strict load); anything else that is not an
 existing ``.pth`` gives random weights seeded by ``seed``. It runs on the
 card when one is present, else on the CPU (the kernels' plain versions).
-GGS, the frustum plot and the HTML export are not ported yet.
+Match extraction (SuperPoint/SuperGlue), the frustum plot and the HTML
+export are not ported yet: without a matches file the demo samples without
+GGS, as demo.py does when extraction is unavailable.
 """
 
 import os
@@ -34,15 +40,11 @@ def run(cfg, device: str) -> dict:
         PoseDiffusionModel,
         init_random_weights,
     )
-    from posediffusion_tpu_torch.utils.config import model_config_from_cfg
+    from posediffusion_tpu_torch.diffusion.ggs import build_cond_fn
+    from posediffusion_tpu_torch.utils.config import build_ggs_config, model_config_from_cfg
     from posediffusion_tpu_torch.utils.convert import load_reference_state_dict
     from posediffusion_tpu_torch.utils.precision import pin_full_float32
 
-    if cfg.GGS.enable:
-        raise NotImplementedError(
-            "GGS is not ported to the PyTorch package yet; run with "
-            "GGS.enable=False (demo.py runs GGS with the JAX package)"
-        )
     pin_full_float32()
     model = PoseDiffusionModel(model_config_from_cfg(cfg.MODEL))
     ckpt = str(cfg.get("ckpt", "random"))
@@ -57,12 +59,28 @@ def run(cfg, device: str) -> dict:
     folder = cfg.image_folder
     images, _ = load_and_preprocess_images(folder, cfg.image_size)
     images = torch.as_tensor(images, device=device)[None]  # 1 x N x 3 x H x W
-    print("=====> Sampling without GGS <=====")
+
+    cond_fn, cond_start_step = None, 0
+    matches_file = cfg.GGS.get("matches_file") if cfg.GGS.enable else None
+    if matches_file and os.path.isfile(str(matches_file)):
+        m = np.load(str(matches_file))
+        ggs_cfg = build_ggs_config(cfg.GGS)
+        hw = (cfg.image_size, cfg.image_size)
+        cond_fn = build_cond_fn(m["kp1"], m["kp2"], m["i12"], images.shape[1], hw,
+                                ggs_cfg, device)
+        cond_start_step = ggs_cfg.start_step
+        print(f"=====> Sampling with GGS ({len(m['kp1'])} matches) <=====")
+    else:
+        if cfg.GGS.enable:
+            print("[GGS] match extraction is not ported yet and no GGS.matches_file "
+                  "was given; sampling without GGS")
+        print("=====> Sampling without GGS <=====")
 
     def infer():
         gen = torch.Generator(device=device).manual_seed(int(cfg.seed))
         start = time.perf_counter()
-        enc = model.sample(images, generator=gen)
+        enc = model.sample(images, generator=gen, cond_fn=cond_fn,
+                           cond_start_step=cond_start_step)
         if images.is_cuda:
             torch.cuda.synchronize()
         return enc, time.perf_counter() - start

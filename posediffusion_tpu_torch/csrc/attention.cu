@@ -1,4 +1,4 @@
-// Softmax attention over a packed QKV buffer, one block per (sequence, head).
+// Softmax attention over a packed QKV buffer, tiled over queries and keys.
 //
 // Replaces the per-head attention inside the TPU kernels:
 //   posediffusion_tpu/ops/vit_kernel.py        _vit_block_kernel (6 heads of
@@ -16,106 +16,187 @@
 // round_bf16 rounds q, k, v and p to bfloat16 before their products, which
 // is the cast(...) of the ViT kernel's bf16-activation mode.
 //
-// Bound: at N = 264, Dh = 64 one head's K and V are 135 KB of float32; the
-// work is 2 N^2 Dh FMAs per head, a few GFLOP per layer in all, issued from
-// shared memory. Design: the block stages the head's K and V once in
-// shared memory (rows padded to Dh + 1 floats, so a warp reading one column
-// across 32 keys hits 32 banks); each warp then owns a query row at a time,
-// keeps its scores in a per-warp strip, and reduces max and sum with
-// shuffles. Nothing leaves shared memory but the output row.
+// Bound: shared memory, then FMA issue. At 336px the ViT row holds 593
+// tokens, and one head's whole K and V in float32 (the first design) would
+// need 329 KB, more than the 227 KB a block may use. So a block owns QB query
+// rows of one (sequence, head) and walks the keys in tiles of KT rows; its
+// shared memory (K and V tile with rows padded to Dh + 1 floats, so a warp
+// reading one column across 32 keys hits 32 banks; the block's q rows; a
+// per-warp p strip) does not grow with N. Two passes over the key tiles keep
+// the TPU kernel's rounding site exact: the bf16 mode rounds the NORMALISED
+// p = e / sum before p.V, and a one-pass online softmax would only know the
+// sum at the end. Pass 1 keeps a lane-local running max and sum and merges
+// them across the warp; pass 2 recomputes the scores, forms p, rounds it and
+// accumulates p.V in registers (RPW rows x Dh / 32 columns per lane).
 #include "common.cuh"
 
-__global__ void __launch_bounds__(256)
+namespace {
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRowsPerWarp = 4;                    // RPW
+constexpr int kQueryBlock = kWarps * kRowsPerWarp;  // QB = 32
+constexpr int kKeyTile = 64;                        // KT
+constexpr int kMaxDh = 128;
+constexpr int kCols = kMaxDh / 32;                  // output columns per lane
+}  // namespace
+
+__device__ __forceinline__ float attn_bias_at(const float* bias, int kind,
+                                              int b, int i, int j, int N) {
+  if (kind == 1) return bias[(size_t)i * N + j];
+  if (kind == 2) return bias[(size_t)b * N + j];
+  return 0.f;
+}
+
+__global__ void __launch_bounds__(kThreads)
 attention_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
                  int bias_kind, float* __restrict__ out, int N, int H, int Dh,
                  float scale, int round_in) {
   extern __shared__ float smem[];
   const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int q0 = blockIdx.y * kQueryBlock;
   const int D = H * Dh, ld = Dh + 1;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
 
-  float* Ks = smem;
-  float* Vs = Ks + N * ld;
-  float* qs = Vs + N * ld + warp * (Dh + N);
-  float* ps = qs + Dh;
+  float* Ks = smem;                        // KT x ld
+  float* Vs = Ks + kKeyTile * ld;          // KT x ld
+  float* Qs = Vs + kKeyTile * ld;          // QB x Dh
+  float* Ps = Qs + kQueryBlock * Dh + warp * kRowsPerWarp * kKeyTile;  // RPW x KT
 
   const float* base = qkv + (size_t)b * N * 3 * D;
-  for (int i = threadIdx.x; i < N * Dh; i += blockDim.x) {
-    const int j = i / Dh, d = i % Dh;
-    float kv = base[(size_t)j * 3 * D + D + h * Dh + d];
-    float vv = base[(size_t)j * 3 * D + 2 * D + h * Dh + d];
-    if (round_in) {
-      kv = round_bf16(kv);
-      vv = round_bf16(vv);
-    }
-    Ks[j * ld + d] = kv;
-    Vs[j * ld + d] = vv;
+  for (int e = threadIdx.x; e < kQueryBlock * Dh; e += kThreads) {
+    const int r = e / Dh, d = e % Dh, i = q0 + r;
+    float q = i < N ? base[(size_t)i * 3 * D + h * Dh + d] : 0.f;
+    Qs[e] = round_in ? round_bf16(q) : q;
   }
-  __syncthreads();
+  const float* qw = Qs + warp * kRowsPerWarp * Dh;
+  const int row0 = q0 + warp * kRowsPerWarp;
 
-  for (int i = warp; i < N; i += nwarps) {
-    for (int d = lane; d < Dh; d += 32) {
-      float q = base[(size_t)i * 3 * D + h * Dh + d];
-      qs[d] = round_in ? round_bf16(q) : q;
+  auto stage = [&](float* dst, int off, int j0) {
+    for (int e = threadIdx.x; e < kKeyTile * Dh; e += kThreads) {
+      const int jj = e / Dh, d = e % Dh, j = j0 + jj;
+      float v = j < N ? base[(size_t)j * 3 * D + off + h * Dh + d] : 0.f;
+      dst[jj * ld + d] = round_in ? round_bf16(v) : v;
     }
-    __syncwarp();
+  };
+  // Scores of this warp's rows against key jj of the staged tile.
+  auto scores = [&](int jj, int j, float (&s)[kRowsPerWarp]) {
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) s[r] = 0.f;
+    const float* kr = Ks + jj * ld;
+    for (int d = 0; d < Dh; ++d) {
+      const float kv = kr[d];
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) s[r] = fmaf(qw[r * Dh + d], kv, s[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      const int i = min(row0 + r, N - 1);
+      s[r] = s[r] * scale + attn_bias_at(bias, bias_kind, b, i, j, N);
+    }
+  };
 
-    float mx = -INFINITY;
-    for (int j = lane; j < N; j += 32) {
-      float s = 0.f;
-      for (int d = 0; d < Dh; ++d) s = fmaf(qs[d], Ks[j * ld + d], s);
-      s *= scale;
-      if (bias_kind == 1) {
-        s += bias[(size_t)i * N + j];
-      } else if (bias_kind == 2) {
-        s += bias[(size_t)b * N + j];
+  // ---- pass 1: row max and sum of exp, lane-local then merged
+  float m[kRowsPerWarp], l[kRowsPerWarp];
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+  }
+  for (int j0 = 0; j0 < N; j0 += kKeyTile) {
+    __syncthreads();  // the previous tile (or Qs) is complete / consumed
+    stage(Ks, D, j0);
+    __syncthreads();
+    for (int jj = lane; jj < kKeyTile && j0 + jj < N; jj += 32) {
+      float s[kRowsPerWarp];
+      scores(jj, j0 + jj, s);
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) {
+        const float mn = fmaxf(m[r], s[r]);
+        l[r] = l[r] * expf(m[r] - mn) + expf(s[r] - mn);
+        m[r] = mn;
       }
-      ps[j] = s;
-      mx = fmaxf(mx, s);
     }
-    mx = warp_max(mx);
+  }
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    const float mx = warp_max(m[r]);
+    // a lane that saw no key holds m = -inf and l = 0: it adds 0
+    l[r] = warp_sum(m[r] == -INFINITY ? 0.f : l[r] * expf(m[r] - mx));
+    m[r] = mx;
+  }
 
-    float sum = 0.f;
-    for (int j = lane; j < N; j += 32) {
-      const float e = expf(ps[j] - mx);
-      ps[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int j = lane; j < N; j += 32) {
-      const float p = ps[j] / sum;
-      ps[j] = round_in ? round_bf16(p) : p;
+  // ---- pass 2: p = exp(s - max) / sum, rounded in bf16 mode, then p.V
+  float o[kRowsPerWarp][kCols];
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) o[r][c] = 0.f;
+  float* pw = Ps;
+  for (int j0 = 0; j0 < N; j0 += kKeyTile) {
+    __syncthreads();
+    stage(Ks, D, j0);
+    stage(Vs, 2 * D, j0);
+    __syncthreads();
+    for (int jj = lane; jj < kKeyTile; jj += 32) {
+      float s[kRowsPerWarp];
+      const bool live = j0 + jj < N;
+      if (live) scores(jj, j0 + jj, s);
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) {
+        float p = live ? expf(s[r] - m[r]) / l[r] : 0.f;
+        pw[r * kKeyTile + jj] = round_in ? round_bf16(p) : p;
+      }
     }
     __syncwarp();
-
-    for (int d = lane; d < Dh; d += 32) {
-      float o = 0.f;
-      for (int j = 0; j < N; ++j) o = fmaf(ps[j], Vs[j * ld + d], o);
-      out[((size_t)b * N + i) * D + h * Dh + d] = o;
+    const int kt = min(kKeyTile, N - j0);
+    for (int jj = 0; jj < kt; ++jj) {
+      const float* vr = Vs + jj * ld;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const int d = lane + 32 * c;
+        if (d < Dh) {
+          const float v = vr[d];
+#pragma unroll
+          for (int r = 0; r < kRowsPerWarp; ++r)
+            o[r][c] = fmaf(pw[r * kKeyTile + jj], v, o[r][c]);
+        }
+      }
     }
     __syncwarp();
+  }
+
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    const int i = row0 + r;
+    if (i >= N) continue;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      const int d = lane + 32 * c;
+      if (d < Dh) out[((size_t)b * N + i) * D + h * Dh + d] = o[r][c];
+    }
   }
 }
 
-// Bytes of dynamic shared memory the kernel needs (the wrapper checks the
-// card's limit with the same formula).
-static size_t attention_smem_bytes(int N, int Dh, int threads) {
-  return sizeof(float) *
-         ((size_t)2 * N * (Dh + 1) + (size_t)(threads / 32) * (Dh + N));
+// Bytes of dynamic shared memory the kernel needs; it does not depend on N
+// (the wrapper checks the card's limit with the same formula).
+static size_t attention_smem_bytes(int Dh) {
+  return sizeof(float) * ((size_t)2 * kKeyTile * (Dh + 1) +
+                          (size_t)kQueryBlock * Dh +
+                          (size_t)kWarps * kRowsPerWarp * kKeyTile);
 }
 
 // bias_kind: 0 none, 1 (N, N) shared by every sequence, 2 (B, N) per key.
 PD_API int pd_attention(const void* qkv, const void* bias, int bias_kind,
                         void* out, int B, int N, int H, int Dh, float scale,
                         int round_in, void* stream) {
-  const int threads = 256;
-  const size_t smem = attention_smem_bytes(N, Dh, threads);
+  if (Dh < 1 || Dh > kMaxDh || N < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = attention_smem_bytes(Dh);
   cudaError_t err = cudaFuncSetAttribute(
       attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  attention_kernel<<<B * H, threads, smem, (cudaStream_t)stream>>>(
+  const dim3 grid(B * H, (N + kQueryBlock - 1) / kQueryBlock);
+  attention_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)qkv, (const float*)bias, bias_kind, (float*)out, N, H, Dh,
       scale, round_in);
   return (int)cudaGetLastError();

@@ -3,10 +3,11 @@
 
 ``p_sample_loop`` is the plain ancestral sampler over any denoiser
 ``model_fn(x, t) -> eps``. It is the reference that the fused sampler
-(``ops/sampler_kernel.py``) is tested against, and keeps the ``x_init`` /
-``from_t`` hooks with which a later conditioned tail continues a chain.
-Randomness is injected (``x0``, ``noises``) or drawn from a
-``torch.Generator``.
+(``ops/sampler_kernel.py``) is tested against, and runs the GGS-conditioned
+tail: ``x_init`` / ``from_t`` continue the fused sampler's chain, and for
+t < ``cond_start_step`` the posterior mean passes through ``cond_fn`` and
+the step takes no noise. Randomness is injected (``x0``, ``noises``) or
+drawn from a ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 from posediffusion_tpu_torch.diffusion.schedule import DiffusionSchedule, extract
 
 ModelFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+CondFn = Callable[[torch.Tensor, int], torch.Tensor]
 
 
 def predict_start_from_noise(schedule: DiffusionSchedule, x_t, t, noise):
@@ -42,6 +44,14 @@ def q_posterior(
     return mean, variance, log_variance
 
 
+def p_mean_variance(schedule: DiffusionSchedule, model_fn: ModelFn, x, t):
+    """One reverse step's posterior (mean, variance, log variance, x_start)
+    from the denoiser's noise prediction."""
+    x_start = predict_start_from_noise(schedule, x, t, model_fn(x, t))
+    mean, variance, log_variance = q_posterior(schedule, x_start, x, t)
+    return mean, variance, log_variance, x_start
+
+
 def p_sample_loop(
     schedule: DiffusionSchedule,
     model_fn: ModelFn,
@@ -52,14 +62,18 @@ def p_sample_loop(
     noises: Optional[torch.Tensor] = None,
     x_init: Optional[torch.Tensor] = None,
     from_t: Optional[int] = None,
+    cond_fn: Optional[CondFn] = None,
+    cond_start_step: int = 0,
 ) -> torch.Tensor:
     """Ancestral sampling over t = T-1 .. 0 (pred_noise objective).
 
     ``x0`` is the initial draw and ``noises`` (R, *shape) the raw standard
     normals of the R steps in the order they run; either is drawn from
-    ``generator`` when absent. The noise is zeroed at t = 0. ``x_init`` /
-    ``from_t`` start the chain at timestep ``from_t`` from state ``x_init``
-    (the steps [from_t, T) ran elsewhere).
+    ``generator`` when absent. The noise is zeroed at t = 0 and in the
+    conditioned steps t < ``cond_start_step`` (when ``cond_fn`` is given),
+    whose posterior mean is ``cond_fn(mean, t)``. ``x_init`` / ``from_t``
+    start the chain at timestep ``from_t`` from state ``x_init`` (the steps
+    [from_t, T) ran elsewhere).
     """
     schedule = schedule.to(device)
     T = schedule.num_timesteps
@@ -76,12 +90,15 @@ def p_sample_loop(
     if noises.shape[0] != T:
         raise ValueError(f"{noises.shape[0]} noise draws for {T} steps")
 
+    n_cond = min(max(cond_start_step, 0), T) if cond_fn is not None else 0
     B = shape[0]
     for i, t in enumerate(range(T - 1, -1, -1)):
         t_b = torch.full((B,), t, dtype=torch.long, device=device)
-        eps = model_fn(x, t_b)
-        x_start = predict_start_from_noise(schedule, x, t_b, eps)
-        mean, _, log_var = q_posterior(schedule, x_start, x, t_b)
-        noise = noises[i] if t > 0 else torch.zeros_like(x)
+        mean, _, log_var, _ = p_mean_variance(schedule, model_fn, x, t_b)
+        if t < n_cond:
+            mean = cond_fn(mean, t)
+            noise = torch.zeros_like(x)
+        else:
+            noise = noises[i] if t > 0 else torch.zeros_like(x)
         x = mean + torch.exp(0.5 * log_var) * noise
     return x

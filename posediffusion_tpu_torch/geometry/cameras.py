@@ -7,6 +7,7 @@ intrinsics are NDC focal lengths and principal points.
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 import torch
 
@@ -44,3 +45,27 @@ class PerspectiveCameras:
 def camera_center(cam: PerspectiveCameras) -> torch.Tensor:
     """(N, 3) camera centres in world coordinates: C = -T @ R^T."""
     return -torch.einsum("nj,nkj->nk", cam.T, cam.R)
+
+
+def cameras_to_opencv(
+    cam: PerspectiveCameras, image_size_hw: Tuple[int, int]
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """NDC cameras -> OpenCV (R_cv (N, 3, 3), t_cv (N, 3), pixel K (N, 3, 3)):
+    negate the x and y axes, transpose R to the column-vector convention
+    (``x_cam = R_cv x_world + t_cv``), and map NDC intrinsics to pixels with
+    ``scale = min(h, w) / 2``: f_px = f * scale, c_px = -p * scale + (w/2, h/2)."""
+    h, w = image_size_hw
+    flip = torch.tensor([-1.0, -1.0, 1.0], dtype=cam.R.dtype, device=cam.R.device)
+    R_cv = (cam.R * flip[None, None, :]).transpose(-1, -2)
+    t_cv = cam.T * flip[None, :]
+    scale = min(h, w) / 2.0
+    c0 = torch.tensor([w / 2.0, h / 2.0], dtype=cam.R.dtype, device=cam.R.device)
+    principal_px = -cam.principal_point * scale + c0
+    focal_px = cam.focal_length * scale
+    zeros = torch.zeros_like(focal_px[:, 0])
+    K = torch.stack([
+        torch.stack([focal_px[:, 0], zeros, principal_px[:, 0]], dim=-1),
+        torch.stack([zeros, focal_px[:, 1], principal_px[:, 1]], dim=-1),
+        torch.stack([zeros, zeros, torch.ones_like(zeros)], dim=-1),
+    ], dim=-2)
+    return R_cv, t_cv, K

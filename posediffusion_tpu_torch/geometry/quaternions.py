@@ -1,4 +1,4 @@
-"""Quaternion (wxyz) to rotation matrix, as in
+"""Quaternion (wxyz) <-> rotation matrix, as in
 ``posediffusion_tpu.geometry.quaternions``."""
 
 from __future__ import annotations
@@ -26,3 +26,29 @@ def quaternion_to_matrix(quaternions: torch.Tensor) -> torch.Tensor:
         dim=-1,
     )
     return m.reshape(quaternions.shape[:-1] + (3, 3))
+
+
+def _sqrt_positive_part(x: torch.Tensor) -> torch.Tensor:
+    """sqrt(max(0, x)) with a zero subgradient at x <= 0."""
+    positive = x > 0
+    return torch.where(positive, torch.sqrt(torch.where(positive, x, 1.0)), 0.0)
+
+
+def matrix_to_quaternion(matrix: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) -> (..., 4) wxyz, from the best-conditioned of the four
+    candidates (the largest of the diagonal combinations)."""
+    m00, m01, m02, m10, m11, m12, m20, m21, m22 = matrix.flatten(-2).unbind(-1)
+    q_abs = _sqrt_positive_part(torch.stack([
+        1.0 + m00 + m11 + m22,
+        1.0 + m00 - m11 - m22,
+        1.0 - m00 + m11 - m22,
+        1.0 - m00 - m11 + m22,
+    ], dim=-1))
+    cand = torch.stack([
+        torch.stack([q_abs[..., 0] ** 2, m21 - m12, m02 - m20, m10 - m01], dim=-1),
+        torch.stack([m21 - m12, q_abs[..., 1] ** 2, m10 + m01, m02 + m20], dim=-1),
+        torch.stack([m02 - m20, m10 + m01, q_abs[..., 2] ** 2, m12 + m21], dim=-1),
+        torch.stack([m10 - m01, m20 + m02, m21 + m12, q_abs[..., 3] ** 2], dim=-1),
+    ], dim=-2) / (2.0 * q_abs[..., None].clamp_min(0.1))
+    best = q_abs.argmax(dim=-1)
+    return torch.take_along_dim(cand, best[..., None, None], dim=-2)[..., 0, :]

@@ -7,6 +7,10 @@ Token layout per frame (702 dims; the order is the checkpoint's):
 with the pivot one-hot on frame 0, then Linear to d_model 512, an 8-layer
 pre-norm encoder (4 heads, FF 1024) and the head 512 -> 128 (LN, ReLU) -> 9.
 An optional (B, N) frame mask removes padded frames from the attention keys.
+
+``denoiser_apply_fused`` is the inference forward of the GGS-conditioned
+steps: embeddings, first projection and head in plain PyTorch, the trunk
+through ``ops.denoiser_kernel.fused_trunk`` (the kernels on a card).
 """
 
 from __future__ import annotations
@@ -21,7 +25,9 @@ from posediffusion_tpu_torch.models.layers import (
     PoseEmbedding,
     TimeStepEmbedding,
     TransformerEncoder,
+    key_bias_from_mask,
 )
+from posediffusion_tpu_torch.ops.denoiser_kernel import fused_trunk, stack_trunk_params
 
 
 def pivot_onehot(z: torch.Tensor) -> torch.Tensor:
@@ -71,3 +77,32 @@ class Denoiser(nn.Module):
         feed = torch.cat([self.pose_embed(x), t_emb, z], dim=-1)
         h = self._trunk(self._first(feed), mask=mask)
         return self._last(h)
+
+
+@torch.no_grad()
+def denoiser_apply_fused(
+    denoiser: Denoiser,
+    x: torch.Tensor,  # (1, N, target_dim)
+    t: torch.Tensor,  # (1,) timesteps
+    z: torch.Tensor,  # (1, N, z_dim)
+    mask: Optional[torch.Tensor] = None,  # (1, N) frame validity
+    stacks: Optional[dict] = None,
+    weight_dtype: torch.dtype = torch.bfloat16,
+    trunk=fused_trunk,
+) -> torch.Tensor:
+    """``Denoiser.forward`` of one sequence with the trunk in ``fused_trunk``
+    (``trunk=fused_trunk_plain``: plain PyTorch on any device). ``stacks``
+    (from ``stack_trunk_params``) may be built once per sampling call; else
+    they are stacked here in ``weight_dtype``."""
+    B, N, _ = x.shape
+    if B != 1:
+        raise ValueError(f"the fused denoiser expects B == 1, got {B}")
+    if stacks is None:
+        stacks = stack_trunk_params(denoiser._trunk, weight_dtype)
+    t_emb = denoiser.time_embed(t)[:, None, :].expand(B, N, -1)
+    if denoiser.pivot_cam_onehot:
+        z = pivot_onehot(z)
+    h = denoiser._first(torch.cat([denoiser.pose_embed(x), t_emb, z], dim=-1))
+    bias = key_bias_from_mask(mask, B, N, x.device)[0]
+    h = trunk(h[0], bias, stacks, nhead=denoiser._trunk.nhead)
+    return denoiser._last(h[None])

@@ -1,4 +1,4 @@
-"""PoseDiffusion composition root for inference without GGS, as
+"""PoseDiffusion composition root for inference with and without GGS, as
 ``posediffusion_tpu.models.pose_diffusion``.
 
 The module tree carries the released checkpoint's keys:
@@ -6,15 +6,18 @@ The module tree carries the released checkpoint's keys:
 (denoiser) and the 13 schedule buffers ``diffuser.<name>``, so a reference
 ``.pth`` loads with a strict ``load_state_dict``.
 
-``sample`` is the no-GGS main path: ``extract_features_fused`` (ViT trunk on
-the kernels) then ``fused_sample_loop`` (all reverse steps on the kernels).
-Which code runs each kernel is decided by the images' device alone.
+``sample`` runs ``extract_features_fused`` (ViT trunk on the kernels), then
+``fused_sample_loop`` for the unconditioned steps [n_cond, T) (all of them
+without GGS), then, with a ``cond_fn``, the conditioned tail t < n_cond in
+``p_sample_loop`` with ``denoiser_apply_fused`` (trunk on the kernels) and
+the GGS ``cond_fn`` (its phases on the GGS kernels). Which code runs each
+kernel is decided by the images' device alone.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
@@ -24,11 +27,13 @@ from posediffusion_tpu_torch.diffusion.schedule import (
     DiffusionSchedule,
     make_schedule,
 )
-from posediffusion_tpu_torch.models.denoiser import Denoiser
+from posediffusion_tpu_torch.diffusion.gaussian import p_sample_loop
+from posediffusion_tpu_torch.models.denoiser import Denoiser, denoiser_apply_fused
 from posediffusion_tpu_torch.models.feature_extractor import (
     MultiScaleImageFeatureExtractor,
     extract_features_fused,
 )
+from posediffusion_tpu_torch.ops.denoiser_kernel import stack_trunk_params
 from posediffusion_tpu_torch.ops.sampler_kernel import fused_sample_loop
 
 
@@ -129,16 +134,34 @@ class PoseDiffusionModel(nn.Module):
         x0: Optional[torch.Tensor] = None,
         noises: Optional[torch.Tensor] = None,
         mask: Optional[torch.Tensor] = None,
+        cond_fn: Optional[Callable] = None,
+        cond_start_step: int = 0,
     ) -> torch.Tensor:
-        """All reverse steps without GGS -> (B, N, 9) pose encodings.
+        """All reverse steps -> (B, N, 9) pose encodings.
 
         ``x0`` (B, N, 9) and ``noises`` (T, B, N, 9) inject the draws in
-        step order (t = T-1 first); else they come from ``generator``."""
+        step order (t = T-1 first); else they come from ``generator``. With
+        ``cond_fn`` (GGS), the steps t < ``cond_start_step`` condition the
+        posterior mean with it and take no noise (their draws are unused);
+        they run one sequence (B == 1)."""
         z = self.extract_features(images)
-        return fused_sample_loop(
-            self.diffuser.model, self.schedule, z, mask=mask,
-            weight_dtype=self.weight_dtype, x0=x0, noises=noises,
+        den = self.diffuser.model
+        T = self.config.timesteps
+        n_cond = min(max(cond_start_step, 0), T) if cond_fn is not None else 0
+        x = fused_sample_loop(
+            den, self.schedule, z, mask=mask, n_cond=n_cond,
+            weight_dtype=self.weight_dtype, x0=x0,
+            noises=None if noises is None else noises[:T - n_cond],
             generator=generator,
+        )
+        if n_cond == 0:
+            return x
+        stacks = stack_trunk_params(den._trunk, self.weight_dtype)
+        return p_sample_loop(
+            self.schedule,
+            lambda xt, t: denoiser_apply_fused(den, xt, t, z, mask, stacks),
+            x.shape, x.device, noises=torch.zeros((n_cond, *x.shape), device=x.device),
+            x_init=x, from_t=n_cond, cond_fn=cond_fn, cond_start_step=cond_start_step,
         )
 
 

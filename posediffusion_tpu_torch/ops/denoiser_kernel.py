@@ -1,18 +1,25 @@
 """One pre-norm transformer layer built from the kernels, shared by both
-trunks, as ``posediffusion_tpu.ops.denoiser_kernel.encoder_layer_math``.
+trunks, as ``posediffusion_tpu.ops.denoiser_kernel.encoder_layer_math``, and
+``fused_trunk``, one eval pass of the denoiser trunk on it, as
+``posediffusion_tpu.ops.denoiser_kernel.fused_trunk``.
 
 The layer is seven launches: LayerNorm, QKV product, attention, output
 product + residual, LayerNorm, first FF product + activation, second FF
 product + residual. The denoiser runs it with eps 1e-5, ReLU, a (B, N) key
 bias and float32 activations; the ViT with eps 1e-6, exact-erf GELU, the
 (N, N) scale-packing bias and, by default, bf16-rounded activations.
+
+The TPU's ``fused_trunk`` runs all layers in one Pallas launch with the
+activations in VMEM; here each layer is the same seven launches, so the
+trunk of the GGS-conditioned steps (one pass per step) reuses the kernels of
+the fused sampler. ``fused_trunk.launches`` counts the passes on the card.
 """
 
 from __future__ import annotations
 
 import torch
 
-from posediffusion_tpu_torch.ops.kernels import KERNELS
+from posediffusion_tpu_torch.ops.kernels import KERNELS, PLAIN
 
 # order of a layer's weights in encoder_layer_math's signature
 TRUNK_KEYS = ("g1", "b1", "wqkv", "bqkv", "wout", "bout",
@@ -73,3 +80,33 @@ def layer_weights(stacks: dict, keys=TRUNK_KEYS) -> list:
     """Per-layer tuples of views, in encoder_layer_math's argument order."""
     return [tuple(stacks[k][l] for k in keys)
             for l in range(stacks[keys[0]].shape[0])]
+
+
+def _trunk(ops, x, mask_bias, stacks, nhead):
+    h = x.to(torch.float32).contiguous()
+    key_bias = mask_bias.to(torch.float32).reshape(1, -1).contiguous()
+    for w in layer_weights(stacks):
+        h = encoder_layer_math(h, *w, nhead=nhead, seq_len=h.shape[0], eps=1e-5,
+                               act="relu", key_bias=key_bias, ops=ops)
+    return h
+
+
+@torch.no_grad()
+def fused_trunk(x: torch.Tensor, mask_bias: torch.Tensor, stacks: dict,
+                nhead: int = 4) -> torch.Tensor:
+    """All layers of the denoiser trunk on one sequence through the kernel
+    wrappers: x (N, d_model) tokens, mask_bias (N,) additive key bias (0 or
+    NEG), ``stacks`` from ``stack_trunk_params`` -> (N, d_model) float32."""
+    if x.is_cuda:
+        fused_trunk.launches += 1
+    return _trunk(KERNELS, x, mask_bias, stacks, nhead)
+
+
+fused_trunk.launches = 0
+
+
+@torch.no_grad()
+def fused_trunk_plain(x: torch.Tensor, mask_bias: torch.Tensor, stacks: dict,
+                      nhead: int = 4) -> torch.Tensor:
+    """The same math in plain PyTorch on any device."""
+    return _trunk(PLAIN, x, mask_bias, stacks, nhead)

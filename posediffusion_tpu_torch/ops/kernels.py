@@ -1,15 +1,17 @@
 """The hand-written Hopper kernels, their plain PyTorch versions, and routing.
 
-Five kernels (sources in ``posediffusion_tpu_torch/csrc``) carry the two TPU
-kernels of the no-GGS inference path:
+Seven kernels (sources in ``posediffusion_tpu_torch/csrc``) carry the TPU
+kernels of the inference paths with and without GGS:
 
-=================  ===========================================================
-``layernorm``      row LayerNorm, eps and bf16 output rounding as arguments
-``linear``         ``epi(a @ W + b) [+ residual]``, W float32 or bfloat16
-``attention``      softmax attention over a packed (B, N, 3D) QKV buffer
-``sampler_prologue``  layer-0 fold-in of the fused sampler
-``sampler_epilogue``  head MLP + posterior update of the fused sampler
-=================  ===========================================================
+=====================  =======================================================
+``layernorm``          row LayerNorm, eps and bf16 output rounding as arguments
+``linear``             ``epi(a @ W + b) [+ residual]``, W float32 or bfloat16
+``attention``          softmax attention over a packed (B, N, 3D) QKV buffer
+``sampler_prologue``   layer-0 fold-in of the fused sampler
+``sampler_epilogue``   head MLP + posterior update of the fused sampler
+``ggs_phase``          one whole GGS SGD phase, one block
+``ggs_phase_chunked``  the same, pair chunks over a cooperative grid
+=====================  =======================================================
 
 Routing is by the tensors' device and nothing else: on a CUDA tensor a
 wrapper launches its kernel (or raises), on a CPU tensor it calls the plain
@@ -17,8 +19,9 @@ version beside it. Each plain version computes the same math with the same
 bf16 rounding sites and weight dtypes; the CPU tests hold it against the JAX
 package and ``chip_smoke.py`` holds each kernel against it on the card.
 
-The kernels are compiled with ``nvcc`` into one shared library at first use
-(``build/kernels/``, keyed by a hash of the sources) and bound with ctypes.
+The kernels are compiled with ``nvcc`` (one process per source, in parallel)
+and linked into one shared library at first use (``build/kernels/``, keyed
+by a hash of the sources), then bound with ctypes.
 Each wrapper counts its launches in ``<wrapper>.launches``.
 """
 
@@ -37,11 +40,13 @@ from typing import Optional
 
 import torch
 
+from posediffusion_tpu_torch.ops.ggs_grad import GGSTables, loss_and_grad_core
+
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 NEG = -1e30  # additive bias of a masked key (never -inf: no row gives NaN)
 
@@ -57,7 +62,10 @@ _SIGNATURES = {
     "pd_sampler_epilogue": [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P,
     ],
+    "pd_ggs_phase": [_P] * 11 + [_I] * 8 + [_F, _I, _F, _F, _F, _F, _P],
+    "pd_ggs_phase_chunked": [_P] * 11 + [_I] * 8 + [_F, _I, _F, _F, _F, _F, _I, _P, _P],
 }
+_MAX_SMEM = 232448  # bytes of shared memory one Hopper block may use
 
 
 # --------------------------------------------------------------------- build
@@ -84,24 +92,35 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _run_all(cmds) -> None:
+    """Start every command at once, wait for all, raise on the first failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (out, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"{' '.join(cmd)} failed ({p.returncode}):\n{out}\n{err}")
+
+
 def build_library() -> Path:
-    """Compile every ``csrc/*.cu`` into one shared library, unless the build
-    for these exact sources exists already."""
+    """Compile every ``csrc/*.cu`` (one ``nvcc -c`` per source, all started
+    together) and link them into one shared library, unless the build for
+    these exact sources exists already."""
     path = library_path()
     if path.exists():
         return path
     path.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp,
-           *[str(s) for s in sorted(_CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, path)  # atomic: a concurrent process never loads half a file
+    with tempfile.TemporaryDirectory(dir=path.parent) as tmpdir:
+        objs = []
+        compiles = []
+        for src in sorted(_CSRC.glob("*.cu")):
+            obj = os.path.join(tmpdir, src.stem + ".o")
+            objs.append(obj)
+            compiles.append([_nvcc(), *_NVCC_FLAGS, "-c", "-o", obj, str(src)])
+        _run_all(compiles)
+        tmp = os.path.join(tmpdir, path.name)
+        _run_all([[_nvcc(), *_NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
+        os.replace(tmp, path)  # atomic: a concurrent process never loads half a file
     return path
 
 
@@ -248,13 +267,9 @@ def attention_plain(qkv, nhead: int, attn_bias=None, key_bias=None,
     return (p @ v).transpose(1, 2).reshape(B, N, D)
 
 
-def attention_smem_bytes(N: int, Dh: int) -> int:
-    """Dynamic shared memory of one attention block of 8 warps
-    (csrc/attention.cu, attention_smem_bytes)."""
-    return 4 * (2 * N * (Dh + 1) + 8 * (Dh + N))
-
-
-_MAX_SMEM = 232448  # bytes of shared memory one Hopper block may use
+# csrc/attention.cu: kMaxDh. Its shared memory (a 64-key K and V tile, 32
+# query rows, a p strip per warp) does not grow with N: 90,624 B at Dh 128.
+ATTENTION_MAX_DH = 128
 
 
 def attention(qkv, nhead: int, attn_bias=None, key_bias=None,
@@ -273,8 +288,8 @@ def attention(qkv, nhead: int, attn_bias=None, key_bias=None,
     Dh = D // nhead
     if D3 != 3 * D or D != nhead * Dh:
         raise ValueError(f"qkv width {D3} does not split into 3 x {nhead} heads")
-    if attention_smem_bytes(N, Dh) > _MAX_SMEM:
-        raise ValueError(f"N={N}, Dh={Dh}: one head's K and V exceed shared memory")
+    if Dh > ATTENTION_MAX_DH:
+        raise ValueError(f"head width {Dh} > {ATTENTION_MAX_DH}")
     _check(qkv, "qkv", (B, N, D3))
     _check(attn_bias, "attn_bias", (N, N))
     _check(key_bias, "key_bias", (B, N))
@@ -371,15 +386,152 @@ def sampler_epilogue(h, w0, b0, gh, bh, w1, b1, coef, noise, x, step: int,
 sampler_epilogue.launches = 0
 
 
+# ---------------------------------------------------------------- GGS phases
+def sgd_step(x, buf, stopped, g, count, n_frames, lr, momentum, alpha,
+             min_matches):
+    """Sticky stop, adaptive clip and torch-SGD momentum of one GGS iteration
+    (posediffusion_tpu/ops/ggs_kernel.py:65-81); g is normalised."""
+    if min_matches > 0:
+        stopped = stopped | (count / n_frames < min_matches)
+    mask = (g.abs() > 0).to(x.dtype)
+    max_norm = alpha * torch.sqrt(((x * mask) ** 2).sum()) / lr
+    clip = torch.clamp(max_norm / (torch.sqrt((g * g).sum()) + 1e-6), max=1.0)
+    buf_new = momentum * buf + g * clip
+    x_new = x - lr * buf_new
+    return torch.where(stopped, x, x_new), torch.where(stopped, buf, buf_new), stopped
+
+
+def ggs_phase_plain(x, t: GGSTables, image_hw, update_R: bool, update_T: bool,
+                    update_FL: bool, sampson_max: float, iters: int, lr: float,
+                    momentum: float, alpha: float, min_matches: float):
+    """One GGS SGD phase as a Python loop over ``loss_and_grad_core``."""
+    x, buf = x.clone(), torch.zeros_like(x)
+    stopped = torch.zeros((), dtype=torch.bool, device=x.device)
+    for _ in range(iters):
+        _, count, g = loss_and_grad_core(
+            x, t.kp1x, t.kp1y, t.kp2x, t.kp2y, t.valid, t.B1, t.B2, image_hw,
+            update_R, update_T, update_FL, sampson_max)
+        x, buf, stopped = sgd_step(x, buf, stopped, g, count, x.shape[0], lr,
+                                   momentum, alpha, min_matches)
+    return x
+
+
+def ggs_phase_chunked_plain(x, t: GGSTables, image_hw, update_R: bool,
+                            update_T: bool, update_FL: bool, sampson_max: float,
+                            iters: int, lr: float, momentum: float, alpha: float,
+                            min_matches: float, chunk: int):
+    """The chunked phase: unnormalised gradients summed over the pair chunks,
+    then divided by the global count. The backward is linear in the upstream
+    adjoint, so the sum over chunks is the unnormalised gradient of the whole
+    (padded) table, which this takes in one call per iteration."""
+    if t.valid.shape[0] % chunk:
+        raise ValueError(f"{t.valid.shape[0]} pairs do not split into chunks of {chunk}")
+    x, buf = x.clone(), torch.zeros_like(x)
+    stopped = torch.zeros((), dtype=torch.bool, device=x.device)
+    for _ in range(iters):
+        _, count, g = loss_and_grad_core(
+            x, t.kp1x, t.kp1y, t.kp2x, t.kp2y, t.valid, t.B1, t.B2, image_hw,
+            update_R, update_T, update_FL, sampson_max, normalize=False)
+        x, buf, stopped = sgd_step(x, buf, stopped, g / count.clamp_min(1.0), count,
+                                   x.shape[0], lr, momentum, alpha, min_matches)
+    return x
+
+
+def _ggs_check(x, t: GGSTables):
+    N = x.shape[0]
+    P, Q = t.valid.shape
+    _check(x, "x", (N, 9))
+    for name in ("kp1x", "kp1y", "kp2x", "kp2y", "valid"):
+        _check(getattr(t, name), name, (P, Q))
+    _check(t.pi1, "pi1", (P,), (torch.int32,))
+    _check(t.pi2, "pi2", (P,), (torch.int32,))
+    _check(t.fptr, "fptr", (N + 1,), (torch.int32,))
+    _check(t.fent, "fent", (2 * P,), (torch.int32,))
+    return N, P, Q
+
+
+def _ggs_args(x, out, t, N, P, Q, image_hw, update_R, update_T, update_FL,
+              sampson_max, iters, lr, momentum, alpha, min_matches):
+    h, w = image_hw
+    return (_ptr(x), _ptr(out), _ptr(t.kp1x), _ptr(t.kp1y), _ptr(t.kp2x),
+            _ptr(t.kp2y), _ptr(t.valid), _ptr(t.pi1), _ptr(t.pi2), _ptr(t.fptr),
+            _ptr(t.fent), N, P, Q, int(h), int(w), int(update_R), int(update_T),
+            int(update_FL), float(sampson_max), int(iters), float(lr),
+            float(momentum), float(alpha), float(min_matches))
+
+
+def ggs_smem_bytes(N: int, pairs: int, total_pairs: int) -> int:
+    """Dynamic shared memory of a GGS block that computes ``pairs`` pairs and
+    reads all ``total_pairs`` pairs' backward rows (csrc/ggs.cu,
+    ggs_smem_floats, with the int pair tables): 63,468 B resident at 20
+    frames, 29,508 B chunked."""
+    return 4 * (41 * N + 16 + 46 * pairs + 29 * total_pairs + 4 * total_pairs + N + 1)
+
+
+def ggs_phase(x, t: GGSTables, image_hw, update_R: bool, update_T: bool,
+              update_FL: bool, sampson_max: float, iters: int, lr: float,
+              momentum: float, alpha: float, min_matches: float):
+    """All ``iters`` iterations of one GGS phase in ONE launch of one block
+    (csrc/ggs.cu, ggs_phase_kernel): x (N, 9) -> the updated x."""
+    if not _on_card(x, t.valid):
+        return ggs_phase_plain(x, t, image_hw, update_R, update_T, update_FL,
+                               sampson_max, iters, lr, momentum, alpha, min_matches)
+    N, P, Q = _ggs_check(x, t)
+    if ggs_smem_bytes(N, P, P) > _MAX_SMEM:
+        raise ValueError(f"{P} pairs of {N} frames exceed one block's shared "
+                         "memory: use ggs_phase_chunked")
+    out = torch.empty_like(x)
+    _launch(load_library().pd_ggs_phase,
+            *_ggs_args(x, out, t, N, P, Q, image_hw, update_R, update_T,
+                       update_FL, sampson_max, iters, lr, momentum, alpha,
+                       min_matches), _stream(x))
+    ggs_phase.launches += 1
+    return out
+
+
+ggs_phase.launches = 0
+
+
+def ggs_phase_chunked(x, t: GGSTables, image_hw, update_R: bool, update_T: bool,
+                      update_FL: bool, sampson_max: float, iters: int, lr: float,
+                      momentum: float, alpha: float, min_matches: float,
+                      chunk: int):
+    """The same phase with the pairs split into chunks of ``chunk``, one block
+    each, in ONE cooperative launch (csrc/ggs.cu, ggs_phase_chunked_kernel).
+    The pair count must be a multiple of ``chunk`` (pad_grouped_pairs)."""
+    if not _on_card(x, t.valid):
+        return ggs_phase_chunked_plain(x, t, image_hw, update_R, update_T,
+                                       update_FL, sampson_max, iters, lr,
+                                       momentum, alpha, min_matches, chunk)
+    N, P, Q = _ggs_check(x, t)
+    if chunk < 1 or P % chunk:
+        raise ValueError(f"{P} pairs do not split into chunks of {chunk}")
+    if ggs_smem_bytes(N, chunk, P) > _MAX_SMEM:
+        raise ValueError(f"{P} pairs of {N} frames exceed one block's shared memory")
+    out = torch.empty_like(x)
+    rows = torch.empty(2 * P * 29, device=x.device, dtype=torch.float32)
+    _launch(load_library().pd_ggs_phase_chunked,
+            *_ggs_args(x, out, t, N, P, Q, image_hw, update_R, update_T,
+                       update_FL, sampson_max, iters, lr, momentum, alpha,
+                       min_matches), chunk, _ptr(rows), _stream(x))
+    ggs_phase_chunked.launches += 1
+    return out
+
+
+ggs_phase_chunked.launches = 0
+
+
 # ------------------------------------------------------------------- tables
 KERNELS = SimpleNamespace(
     layernorm=layernorm, linear=linear, attention=attention,
     sampler_prologue=sampler_prologue, sampler_epilogue=sampler_epilogue,
+    ggs_phase=ggs_phase, ggs_phase_chunked=ggs_phase_chunked,
 )
 PLAIN = SimpleNamespace(
     layernorm=layernorm_plain, linear=linear_plain, attention=attention_plain,
     sampler_prologue=sampler_prologue_plain,
     sampler_epilogue=sampler_epilogue_plain,
+    ggs_phase=ggs_phase_plain, ggs_phase_chunked=ggs_phase_chunked_plain,
 )
 
 

@@ -1,4 +1,5 @@
-"""The reference's MODEL config tree -> ``PoseDiffusionConfig``.
+"""The reference's MODEL config tree -> ``PoseDiffusionConfig``, and its GGS
+tree -> ``GGSConfig``.
 
 The YAML loader and the dotted-override CLI are reused from
 ``posediffusion_tpu.utils.config`` (they import no JAX); only the mapping
@@ -8,6 +9,7 @@ onto the port's config lives here.
 from __future__ import annotations
 
 from posediffusion_tpu.utils.config import Config
+from posediffusion_tpu_torch.diffusion.ggs import GGSConfig
 from posediffusion_tpu_torch.models.pose_diffusion import PoseDiffusionConfig
 
 
@@ -35,3 +37,18 @@ def model_config_from_cfg(model_cfg: Config) -> PoseDiffusionConfig:
     if diff.get("objective", "pred_noise") != "pred_noise":
         raise ValueError("only the pred_noise objective is ported")
     return config
+
+
+def build_ggs_config(ggs_cfg: Config) -> GGSConfig:
+    """cfgs/default.yaml's GGS tree -> ``GGSConfig`` (the reference's keys
+    and defaults, as ``posediffusion_tpu.utils.config.build_ggs_config``)."""
+    return GGSConfig(
+        enable=bool(ggs_cfg.get("enable", True)),
+        start_step=int(ggs_cfg.get("start_step", 10)),
+        learning_rate=float(ggs_cfg.get("learning_rate", 0.01)),
+        iter_num=int(ggs_cfg.get("iter_num", 100)),
+        sampson_max=float(ggs_cfg.get("sampson_max", 10)),
+        min_matches=int(ggs_cfg.get("min_matches", 10)),
+        alpha=float(ggs_cfg.get("alpha", 0.0001)),
+        pose_encoding_type=str(ggs_cfg.get("pose_encoding_type", "absT_quaR_logFL")),
+    )
