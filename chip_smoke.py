@@ -1,8 +1,10 @@
-"""Drive the PyTorch port's inference paths, without and with GGS, once on an
-NVIDIA card.
+"""Drive the PyTorch port's inference paths, without GGS, with GGS from a
+matches file, and with GGS from matches extracted from the images, once on
+an NVIDIA card.
 
     python3 chip_smoke.py             # from the repository root, one CUDA card
-    python3 chip_smoke.py --profile   # also: torch.profiler over one GGS inference
+    python3 chip_smoke.py --profile   # also: torch.profiler over one GGS inference,
+                                      # from a matches table and from the images
 
 Phases (any failure exits non-zero and prints no result line):
   1. build   the CUDA kernels from posediffusion_tpu_torch/csrc (one nvcc per
@@ -12,7 +14,9 @@ Phases (any failure exits non-zero and prints no result line):
              x 593 (336px); the sampler's 20 frames, 8 layers, 100 steps; the
              denoiser trunk of the GGS steps; the GGS phases at 100 and 1,024
              matches per pair, a whole 5-phase cond_fn and the 10-step
-             conditioned tail; f32 and default (bf16) mode;
+             conditioned tail; f32 and default (bf16) mode; SuperGlue at 32
+             pairs of 1,024 keypoints (products, key-mask attention self and
+             cross, coupling, Sinkhorn, matches, the whole matcher);
   3. main    demo_torch's flow on samples/apple (20 frames, 224px, seeded
              random weights, GGS off): finite cameras and ARE, and every
              kernel of that path launched during it;
@@ -21,8 +25,15 @@ Phases (any failure exits non-zero and prints no result line):
              and at 1,024 matches per pair, and the first 6 frames at 100;
              finite cameras, every kernel of the GGS path launched, and one
              phase from the ground truth plus noise lowers the Sampson error;
-  5. timing  CUDA-event medians of both inferences, the conditioned tail,
-             and each kernel beside its plain version.
+  4b. match  demo_torch's flow with GGS on and matches extracted from the
+             full-resolution images (SuperPoint, SuperGlue on the kernels,
+             RANSAC; random MagicLeap weights written to a matcher directory):
+             20 frames at 1,024 keypoints (190 pairs), and the first 6 frames
+             at the default 4,096; finite cameras, matches reaching GGS, every
+             kernel of the path launched;
+  5. timing  CUDA-event medians of the inferences, the conditioned tail,
+             the match extraction stages, and each kernel beside its plain
+             version.
 Then one JSON line of the kernels, the card's name and power limit, and the
 result line {"ok": true, "device": {...}}.
 
@@ -71,14 +82,27 @@ TOL_GGS_CHUNKED = 1e-5
 TOL_GGS_CONDFN = 1e-4
 TOL_GGS_TAIL = 1e-3
 GGS_PHASE = dict(lr=1e-2, momentum=0.9, alpha=1e-4, min_matches=10.0)
+# SuperGlue: the coupling is held to TOL_F32 relative, Z (50 Sinkhorn
+# iterations of float32 log-sum-exps in another order) to TOL_F32 absolute on
+# the live cells. The kernel and plain routes' matches may differ only at
+# rows whose plain Z holds a near-tie: a top-two margin (of the row, or of a
+# column either route chose) under NEAR_TIE, ten times the bound on Z, since
+# the whole 18-layer GNN in front of it also sums in another order.
+NEAR_TIE = 1e-3
 
 TRUNK_SITES = ("posediffusion_tpu/ops/vit_kernel.py:49 (_vit_block_kernel); "
                "posediffusion_tpu/ops/denoiser_kernel.py:42 (encoder_layer_math, "
                "in _sampler_kernel and fused_trunk :151)")
+SUPERGLUE_SITE = "posediffusion_tpu/ops/superglue_kernel.py:285 (fused_match_pairs)"
 TPU_KERNELS = {
     "layernorm": TRUNK_SITES,
-    "linear": TRUNK_SITES,
-    "attention": TRUNK_SITES,
+    "linear": f"{TRUNK_SITES}; {SUPERGLUE_SITE}, its GNN and final products",
+    "attention": (f"{TRUNK_SITES}; posediffusion_tpu/ops/attention.py:66 "
+                  "(_pallas_attention, key mask) and :125 (_pallas_attention_bias); "
+                  f"{SUPERGLUE_SITE}, its per-head attention"),
+    "superglue_coupling": f"{SUPERGLUE_SITE}, final step :218-244 (scores, dustbin, marginals)",
+    "superglue_sinkhorn": f"{SUPERGLUE_SITE}, final step :246-261 (log-domain Sinkhorn)",
+    "superglue_matches": f"{SUPERGLUE_SITE}, final step :262-275 (mutual-max matches)",
     "sampler_prologue": "posediffusion_tpu/ops/sampler_kernel.py:61 (_sampler_kernel, l == 0)",
     "sampler_epilogue": "posediffusion_tpu/ops/sampler_kernel.py:61 (_sampler_kernel, l == L-1)",
     "ggs_phase": "posediffusion_tpu/ops/ggs_kernel.py:97 (ggs_phase_fused)",
@@ -92,9 +116,22 @@ SOURCES = {
     "sampler_epilogue": "posediffusion_tpu_torch/csrc/sampler.cu",
     "ggs_phase": "posediffusion_tpu_torch/csrc/ggs.cu",
     "ggs_phase_chunked": "posediffusion_tpu_torch/csrc/ggs.cu",
+    "superglue_coupling": "posediffusion_tpu_torch/csrc/superglue.cu",
+    "superglue_sinkhorn": "posediffusion_tpu_torch/csrc/superglue.cu",
+    "superglue_matches": "posediffusion_tpu_torch/csrc/superglue.cu",
 }
 NO_GGS_PATH = ("layernorm", "linear", "attention", "sampler_prologue", "sampler_epilogue")
 GGS_PATH = NO_GGS_PATH + ("ggs_phase", "ggs_phase_chunked")
+SUPERGLUE_KERNELS = ("superglue_coupling", "superglue_sinkhorn", "superglue_matches")
+MATCH_PATH = GGS_PATH + SUPERGLUE_KERNELS
+# Match extraction with random matcher weights: 1,024 keypoints per frame
+# (the regime where the JAX package runs its fused SuperGlue kernel), then the
+# default 4,096 on the first 6 frames; threshold 0 and an accept-all RANSAC
+# so that random weights still pass matches through to GGS.
+MATCH_KEYPOINTS = 1024
+SG_PAIRS = 32  # pairs per matcher chunk (extract_match's pair_chunk)
+RANSAC_ACCEPT_ALL = 1e6
+MATCH_ARGS = ("GGS.match_threshold=0", f"GGS.ransac_threshold_px={RANSAC_ACCEPT_ALL}")
 
 
 def synthetic_matches(folder, per_pair, seed, image_size=IMAGE_SIZE, frames=None):
@@ -148,6 +185,98 @@ def subset_folder(src, dst, frames):
     gt = np.load(os.path.join(src, "gt_cameras.npz"))
     np.savez(os.path.join(dst, "gt_cameras.npz"), **{k: v[:frames] for k, v in gt.items()})
     return dst
+
+
+def random_superpoint_sd(seed):
+    """A SuperPoint state dict in MagicLeap's layout, He-normal weights and
+    zero biases from ``seed`` (torch's default init passes almost no signal
+    through its 8 convolutions, so every keypoint would score ~1/65)."""
+    import torch
+
+    from posediffusion_tpu_torch.matching.superpoint import SuperPointNet
+
+    r = np.random.default_rng(seed)
+    sd = {}
+    for k, v in SuperPointNet().state_dict().items():
+        fan_in = int(np.prod(v.shape[1:])) if k.endswith("weight") else 0
+        a = r.normal(size=v.shape) * np.sqrt(2 / fan_in) if fan_in else np.zeros(v.shape)
+        sd[k] = torch.tensor(a, dtype=torch.float32)
+    return sd
+
+
+def random_superglue_sd(seed, gnn_layers=9):
+    """A SuperGlue state dict in MagicLeap's layout from ``seed``: kernel-1
+    convs normal / sqrt(fan_in) x 0.5, zero biases, identity BatchNorms,
+    bin_score 1 (the JAX package's tests/test_matching.random_superglue_sd)."""
+    import torch
+
+    r = np.random.default_rng(seed)
+    sd = {}
+
+    def conv(key, i, o):
+        sd[f"{key}.weight"] = torch.tensor(r.normal(size=(o, i, 1)) / np.sqrt(i) * 0.5,
+                                           dtype=torch.float32)
+        sd[f"{key}.bias"] = torch.zeros(o)
+
+    def bn(key, c):
+        sd.update({f"{key}.weight": torch.ones(c), f"{key}.bias": torch.zeros(c),
+                   f"{key}.running_mean": torch.zeros(c), f"{key}.running_var": torch.ones(c)})
+
+    dims = [3, 32, 64, 128, 256, 256]
+    for li, idx in enumerate([0, 3, 6, 9, 12]):
+        conv(f"kenc.encoder.{idx}", dims[li], dims[li + 1])
+        if li < 4:
+            bn(f"kenc.encoder.{idx + 1}", dims[li + 1])
+    for i in range(2 * gnn_layers):
+        for p in range(3):
+            conv(f"gnn.layers.{i}.attn.proj.{p}", 256, 256)
+        conv(f"gnn.layers.{i}.attn.merge", 256, 256)
+        conv(f"gnn.layers.{i}.mlp.0", 512, 512)
+        bn(f"gnn.layers.{i}.mlp.1", 512)
+        conv(f"gnn.layers.{i}.mlp.3", 512, 256)
+    conv("final_proj", 256, 256)
+    sd["bin_score"] = torch.tensor(1.0)
+    return sd
+
+
+def write_matcher_weights(folder, seed):
+    """Random ``superpoint_v1.pth`` and ``superglue_outdoor.pth`` in
+    ``folder``, for ``GGS.matcher_ckpt_dir``."""
+    import torch
+
+    os.makedirs(folder, exist_ok=True)
+    torch.save(random_superpoint_sd(seed), os.path.join(folder, "superpoint_v1.pth"))
+    torch.save(random_superglue_sd(seed + 1), os.path.join(folder, "superglue_outdoor.pth"))
+    return folder
+
+
+def match_mismatches(x, mask0, mask1, stacks, m_kernel, m_plain, iters=50):
+    """Rows where the kernel route's matches differ from the plain route's,
+    and the largest of their tie gaps in the plain route's Z: a row's gap is
+    the smallest of its own top-two margin and the top-two margins of the
+    columns either route chose. Returns (count, largest gap; 0 if none)."""
+    import torch
+
+    from posediffusion_tpu_torch.ops import kernels as K
+    from posediffusion_tpu_torch.ops.superglue_kernel import gnn_projections
+
+    bad = (m_kernel != m_plain).nonzero().tolist()
+    if not bad:
+        return 0, 0.0
+    f0, f1 = mask0.float().contiguous(), mask1.float().contiguous()
+    m = gnn_projections(K.PLAIN, x, mask0, mask1, stacks)
+    Z = K.superglue_sinkhorn_plain(*K.superglue_coupling_plain(m, f0, f1, stacks["bin"]), iters)
+    Kk = f0.shape[1]
+    live = (f0 > 0.5)[:, :, None] & (f1 > 0.5)[:, None, :]
+    z = torch.where(live, Z[:, :Kk, :Kk], K.SG_DEAD)
+    margin = lambda v: (lambda t: (t[0] - t[1]).item())(v.topk(2).values)
+    worst = 0.0
+    for c, i in bad:
+        gap = margin(z[c, i])
+        for j in {int(m_kernel[c, i]), int(m_plain[c, i])} - {-1}:
+            gap = min(gap, margin(z[c, :, j]))
+        worst = max(worst, gap)
+    return len(bad), worst
 
 
 def _smi():
@@ -236,6 +365,8 @@ def main(argv) -> int:
     from posediffusion_tpu_torch.diffusion.gaussian import p_sample_loop
     from posediffusion_tpu_torch.geometry.cameras import PerspectiveCameras
     from posediffusion_tpu_torch.geometry.pose_codec import camera_to_pose_encoding
+    from posediffusion_tpu_torch.matching import extract as X
+    from posediffusion_tpu_torch.matching.superglue import SuperGlue, encode_keypoints
     from posediffusion_tpu_torch.models.denoiser import denoiser_apply_fused
     from posediffusion_tpu_torch.models.feature_extractor import _embed_pack_scales
     from posediffusion_tpu_torch.models.pose_diffusion import (
@@ -256,6 +387,7 @@ def main(argv) -> int:
         ggs_phase_fused_chunked,
         ggs_phase_fused_plain,
     )
+    from posediffusion_tpu_torch.ops import superglue_kernel as SGK
     from posediffusion_tpu_torch.ops.sampler_kernel import (
         fused_sample_loop,
         fused_sample_loop_plain,
@@ -481,6 +613,83 @@ def main(argv) -> int:
                      f"under a {CHAOS_PERTURBATION:.1e} perturbation: {spread:.2e})",
                      err, max(TOL_GGS_TAIL, CHAOS_FACTOR * spread))
     torch.cuda.synchronize()
+
+    # SuperGlue at the matcher's shapes: 32 pairs of 1,024 keypoints, f32,
+    # partial masks; tokens from seeded descriptors through the keypoint encoder
+    sg_model = SuperGlue()
+    sg_model.load_state_dict(random_superglue_sd(SEED + 1), strict=True)
+    sg_model.eval().to(dev)
+    sg_st = SGK.stack_superglue_params(sg_model)
+    Cp, Kp, Dp = SG_PAIRS, MATCH_KEYPOINTS, 256
+    r = np.random.default_rng(SEED)
+    desc = r.normal(size=(2 * Cp, Kp, Dp))
+    desc /= np.linalg.norm(desc, axis=-1, keepdims=True)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    x_sg = encode_keypoints(
+        sg_model, f32(desc), f32(r.uniform(0, [1896, 1072], size=(2 * Cp, Kp, 2))),
+        f32(r.uniform(size=(2 * Cp, Kp))), f32(np.tile([1072, 1896], (2 * Cp, 1)))
+    ).view(Cp, 2, Kp, Dp).contiguous()
+    keep = lambda: torch.as_tensor(
+        np.arange(Kp)[None] < r.integers(int(0.6 * Kp), Kp + 1, size=(Cp, 1)), device=dev)
+    sg_m0, sg_m1 = keep(), keep()
+    sg_f0, sg_f1 = sg_m0.float(), sg_m1.float()
+    sg_tag = f"{Cp} pairs, K {Kp}"
+    h_sg = x_sg.reshape(-1, Dp)
+    qkv_sg = case(f"linear superglue qkv ({h_sg.shape[0]}x{Dp} @ {Dp}x{3 * Dp})", K.linear,
+                  K.linear_plain, (h_sg, sg_st["wqkv"][0], sg_st["bqkv"][0]), {}, False)
+    cat_sg = torch.cat([h_sg, qkv_sg[:, :Dp]], 1)
+    case(f"linear superglue w1+relu ({h_sg.shape[0]}x{2 * Dp} @ {2 * Dp}x{2 * Dp})",
+         K.linear, K.linear_plain, (cat_sg, sg_st["w1"][0], sg_st["b1"][0]), dict(act="relu"),
+         False, "linear_sg")
+    bias_self = torch.where(torch.stack([sg_m0, sg_m1], 1), 0.0, K.SG_NEG).reshape(2 * Cp, Kp)
+    bias_cross = bias_self.view(Cp, 2, Kp).flip(1).reshape(2 * Cp, Kp).contiguous()
+    qkv_sg = qkv_sg.view(2 * Cp, Kp, 3 * Dp)
+    case(f"attention superglue self ({2 * Cp}x{Kp}, 4 heads, key mask)", K.attention,
+         K.attention_plain, (qkv_sg, 4), dict(key_bias=bias_self.contiguous()), False,
+         "attention_sg")
+    # cross layout: k | v (and the key bias) from the other set of each pair
+    qkv_x = qkv_sg.view(Cp, 2, Kp, 3 * Dp)
+    qkv_x = torch.cat([qkv_x[..., :Dp], qkv_x[..., Dp:].flip(1)], -1)
+    case(f"attention superglue cross ({2 * Cp}x{Kp}, 4 heads, key mask)", K.attention,
+         K.attention_plain, (qkv_x.reshape(2 * Cp, Kp, 3 * Dp).contiguous(), 4),
+         dict(key_bias=bias_cross), False)
+
+    m_sg = SGK.gnn_projections(K.PLAIN, x_sg, sg_m0, sg_m1, sg_st)
+    cp_k = K.superglue_coupling(m_sg, sg_f0, sg_f1, sg_st["bin"])
+    cp_p = K.superglue_coupling_plain(m_sg, sg_f0, sg_f1, sg_st["bin"])
+    ones = torch.ones_like(sg_f0[:, :1])
+    live = ((torch.cat([sg_f0, ones], 1) > 0.5)[:, :, None]
+            & (torch.cat([sg_f1, ones], 1) > 0.5)[:, None, :])
+    sg_err = {"superglue_coupling": (cp_k[0][live] - cp_p[0][live]).abs().max().item()}
+    report.check(f"superglue_coupling ({sg_tag}, live cells)", sg_err["superglue_coupling"],
+                 TOL_F32, max(1.0, cp_p[0][live].abs().max().item()))
+    report.require("superglue_coupling masked cells equal (-1e9)",
+                   torch.equal(cp_k[0][~live], cp_p[0][~live]))
+    report.check("superglue_coupling marginals and norm",
+                 max((a - b).abs().max().item() for a, b in zip(cp_k[1:], cp_p[1:])), TOL_F32)
+    Zk = K.superglue_sinkhorn(*cp_p, 50)
+    Zp = K.superglue_sinkhorn_plain(*cp_p, 50)
+    sg_err["superglue_sinkhorn"] = (Zk[live] - Zp[live]).abs().max().item()
+    report.check(f"superglue_sinkhorn Z ({sg_tag}, 50 iterations, live cells)",
+                 sg_err["superglue_sinkhorn"], TOL_F32)
+    mk, sk = K.superglue_matches(Zp, sg_f0, sg_f1, 0.0)
+    mp, sp = K.superglue_matches_plain(Zp, sg_f0, sg_f1, 0.0)
+    sg_err["superglue_matches"] = (sk - sp).abs().max().item()
+    report.require("superglue_matches identical on the same Z",
+                   torch.equal(mk, mp), f"({(mk != mp).sum().item()} rows differ)")
+    report.check("superglue_matches mscores", sg_err["superglue_matches"], TOL_F32)
+    fk, fsk = SGK.fused_match_pairs(x_sg, sg_m0, sg_m1, sg_st, match_threshold=0.0)
+    fp, fsp = SGK.fused_match_pairs_plain(x_sg, sg_m0, sg_m1, sg_st, match_threshold=0.0)
+    n_bad, gap = match_mismatches(x_sg, sg_m0, sg_m1, sg_st, fk, fp)
+    print(f"  fused_match_pairs ({sg_tag}): {(fp >= 0).sum().item()} plain matches, "
+          f"{(fk >= 0).sum().item()} kernel matches, {n_bad} rows differ, largest tie gap "
+          f"{gap:.3e}")
+    report.require(f"fused_match_pairs kernel vs plain: rows differ only at near-ties "
+                   f"(gap < {NEAR_TIE:.0e})", gap < NEAR_TIE)
+    agree = (fk == fp) & (fp >= 0)
+    report.check("fused_match_pairs mscores of agreeing matches",
+                 (fsk[agree] - fsp[agree]).abs().max().item(), TOL_F32)
+    torch.cuda.synchronize()
     print(f"  [parity] done at {time.perf_counter() - t_start:.0f} s", flush=True)
 
     # ---- 3. main path: demo_torch's flow on samples/apple, GGS off
@@ -532,6 +741,24 @@ def main(argv) -> int:
     report.require("one phase from the ground truth + 0.01 lowers sampson_report",
                    after < before, f"({before:.4f} -> {after:.4f})")
     print(f"  [ggs] done at {time.perf_counter() - t_start:.0f} s", flush=True)
+
+    # ---- 4b. match path: demo_torch with GGS on and matches extracted
+    print("[match] demo_torch on samples/apple, GGS on, matches extracted from the images "
+          "(random MagicLeap weights)")
+    wdir = write_matcher_weights(os.path.join(work, "matcher"), SEED)
+    K.reset_launch_counts()
+    for folder, n, kp in ((apple, n_frames, MATCH_KEYPOINTS), (subset, SUBSET_FRAMES, None)):
+        extra = [] if kp is None else [f"GGS.max_keypoints={kp}"]
+        out = demo_torch.run(demo_cfg(folder, "GGS.enable=True", f"GGS.matcher_ckpt_dir={wdir}",
+                                      *MATCH_ARGS, *extra), "cuda")
+        what = f"extracted matches, {n} frames, max_keypoints {kp or 4096}"
+        _check_cameras(report, out, n, what)
+        report.require(f"{what}: GGS sampled with matches", out["ggs_matches"] > 0,
+                       f"({out['ggs_matches']} matches)")
+    torch.cuda.synchronize()
+    match_launches = K.launch_counts()
+    _check_launches(report, "match", MATCH_PATH, match_launches)
+    print(f"  [match] done at {time.perf_counter() - t_start:.0f} s", flush=True)
 
     # ---- 5. timing (default mode, CUDA events after warm-up)
     print(f"[timing] medians of {N_TIMED}, card: {smi}")
@@ -600,6 +827,81 @@ def main(argv) -> int:
             ggs_ms[(name, d)] = (ms, plain_ms)
             timings[f"{name} 200 iterations {d}/pair"] = ms
             timings[f"{name} plain 200 iterations {d}/pair"] = plain_ms
+
+    # match extraction, stage by stage, at the match path's shapes (20 frames,
+    # 1,024 keypoints, 190 pairs)
+    sp_net, sg_net = X.load_matcher_weights(wdir, dev)
+    paths = sorted(os.path.join(apple, f) for f in os.listdir(apple) if f.endswith(".jpg"))
+    grays, sizes = X.load_grays(paths)
+    pairs = [(a, b) for a in range(n_frames) for b in range(a + 1, n_frames)]
+    with torch.no_grad():
+        timings["SuperPoint (20 frames, 1896x1072, top 1,024)"] = _time_ms(
+            torch, lambda: X.detect_frames(sp_net, grays, MATCH_KEYPOINTS), reps=3, warmup=1)
+        feats = X.detect_frames(sp_net, grays, MATCH_KEYPOINTS)
+        kp_all, sc_all, de_all, va_all = X.stack_feats(feats)
+        x_all = encode_keypoints(sg_net, de_all, kp_all, sc_all,
+                                 f32(np.asarray(sizes, np.float32)))
+        st_all = SGK.stack_superglue_params(sg_net)
+        a_idx = torch.as_tensor([p[0] for p in pairs], device=dev)
+        b_idx = torch.as_tensor([p[1] for p in pairs], device=dev)
+
+        def matcher(fn):
+            for i0 in range(0, len(pairs), SG_PAIRS):
+                sa, sb = a_idx[i0:i0 + SG_PAIRS], b_idx[i0:i0 + SG_PAIRS]
+                fn(torch.stack([x_all[sa], x_all[sb]], 1), va_all[sa], va_all[sb], st_all,
+                   match_threshold=0.0)
+
+        print(f"  matcher input: {len(pairs)} pairs, K_eff {x_all.shape[1]}, "
+              f"{int(va_all.sum())} valid keypoints in {n_frames} frames")
+        timings[f"matcher (fused_match_pairs, {len(pairs)} pairs, K {x_all.shape[1]})"] = \
+            _time_ms(torch, lambda: matcher(SGK.fused_match_pairs), reps=3, warmup=1)
+        timings["matcher plain (fused_match_pairs_plain)"] = _time_ms(
+            torch, lambda: matcher(SGK.fused_match_pairs_plain), reps=3, warmup=1)
+        kpts_np, all_m = X.match_all_pairs(sg_net, feats, sizes, pairs, 50, 0.0)
+        ransac = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            X.verify_pairs(kpts_np, all_m, pairs, n_frames, RANSAC_ACCEPT_ALL, 8)
+            ransac.append((time.perf_counter() - t0) * 1e3)
+        timings[f"RANSAC (host clock, {len(pairs)} pairs, "
+                f"{int((all_m >= 0).sum())} matches, accept-all threshold)"] = \
+            statistics.median(ransac)
+        _, info = load_and_preprocess_images(apple, IMAGE_SIZE)
+
+        def ggs_with_extraction():
+            kp1, kp2, i12 = X.extract_match(
+                image_paths=info["paths"], image_info=info, weights=(sp_net, sg_net),
+                max_keypoints=MATCH_KEYPOINTS, match_threshold=0.0,
+                ransac_threshold_px=RANSAC_ACCEPT_ALL, device=dev)
+            cond = G.build_cond_fn(kp1, kp2, i12, n_frames, hw, G.GGSConfig(), dev)
+            return model.sample(imgs, x0=x0, noises=noises, cond_fn=cond, cond_start_step=10)
+
+        sub_grays = X.load_grays(paths[:SUBSET_FRAMES])[0]
+        k_sub = X.stack_feats(X.detect_frames(sp_net, sub_grays))[0].shape[1]
+        report.require(f"{SUBSET_FRAMES} frames at the default 4,096 keypoints match at K 4,096",
+                       k_sub == 4096, f"(K_eff {k_sub})")
+        timings["GGS inference with extraction (images -> matches -> cameras)"] = _time_ms(
+            torch, ggs_with_extraction, reps=3, warmup=1)
+
+        # the SuperGlue kernels at one chunk's shapes, beside their plain versions
+        sg_calls = {
+            "superglue_coupling": (K.superglue_coupling, K.superglue_coupling_plain,
+                                   (m_sg, sg_f0, sg_f1, sg_st["bin"])),
+            "superglue_sinkhorn": (K.superglue_sinkhorn, K.superglue_sinkhorn_plain,
+                                   (*cp_p, 50)),
+            "superglue_matches": (K.superglue_matches, K.superglue_matches_plain,
+                                  (Zp, sg_f0, sg_f1, 0.0)),
+        }
+        sg_ms = {}
+        for name, (kern, plain, args) in sg_calls.items():
+            sg_ms[name] = (_time_ms(torch, lambda: kern(*args), reps=5),
+                           _time_ms(torch, lambda: plain(*args), reps=5))
+            timings[f"{name} ({sg_tag})"] = sg_ms[name][0]
+            timings[f"{name} plain ({sg_tag})"] = sg_ms[name][1]
+        for key in ("attention_sg", "linear_sg"):
+            name, kern, plain, args, kwargs, _ = cases[key]
+            timings[name] = _time_ms(torch, lambda: kern(*args, **kwargs), reps=5)
+            timings[f"{name} plain"] = _time_ms(torch, lambda: plain(*args, **kwargs), reps=5)
     for name, ms in timings.items():
         print(f"  {name}: {ms:.3f} ms")
 
@@ -616,6 +918,13 @@ def main(argv) -> int:
                 "replaces": TPU_KERNELS[key], "launches": launches[key],
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "case": name,
             })
+    for key in SUPERGLUE_KERNELS:
+        kernels_json.append({
+            "name": key, "route": "cuda", "source": SOURCES[key],
+            "replaces": TPU_KERNELS[key], "launches": match_launches[key],
+            "max_abs_err": sg_err[key], "ms": sg_ms[key][0], "plain_ms": sg_ms[key][1],
+            "case": f"one matcher chunk, {sg_tag} (launches: match path)",
+        })
     for key in ("ggs_phase", "ggs_phase_chunked"):
         d = MATCH_DENSITIES[0]
         ms, plain_ms = ggs_ms[(key, d)]
@@ -628,21 +937,29 @@ def main(argv) -> int:
         })
 
     if "--profile" in argv:
+        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
-        with torch.no_grad():
-            model.sample(imgs, x0=x0, noises=noises, cond_fn=cond100, cond_start_step=10)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                model.sample(imgs, x0=x0, noises=noises, cond_fn=cond100, cond_start_step=10)
+        for what, fn in (
+            ("GGS inference", lambda: model.sample(imgs, x0=x0, noises=noises, cond_fn=cond100,
+                                                   cond_start_step=10)),
+            ("GGS inference with extraction", ggs_with_extraction),
+        ):
+            with torch.no_grad():
+                fn()
                 torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        avg = prof.key_averages()
-        dev_us = sum(e.self_device_time_total for e in avg)
-        print(f"[profile] GGS inference under torch.profiler: wall {wall:.2f} ms, device "
-              f"{dev_us / 1e3:.2f} ms, idle {100 * (1 - dev_us / 1e3 / wall):.1f}%")
-        print(avg.table(sort_by="self_device_time_total", row_limit=15))
+                t0 = time.perf_counter()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    fn()
+                    torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            avg = prof.key_averages()
+            # kernels and copies only: an aten op's device time repeats theirs
+            dev_us = sum(e.self_device_time_total for e in avg
+                         if e.device_type == DeviceType.CUDA)
+            print(f"[profile] {what} under torch.profiler: wall {wall:.2f} ms, device "
+                  f"{dev_us / 1e3:.2f} ms, idle {100 * (1 - dev_us / 1e3 / wall):.1f}%")
+            print(avg.table(sort_by="self_device_time_total", row_limit=15))
 
     print(f"[done] {time.perf_counter() - t_start:.0f} s after the start")
     if report.failures:

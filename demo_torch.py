@@ -3,28 +3,67 @@
 Same CLI as demo.py (a config name, then dotted overrides):
 
     python demo_torch.py image_folder=samples/apple GGS.enable=False ckpt=random
+    python demo_torch.py image_folder=samples/apple GGS.matcher_ckpt_dir=weights/ ckpt=random
     python demo_torch.py image_folder=samples/apple GGS.matches_file=m.npz ckpt=random
 
-Pipeline: load + preprocess the images -> 100-step diffusion sampling (ViT
-trunk and sampler on the CUDA kernels when ``device`` is a card), whose last
-``GGS.start_step`` steps are geometry-guided when ``GGS.enable`` is set and
-``GGS.matches_file`` names an npz of matches (``kp1``, ``kp2`` (M, 2) pixels,
-``i12`` (M, 2) frame pairs with i < j; the GGS phases on the GGS kernels on
+Pipeline: load + preprocess the images -> with ``GGS.enable``, 2D matches:
+an npz from ``GGS.matches_file`` (``kp1``, ``kp2`` (M, 2) pixels, ``i12``
+(M, 2) frame pairs with i < j), or else extracted from the images with the
+MagicLeap ``superpoint_v1.pth`` and ``superglue_outdoor.pth`` in
+``GGS.matcher_ckpt_dir`` (SuperPoint, SuperGlue on the CUDA kernels on a
+card, RANSAC, remap into the cropped frame; ``GGS.max_keypoints``,
+``GGS.match_threshold``, ``GGS.ransac_threshold_px``,
+``GGS.min_pair_matches``) -> 100-step diffusion sampling (ViT trunk and
+sampler on the CUDA kernels on a card), whose last ``GGS.start_step`` steps
+are geometry-guided when matches exist (the GGS phases on the GGS kernels on
 a card) -> decode to cameras -> 7-DoF alignment to gt_cameras.npz, if
 present -> absolute rotation error -> ``<out_dir>/predictions.npz``.
 
 ``ckpt`` is a reference ``.pth`` (strict load); anything else that is not an
 existing ``.pth`` gives random weights seeded by ``seed``. It runs on the
 card when one is present, else on the CPU (the kernels' plain versions).
-Match extraction (SuperPoint/SuperGlue), the frustum plot and the HTML
-export are not ported yet: without a matches file the demo samples without
-GGS, as demo.py does when extraction is unavailable.
+With GGS on but neither a matches file nor matcher weights, the demo says
+so and samples without GGS, as demo.py does. The frustum plot and the HTML
+export are not ported yet.
 """
 
 import os
 import time
 
 import numpy as np
+
+
+def get_matches(cfg, image_info, device):
+    """(kp1, kp2, i12) for GGS, as demo.py's get_matches: a precomputed npz
+    (``GGS.matches_file``), else extraction from the images with MagicLeap
+    weights from ``GGS.matcher_ckpt_dir``, else (None,) * 3. A failure of
+    the extraction itself raises: no fallback hides it."""
+    matches_file = cfg.GGS.get("matches_file")
+    if matches_file and os.path.isfile(str(matches_file)):
+        data = np.load(str(matches_file))
+        return data["kp1"], data["kp2"], data["i12"]
+    weights_dir = cfg.GGS.get("matcher_ckpt_dir")
+    if not weights_dir:
+        print("[GGS] match extraction unavailable (no matcher weights (set "
+              "GGS.matcher_ckpt_dir)); sampling without GGS")
+        return None, None, None
+
+    from posediffusion_tpu_torch.matching.extract import extract_match
+
+    start = time.perf_counter()
+    kp1, kp2, i12 = extract_match(
+        image_paths=image_info["paths"],
+        image_info=image_info,
+        weights_dir=str(weights_dir),
+        max_keypoints=int(cfg.GGS.get("max_keypoints", 4096)),
+        match_threshold=float(cfg.GGS.get("match_threshold", 0.2)),
+        ransac_threshold_px=float(cfg.GGS.get("ransac_threshold_px", 4.0)),
+        min_pair_matches=int(cfg.GGS.get("min_pair_matches", 8)),
+        device=device,
+    )
+    n = 0 if kp1 is None else len(kp1)
+    print(f"[GGS] extracted {n} verified matches in {time.perf_counter() - start:.2f} s")
+    return kp1, kp2, i12
 
 
 def run(cfg, device: str) -> dict:
@@ -57,23 +96,18 @@ def run(cfg, device: str) -> dict:
     model.to(device)
 
     folder = cfg.image_folder
-    images, _ = load_and_preprocess_images(folder, cfg.image_size)
+    images, image_info = load_and_preprocess_images(folder, cfg.image_size)
     images = torch.as_tensor(images, device=device)[None]  # 1 x N x 3 x H x W
 
     cond_fn, cond_start_step = None, 0
-    matches_file = cfg.GGS.get("matches_file") if cfg.GGS.enable else None
-    if matches_file and os.path.isfile(str(matches_file)):
-        m = np.load(str(matches_file))
+    kp1, kp2, i12 = get_matches(cfg, image_info, device) if cfg.GGS.enable else (None,) * 3
+    if kp1 is not None:
         ggs_cfg = build_ggs_config(cfg.GGS)
         hw = (cfg.image_size, cfg.image_size)
-        cond_fn = build_cond_fn(m["kp1"], m["kp2"], m["i12"], images.shape[1], hw,
-                                ggs_cfg, device)
+        cond_fn = build_cond_fn(kp1, kp2, i12, images.shape[1], hw, ggs_cfg, device)
         cond_start_step = ggs_cfg.start_step
-        print(f"=====> Sampling with GGS ({len(m['kp1'])} matches) <=====")
+        print(f"=====> Sampling with GGS ({len(kp1)} matches) <=====")
     else:
-        if cfg.GGS.enable:
-            print("[GGS] match extraction is not ported yet and no GGS.matches_file "
-                  "was given; sampling without GGS")
         print("=====> Sampling without GGS <=====")
 
     def infer():
@@ -92,6 +126,7 @@ def run(cfg, device: str) -> dict:
 
     pred = pose_encoding_to_camera(enc)
     out = {
+        "ggs_matches": 0 if kp1 is None else len(kp1),
         "pose_encoding": enc.cpu().numpy(),
         "R": pred.R.cpu().numpy(),
         "T": pred.T.cpu().numpy(),

@@ -1,17 +1,20 @@
 """The hand-written Hopper kernels, their plain PyTorch versions, and routing.
 
-Seven kernels (sources in ``posediffusion_tpu_torch/csrc``) carry the TPU
-kernels of the inference paths with and without GGS:
+Ten kernels (sources in ``posediffusion_tpu_torch/csrc``) carry the TPU
+kernels of the inference paths with and without GGS, and of match extraction:
 
-=====================  =======================================================
-``layernorm``          row LayerNorm, eps and bf16 output rounding as arguments
-``linear``             ``epi(a @ W + b) [+ residual]``, W float32 or bfloat16
-``attention``          softmax attention over a packed (B, N, 3D) QKV buffer
-``sampler_prologue``   layer-0 fold-in of the fused sampler
-``sampler_epilogue``   head MLP + posterior update of the fused sampler
-``ggs_phase``          one whole GGS SGD phase, one block
-``ggs_phase_chunked``  the same, pair chunks over a cooperative grid
-=====================  =======================================================
+=======================  =====================================================
+``layernorm``            row LayerNorm, eps and bf16 output rounding as arguments
+``linear``               ``epi(a @ W + b) [+ residual]``, W float32 or bfloat16
+``attention``            softmax attention over a packed (B, N, 3D) QKV buffer
+``sampler_prologue``     layer-0 fold-in of the fused sampler
+``sampler_epilogue``     head MLP + posterior update of the fused sampler
+``ggs_phase``            one whole GGS SGD phase, one block
+``ggs_phase_chunked``    the same, pair chunks over a cooperative grid
+``superglue_coupling``   SuperGlue pair scores into the dustbin coupling
+``superglue_sinkhorn``   log-domain Sinkhorn over the coupling -> log assignment
+``superglue_matches``    mutual-max matches above a threshold
+=======================  =====================================================
 
 Routing is by the tensors' device and nothing else: on a CUDA tensor a
 wrapper launches its kernel (or raises), on a CPU tensor it calls the plain
@@ -64,6 +67,9 @@ _SIGNATURES = {
     ],
     "pd_ggs_phase": [_P] * 11 + [_I] * 8 + [_F, _I, _F, _F, _F, _F, _P],
     "pd_ggs_phase_chunked": [_P] * 11 + [_I] * 8 + [_F, _I, _F, _F, _F, _F, _I, _P, _P],
+    "pd_sg_coupling": [_P] * 8 + [_I, _I, _I, _F, _P],
+    "pd_sg_sinkhorn": [_P] * 7 + [_I, _I, _I, _P],
+    "pd_sg_matches": [_P] * 6 + [_I, _I, _F, _P],
 }
 _MAX_SMEM = 232448  # bytes of shared memory one Hopper block may use
 
@@ -521,17 +527,142 @@ def ggs_phase_chunked(x, t: GGSTables, image_hw, update_R: bool, update_T: bool,
 ggs_phase_chunked.launches = 0
 
 
+# ------------------------------------------------ SuperGlue's final step
+# (csrc/superglue.cu). Masks are (C, K) float32 0/1; the coupling and the
+# log assignment Z are (C, K + 1, K + 1) with the dustbin at row/column K.
+SG_NEG = -1e9  # a masked coupling cell, as the JAX package's _NEG
+SG_DEAD = -3e38  # outside the live block in match extraction
+
+
+def superglue_coupling_plain(m, mask0, mask1, bin_score):
+    """m (C, 2, K, D) final projections of both sets -> (coupling, log_mu,
+    log_nu (C, K + 1), norm (C,)), as ``matching.superglue.log_sinkhorn``
+    builds them."""
+    C, _, K, D = m.shape
+    v0, v1 = mask0 > 0.5, mask1 > 0.5
+    b = bin_score.reshape(())
+    s = (m[:, 0] @ m[:, 1].transpose(1, 2)) / D**0.5
+    cpl = torch.empty((C, K + 1, K + 1), dtype=torch.float32, device=m.device)
+    cpl[:, :K, :K] = torch.where(v0[:, :, None] & v1[:, None, :], s, SG_NEG)
+    cpl[:, :K, K] = torch.where(v0, b, SG_NEG)
+    cpl[:, K, :K] = torch.where(v1, b, SG_NEG)
+    cpl[:, K, K] = b
+    ms, ns = v0.sum(1).float(), v1.sum(1).float()
+    norm = -torch.log(ms + ns)
+    log_mu = torch.cat([torch.where(v0, norm[:, None], SG_NEG), (torch.log(ns) + norm)[:, None]], 1)
+    log_nu = torch.cat([torch.where(v1, norm[:, None], SG_NEG), (torch.log(ms) + norm)[:, None]], 1)
+    return cpl, log_mu, log_nu, norm
+
+
+def superglue_coupling(m, mask0, mask1, bin_score):
+    """Pair scores m0 m1^T / sqrt(D), masked, with the dustbin row and column
+    and the Sinkhorn marginals. bin_score is a (1,) float32 tensor."""
+    if not _on_card(m, mask0, mask1, bin_score):
+        return superglue_coupling_plain(m, mask0, mask1, bin_score)
+    C, two, K, D = m.shape
+    _check(m, "m", (C, 2, K, D))
+    _check(mask0, "mask0", (C, K))
+    _check(mask1, "mask1", (C, K))
+    _check(bin_score, "bin_score", (1,))
+    f32 = dict(device=m.device, dtype=torch.float32)
+    cpl = torch.empty((C, K + 1, K + 1), **f32)
+    log_mu = torch.empty((C, K + 1), **f32)
+    log_nu = torch.empty((C, K + 1), **f32)
+    norm = torch.empty((C,), **f32)
+    _launch(load_library().pd_sg_coupling, _ptr(m), _ptr(mask0), _ptr(mask1),
+            _ptr(bin_score), _ptr(cpl), _ptr(log_mu), _ptr(log_nu), _ptr(norm),
+            C, K, D, float(D**0.5), _stream(m))
+    superglue_coupling.launches += 1
+    return cpl, log_mu, log_nu, norm
+
+
+superglue_coupling.launches = 0
+
+
+def superglue_sinkhorn_plain(cpl, log_mu, log_nu, norm, iters: int):
+    u = torch.zeros_like(log_mu)
+    v = torch.zeros_like(log_nu)
+    for _ in range(iters):
+        u = log_mu - torch.logsumexp(cpl + v[:, None, :], dim=2)
+        v = log_nu - torch.logsumexp(cpl + u[:, :, None], dim=1)
+    return cpl + u[:, :, None] + v[:, None, :] - norm[:, None, None]
+
+
+def superglue_sinkhorn(cpl, log_mu, log_nu, norm, iters: int):
+    """``iters`` log-domain Sinkhorn iterations (row then column log-sum-exp)
+    from zero potentials -> the log assignment Z = cpl + u + v - norm."""
+    if not _on_card(cpl, log_mu, log_nu, norm):
+        return superglue_sinkhorn_plain(cpl, log_mu, log_nu, norm, iters)
+    C, K1, _ = cpl.shape
+    _check(cpl, "cpl", (C, K1, K1))
+    _check(log_mu, "log_mu", (C, K1))
+    _check(log_nu, "log_nu", (C, K1))
+    _check(norm, "norm", (C,))
+    u = torch.zeros_like(log_mu)
+    v = torch.zeros_like(log_nu)
+    Z = torch.empty_like(cpl)
+    _launch(load_library().pd_sg_sinkhorn, _ptr(cpl), _ptr(log_mu), _ptr(log_nu),
+            _ptr(norm), _ptr(u), _ptr(v), _ptr(Z), C, K1, int(iters), _stream(cpl))
+    superglue_sinkhorn.launches += 1
+    return Z
+
+
+superglue_sinkhorn.launches = 0
+
+
+def superglue_matches_plain(Z, mask0, mask1, threshold: float):
+    K = mask0.shape[1]
+    live = (mask0 > 0.5)[:, :, None] & (mask1 > 0.5)[:, None, :]
+    z = torch.where(live, Z[:, :K, :K], SG_DEAD)
+    rowmax = z.amax(2)
+    idx0 = z.argmax(2)  # first maximum of each row
+    idx1 = z.argmax(1)  # first maximum of each column
+    rows = torch.arange(K, device=Z.device)
+    mutual = (idx1.gather(1, idx0) == rows) & live.gather(2, idx0[..., None])[..., 0]
+    score = torch.where(mutual, torch.exp(rowmax), 0.0)
+    ok = mutual & (score > threshold)
+    return torch.where(ok, idx0, -1).to(torch.int32), torch.where(ok, score, 0.0)
+
+
+def superglue_matches(Z, mask0, mask1, threshold: float):
+    """Mutual-max matches of the log assignment's keypoint block, first
+    index on ties: (matches0 (C, K) int32 column or -1, mscores0 (C, K)
+    float32)."""
+    if not _on_card(Z, mask0, mask1):
+        return superglue_matches_plain(Z, mask0, mask1, threshold)
+    C, K = mask0.shape
+    _check(Z, "Z", (C, K + 1, K + 1))
+    _check(mask0, "mask0", (C, K))
+    _check(mask1, "mask1", (C, K))
+    colarg = torch.empty((C, K), device=Z.device, dtype=torch.int32)
+    matches = torch.empty((C, K), device=Z.device, dtype=torch.int32)
+    mscores = torch.empty((C, K), device=Z.device, dtype=torch.float32)
+    _launch(load_library().pd_sg_matches, _ptr(Z), _ptr(mask0), _ptr(mask1),
+            _ptr(colarg), _ptr(matches), _ptr(mscores), C, K, float(threshold),
+            _stream(Z))
+    superglue_matches.launches += 1
+    return matches, mscores
+
+
+superglue_matches.launches = 0
+
+
 # ------------------------------------------------------------------- tables
 KERNELS = SimpleNamespace(
     layernorm=layernorm, linear=linear, attention=attention,
     sampler_prologue=sampler_prologue, sampler_epilogue=sampler_epilogue,
     ggs_phase=ggs_phase, ggs_phase_chunked=ggs_phase_chunked,
+    superglue_coupling=superglue_coupling, superglue_sinkhorn=superglue_sinkhorn,
+    superglue_matches=superglue_matches,
 )
 PLAIN = SimpleNamespace(
     layernorm=layernorm_plain, linear=linear_plain, attention=attention_plain,
     sampler_prologue=sampler_prologue_plain,
     sampler_epilogue=sampler_epilogue_plain,
     ggs_phase=ggs_phase_plain, ggs_phase_chunked=ggs_phase_chunked_plain,
+    superglue_coupling=superglue_coupling_plain,
+    superglue_sinkhorn=superglue_sinkhorn_plain,
+    superglue_matches=superglue_matches_plain,
 )
 
 

@@ -100,6 +100,79 @@ def state_dict_from_jax(params_np, schedule=None) -> Dict[str, torch.Tensor]:
     return sd
 
 
+SUPERPOINT_CONVS = ("conv1a", "conv1b", "conv2a", "conv2b", "conv3a", "conv3b",
+                    "conv4a", "conv4b", "convPa", "convPb", "convDa", "convDb")
+
+
+def superpoint_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
+    """Flax ``SuperPointNet`` params (``{"params": ...}``, as
+    ``posediffusion_tpu.matching.convert_superpoint`` gives them) -> the
+    MagicLeap ``superpoint_v1.pth`` keys. Conv kernels go from HWIO to OIHW."""
+    p = params["params"]
+    sd = {}
+    for name in SUPERPOINT_CONVS:
+        sd[f"{name}.weight"] = _t(np.asarray(p[name]["kernel"]).transpose(3, 2, 0, 1))
+        sd[f"{name}.bias"] = _t(p[name]["bias"])
+    return sd
+
+
+def _conv1d(p, prefix: str, out_index=None, in_index=None) -> Dict[str, torch.Tensor]:
+    """A Dense (in, out) kernel -> a kernel-1 Conv1d (out, in, 1), with the
+    output and input channels optionally re-indexed."""
+    w = np.asarray(p["kernel"]).T
+    b = np.asarray(p["bias"])
+    if out_index is not None:
+        w, b = w[out_index], b[out_index]
+    if in_index is not None:
+        w = w[:, in_index]
+    return {f"{prefix}.weight": _t(w[:, :, None]), f"{prefix}.bias": _t(b)}
+
+
+def _batchnorm(p, prefix: str) -> Dict[str, torch.Tensor]:
+    return {f"{prefix}.weight": _t(p["bn_scale"]), f"{prefix}.bias": _t(p["bn_bias"]),
+            f"{prefix}.running_mean": _t(p["bn_mean"]),
+            f"{prefix}.running_var": _t(p["bn_var"])}
+
+
+def _point_mlp(p, prefix: str, conv_indices) -> Dict[str, torch.Tensor]:
+    """Flax ``PointMLP`` -> MagicLeap ``MLP`` keys (Conv1d at each index, its
+    BatchNorm at the next, none after the last)."""
+    sd = {}
+    for li, idx in enumerate(conv_indices):
+        lp = p[f"layers_{li}"]
+        if li == len(conv_indices) - 1:
+            sd.update(_conv1d(lp, f"{prefix}.{idx}"))
+        else:
+            sd.update(_conv1d(lp["conv"], f"{prefix}.{idx}"))
+            sd.update(_batchnorm(lp, f"{prefix}.{idx + 1}"))
+    return sd
+
+
+def superglue_state_dict_from_jax(params, d_model: int = 256,
+                                  num_heads: int = 4) -> Dict[str, torch.Tensor]:
+    """Converted SuperGlue params (``{"net": {"params": ...}, "bin_score"}``,
+    as ``posediffusion_tpu.matching.convert_superglue`` gives them) -> the
+    MagicLeap ``superglue_*.pth`` keys. The JAX params hold the q/k/v output
+    channels and the merge input channels permuted to contiguous heads
+    (``convert._head_perm``); this undoes that permutation."""
+    from posediffusion_tpu_torch.ops.superglue_kernel import head_perm
+
+    inv = np.argsort(head_perm(d_model, num_heads).numpy())
+    net = params["net"]["params"]
+    sd = _point_mlp(net["kenc"], "kenc.encoder", (0, 3, 6, 9, 12))
+    i = 0
+    while f"gnn_{i}" in net:
+        attn, l = net[f"gnn_{i}"]["attn"], f"gnn.layers.{i}"
+        for j, name in enumerate(("proj_q", "proj_k", "proj_v")):
+            sd.update(_conv1d(attn[name], f"{l}.attn.proj.{j}", out_index=inv))
+        sd.update(_conv1d(attn["merge"], f"{l}.attn.merge", in_index=inv))
+        sd.update(_point_mlp(net[f"gnn_{i}"]["mlp"], f"{l}.mlp", (0, 3)))
+        i += 1
+    sd.update(_conv1d(net["final_proj"], "final_proj"))
+    sd["bin_score"] = torch.tensor(float(np.asarray(params["bin_score"])), dtype=torch.float32)
+    return sd
+
+
 def load_reference_state_dict(path: str) -> Dict[str, torch.Tensor]:
     """A released ``.pth`` as a state dict for a strict ``load_state_dict``:
     a ``state_dict`` wrapper and ``module.`` prefixes are removed, and so

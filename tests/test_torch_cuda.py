@@ -7,11 +7,14 @@ with the card has no JAX, and tests/conftest.py imports it, so run them as
 
 Shapes cover the ragged edges of the tiles (rows and columns that are not
 multiples of 32 or 64) as well as the main path's widths (attention up to
-the 593 tokens of a 336px ViT row). Tolerances: float32 sums in another
-order, 1e-5 relative to max(1, |plain|); with bf16 rounding sites, one
-flipped bf16 rounding, 2^-7 of the same scale. The GGS phases (30 momentum
-iterations) are held to 5e-5 absolute, the JAX GGS kernel test's bound;
-chunked against resident to 1e-5.
+the 593 tokens of a 336px ViT row, and SuperGlue's 1,024-keypoint sets).
+Tolerances: float32 sums in another order, 1e-5 relative to max(1,
+|plain|); with bf16 rounding sites, one flipped bf16 rounding, 2^-7 of the
+same scale. The GGS phases (30 momentum iterations) are held to 5e-5
+absolute, the JAX GGS kernel test's bound; chunked against resident to
+1e-5. SuperGlue: chip_smoke.py's bounds (coupling 1e-4 relative, Z 1e-4,
+matches identical on the same Z, the whole matcher identical except at
+near-ties of Z).
 """
 
 import numpy as np
@@ -296,3 +299,100 @@ def test_fused_trunk_matches_plain(cuda, mask_last):
     for wdt in (torch.float32, torch.bfloat16):
         st = stack_trunk_params(trunk, wdt)
         _close(fused_trunk(x, bias, st, 4), fused_trunk_plain(x, bias, st, 4), 1e-4)
+
+
+# ---------------------------------------------------------------- SuperGlue
+def _sg_case(dev, C, K, D=256, seed=0):
+    """Final projections of C pairs and partial masks (each set keeps a
+    seeded 60-100% of its K keypoints)."""
+    r = _gen(seed)
+    m = _t(r.normal(size=(C, 2, K, D)) / np.sqrt(D) * 4, dev)
+    keep = lambda: (np.arange(K)[None] < r.integers(int(0.6 * K), K + 1, size=(C, 1)))
+    return m, _t(keep(), dev), _t(keep(), dev)
+
+
+def _live(mask0, mask1):
+    """Cells of the (C, K + 1, K + 1) coupling that are not masked."""
+    ones = torch.ones_like(mask0[:, :1])
+    return ((torch.cat([mask0, ones], 1) > 0.5)[:, :, None]
+            & (torch.cat([mask1, ones], 1) > 0.5)[:, None, :])
+
+
+@pytest.mark.parametrize("C,Kk,D", [(32, 1024, 256), (3, 37, 256), (2, 130, 64)])
+def test_superglue_coupling_sinkhorn_matches(cuda, C, Kk, D):
+    """Coupling within 1e-4 relative on the live cells (the masked ones are
+    -1e9 in both), marginals within 1e-6; Z from the same coupling within
+    1e-4 on the live cells (50 iterations, float32 log-sum-exps in another
+    order); matches from the same Z identical, mscores within 1e-6."""
+    m, mask0, mask1 = _sg_case(cuda, C, Kk, D)
+    b = torch.tensor([0.7], device=cuda)
+    out = K.superglue_coupling(m, mask0, mask1, b)
+    ref = K.superglue_coupling_plain(m, mask0, mask1, b)
+    live = _live(mask0, mask1)
+    _close(out[0][live], ref[0][live], 1e-4)
+    assert torch.equal(out[0][~live], ref[0][~live])
+    for o, p in zip(out[1:], ref[1:]):
+        assert (o - p).abs().max().item() <= 1e-6
+    Zk = K.superglue_sinkhorn(*ref, 50)
+    Zp = K.superglue_sinkhorn_plain(*ref, 50)
+    assert (Zk[live] - Zp[live]).abs().max().item() <= 1e-4
+    for thr in (0.0, 0.2):
+        mk, sk = K.superglue_matches(Zp, mask0, mask1, thr)
+        mp, sp = K.superglue_matches_plain(Zp, mask0, mask1, thr)
+        assert torch.equal(mk, mp)
+        assert (sk - sp).abs().max().item() <= 1e-6
+        assert (mk[mask0 < 0.5] == -1).all()
+
+
+def test_superglue_matches_first_index_on_ties(cuda):
+    Z = torch.full((1, 4, 4), -5.0)
+    Z[0, 0, 1] = Z[0, 0, 2] = -0.1
+    Z[0, 1, 0] = -0.2
+    Z[0, 2, 1] = -0.1
+    ones = torch.ones(1, 3, device=cuda)
+    m, _ = K.superglue_matches(Z.to(cuda), ones, ones, 0.0)
+    assert m.tolist() == [[1, 0, -1]]
+
+
+@pytest.mark.parametrize("layout", ["self", "cross"])
+def test_attention_superglue_shapes(cuda, layout):
+    """Key-mask attention as the matcher runs it: 2C = 16 sequences of
+    K = 1,024 tokens, 4 heads of 64, partial masks, -1e9 bias."""
+    C, N = 8, 1024
+    _, mask0, mask1 = _sg_case(cuda, C, N, 8)
+    bias = torch.where(torch.stack([mask0, mask1], 1) > 0.5, 0.0, K.SG_NEG).reshape(2 * C, N)
+    if layout == "cross":
+        bias = bias.view(C, 2, N).flip(1).reshape(2 * C, N).contiguous()
+    qkv = _t(_gen(1).normal(size=(2 * C, N, 768)), cuda)
+    _close(K.attention(qkv, 4, key_bias=bias), K.attention_plain(qkv, 4, key_bias=bias),
+           TOL_F32)
+
+
+def test_fused_match_pairs_kernel_vs_plain(cuda):
+    """The whole matcher on one chunk (C 6, K 256, seeded random weights in
+    the released layout): identical matches except at near-ties of the
+    plain route's Z (a gap under chip_smoke.NEAR_TIE), mscores of agreeing
+    matches within 1e-4."""
+    import chip_smoke
+    from posediffusion_tpu_torch.matching.superglue import SuperGlue, encode_keypoints
+    from posediffusion_tpu_torch.ops import superglue_kernel as S
+
+    model = SuperGlue()
+    model.load_state_dict(chip_smoke.random_superglue_sd(0), strict=True)
+    model.eval().to(cuda)
+    C, Kk = 6, 256
+    r = _gen(3)
+    desc = r.normal(size=(2 * C, Kk, 256))
+    desc /= np.linalg.norm(desc, axis=-1, keepdims=True)
+    x = encode_keypoints(model, _t(desc, cuda), _t(r.uniform(0, 500, size=(2 * C, Kk, 2)), cuda),
+                         _t(r.uniform(size=(2 * C, Kk)), cuda),
+                         _t(np.tile([480, 640], (2 * C, 1)), cuda)).view(C, 2, Kk, 256)
+    _, mask0, mask1 = _sg_case(cuda, C, Kk, 8, seed=4)
+    st = S.stack_superglue_params(model)
+    mk, sk = S.fused_match_pairs(x, mask0, mask1, st, match_threshold=0.0)
+    mp, sp = S.fused_match_pairs_plain(x, mask0, mask1, st, match_threshold=0.0)
+    count, gap = chip_smoke.match_mismatches(x, mask0, mask1, st, mk, mp)
+    assert (mp >= 0).sum().item() > C * 10
+    assert gap < chip_smoke.NEAR_TIE, f"{count} mismatches, largest tie gap {gap:.2e}"
+    agree = (mk == mp) & (mp >= 0)
+    assert (sk[agree] - sp[agree]).abs().max().item() <= 1e-4

@@ -111,14 +111,14 @@ class TestDemo:
         np.testing.assert_array_equal(saved["pose_encoding"], out["pose_encoding"])
 
     def test_ggs_is_refused(self, tmp_path, capsys):
-        """GGS on without a GGS.matches_file: match extraction is not ported,
-        so the demo says so and samples without GGS (as demo.py does when
-        extraction is unavailable): the same cameras as GGS off."""
+        """GGS on without a GGS.matches_file and without GGS.matcher_ckpt_dir:
+        no matches can be had, so the demo says so and samples without GGS
+        (with demo.py's message): the same cameras as GGS off."""
         import demo_torch
 
         out = demo_torch.run(_demo_cfg(tmp_path, "GGS.enable=True"), "cpu")
         printed = capsys.readouterr().out
-        assert "match extraction is not ported" in printed
+        assert "match extraction unavailable" in printed
         assert "Sampling without GGS" in printed
         plain = demo_torch.run(_demo_cfg(tmp_path, "GGS.enable=False"), "cpu")
         np.testing.assert_array_equal(out["pose_encoding"], plain["pose_encoding"])
