@@ -31,15 +31,30 @@ Phases (any failure exits non-zero and prints no result line):
              20 frames at 1,024 keypoints (190 pairs), and the first 6 frames
              at the default 4,096; finite cameras, matches reaching GGS, every
              kernel of the path launched;
-  5. timing  CUDA-event medians of the inferences, the conditioned tail,
+  5. train   the training slice (TPU kernels 9 and 10): the train kernels
+             (attention_bwd, layernorm_bwd, linear_wgrad and dgrad,
+             act_dropout_bwd, the dropout masks bitwise) against their plain
+             versions at the ViT's and the denoiser's train shapes; both
+             train trunks forward and backward (12 blocks x 64 images, f32
+             and bf16; 8 layers x 2,880 x 16 with dropout 0.1, and the
+             same with GELU for ReLU as a kink-free witness); one whole
+             train step, kernel route against plain route; then
+             train_torch.py at cfgs/default_train.yaml on a Co3D-format tree
+             of samples/apple (2 epochs of 3 steps of 512 images,
+             batch_repeat 90, one batched eval, checkpoints): finite losses,
+             moved parameters, every kernel of the path launched; and the
+             train timings and peak memory;
+  6. timing  CUDA-event medians of the inferences, the conditioned tail,
              the match extraction stages, and each kernel beside its plain
-             version.
+             version, its bound (bytes or operations over the H100's peaks)
+             and a one-call PyTorch yardstick where one exists.
 Then one JSON line of the kernels, the card's name and power limit, and the
 result line {"ok": true, "device": {...}}.
 
 The card is required: without CUDA the script exits 2 before doing anything.
 """
 
+import contextlib
 import json
 import os
 import shutil
@@ -90,9 +105,11 @@ GGS_PHASE = dict(lr=1e-2, momentum=0.9, alpha=1e-4, min_matches=10.0)
 # the whole 18-layer GNN in front of it also sums in another order.
 NEAR_TIE = 1e-3
 
+TRAIN_SITE = "posediffusion_tpu/ops/vit_train_kernel.py"
 TRUNK_SITES = ("posediffusion_tpu/ops/vit_kernel.py:49 (_vit_block_kernel); "
                "posediffusion_tpu/ops/denoiser_kernel.py:42 (encoder_layer_math, "
-               "in _sampler_kernel and fused_trunk :151)")
+               "in _sampler_kernel and fused_trunk :151); "
+               f"{TRAIN_SITE}:800 (_fwd_call -> :832, _attn_residual / _mlp_residual)")
 SUPERGLUE_SITE = "posediffusion_tpu/ops/superglue_kernel.py:285 (fused_match_pairs)"
 TPU_KERNELS = {
     "layernorm": TRUNK_SITES,
@@ -107,6 +124,14 @@ TPU_KERNELS = {
     "sampler_epilogue": "posediffusion_tpu/ops/sampler_kernel.py:61 (_sampler_kernel, l == L-1)",
     "ggs_phase": "posediffusion_tpu/ops/ggs_kernel.py:97 (ggs_phase_fused)",
     "ggs_phase_chunked": "posediffusion_tpu/ops/ggs_kernel.py:223 (ggs_phase_fused_chunked)",
+    "attention_bwd": f"{TRAIN_SITE}:866 (_bwd_call -> :905), _attn_residual_bwd :356, "
+                     "its head_bwd :400-431",
+    "layernorm_bwd": f"{TRAIN_SITE}:866 (_bwd_call -> :905), _ln_bwd :265-275 with the "
+                     "residual cotangent :353, :488",
+    "linear_wgrad": f"{TRAIN_SITE}:866 (_bwd_call -> :905), the weight gradients of "
+                    "_mlp_residual_bwd :278 and _attn_residual_bwd :356, partials summed :937-940",
+    "act_dropout_bwd": f"{TRAIN_SITE}:866 (_bwd_call -> :905), _mlp_residual_bwd :330-340 "
+                       "(dropout and activation backward) and the m1/m2 masks :314, :434",
 }
 SOURCES = {
     "layernorm": "posediffusion_tpu_torch/csrc/layernorm.cu",
@@ -119,11 +144,85 @@ SOURCES = {
     "superglue_coupling": "posediffusion_tpu_torch/csrc/superglue.cu",
     "superglue_sinkhorn": "posediffusion_tpu_torch/csrc/superglue.cu",
     "superglue_matches": "posediffusion_tpu_torch/csrc/superglue.cu",
+    "attention_bwd": "posediffusion_tpu_torch/csrc/attention_bwd.cu",
+    "layernorm_bwd": "posediffusion_tpu_torch/csrc/layernorm.cu",
+    "linear_wgrad": "posediffusion_tpu_torch/csrc/linear.cu",
+    "act_dropout_bwd": "posediffusion_tpu_torch/csrc/train.cu",
 }
 NO_GGS_PATH = ("layernorm", "linear", "attention", "sampler_prologue", "sampler_epilogue")
 GGS_PATH = NO_GGS_PATH + ("ggs_phase", "ggs_phase_chunked")
 SUPERGLUE_KERNELS = ("superglue_coupling", "superglue_sinkhorn", "superglue_matches")
 MATCH_PATH = GGS_PATH + SUPERGLUE_KERNELS
+TRAIN_KERNELS = ("attention_bwd", "layernorm_bwd", "linear_wgrad", "act_dropout_bwd")
+TRAIN_PATH = NO_GGS_PATH + TRAIN_KERNELS  # the sampler kernels: the in-training eval
+# The train path: train_torch.py at cfgs/default_train.yaml (512 images a step,
+# 32 sequences x 16 frames at 224px, batch_repeat 90, dropout 0.1) on a
+# Co3D-format tree of samples/apple.
+TRAIN_OVERRIDES = ("train.category=apple", "train.min_num_images=20",
+                   "train.images_per_seq=[16,17]", "train.frame_buckets=[16]",
+                   "train.epochs=2", "train.len_train=3", "train.len_eval=1",
+                   "train.eval_interval=1", "train.ckpt_interval=1")
+VIT_CHUNK = 64  # images in the ViT train-trunk parity cases
+VIT_IMAGES = 512  # a train step's images (max_images)
+ENC_ROWS = 2880  # the denoiser's rows: 32 sequences x batch_repeat 90
+TOL_TRAIN_F32 = 1e-3  # a train trunk, float32: sums in another order, 12 blocks x 2
+TOL_TRAIN_BF16 = 7e-2  # bf16 operands and residuals: the JAX bf16 train-kernel bound
+# The encoder's ReLU: a float32 ulp that moves a pre-activation across 0
+# flips that element's share of the gradients. At 46,080 rows x 8 layers a
+# few hundred such flips each move a whole column of a weight gradient (and,
+# through attention, the earlier layers) by up to ~1/sqrt(46,080) of its
+# largest entry: measured on an H100, the largest relative error 6.6e-3,
+# the mean 4.4e-5, 0.07% of elements beyond 1e-3. A wrong mask or half
+# would move every element by O(0.1), so the guard is statistical, as the
+# JAX package's own bf16 encoder test (tests/test_vit_train_kernel.py
+# :360-367): the mean error (about 3x the 4.4e-5 measured), and the share
+# of elements beyond ENCODER_GRAD_OUTLIER, both relative to max(1,
+# |plain|). The witness of that cause: the same encoder case with GELU,
+# which has no kink, is held to TOL_F32 in every element.
+TOL_ENCODER_GRAD_MEAN = 1.5e-4
+ENCODER_GRAD_OUTLIER = 1e-2
+TOL_ENCODER_GRAD_SHARE = 1e-3
+TOL_STEP_LOSS = 1e-4  # a whole train step, kernel route against plain route
+TOL_STEP_NORM = 1e-3
+TOL_STEP_CHANGE = 5e-2  # Adam's first step is ~lr sign(g): only near-zero g flip
+# Roofline of one NVIDIA H100 SXM (published peak rates):
+HBM_BYTES_PER_S = 3.35e12
+PEAK_F32 = 67e12  # FLOP/s outside the tensor cores
+PEAK_BF16 = 989e12  # dense bf16 tensor-core FLOP/s
+GGS_FLOP_PER_MATCH = 120  # Sampson residual and its analytic gradient, per iteration
+
+
+def bound(nbytes, flops, peak=PEAK_F32):
+    """(least ms, what bounds it) for work that must move ``nbytes`` through
+    HBM and do ``flops`` operations at ``peak``."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def block_flops(tokens, N, D, F):
+    """Operations of one pre-norm block over ``tokens`` rows of sequences of
+    N: (products, attention) for the forward, where products are the four
+    matrix products (qkv, out, two FF) and attention is q k^T and p v."""
+    return 2 * tokens * D * (3 * D + D + 2 * F), 4 * tokens * N * D
+
+
+def trunk_bounds(tokens, N, D, F, L, act_bytes, weight_bytes, peak_products):
+    """Least ms of a train trunk's forward (saving x and x1 per layer) and of
+    its backward as the TPU kernel does it: the recomputed qkv and first FF
+    products and attention forward, dgrad and wgrad of the four products,
+    and the attention backward (dv, dp, dq, dk); attention in float32 on
+    the FMA units."""
+    P, A = block_flops(tokens, N, D, F)
+    fwd_ops = L * (P / peak_products + A / PEAK_F32)
+    bwd_ops = L * ((2 * P + 2 * tokens * D * (3 * D + F)) / peak_products + 3 * A / PEAK_F32)
+    x = tokens * D * act_bytes
+    fwd = max((2 * x + 2 * L * x + weight_bytes) / HBM_BYTES_PER_S, fwd_ops) * 1e3
+    bwd = max((2 * L * x + 2 * x + 2 * weight_bytes) / HBM_BYTES_PER_S, bwd_ops) * 1e3
+    return fwd, bwd
 # Match extraction with random matcher weights: 1,024 keypoints per frame
 # (the regime where the JAX package runs its fused SuperGlue kernel), then the
 # default 4,096 on the first 6 frames; threshold 0 and an accept-all RANSAC
@@ -139,7 +238,7 @@ def synthetic_matches(folder, per_pair, seed, image_size=IMAGE_SIZE, frames=None
     world points around the intersection of the ground-truth cameras'
     optical axes, projected through those cameras (``cameras_to_opencv``),
     keeping points in front of both cameras and inside the image."""
-    from posediffusion_tpu.data.camera_np import intersect_skew_lines, optical_axes
+    from posediffusion_tpu_torch.data.camera_np import intersect_skew_lines, optical_axes
     from posediffusion_tpu_torch.geometry.cameras import PerspectiveCameras, cameras_to_opencv
 
     gt = np.load(os.path.join(folder, "gt_cameras.npz"))
@@ -185,6 +284,40 @@ def subset_folder(src, dst, frames):
     gt = np.load(os.path.join(src, "gt_cameras.npz"))
     np.savez(os.path.join(dst, "gt_cameras.npz"), **{k: v[:frames] for k, v in gt.items()})
     return dst
+
+
+def write_co3d_tree(root, folder, category="apple", reduce=4):
+    """A Co3D-format tree from a sample folder's frames and ground-truth
+    cameras (the layout of tests/test_data.py's ``make_co3d_fixture``): the
+    frames, downscaled by ``reduce`` (the loader crops and resizes to 224px
+    anyway, and NDC intrinsics do not change with the scale), under
+    ``<root>/data/<category>/seq0/``, and one annotation file per split,
+    ``<root>/ann/<category>_{train,test}.jgz``, with the full-frame bbox.
+    Returns (CO3D_DIR, CO3D_ANNOTATION_DIR)."""
+    import gzip
+
+    from PIL import Image
+
+    img_dir, ann_dir = os.path.join(root, "data"), os.path.join(root, "ann")
+    seq_dir = os.path.join(img_dir, category, "seq0")
+    os.makedirs(seq_dir, exist_ok=True)
+    os.makedirs(ann_dir, exist_ok=True)
+    gt = np.load(os.path.join(folder, "gt_cameras.npz"))
+    names = sorted(f for f in os.listdir(folder) if f.lower().endswith(".jpg"))
+    frames = []
+    for i, name in enumerate(names):
+        img = Image.open(os.path.join(folder, name))
+        img = img.reduce(reduce) if reduce > 1 else img
+        img.save(os.path.join(seq_dir, name))
+        frames.append({
+            "filepath": f"{category}/seq0/{name}", "bbox": [0, 0, img.width, img.height],
+            "R": gt["gtR"][i].tolist(), "T": gt["gtT"][i].tolist(),
+            "focal_length": gt["gtFL"][i].tolist(), "principal_point": [0.0, 0.0],
+        })
+    for split in ("train", "test"):
+        with gzip.open(os.path.join(ann_dir, f"{category}_{split}.jgz"), "wt") as f:
+            f.write(json.dumps({"seq0": frames}))
+    return img_dir, ann_dir
 
 
 def random_superpoint_sd(seed):
@@ -349,6 +482,359 @@ def _check_cameras(report, out, n, what):
         report.failures.append(f"{what}: no finite ARE")
 
 
+def _close_rel(report, name, out, ref, tol):
+    """Check max |out - ref| against tol x max(1, max |ref|); returns the error."""
+    err = (out - ref).abs().max().item()
+    report.check(name, err, tol, max(1.0, ref.abs().max().item()))
+    return err
+
+
+def _route(V, plain):
+    """The train trunks' plain route inside the block when ``plain``."""
+    return V.plain_route() if plain else contextlib.nullcontext()
+
+
+def _library_grad_ms(torch, fn, inputs, cot, reps=5):
+    """CUDA-event time of the backward alone of ``fn(*inputs)`` under autograd."""
+    ins = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*ins)
+    return _time_ms(torch, lambda: torch.autograd.grad(out, ins, cot, retain_graph=True),
+                    reps=reps)
+
+
+def train_slice(report, dev, work, smi, t_start):
+    """The training slice: its kernels against their plain versions at the
+    path's shapes (parity), train_torch.py at the reference train config
+    (the path), and its timings. Returns (kernel JSON entries, timings,
+    the path's launch counts)."""
+    import torch
+    import torch.nn.functional as F
+
+    import train_torch
+    from posediffusion_tpu_torch.data.factory import get_co3d_dataset
+    from posediffusion_tpu_torch.data.images import load_and_preprocess_images
+    from posediffusion_tpu_torch.data.sampler import DynamicBatchSampler, collate_batch
+    from posediffusion_tpu_torch.models.feature_extractor import _embed_pack_scales
+    from posediffusion_tpu_torch.models.layers import key_bias_from_mask
+    from posediffusion_tpu_torch.models.pose_diffusion import (
+        PoseDiffusionModel,
+        init_random_weights,
+    )
+    from posediffusion_tpu_torch.ops import kernels as K
+    from posediffusion_tpu_torch.ops import vit_train_kernel as V
+    from posediffusion_tpu_torch.training.optim import make_optimizer
+    from posediffusion_tpu_torch.training.step import train_step
+    from posediffusion_tpu_torch.utils.config import load_config, model_config_from_cfg
+
+    apple = os.path.join(REPO, "samples", "apple")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)  # noqa: E731
+    errs, cases = {}, {}
+
+    # ---- parity: the new kernels at the path's shapes
+    print("[train-parity] the train kernels against their plain versions")
+    Bv, Nv, Hv, Dv = VIT_CHUNK, 264, 6, 384
+    seg = torch.tensor([0] * 197 + [1] * 50 + [2] * 17, device=dev)
+    vbias = torch.where(seg[:, None] == seg[None], 0.0, K.NEG).contiguous()
+    qkv_v, dout_v = rnd(Bv, Nv, 3 * Dv), rnd(Bv, Nv, Dv)
+    Be, Ne, He, De = ENC_ROWS, 16, 4, 512
+    frames = torch.randint(8, Ne + 1, (Be, 1), generator=gen, device=dev)
+    ebias = key_bias_from_mask(torch.arange(Ne, device=dev)[None] < frames, Be, Ne, dev)
+    qkv_e, dout_e = rnd(Be, Ne, 3 * De), rnd(Be, Ne, De)
+    d_attn = K.drop_args(SEED, 0, "attn", 0.1)
+    for mode in (False, True):
+        tag = "bf16" if mode else "f32"
+        kw = dict(attn_bias=vbias, round_in=mode)
+        errs[("attention_bwd", mode)] = _close_rel(
+            report, f"attention_bwd vit {tag} ({Bv}x{Nv}, {Hv} heads, packing bias)",
+            K.attention_bwd(qkv_v, dout_v, Hv, **kw),
+            K.attention_bwd_plain(qkv_v, dout_v, Hv, **kw), TOL_BF16 if mode else TOL_F32)
+    cases["attention_bwd"] = (
+        f"attention_bwd vit f32 ({Bv}x{Nv}, {Hv} heads)",
+        lambda: K.attention_bwd(qkv_v, dout_v, Hv, attn_bias=vbias),
+        lambda: K.attention_bwd_plain(qkv_v, dout_v, Hv, attn_bias=vbias),
+        lambda: _library_grad_ms(
+            torch, lambda q: F.scaled_dot_product_attention(
+                *q.view(Bv, Nv, 3, Hv, 64).permute(2, 0, 3, 1, 4), attn_mask=vbias),
+            [qkv_v], dout_v.view(Bv, Nv, Hv, 64).transpose(1, 2)),
+        bound(nbytes(qkv_v, dout_v, vbias) + nbytes(qkv_v), 10 * Bv * Hv * Nv**2 * 64))
+    kw = dict(key_bias=ebias, drop=d_attn)
+    _close_rel(report, f"attention dropout enc f32 ({Be}x{Ne}, {He} heads, p 0.1)",
+               K.attention(qkv_e, He, **kw), K.attention_plain(qkv_e, He, **kw), TOL_F32)
+    errs[("attention_bwd", "enc")] = _close_rel(
+        report, f"attention_bwd enc f32 ({Be}x{Ne}, {He} heads, key bias, dropout 0.1)",
+        K.attention_bwd(qkv_e, dout_e, He, **kw), K.attention_bwd_plain(qkv_e, dout_e, He, **kw),
+        TOL_F32)
+
+    M, Df = VIT_IMAGES * Nv, 4 * Dv  # the ViT's rows at the full batch, fc1's width
+    x_ln, dh_ln, res_ln = rnd(M, Dv), rnd(M, Dv), rnd(M, Dv)
+    g_ln = 1 + 0.1 * rnd(Dv)
+    out_k = K.layernorm_bwd(x_ln, g_ln, dh_ln, 1e-6, residual=res_ln)
+    out_p = K.layernorm_bwd_plain(x_ln, g_ln, dh_ln, 1e-6, residual=res_ln)
+    errs["layernorm_bwd"] = max(_close_rel(report, f"layernorm_bwd {part} vit ({M}x{Dv})",
+                                           a, b, TOL_F32)
+                                for part, a, b in zip(("dx", "dg", "db"), out_k, out_p))
+    b_ln = torch.zeros(Dv, device=dev)
+    cases["layernorm_bwd"] = (
+        f"layernorm_bwd vit ({M}x{Dv}, + residual)",
+        lambda: K.layernorm_bwd(x_ln, g_ln, dh_ln, 1e-6, residual=res_ln),
+        lambda: K.layernorm_bwd_plain(x_ln, g_ln, dh_ln, 1e-6, residual=res_ln),
+        lambda: _library_grad_ms(torch, lambda x, g: F.layer_norm(x, (Dv,), g, b_ln, 1e-6),
+                                 [x_ln, g_ln], dh_ln),
+        bound(nbytes(x_ln, dh_ln, res_ln, g_ln) + nbytes(x_ln) + 2 * Dv * 4, 12 * M * Dv))
+    del out_k, out_p
+
+    x_fc, dy_fc = rnd(M, Dv), rnd(M, Df)
+    w_fc = rnd(Dv, Df) / Dv**0.5
+    for mode in (False, True):
+        tag = "bf16" if mode else "f32"
+        w = w_fc.to(torch.bfloat16) if mode else w_fc
+        _close_rel(report, f"linear dgrad fc1 {tag} ({M}x{Df} @ ({Dv}x{Df})^T)",
+                   K.linear(dy_fc, w, None, trans_w=True, round_a=mode),
+                   K.linear_plain(dy_fc, w, None, trans_w=True, round_a=mode), TOL_F32)
+        dw_k, db_k = K.linear_wgrad(x_fc, dy_fc, mode)
+        dw_p, db_p = K.linear_wgrad_plain(x_fc, dy_fc, mode)
+        errs[("linear_wgrad", mode)] = max(
+            _close_rel(report, f"linear_wgrad fc1 dW {tag} ({M}x{Dv})^T ({M}x{Df})",
+                       dw_k, dw_p, TOL_F32),
+            _close_rel(report, f"linear_wgrad fc1 db {tag}", db_k, db_p, TOL_F32))
+        report.require(f"linear_wgrad fc1 {tag} repeats bitwise",
+                       torch.equal(dw_k, K.linear_wgrad(x_fc, dy_fc, mode)[0]))
+    cases["linear_wgrad"] = (
+        f"linear_wgrad fc1 f32 ({M}x{Dv})^T ({M}x{Df})",
+        lambda: K.linear_wgrad(x_fc, dy_fc), lambda: K.linear_wgrad_plain(x_fc, dy_fc),
+        lambda: _time_ms(torch, lambda: torch.matmul(x_fc.t(), dy_fc), reps=5),
+        bound(nbytes(x_fc, dy_fc) + (Dv + 1) * Df * 4, 2 * M * Dv * Df))
+
+    a_fc = rnd(M, Df)
+    errs["act_dropout_bwd"] = _close_rel(
+        report, f"act_dropout_bwd vit fc1 gelu ({M}x{Df})",
+        K.act_dropout_bwd(dy_fc, a_fc, "gelu"), K.act_dropout_bwd_plain(dy_fc, a_fc, "gelu"),
+        TOL_F32)
+    cases["act_dropout_bwd"] = (
+        f"act_dropout_bwd vit fc1 gelu ({M}x{Df})",
+        lambda: K.act_dropout_bwd(dy_fc, a_fc, "gelu"),
+        lambda: K.act_dropout_bwd_plain(dy_fc, a_fc, "gelu"),
+        lambda: _time_ms(torch, lambda: torch.ops.aten.gelu_backward(dy_fc, a_fc), reps=5),
+        bound(3 * nbytes(a_fc), 20 * M * Df))
+    Me, Fe = Be * Ne, 1024
+    d_mff = K.drop_args(SEED, 3, "mff", 0.1)
+    dh_e, a_e = rnd(Me, Fe), rnd(Me, Fe)
+    _close_rel(report, f"act_dropout_bwd enc relu + mff mask ({Me}x{Fe})",
+               K.act_dropout_bwd(dh_e, a_e, "relu", d_mff),
+               K.act_dropout_bwd_plain(dh_e, a_e, "relu", d_mff), TOL_F32)
+    mask = K.dropout_mask(d_mff, (Me, Fe), dev)
+    ones = torch.ones(Me, Fe, device=dev)
+    report.require(f"dropout mask bitwise: act_dropout_bwd ({Me}x{Fe}, site mff)",
+                   torch.equal(K.act_dropout_bwd(ones, None, "none", d_mff), mask))
+    report.require(f"dropout mask bitwise: linear epilogue ({Me}x{Fe})", torch.equal(
+        K.linear(torch.zeros(Me, 8, device=dev), torch.zeros(8, Fe, device=dev),
+                 torch.ones(Fe, device=dev), drop=d_mff), mask))
+    qkv1 = torch.zeros(Be, 1, 3 * De, device=dev)
+    qkv1[..., 2 * De:] = 1.0
+    report.require(f"dropout mask bitwise: attention p ({Be} x {He} heads, site attn)", torch.equal(
+        K.attention(qkv1, He, drop=d_attn).view(Be, He, -1)[..., 0],
+        K.dropout_mask(d_attn, (Be, He, 1, 1), dev).view(Be, He)))
+    print(f"  dropout rate at site mff: {float((mask == 0).float().mean()):.5f} "
+          f"of {mask.numel()} (p 0.1)")
+    del dh_e, a_e, mask, ones
+
+    # the two train trunks, forward and gradients, kernel route against plain
+    model = PoseDiffusionModel(model_config_from_cfg(load_config("default_train").MODEL))
+    init_random_weights(model, SEED)
+    model.to(dev)
+    vit, den = model.image_feature_extractor._net, model.diffuser.model
+    imgs20 = torch.as_tensor(load_and_preprocess_images(apple, IMAGE_SIZE)[0], device=dev)
+    with torch.no_grad():
+        tok20, _, _ = _embed_pack_scales(vit, imgs20, model.config.scale_factors)
+    tok = tok20.repeat(VIT_CHUNK // 20 + 1, 1, 1)[:VIT_CHUNK].contiguous()
+    with torch.no_grad():
+        vst = {k: v.detach().clone() for k, v in V.stack_vit_params_train(vit).items()}
+        est = {k: v.detach().clone() for k, v in V.stack_encoder_trunk_params(den._trunk).items()}
+    cot_v = rnd(*tok.shape)
+    h_e = rnd(Be, Ne, De)
+    cot_e = rnd(Be, Ne, De)
+
+    def trunk_grads(run, x, stacks, cot):
+        xs = x.detach().clone().requires_grad_(True)
+        st = {k: v.clone().requires_grad_(True) for k, v in stacks.items()}
+        y = run(xs, st)
+        y.backward(cot)
+        return [("y", y.detach()), ("dx", xs.grad)] + [(k, st[k].grad) for k in V.WEIGHT_KEYS]
+
+    def vit_run(mode, plain):
+        def run(x, st):
+            with _route(V, plain):
+                return V.fused_vit_trunk_train(x, st, vbias, 6, mode, mode)
+        return run
+
+    def enc_run(plain, act="relu"):
+        def run(x, st):
+            with _route(V, plain):
+                if act == "relu":
+                    return V.fused_encoder_trunk_train(x, st, ebias, SEED, 4, dropout=0.1)
+                spec = V.TrunkSpec(nhead=4, eps=1e-5, act=act, dropout=0.1, seed=SEED)
+                return V.train_trunk(x, st, spec, key_bias=ebias)
+        return run
+
+    for mode in (False, True):
+        tag = "bf16 operands and residuals" if mode else "f32"
+        outs = zip(trunk_grads(vit_run(mode, False), tok, vst, cot_v),
+                   trunk_grads(vit_run(mode, True), tok, vst, cot_v))
+        worst = max(((a - b).abs().max().item() / max(1.0, b.abs().max().item()), name)
+                    for (name, a), (_, b) in outs)
+        report.check(f"fused_vit_trunk_train {tag} (12 blocks, {VIT_CHUNK}x{Nv}): output and "
+                     f"every gradient, worst {worst[1]}", worst[0],
+                     TOL_TRAIN_BF16 if mode else TOL_TRAIN_F32)
+        errs[("trunk_vit", mode)] = worst[0]
+    outs = list(zip(trunk_grads(enc_run(False), h_e, est, cot_e),
+                    trunk_grads(enc_run(True), h_e, est, cot_e)))
+    tag = f"(8 layers, {Be}x{Ne}, dropout 0.1)"
+    _close_rel(report, f"fused_encoder_trunk_train f32 y {tag}", outs[0][0][1], outs[0][1][1],
+               TOL_TRAIN_F32)
+    mean_err, share, worst = 0.0, 0.0, 0.0
+    for (name, a), (_, b) in outs[1:]:
+        rel = (a - b).abs() / max(1.0, b.abs().max().item())
+        mean_err = max(mean_err, rel.mean().item())
+        share = max(share, (rel > ENCODER_GRAD_OUTLIER).float().mean().item())
+        worst = max(worst, rel.max().item())
+    print(f"  fused_encoder_trunk_train f32 dx and weight gradients {tag}: largest relative "
+          f"error {worst:.3e} (ReLU kinks)")
+    report.check(f"fused_encoder_trunk_train f32 gradients, largest mean relative error {tag}",
+                 mean_err, TOL_ENCODER_GRAD_MEAN)
+    report.check(f"fused_encoder_trunk_train f32 gradients, largest share beyond "
+                 f"{ENCODER_GRAD_OUTLIER:.0e} {tag}", share, TOL_ENCODER_GRAD_SHARE)
+    outs = zip(trunk_grads(enc_run(False, "gelu"), h_e, est, cot_e),
+               trunk_grads(enc_run(True, "gelu"), h_e, est, cot_e))
+    worst = max(((a - b).abs().max().item() / max(1.0, b.abs().max().item()), name)
+                for (name, a), (_, b) in outs)
+    report.check(f"encoder train trunk with GELU for ReLU, f32 {tag}: output and every "
+                 f"gradient, worst {worst[1]} (no kinks)", worst[0], TOL_F32)
+    del outs
+    torch.cuda.synchronize()
+
+    # one whole train step, kernel route against plain route, same weights/draws
+    tree = os.path.join(REPO, "build", "co3d_apple")
+    co3d_dir, ann_dir = write_co3d_tree(tree, apple)
+    cfg = load_config("default_train", [
+        f"train.CO3D_DIR={co3d_dir}", f"train.CO3D_ANNOTATION_DIR={ann_dir}", *TRAIN_OVERRIDES,
+        f"exp_dir={os.path.join(work, 'train')}", f"seed={SEED}"])
+    t = cfg.train
+    dataset, _ = get_co3d_dataset(cfg)
+    sampler = DynamicBatchSampler(len(dataset), dataset_len=1, max_images=t.max_images,
+                                  images_per_seq=tuple(t.images_per_seq),
+                                  frame_buckets=tuple(t.frame_buckets), seed=SEED)
+    spec = next(iter(sampler))
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in collate_batch(
+        [dataset[s] for s in spec], pad_frames_to=sampler.bucket_for(spec[0][1])).items()}
+    n_rows = batch["images"].shape[0] * t.batch_repeat
+    cpu = torch.Generator().manual_seed(SEED + 11)
+    draws = dict(t=torch.randint(0, model.config.timesteps, (n_rows,), generator=cpu),
+                 noise=torch.randn((n_rows, *batch["pose_encodings"].shape[1:]), generator=cpu),
+                 drop_seed=1234)
+    print(f"  train batch {tuple(batch['images'].shape)}, batch_repeat {t.batch_repeat}: "
+          f"{n_rows} diffusion rows")
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    step_out = {}
+    for plain in (False, True):
+        model.load_state_dict(start)
+        opt, _ = make_optimizer(model, lr=t.lr, T_0=t.restart_num, iters_per_epoch=t.len_train,
+                                clip_grad=t.clip_grad)
+        with _route(V, plain):
+            m = train_step(model, opt, batch, t.batch_repeat, draws=draws)
+        change = max((p.detach() - start[k]).abs().max().item()
+                     for k, p in model.named_parameters())
+        step_out[plain] = (m["loss"], m["grad_norm"], change)
+    (lk, nk, ck), (lp, np_, cp) = step_out[False], step_out[True]
+    print(f"  train step kernel / plain: loss {lk:.6f} / {lp:.6f}, grad norm {nk:.6f} / "
+          f"{np_:.6f}, largest parameter change {ck:.4e} / {cp:.4e}")
+    report.check("train step loss, kernel route vs plain (relative)", abs(lk - lp) / abs(lp),
+                 TOL_STEP_LOSS)
+    report.check("train step gradients' global norm (relative)", abs(nk - np_) / np_,
+                 TOL_STEP_NORM)
+    report.check("train step largest parameter change (relative)", abs(ck - cp) / cp,
+                 TOL_STEP_CHANGE)
+    print(f"  [train-parity] done at {time.perf_counter() - t_start:.0f} s", flush=True)
+
+    # ---- the path: train_torch.py at the reference train config
+    print("[train] train_torch.py on a Co3D tree of samples/apple, cfgs/default_train.yaml: "
+          + " ".join(TRAIN_OVERRIDES))
+    shutil.rmtree(os.path.join(work, "train"), ignore_errors=True)
+    K.reset_launch_counts()
+    result = train_torch.run(cfg)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    _check_launches(report, "train", TRAIN_PATH, launches)
+    print(f"  {result['steps']} steps, losses {[round(x, 5) for x in result['losses']]}, "
+          f"step seconds (host clock) {[round(x, 3) for x in result['step_seconds']]}, "
+          f"eval {result['eval']}, checkpoint {result['checkpoint']}")
+    report.require("train losses finite", result["finite"])
+    report.require("parameters moved", result["param_change"] > 0,
+                   f"(largest change {result['param_change']:.3e})")
+    report.require("checkpoint written", bool(result["checkpoint"])
+                   and os.path.exists(result["checkpoint"]))
+    report.require("eval metrics finite", result["eval"] is not None
+                   and all(np.isfinite(v) for v in result["eval"].values()))
+    report.require("stats.jsonl written",
+                   os.path.exists(os.path.join(cfg.exp_dir, "stats.jsonl")))
+    print(f"  [train] done at {time.perf_counter() - t_start:.0f} s", flush=True)
+
+    # ---- timings (CUDA events after warm-up)
+    print(f"[train-timing] card: {smi}")
+    timings = {}
+    opt, _ = make_optimizer(model, lr=t.lr, T_0=t.restart_num, iters_per_epoch=t.len_train,
+                            clip_grad=t.clip_grad)
+    for plain in (False, True):
+        name = "train step " + ("plain route" if plain else "kernel route")
+        with _route(V, plain):
+            timings[f"{name} (512 images, batch_repeat 90)"] = _time_ms(
+                torch, lambda: train_step(model, opt, batch, t.batch_repeat, draws=draws),
+                reps=3, warmup=1)
+    torch.cuda.reset_peak_memory_stats()
+    train_step(model, opt, batch, t.batch_repeat, draws=draws)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    timings["optimizer step (clip + AdamW)"] = _time_ms(torch, opt.step, reps=5)
+    full = tok20.repeat(VIT_IMAGES // 20 + 1, 1, 1)[:VIT_IMAGES].contiguous()
+    cot_full = rnd(*full.shape)
+    for plain in (False, True):
+        r = " plain" if plain else ""
+        timings[f"vit trunk fwd+bwd{r}"] = _time_ms(
+            torch, lambda: trunk_grads(vit_run(False, plain), full, vst, cot_full), reps=3,
+            warmup=1)
+        timings[f"encoder trunk fwd+bwd{r}"] = _time_ms(
+            torch, lambda: trunk_grads(enc_run(plain), h_e, est, cot_e), reps=3, warmup=1)
+        with torch.no_grad():
+            timings[f"vit trunk fwd{r}"] = _time_ms(
+                torch, lambda: vit_run(False, plain)(full, vst), reps=3, warmup=1)
+            timings[f"encoder trunk fwd{r}"] = _time_ms(
+                torch, lambda: enc_run(plain)(h_e, est), reps=3, warmup=1)
+    print(f"  trunk cases: vit {VIT_IMAGES}x{Nv}, 12 blocks, f32; encoder {Be}x{Ne}, "
+          "8 layers, dropout 0.1, f32; the backward is fwd+bwd less fwd")
+    for name, ms in timings.items():
+        print(f"  {name}: {ms:.3f} ms")
+    print(f"  peak memory of a train step: {peak_gb:.2f} GB "
+          "(torch.cuda.max_memory_allocated)")
+
+    kernels_json = []
+    for key in TRAIN_KERNELS:
+        name, kern, plain, library, (bound_ms, bound_by) = cases[key]
+        ms = _time_ms(torch, kern, reps=5)
+        plain_ms = _time_ms(torch, plain, reps=5)
+        library_ms = library()
+        err = max(v for k, v in errs.items() if (k if isinstance(k, str) else k[0]) == key)
+        print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        kernels_json.append({
+            "name": key, "route": "cuda", "source": SOURCES[key], "replaces": TPU_KERNELS[key],
+            "launches": launches[key], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            "case": f"{name} (launches: train path)",
+        })
+    timings["peak memory of a train step (GB)"] = peak_gb
+    return kernels_json, timings, launches
+
+
 def main(argv) -> int:
     import torch
 
@@ -359,8 +845,6 @@ def main(argv) -> int:
     sys.path.insert(0, REPO)
 
     import demo_torch
-    from posediffusion_tpu.data.images import load_and_preprocess_images
-    from posediffusion_tpu.utils.config import load_config
     from posediffusion_tpu_torch.diffusion import ggs as G
     from posediffusion_tpu_torch.diffusion.gaussian import p_sample_loop
     from posediffusion_tpu_torch.geometry.cameras import PerspectiveCameras
@@ -399,6 +883,8 @@ def main(argv) -> int:
         fused_vit_trunk_plain,
         stack_vit_params,
     )
+    from posediffusion_tpu_torch.data.images import load_and_preprocess_images
+    from posediffusion_tpu_torch.utils.config import load_config
     from posediffusion_tpu_torch.utils.precision import pin_full_float32
 
     dev = torch.device("cuda")
@@ -760,7 +1246,10 @@ def main(argv) -> int:
     _check_launches(report, "match", MATCH_PATH, match_launches)
     print(f"  [match] done at {time.perf_counter() - t_start:.0f} s", flush=True)
 
-    # ---- 5. timing (default mode, CUDA events after warm-up)
+    # ---- 5. the training slice: parity of its kernels, train_torch.py, timings
+    train_json, train_timings, _ = train_slice(report, dev, work, smi, t_start)
+
+    # ---- 6. timing (default mode, CUDA events after warm-up)
     print(f"[timing] medians of {N_TIMED}, card: {smi}")
     imgs = images[None]
     with torch.no_grad():
@@ -905,6 +1394,48 @@ def main(argv) -> int:
     for name, ms in timings.items():
         print(f"  {name}: {ms:.3f} ms")
 
+    # bounds (bytes each input read once and each output written once, and the
+    # algorithm's operations) and a one-call library yardstick where one exists
+    def case_bound(key, args, kwargs):
+        if key == "layernorm":
+            x = args[0]
+            return bound(2 * nbytes(x) + 2 * x.shape[1] * 4, 8 * x.numel())
+        if key == "linear":
+            a, w, b = args[:3]
+            (Mm, Kk), Nn = a.shape, w.shape[1]
+            tc = w.dtype == torch.bfloat16 and kwargs.get("round_a")
+            return bound(nbytes(a, w, b) + Mm * Nn * 4, 2 * Mm * Nn * Kk,
+                         PEAK_BF16 if tc else PEAK_F32)
+        if key == "attention":  # bf16 mode: q, k, v and p rounded to bf16, tensor cores
+            qkv = args[0]
+            Bq, Nq, D3 = qkv.shape
+            return bound(nbytes(qkv, kwargs.get("attn_bias")) + Bq * Nq * D3 // 3 * 4,
+                         4 * Bq * Nq * Nq * (D3 // 3),
+                         PEAK_BF16 if kwargs.get("round_in") else PEAK_F32)
+        if key == "sampler_prologue":
+            x, wsin, wcos, wx, zf, tc = args[:6]
+            rows, Dd = x.shape[0], wsin.shape[1]
+            return bound(nbytes(x, wsin, wcos, wx, zf) + 2 * tc.shape[1] * 4 + rows * Dd * 4,
+                         2 * rows * (2 * wsin.shape[0] + wx.shape[0]) * Dd)
+        h, w0, b0, gh, bh, w1, b1 = args[:7]  # sampler_epilogue
+        rows, Dd = h.shape
+        return bound(nbytes(h, w0, b0, gh, bh, w1, b1) + 3 * rows * w1.shape[1] * 4,
+                     2 * rows * (Dd * w0.shape[1] + w0.shape[1] * w1.shape[1]))
+
+    def case_library(key, args, kwargs):
+        if key == "layernorm":
+            x, g, b, eps = args[:4]
+            return lambda: F.layer_norm(x, (x.shape[1],), g, b, eps)
+        if key == "attention":
+            qkv, H = args[:2]
+            Bq, Nq, D3 = qkv.shape
+            q, k, v = qkv.view(Bq, Nq, 3, H, D3 // 3 // H).permute(2, 0, 3, 1, 4)
+            return lambda: F.scaled_dot_product_attention(q, k, v,
+                                                          attn_mask=kwargs.get("attn_bias"))
+        return None  # a fused epilogue or a sampler fold-in: no one-call equivalent
+
+    import torch.nn.functional as F
+
     kernels_json = []
     with torch.no_grad():
         for key in NO_GGS_PATH:
@@ -912,29 +1443,115 @@ def main(argv) -> int:
             args_k = [a.clone() if torch.is_tensor(a) else a for a in args]
             ms = _time_ms(torch, lambda: kernel(*args_k, **kwargs), inner=10)
             plain_ms = _time_ms(torch, lambda: plain(*args_k, **kwargs), inner=10)
-            print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            lib = case_library(key, args_k, kwargs)
+            library_ms = None if lib is None else _time_ms(torch, lib, inner=10)
+            bound_ms, bound_by = case_bound(key, args_k, kwargs)
+            print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+                  f"{library_ms}, bound {bound_ms:.4f} ms ({bound_by})")
             kernels_json.append({
                 "name": key, "route": "cuda", "source": SOURCES[key],
                 "replaces": TPU_KERNELS[key], "launches": launches[key],
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "case": name,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms, "case": name,
             })
+    Ks1 = Kp + 1
+    sg_bounds = {
+        "superglue_coupling": bound(nbytes(m_sg, sg_f0, sg_f1) + Cp * Ks1 * (Ks1 + 2) * 4,
+                                    2 * Cp * Kp * Kp * Dp),
+        "superglue_sinkhorn": bound(nbytes(*cp_p) + Cp * Ks1 * Ks1 * 4, 50 * 2 * 3 * Cp * Ks1**2),
+        "superglue_matches": bound(nbytes(Zp, sg_f0, sg_f1) + 2 * Cp * Kp * 4, 2 * Cp * Kp**2),
+    }
     for key in SUPERGLUE_KERNELS:
+        bound_ms, bound_by = sg_bounds[key]
         kernels_json.append({
             "name": key, "route": "cuda", "source": SOURCES[key],
             "replaces": TPU_KERNELS[key], "launches": match_launches[key],
             "max_abs_err": sg_err[key], "ms": sg_ms[key][0], "plain_ms": sg_ms[key][1],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "case": f"one matcher chunk, {sg_tag} (launches: match path)",
         })
+    d = MATCH_DENSITIES[0]
+    gm = grouped[d]
+    ggs_bound = bound(5 * nbytes(gm.valid) + 2 * nbytes(x_ggs),
+                      200 * gm.valid.sum().item() * GGS_FLOP_PER_MATCH)
     for key in ("ggs_phase", "ggs_phase_chunked"):
-        d = MATCH_DENSITIES[0]
         ms, plain_ms = ggs_ms[(key, d)]
         kernels_json.append({
             "name": key, "route": "cuda", "source": SOURCES[key],
             "replaces": TPU_KERNELS[key], "launches": ggs_launches[key],
             "max_abs_err": max(ggs_cases[(key, dd)] for dd in MATCH_DENSITIES),
-            "ms": ms, "plain_ms": plain_ms,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": ggs_bound[0],
+            "bound_by": ggs_bound[1], "library_ms": None,
             "case": f"200-iteration phase, 20 frames, {d}/pair (launches: GGS path)",
         })
+    kernels_json += train_json
+    timings.update(train_timings)
+
+    # the ten TPU kernels' rows (PERF.md section 6): each row's case, its
+    # kernel route and plain route, its bound and a one-call yardstick
+    jk = {e["name"]: e for e in kernels_json}
+    L_v, D_v, F_v = 12, 384, 1536
+    w_vit = L_v * (4 * D_v * D_v + 2 * D_v * F_v)
+    P1, A1 = block_flops(B * N, N, D_v, F_v)
+    row1 = bound(2 * nbytes(tokens) + 2 * w_vit, 0)[0], L_v * (P1 + A1) / PEAK_BF16 * 1e3
+    L_d, D_d, F_d = 8, 512, 1024
+    w_den = L_d * (4 * D_d * D_d + 2 * D_d * F_d)
+    Pd, Ad = block_flops(n_frames, n_frames, D_d, F_d)
+    step_ops = L_d * (Pd + Ad) / PEAK_F32 * 1e3
+    T_steps = model.config.timesteps
+    sg_name, _, _, sg_args, sg_kwargs, _ = cases["attention_sg"]
+    qsg = sg_args[0]
+    Bs, Ns, D3s = qsg.shape
+    ksg = sg_kwargs["key_bias"]
+    qs, ks, vs = qsg.view(Bs, Ns, 3, 4, D3s // 12).permute(2, 0, 3, 1, 4)
+    with torch.no_grad():
+        sdpa_key_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=ksg[:, None, None, :]), reps=5)
+    K_eff = x_all.shape[1]
+    per_pair = 18 * (2 * 2 * K_eff * 256 * (768 + 256) + 2 * 2 * K_eff * 512 * 768
+                     + 4 * 2 * K_eff * K_eff * 256) + 2 * 2 * K_eff * 256 * 256 \
+        + 2 * K_eff * K_eff * 256 + 50 * 2 * 3 * (K_eff + 1) ** 2
+    vit_tok, enc_tok = VIT_IMAGES * N, ENC_ROWS * 16
+    tb_vit = trunk_bounds(vit_tok, N, D_v, F_v, L_v, 4, 4 * w_vit, PEAK_F32)
+    tb_enc = trunk_bounds(enc_tok, 16, D_d, F_d, L_d, 4, 4 * w_den, PEAK_F32)
+    tt = timings
+    rows = [
+        (1, "fused_vit_trunk 20x264, bf16", tt["vit trunk (fused_vit_trunk, bf16)"],
+         tt["vit trunk plain (fused_vit_trunk_plain, bf16)"], max(row1), None),
+        (2, "fused_sample_loop 100 steps, 20 rows", tt["sampler (fused_sample_loop, 100 steps)"],
+         tt["sampler plain (fused_sample_loop_plain)"],
+         max(T_steps * step_ops, bound(2 * w_den, 0)[0]), None),
+        (3, "fused_trunk one pass, 20 rows, bf16", tt["fused_trunk (8 layers, 20 rows, bf16)"],
+         tt["fused_trunk plain"], max(step_ops, bound(2 * w_den, 0)[0]), None),
+        (4, sg_name, tt[sg_name], tt[f"{sg_name} plain"],
+         bound(nbytes(qsg, ksg) + Bs * Ns * D3s // 3 * 4, 4 * Bs * Ns * Ns * (D3s // 3))[0],
+         sdpa_key_ms),
+        (5, jk["attention"]["case"], jk["attention"]["ms"], jk["attention"]["plain_ms"],
+         jk["attention"]["bound_ms"], jk["attention"]["library_ms"]),
+        (6, jk["ggs_phase"]["case"], jk["ggs_phase"]["ms"], jk["ggs_phase"]["plain_ms"],
+         jk["ggs_phase"]["bound_ms"], None),
+        (7, jk["ggs_phase_chunked"]["case"], jk["ggs_phase_chunked"]["ms"],
+         jk["ggs_phase_chunked"]["plain_ms"], jk["ggs_phase_chunked"]["bound_ms"], None),
+        (8, f"fused_match_pairs {len(pairs)} pairs, K {K_eff}",
+         tt[f"matcher (fused_match_pairs, {len(pairs)} pairs, K {K_eff})"],
+         tt["matcher plain (fused_match_pairs_plain)"], len(pairs) * per_pair / PEAK_F32 * 1e3,
+         None),
+        (9, f"_fwd_call vit {VIT_IMAGES}x{N}, f32", tt["vit trunk fwd"], tt["vit trunk fwd plain"],
+         tb_vit[0], None),
+        (9, f"_fwd_call encoder {ENC_ROWS}x16, dropout 0.1", tt["encoder trunk fwd"],
+         tt["encoder trunk fwd plain"], tb_enc[0], None),
+        (10, f"_bwd_call vit {VIT_IMAGES}x{N}, f32 (fwd+bwd less fwd)",
+         tt["vit trunk fwd+bwd"] - tt["vit trunk fwd"],
+         tt["vit trunk fwd+bwd plain"] - tt["vit trunk fwd plain"], tb_vit[1], None),
+        (10, f"_bwd_call encoder {ENC_ROWS}x16 (fwd+bwd less fwd)",
+         tt["encoder trunk fwd+bwd"] - tt["encoder trunk fwd"],
+         tt["encoder trunk fwd+bwd plain"] - tt["encoder trunk fwd plain"], tb_enc[1], None),
+    ]
+    for r in rows:
+        print(f"  TPU kernel {r[0]}: {r[1]}: kernel {r[2]:.3f} ms, plain {r[3]:.3f} ms, "
+              f"bound {r[4]:.4f} ms, library {r[5]}")
+    rows_json = [dict(zip(("row", "case", "ms", "plain_ms", "bound_ms", "library_ms"), r))
+                 for r in rows]
 
     if "--profile" in argv:
         from torch.autograd import DeviceType
@@ -965,6 +1582,7 @@ def main(argv) -> int:
     if report.failures:
         print("FAILED:\n  " + "\n  ".join(report.failures), file=sys.stderr)
         return 1
+    print(json.dumps({"rows": rows_json}))
     print(json.dumps({"timings_ms": timings, "card": smi,
                       "launches_per_sampler_step": 2 + 7 * model.config.num_encoder_layers,
                       "ggs_launches_per_inference": 50}))

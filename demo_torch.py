@@ -3,6 +3,7 @@
 Same CLI as demo.py (a config name, then dotted overrides):
 
     python demo_torch.py image_folder=samples/apple GGS.enable=False ckpt=random
+    python demo_torch.py image_folder=samples/apple GGS.enable=False ckpt=random device=cpu
     python demo_torch.py image_folder=samples/apple GGS.matcher_ckpt_dir=weights/ ckpt=random
     python demo_torch.py image_folder=samples/apple GGS.matches_file=m.npz ckpt=random
 
@@ -21,7 +22,7 @@ present -> absolute rotation error -> ``<out_dir>/predictions.npz``.
 
 ``ckpt`` is a reference ``.pth`` (strict load); anything else that is not an
 existing ``.pth`` gives random weights seeded by ``seed``. It runs on the
-card when one is present, else on the CPU (the kernels' plain versions).
+card; ``device=cpu`` runs it on the CPU (the kernels' plain versions).
 With GGS on but neither a matches file nor matcher weights, the demo says
 so and samples without GGS, as demo.py does. The frustum plot and the HTML
 export are not ported yet.
@@ -70,7 +71,7 @@ def run(cfg, device: str) -> dict:
     """The demo's flow for a loaded config; returns what it saves."""
     import torch
 
-    from posediffusion_tpu.data.images import load_and_preprocess_images
+    from posediffusion_tpu_torch.data.images import load_and_preprocess_images
     from posediffusion_tpu_torch.geometry.align import align_cameras
     from posediffusion_tpu_torch.geometry.cameras import PerspectiveCameras
     from posediffusion_tpu_torch.geometry.metrics import compute_are
@@ -153,14 +154,12 @@ def run(cfg, device: str) -> dict:
 
 
 def main():
-    import torch
-
-    from posediffusion_tpu.utils.config import cli_config
+    from posediffusion_tpu_torch.utils.config import cli_config, device_from_cfg
 
     cfg = cli_config("default")
     print("Model Config:")
     print(cfg.to_yaml())
-    return run(cfg, "cuda" if torch.cuda.is_available() else "cpu")
+    return run(cfg, device_from_cfg(cfg))
 
 
 if __name__ == "__main__":

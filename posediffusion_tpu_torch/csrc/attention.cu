@@ -8,13 +8,19 @@
 //   posediffusion_tpu/ops/denoiser_kernel.py   encoder_layer_math (4 heads of
 //                                              Dh 128, (N,) key bias from the
 //                                              frame mask)
+//   posediffusion_tpu/ops/vit_train_kernel.py  _attn_residual (:163) in
+//                                              _fwd_call, with dropout of the
+//                                              normalised p (site attn,
+//                                              :201-202) before its bf16 cast
 //
 // qkv is (B, N, 3D) float32 with q | k | v along the last axis and head h at
 // columns h*Dh of each; out is (B, N, D) float32. The softmax is float32:
 // scores = q.k * scale + bias, p = exp(s - max) / sum. Masked entries carry
 // the bias -1e30 (not -inf), as in the JAX kernels, so no row gives NaN.
 // round_bf16 rounds q, k, v and p to bfloat16 before their products, which
-// is the cast(...) of the ViT kernel's bf16-activation mode.
+// is the cast(...) of the ViT kernel's bf16-activation mode. With dropout,
+// p is multiplied by its mask (common.cuh, element ((b H + h) N + i) N + j)
+// before that rounding, as the TPU train kernel does.
 //
 // Bound: shared memory, then FMA issue. At 336px the ViT row holds 593
 // tokens, and one head's whole K and V in float32 (the first design) would
@@ -50,7 +56,7 @@ __device__ __forceinline__ float attn_bias_at(const float* bias, int kind,
 __global__ void __launch_bounds__(kThreads)
 attention_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
                  int bias_kind, float* __restrict__ out, int N, int H, int Dh,
-                 float scale, int round_in) {
+                 float scale, int round_in, DropArgs drop) {
   extern __shared__ float smem[];
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int q0 = blockIdx.y * kQueryBlock;
@@ -144,6 +150,9 @@ attention_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
 #pragma unroll
       for (int r = 0; r < kRowsPerWarp; ++r) {
         float p = live ? expf(s[r] - m[r]) / l[r] : 0.f;
+        if (live && drop.thr > 0)
+          p *= drop_mul(drop, (unsigned int)((((size_t)blockIdx.x) * N + row0 + r) * N
+                                             + j0 + jj));
         pw[r * kKeyTile + jj] = round_in ? round_bf16(p) : p;
       }
     }
@@ -188,7 +197,8 @@ static size_t attention_smem_bytes(int Dh) {
 // bias_kind: 0 none, 1 (N, N) shared by every sequence, 2 (B, N) per key.
 PD_API int pd_attention(const void* qkv, const void* bias, int bias_kind,
                         void* out, int B, int N, int H, int Dh, float scale,
-                        int round_in, void* stream) {
+                        int round_in, unsigned int drop_key, int drop_thr,
+                        float drop_scale, void* stream) {
   if (Dh < 1 || Dh > kMaxDh || N < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = attention_smem_bytes(Dh);
   cudaError_t err = cudaFuncSetAttribute(
@@ -198,6 +208,6 @@ PD_API int pd_attention(const void* qkv, const void* bias, int bias_kind,
   const dim3 grid(B * H, (N + kQueryBlock - 1) / kQueryBlock);
   attention_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)qkv, (const float*)bias, bias_kind, (float*)out, N, H, Dh,
-      scale, round_in);
+      scale, round_in, DropArgs{drop_key, drop_thr, drop_scale});
   return (int)cudaGetLastError();
 }

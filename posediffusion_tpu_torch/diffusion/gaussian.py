@@ -1,5 +1,8 @@
-"""DDPM reverse process as plain functions, as in
+"""DDPM forward and reverse processes as plain functions, as in
 ``posediffusion_tpu.diffusion.gaussian``.
+
+``p_losses`` is the training loss: noise x_0 to x_t (``q_sample``), predict
+the noise, and return the unreduced L1 error with x_0's prediction.
 
 ``p_sample_loop`` is the plain ancestral sampler over any denoiser
 ``model_fn(x, t) -> eps``. It is the reference that the fused sampler
@@ -12,7 +15,7 @@ drawn from a ``torch.Generator``.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -20,6 +23,34 @@ from posediffusion_tpu_torch.diffusion.schedule import DiffusionSchedule, extrac
 
 ModelFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 CondFn = Callable[[torch.Tensor, int], torch.Tensor]
+
+
+class DiffusionLoss(NamedTuple):
+    loss: torch.Tensor  # unreduced, the shape of x
+    noise: torch.Tensor
+    x_0_pred: torch.Tensor
+    x_t: torch.Tensor
+    t: torch.Tensor
+
+
+def q_sample(schedule: DiffusionSchedule, x_start, t, noise):
+    """Forward diffusion: x_t = sqrt(acp_t) x_0 + sqrt(1 - acp_t) eps."""
+    nd = x_start.ndim
+    return (
+        extract(schedule.sqrt_alphas_cumprod, t, nd) * x_start
+        + extract(schedule.sqrt_one_minus_alphas_cumprod, t, nd) * noise
+    )
+
+
+def p_losses(schedule: DiffusionSchedule, model_fn: ModelFn, x_start, t,
+             noise) -> DiffusionLoss:
+    """The training loss of the pred_noise objective with an L1 loss
+    (the reference config's), unreduced."""
+    x = q_sample(schedule, x_start, t, noise)
+    model_out = model_fn(x, t)
+    x_0_pred = predict_start_from_noise(schedule, x, t, model_out)
+    return DiffusionLoss(loss=(model_out - noise).abs(), noise=noise,
+                         x_0_pred=x_0_pred, x_t=x, t=t)
 
 
 def predict_start_from_noise(schedule: DiffusionSchedule, x_t, t, noise):

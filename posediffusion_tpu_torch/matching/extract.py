@@ -63,7 +63,7 @@ def load_matcher_weights(weights_dir: str, device="cpu") -> Tuple[SuperPointNet,
 def load_grays(image_paths: Sequence[str]):
     """Grayscale [0, 1] frames padded to a multiple of 8 (the 65-cell head
     tiles exactly), and their padded (h, w)."""
-    from posediffusion_tpu.data.images import load_image_chw
+    from posediffusion_tpu_torch.data.images import load_image_chw
 
     grays, sizes = [], []
     for path in image_paths:
@@ -194,10 +194,11 @@ def extract_match(
 
     ``max_keypoints`` defaults to 4096 per image (hloc's ``superpoint_inloc``
     configuration, which the reference uses). ``weights`` are modules (they
-    are moved to ``device``); ``device`` defaults to a card when one is
-    present, where SuperPoint runs on cuDNN and SuperGlue on the kernels."""
+    are moved to ``device``); ``device`` defaults to the card, where
+    SuperPoint runs on cuDNN and SuperGlue on the kernels (``"cpu"`` runs
+    the plain routes)."""
     if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+        device = "cuda"
     device = torch.device(device)
     if weights is not None:
         superpoint, superglue = (w.eval().to(device) for w in weights)
@@ -207,7 +208,7 @@ def extract_match(
         raise ValueError("no matcher weights (set GGS.matcher_ckpt_dir)")
 
     if image_paths is None:
-        from posediffusion_tpu.data.images import IMAGE_EXTENSIONS
+        from posediffusion_tpu_torch.data.images import IMAGE_EXTENSIONS
 
         image_paths = sorted(
             os.path.join(image_folder_path, f) for f in os.listdir(image_folder_path)

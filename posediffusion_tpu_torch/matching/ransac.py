@@ -1,9 +1,9 @@
 """ctypes binding of the native two-view RANSAC verifier, as
 ``posediffusion_tpu.matching.ransac``.
 
-The C++ source is the JAX package's ``posediffusion_tpu/matching/csrc/
-ransac.cpp``, read where it lies and never copied or written to. It is
-compiled with ``g++`` at first use into ``build/ransac/`` (keyed by a hash
+The C++ source is the port's own copy of the JAX package's verifier,
+``posediffusion_tpu_torch/matching/csrc/ransac.cpp`` (a test holds the two
+files equal). It is compiled with ``g++`` at first use into ``build/ransac/`` (keyed by a hash
 of the source and the flags, like the CUDA kernels in ``build/kernels/``).
 The JAX binding is not imported: ``posediffusion_tpu.matching`` imports JAX
 and Flax in its ``__init__``.
@@ -26,7 +26,7 @@ from typing import Tuple
 import numpy as np
 
 _ROOT = Path(__file__).resolve().parents[2]
-SOURCE = _ROOT / "posediffusion_tpu" / "matching" / "csrc" / "ransac.cpp"
+SOURCE = Path(__file__).resolve().parent / "csrc" / "ransac.cpp"
 _BUILD_DIR = _ROOT / "build" / "ransac"
 _FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 

@@ -11,6 +11,9 @@ An optional (B, N) frame mask removes padded frames from the attention keys.
 ``denoiser_apply_fused`` is the inference forward of the GGS-conditioned
 steps: embeddings, first projection and head in plain PyTorch, the trunk
 through ``ops.denoiser_kernel.fused_trunk`` (the kernels on a card).
+``denoiser_train_apply`` is the training forward, differentiable, with the
+trunk in ``ops.vit_train_kernel.fused_encoder_trunk_train`` (dropout at the
+four torch sites, the kernels on a card).
 """
 
 from __future__ import annotations
@@ -28,6 +31,10 @@ from posediffusion_tpu_torch.models.layers import (
     key_bias_from_mask,
 )
 from posediffusion_tpu_torch.ops.denoiser_kernel import fused_trunk, stack_trunk_params
+from posediffusion_tpu_torch.ops.vit_train_kernel import (
+    fused_encoder_trunk_train,
+    stack_encoder_trunk_params,
+)
 
 
 def pivot_onehot(z: torch.Tensor) -> torch.Tensor:
@@ -63,6 +70,14 @@ class Denoiser(nn.Module):
         )
         self._last = MLP(d_model, (mlp_hidden_dim, target_dim))
 
+    def embed(self, x: torch.Tensor, t: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+        """Pose, time and image features -> the trunk's (B, N, d_model) input."""
+        B, N, _ = x.shape
+        t_emb = self.time_embed(t)[:, None, :].expand(B, N, -1)
+        if self.pivot_cam_onehot:
+            z = pivot_onehot(z)
+        return self._first(torch.cat([self.pose_embed(x), t_emb, z], dim=-1))
+
     def forward(
         self,
         x: torch.Tensor,  # (B, N, target_dim) noisy pose encodings
@@ -70,13 +85,7 @@ class Denoiser(nn.Module):
         z: torch.Tensor,  # (B, N, z_dim) image features
         mask: Optional[torch.Tensor] = None,  # (B, N) frame validity
     ) -> torch.Tensor:
-        B, N, _ = x.shape
-        t_emb = self.time_embed(t)[:, None, :].expand(B, N, -1)
-        if self.pivot_cam_onehot:
-            z = pivot_onehot(z)
-        feed = torch.cat([self.pose_embed(x), t_emb, z], dim=-1)
-        h = self._trunk(self._first(feed), mask=mask)
-        return self._last(h)
+        return self._last(self._trunk(self.embed(x, t, z), mask=mask))
 
 
 @torch.no_grad()
@@ -99,10 +108,32 @@ def denoiser_apply_fused(
         raise ValueError(f"the fused denoiser expects B == 1, got {B}")
     if stacks is None:
         stacks = stack_trunk_params(denoiser._trunk, weight_dtype)
-    t_emb = denoiser.time_embed(t)[:, None, :].expand(B, N, -1)
-    if denoiser.pivot_cam_onehot:
-        z = pivot_onehot(z)
-    h = denoiser._first(torch.cat([denoiser.pose_embed(x), t_emb, z], dim=-1))
+    h = denoiser.embed(x, t, z)
     bias = key_bias_from_mask(mask, B, N, x.device)[0]
     h = trunk(h[0], bias, stacks, nhead=denoiser._trunk.nhead)
     return denoiser._last(h[None])
+
+
+def denoiser_train_apply(
+    denoiser: Denoiser,
+    x: torch.Tensor,  # (B, N, target_dim) noisy pose encodings
+    t: torch.Tensor,  # (B,) timesteps
+    z: torch.Tensor,  # (B, N, z_dim) image features
+    mask: Optional[torch.Tensor] = None,  # (B, N) frame validity
+    seed: int = 0,
+    dropout: float = 0.0,
+    act_bf16: bool = False,
+    residual_bf16: bool = False,
+) -> torch.Tensor:
+    """``Denoiser.forward`` for training, as the JAX package's
+    ``denoiser_train_apply``: embeddings, first projection and head in plain
+    PyTorch (autograd), the trunk in ``fused_encoder_trunk_train`` with
+    dropout ``dropout`` drawn from ``seed``."""
+    B, N, _ = x.shape
+    h = fused_encoder_trunk_train(
+        denoiser.embed(x, t, z), stack_encoder_trunk_params(denoiser._trunk),
+        key_bias_from_mask(mask, B, N, x.device), seed=seed,
+        nhead=denoiser._trunk.nhead, act_bf16=act_bf16,
+        residual_bf16=residual_bf16, dropout=dropout,
+    )
+    return denoiser._last(h)

@@ -6,6 +6,8 @@ tokens at 224px), and average the per-scale CLS features.
 ``extract_features_fused`` is the inference path: the patch embedding,
 position interpolation, packing, CLS LayerNorm and average are plain
 PyTorch, and the 12-block trunk is ``ops.vit_kernel.fused_vit_trunk``.
+``extract_features_train`` is the same flow for training, differentiable,
+with the trunk in ``ops.vit_train_kernel.fused_vit_trunk_train``.
 """
 
 from __future__ import annotations
@@ -18,6 +20,10 @@ from torch import nn
 from posediffusion_tpu_torch.models.vit import VisionTransformer
 from posediffusion_tpu_torch.ops.image import imagenet_normalize
 from posediffusion_tpu_torch.ops.vit_kernel import fused_vit_trunk, stack_vit_params
+from posediffusion_tpu_torch.ops.vit_train_kernel import (
+    fused_vit_trunk_train,
+    stack_vit_params_train,
+)
 
 
 class MultiScaleImageFeatureExtractor(nn.Module):
@@ -69,5 +75,23 @@ def extract_features_fused(
     x = fused_vit_trunk(
         x, stack_vit_params(vit, weight_dtype), nhead=vit.num_heads,
         act_bf16=act_bf16, attn_bias=bias,
+    )
+    return _multiscale_cls_head(vit, x, offsets)
+
+
+def extract_features_train(
+    vit: VisionTransformer,
+    images_nchw: torch.Tensor,  # (B, 3, H, W) in [0, 1]
+    scale_factors: Sequence[float] = (1.0, 1.0 / 2, 1.0 / 3),
+    act_bf16: bool = False,
+    residual_bf16: bool = False,
+) -> torch.Tensor:
+    """(B, 3, H, W) -> (B, D), differentiable: patch embedding, positions,
+    packing and the CLS head in plain PyTorch (autograd), the trunk in
+    ``fused_vit_trunk_train`` with float32 weight stacks."""
+    x, bias, offsets = _embed_pack_scales(vit, images_nchw, scale_factors)
+    x = fused_vit_trunk_train(
+        x, stack_vit_params_train(vit), bias, nhead=vit.num_heads,
+        act_bf16=act_bf16, residual_bf16=residual_bf16,
     )
     return _multiscale_cls_head(vit, x, offsets)

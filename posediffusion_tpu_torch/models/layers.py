@@ -6,7 +6,8 @@ its trunk from ``torch.nn.TransformerEncoderLayer``): packed
 ``linear1``, ``linear2``, ``norm1``, ``norm2``. The forwards are the
 eval-mode (dropout-free) math of the pre-norm layer in plain PyTorch; the
 sampler's hot path runs the same layers through the kernels instead
-(``ops/denoiser_kernel.py``).
+(``ops/denoiser_kernel.py``), and training runs them, with dropout at the
+four torch sites, through the train trunk (``ops/vit_train_kernel.py``).
 """
 
 from __future__ import annotations

@@ -12,6 +12,13 @@ without GGS), then, with a ``cond_fn``, the conditioned tail t < n_cond in
 ``p_sample_loop`` with ``denoiser_apply_fused`` (trunk on the kernels) and
 the GGS ``cond_fn`` (its phases on the GGS kernels). Which code runs each
 kernel is decided by the images' device alone.
+
+``loss`` is the training loss (``posediffusion_tpu``'s ``loss``, :260-385):
+``extract_features_train`` (TPU kernel 9/10's ViT flavour), ``batch_repeat``
+tiling of the features and poses, then ``p_losses`` over
+``denoiser_train_apply`` (the encoder flavour, with dropout), masked by the
+frame mask. Its draws (t, the noise, the dropout seed) are arguments, or
+come from a ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -27,11 +34,16 @@ from posediffusion_tpu_torch.diffusion.schedule import (
     DiffusionSchedule,
     make_schedule,
 )
-from posediffusion_tpu_torch.diffusion.gaussian import p_sample_loop
-from posediffusion_tpu_torch.models.denoiser import Denoiser, denoiser_apply_fused
+from posediffusion_tpu_torch.diffusion.gaussian import DiffusionLoss, p_losses, p_sample_loop
+from posediffusion_tpu_torch.models.denoiser import (
+    Denoiser,
+    denoiser_apply_fused,
+    denoiser_train_apply,
+)
 from posediffusion_tpu_torch.models.feature_extractor import (
     MultiScaleImageFeatureExtractor,
     extract_features_fused,
+    extract_features_train,
 )
 from posediffusion_tpu_torch.ops.denoiser_kernel import stack_trunk_params
 from posediffusion_tpu_torch.ops.sampler_kernel import fused_sample_loop
@@ -42,12 +54,14 @@ class PoseDiffusionConfig:
     pose_encoding_type: str = "absT_quaR_logFL"
     target_dim: int = 9
     modelname: str = "dino_vits16"
+    freeze_extractor: bool = False  # reference IMAGE_FEATURE_EXTRACTOR.freeze
     z_dim: int = 384
     # denoiser (reference: cfgs/default.yaml:26-34)
     d_model: int = 512
     nhead: int = 4
     num_encoder_layers: int = 8
     dim_feedforward: int = 1024
+    dropout: float = 0.1
     mlp_hidden_dim: int = 128
     pivot_cam_onehot: bool = True
     # backbone
@@ -60,6 +74,11 @@ class PoseDiffusionConfig:
     # defaults); "float32" with False is the f32 mode of the tight tests
     weight_dtype: str = "bfloat16"
     extractor_act_bf16: bool = True
+    # precision of the training trunks, as the JAX package's: "bfloat16"
+    # rounds the product operands and the residual stream to bf16 (weights
+    # and their gradients stay float32)
+    compute_dtype: str = "float32"  # the ViT
+    denoiser_dtype: str = "float32"  # the denoiser trunk
     # diffusion (reference: cfgs/default.yaml:37-40)
     timesteps: int = 100
     beta_1: float = 1e-4
@@ -125,6 +144,58 @@ class PoseDiffusionModel(nn.Module):
             weight_dtype=self.weight_dtype,
         )
         return z.reshape(B, N, -1)
+
+    def loss(
+        self,
+        images: torch.Tensor,  # (B, N, 3, H, W) in [0, 1]
+        pose_encodings: torch.Tensor,  # (B, N, 9) ground-truth encodings
+        batch_repeat: int = 0,
+        mask: Optional[torch.Tensor] = None,  # (B, N) frame validity
+        train: bool = True,
+        t: Optional[torch.Tensor] = None,
+        noise: Optional[torch.Tensor] = None,
+        drop_seed: Optional[int] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> DiffusionLoss:
+        """The diffusion training loss, unreduced over (B', N, 9), B' = B x
+        max(batch_repeat, 1). ``t`` (B',), ``noise`` (B', N, 9) and
+        ``drop_seed`` are the draws; any left out comes from ``generator``
+        (a CPU generator, so the draws do not depend on the device)."""
+        c = self.config
+        B, N = images.shape[:2]
+        flat = images.reshape(B * N, *images.shape[2:])
+        bf16 = c.compute_dtype == "bfloat16"
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not c.freeze_extractor):
+            z = extract_features_train(
+                self.image_feature_extractor._net, flat, c.scale_factors,
+                act_bf16=bf16, residual_bf16=bf16,
+            ).reshape(B, N, -1)
+        if batch_repeat > 0:
+            pose_encodings = pose_encodings.repeat(batch_repeat, 1, 1)
+            z = z.repeat(batch_repeat, 1, 1)
+            if mask is not None:
+                mask = mask.repeat(batch_repeat, 1)
+        Bp, dev = pose_encodings.shape[0], pose_encodings.device
+        if t is None:
+            t = torch.randint(0, c.timesteps, (Bp,), generator=generator)
+        if noise is None:
+            noise = torch.randn(pose_encodings.shape, generator=generator)
+        if drop_seed is None:
+            drop_seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
+        den_bf16 = c.denoiser_dtype == "bfloat16"
+
+        def model_fn(x, tt):
+            return denoiser_train_apply(
+                self.diffuser.model, x, tt, z, mask=mask, seed=drop_seed,
+                dropout=c.dropout if train else 0.0, act_bf16=den_bf16,
+                residual_bf16=den_bf16,
+            )
+
+        out = p_losses(self.schedule, model_fn, pose_encodings, t.to(dev),
+                       noise.to(dev))
+        if mask is not None:
+            out = out._replace(loss=out.loss * mask[..., None].to(out.loss.dtype))
+        return out
 
     @torch.no_grad()
     def sample(

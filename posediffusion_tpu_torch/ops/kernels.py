@@ -1,12 +1,15 @@
 """The hand-written Hopper kernels, their plain PyTorch versions, and routing.
 
-Ten kernels (sources in ``posediffusion_tpu_torch/csrc``) carry the TPU
-kernels of the inference paths with and without GGS, and of match extraction:
+Fourteen kernels (sources in ``posediffusion_tpu_torch/csrc``) carry the TPU
+kernels of the inference paths with and without GGS, of match extraction and
+of the training trunks:
 
 =======================  =====================================================
 ``layernorm``            row LayerNorm, eps and bf16 output rounding as arguments
-``linear``               ``epi(a @ W + b) [+ residual]``, W float32 or bfloat16
-``attention``            softmax attention over a packed (B, N, 3D) QKV buffer
+``linear``               ``drop(act(a @ W + b)) [+ residual]``, W float32 or
+                         bfloat16, read transposed for the dgrad product
+``attention``            softmax attention over a packed (B, N, 3D) QKV buffer,
+                         optional dropout of the normalised p
 ``sampler_prologue``     layer-0 fold-in of the fused sampler
 ``sampler_epilogue``     head MLP + posterior update of the fused sampler
 ``ggs_phase``            one whole GGS SGD phase, one block
@@ -14,7 +17,15 @@ kernels of the inference paths with and without GGS, and of match extraction:
 ``superglue_coupling``   SuperGlue pair scores into the dustbin coupling
 ``superglue_sinkhorn``   log-domain Sinkhorn over the coupling -> log assignment
 ``superglue_matches``    mutual-max matches above a threshold
+``attention_bwd``        dQKV of ``attention`` from its output cotangent
+``layernorm_bwd``        LayerNorm dx (+ residual cotangent), dg and db
+``linear_wgrad``         weight and bias gradients X^T dY, colsum(dY)
+``act_dropout_bwd``      dropout mask times GELU' or ReLU' of the cotangent
 =======================  =====================================================
+
+Dropout masks come from a counter hash of (seed, layer, site, element)
+(``drop_args``, ``dropout_mask``; csrc/common.cuh): the kernels and the
+plain versions draw the same bits.
 
 Routing is by the tensors' device and nothing else: on a CUDA tensor a
 wrapper launches its kernel (or raises), on a CPU tensor it calls the plain
@@ -31,8 +42,10 @@ Each wrapper counts its launches in ``<wrapper>.launches``.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -41,6 +54,7 @@ from pathlib import Path
 from types import SimpleNamespace
 from typing import Optional
 
+import numpy as np
 import torch
 
 from posediffusion_tpu_torch.ops.ggs_grad import GGSTables, loss_and_grad_core
@@ -56,11 +70,14 @@ NEG = -1e30  # additive bias of a masked key (never -inf: no row gives NaN)
 _ACT = {"none": 0, "relu": 1, "gelu": 2}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
+_L = ctypes.c_longlong
 _F = ctypes.c_float
+_DROP = [_U, _I, _F]  # a dropout site: key, threshold, scale (DropArgs)
 _SIGNATURES = {
     "pd_layernorm": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
-    "pd_linear": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "pd_attention": [_P, _P, _I, _P, _I, _I, _I, _I, _F, _I, _P],
+    "pd_linear": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, *_DROP, _I, _P],
+    "pd_attention": [_P, _P, _I, _P, _I, _I, _I, _I, _F, _I, *_DROP, _P],
     "pd_sampler_prologue": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "pd_sampler_epilogue": [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P,
@@ -70,6 +87,12 @@ _SIGNATURES = {
     "pd_sg_coupling": [_P] * 8 + [_I, _I, _I, _F, _P],
     "pd_sg_sinkhorn": [_P] * 7 + [_I, _I, _I, _P],
     "pd_sg_matches": [_P] * 6 + [_I, _I, _F, _P],
+    "pd_attention_bwd": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _F, _I, *_DROP, _P],
+    "pd_layernorm_bwd": [_P] * 7 + [_I, _I, _F, _I, _P],
+    "pd_layernorm_bwd_rows_per_block": [],
+    "pd_linear_wgrad": [_P] * 4 + [_I] * 5 + [_P],
+    "pd_act_dropout_bwd": [_P, _P, _P, _L, _I, *_DROP, _P],
+    "pd_sum_partials": [_P, _P, _I, _L, _P],
 }
 _MAX_SMEM = 232448  # bytes of shared memory one Hopper block may use
 
@@ -185,6 +208,84 @@ def round_bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
+# ------------------------------------------------------------------- dropout
+# The four dropout sites of a torch TransformerEncoderLayer, in the order of
+# posediffusion_tpu/ops/vit_train_kernel.py _DROP_SITES: the attention
+# probabilities, after the output projection, after the FF activation, after
+# the second FF product.
+DROP_SITES = ("attn", "m1", "mff", "m2")
+_M32 = 0xFFFFFFFF
+
+
+@dataclasses.dataclass(frozen=True)
+class Drop:
+    """One dropout site of one layer: the hash key, the 23-bit threshold and
+    the keep scale (csrc/common.cuh, DropArgs)."""
+
+    key: int
+    thr: int
+    scale: float
+
+    def args(self):
+        return (self.key, self.thr, self.scale)
+
+
+_NO_DROP = (0, 0, 1.0)
+
+
+def _fmix32(h: int) -> int:
+    """murmur3's 32-bit finaliser on a Python int (common.cuh, pd_fmix32)."""
+    h ^= h >> 16
+    h = (h * 0x85EBCA6B) & _M32
+    h ^= h >> 13
+    h = (h * 0xC2B2AE35) & _M32
+    return h ^ (h >> 16)
+
+
+def drop_args(seed: int, layer: int, site: str, rate: float) -> Optional[Drop]:
+    """The mask parameters of ``site`` in ``layer`` for dropout seed ``seed``;
+    None when ``rate`` is 0. An element is kept when the low 23 bits of its
+    hash are >= ceil(rate * 2^23), the TPU kernel's rule u >= rate on a
+    23-bit uniform (posediffusion_tpu/ops/vit_train_kernel.py:121-128)."""
+    if rate <= 0.0:
+        return None
+    if rate >= 1.0:
+        raise ValueError(f"dropout rate {rate} must be below 1")
+    stream = layer * len(DROP_SITES) + DROP_SITES.index(site) + 1
+    key = _fmix32(_fmix32(int(seed) & _M32) ^ ((stream * 0x9E3779B9) & _M32))
+    thr = math.ceil(float(np.float32(rate)) * (1 << 23))
+    return Drop(key, thr, float(np.float32(1.0 / (1.0 - rate))))
+
+
+def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
+    """(h * c) mod 2^32 for int64 tensors holding uint32 values, in two
+    16-bit halves of c so no product leaves int64."""
+    lo = h * (c & 0xFFFF)
+    hi = ((h * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _fmix32_t(h: torch.Tensor) -> torch.Tensor:
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def dropout_mask(drop: Optional[Drop], shape, device) -> Optional[torch.Tensor]:
+    """The float32 multipliers (0 or 1 / (1 - rate)) of a row-major tensor of
+    ``shape``, element i from the hash of i: the same integer steps as the
+    kernels, so masks agree bitwise. None when ``drop`` is None."""
+    if drop is None:
+        return None
+    n = math.prod(shape)
+    i = torch.arange(n, dtype=torch.int64, device=device)
+    bits = _fmix32_t(_fmix32_t(i) ^ drop.key) & 0x7FFFFF
+    keep = torch.tensor(drop.scale, dtype=torch.float32, device=device)
+    return torch.where(bits >= drop.thr, keep, 0.0).view(shape)
+
+
 # ----------------------------------------------------------------- layernorm
 def layernorm_plain(x, g, b, eps: float, round_out: bool = False):
     mean = x.mean(-1, keepdim=True)
@@ -223,54 +324,88 @@ def _activate(y, act: str):
 
 
 def linear_plain(a, w, bias, act: str = "none", residual=None,
-                 round_a: bool = False):
+                 round_a: bool = False, trans_w: bool = False,
+                 drop: Optional[Drop] = None, round_out: bool = False,
+                 want_pre: bool = False):
     if round_a:
         a = round_bf16(a)
-    y = _activate(a @ w.float() + bias, act)
-    return y if residual is None else y + residual
+    wf = w.float()
+    pre = a @ (wf.t() if trans_w else wf)
+    if bias is not None:
+        pre = pre + bias
+    y = _activate(pre, act)
+    if drop is not None:
+        y = y * dropout_mask(drop, y.shape, y.device)
+    if residual is not None:
+        if round_out:
+            y = round_bf16(y)
+        y = y + residual
+        if round_out:
+            y = round_bf16(y)
+    return (y, pre) if want_pre else y
 
 
-def linear(a, w, bias, act: str = "none", residual=None, round_a: bool = False):
-    """``act(a @ w + bias) [+ residual]``; a (M, K) float32, w (K, N) float32
-    or bfloat16, bias (N,), residual (M, N)."""
+def linear(a, w, bias, act: str = "none", residual=None, round_a: bool = False,
+           trans_w: bool = False, drop: Optional[Drop] = None,
+           round_out: bool = False, want_pre: bool = False):
+    """``drop(act(a @ W + bias)) [+ residual]``; a (M, K) float32, W (K, N),
+    or (N, K) with ``trans_w`` (the dgrad product dY W^T of a forward weight),
+    float32 or bfloat16; bias (N,) or None; residual (M, N). ``round_out``
+    rounds the branch and the sum to bf16 (a bf16 residual stream);
+    ``want_pre`` also returns the pre-activation ``a @ W + bias``."""
     if not _on_card(a, w, bias, residual):
-        return linear_plain(a, w, bias, act, residual, round_a)
+        return linear_plain(a, w, bias, act, residual, round_a, trans_w, drop,
+                            round_out, want_pre)
     M, K = a.shape
-    N = w.shape[1]
+    N = w.shape[0] if trans_w else w.shape[1]
     _check(a, "a", (M, K))
-    _check(w, "w", (K, N), (torch.float32, torch.bfloat16))
+    _check(w, "w", (N, K) if trans_w else (K, N), (torch.float32, torch.bfloat16))
     _check(bias, "bias", (N,))
     _check(residual, "residual", (M, N))
     y = torch.empty((M, N), device=a.device, dtype=torch.float32)
+    pre = torch.empty_like(y) if want_pre else None
     _launch(load_library().pd_linear, _ptr(a), _ptr(w),
-            int(w.dtype == torch.bfloat16), _ptr(bias), _ptr(residual),
-            _ptr(y), M, N, K, int(round_a), _ACT[act], _stream(a))
+            int(w.dtype == torch.bfloat16), int(trans_w), _ptr(bias),
+            _ptr(residual), _ptr(y), _ptr(pre), M, N, K, int(round_a),
+            _ACT[act], *(drop.args() if drop else _NO_DROP), int(round_out),
+            _stream(a))
     linear.launches += 1
-    return y
+    return (y, pre) if want_pre else y
 
 
 linear.launches = 0
 
 
 # ----------------------------------------------------------------- attention
-def attention_plain(qkv, nhead: int, attn_bias=None, key_bias=None,
-                    round_in: bool = False):
+def _heads(qkv, nhead: int, round_in: bool):
+    """(B, N, 3D) -> q, k, v (B, H, N, Dh), rounded to bf16 when asked."""
     B, N, D3 = qkv.shape
-    D = D3 // 3
-    Dh = D // nhead
-    q, k, v = qkv.view(B, N, 3, nhead, Dh).permute(2, 0, 3, 1, 4)
+    q, k, v = qkv.view(B, N, 3, nhead, D3 // 3 // nhead).permute(2, 0, 3, 1, 4)
     if round_in:
         q, k, v = round_bf16(q), round_bf16(k), round_bf16(v)
-    s = (q @ k.transpose(-1, -2)) * (1.0 / Dh**0.5)
+    return q, k, v
+
+
+def _softmax_probs(q, k, attn_bias, key_bias):
+    s = (q @ k.transpose(-1, -2)) * (1.0 / q.shape[-1]**0.5)
     if attn_bias is not None:
         s = s + attn_bias
     if key_bias is not None:
         s = s + key_bias[:, None, None, :]
     e = torch.exp(s - s.amax(-1, keepdim=True))
-    p = e / e.sum(-1, keepdim=True)
+    return e / e.sum(-1, keepdim=True)
+
+
+def attention_plain(qkv, nhead: int, attn_bias=None, key_bias=None,
+                    round_in: bool = False, drop: Optional[Drop] = None):
+    B, N, D3 = qkv.shape
+    q, k, v = _heads(qkv, nhead, round_in)
+    p = _softmax_probs(q, k, attn_bias, key_bias)
+    if drop is not None:
+        p = p * dropout_mask(drop, p.shape, p.device)
     if round_in:
         p = round_bf16(p)
-    return (p @ v).transpose(1, 2).reshape(B, N, D)
+    return (p @ v).transpose(1, 2).reshape(B, N, D3 // 3)
 
 
 # csrc/attention.cu: kMaxDh. Its shared memory (a 64-key K and V tile, 32
@@ -278,17 +413,10 @@ def attention_plain(qkv, nhead: int, attn_bias=None, key_bias=None,
 ATTENTION_MAX_DH = 128
 
 
-def attention(qkv, nhead: int, attn_bias=None, key_bias=None,
-              round_in: bool = False):
-    """Softmax attention of a packed (B, N, 3D) QKV buffer -> (B, N, D).
-
-    ``attn_bias`` (N, N) is shared by every sequence (the ViT's
-    block-diagonal scale packing); ``key_bias`` (B, N) masks keys (the
-    denoiser's frame mask). Use NEG, not -inf, for a masked entry."""
+def _attention_check(qkv, nhead, attn_bias, key_bias):
+    """Shapes of a packed QKV buffer and its bias -> (B, N, D, Dh, bias, kind)."""
     if attn_bias is not None and key_bias is not None:
         raise ValueError("pass attn_bias or key_bias, not both")
-    if not _on_card(qkv, attn_bias, key_bias):
-        return attention_plain(qkv, nhead, attn_bias, key_bias, round_in)
     B, N, D3 = qkv.shape
     D = D3 // 3
     Dh = D // nhead
@@ -302,10 +430,25 @@ def attention(qkv, nhead: int, attn_bias=None, key_bias=None,
     bias, kind = (attn_bias, 1) if attn_bias is not None else (
         (key_bias, 2) if key_bias is not None else (None, 0)
     )
+    return B, N, D, Dh, bias, kind
+
+
+def attention(qkv, nhead: int, attn_bias=None, key_bias=None,
+              round_in: bool = False, drop: Optional[Drop] = None):
+    """Softmax attention of a packed (B, N, 3D) QKV buffer -> (B, N, D).
+
+    ``attn_bias`` (N, N) is shared by every sequence (the ViT's
+    block-diagonal scale packing); ``key_bias`` (B, N) masks keys (the
+    denoiser's frame mask). Use NEG, not -inf, for a masked entry. ``drop``
+    multiplies the normalised p (element ((b H + h) N + i) N + j) by its
+    dropout mask before the bf16 rounding and p.V."""
+    if not _on_card(qkv, attn_bias, key_bias):
+        return attention_plain(qkv, nhead, attn_bias, key_bias, round_in, drop)
+    B, N, D, Dh, bias, kind = _attention_check(qkv, nhead, attn_bias, key_bias)
     out = torch.empty((B, N, D), device=qkv.device, dtype=torch.float32)
     _launch(load_library().pd_attention, _ptr(qkv), _ptr(bias), kind,
             _ptr(out), B, N, nhead, Dh, 1.0 / Dh**0.5, int(round_in),
-            _stream(qkv))
+            *(drop.args() if drop else _NO_DROP), _stream(qkv))
     attention.launches += 1
     return out
 
@@ -647,6 +790,176 @@ def superglue_matches(Z, mask0, mask1, threshold: float):
 superglue_matches.launches = 0
 
 
+# ----------------------------------------------- the train trunks' backward
+# (posediffusion_tpu/ops/vit_train_kernel.py _bwd_call). Weight gradients are
+# float32 partials over row ranges, summed in order by a second pass
+# (csrc/train.cu, pd_sum_partials), as the TPU kernel sums its per-chunk
+# partials (:937-940): deterministic, no atomics.
+def attention_bwd_plain(qkv, dout, nhead: int, attn_bias=None, key_bias=None,
+                        round_in: bool = False, drop: Optional[Drop] = None):
+    B, N, D3 = qkv.shape
+    D = D3 // 3
+    q, k, v = _heads(qkv, nhead, round_in)
+    do = dout.view(B, N, nhead, D // nhead).transpose(1, 2)
+    if round_in:
+        do = round_bf16(do)
+    p = _softmax_probs(q, k, attn_bias, key_bias)
+    mask = dropout_mask(drop, p.shape, p.device)
+    p_d = p if mask is None else p * mask
+    rnd = round_bf16 if round_in else (lambda t: t)
+    dv = rnd(p_d).transpose(-1, -2) @ do
+    dp = do @ v.transpose(-1, -2)
+    if mask is not None:
+        dp = dp * mask
+    ds = rnd(p * (dp - (dp * p).sum(-1, keepdim=True)) * (1.0 / q.shape[-1]**0.5))
+    dq, dk = ds @ k, ds.transpose(-1, -2) @ q
+    return torch.cat([t.transpose(1, 2).reshape(B, N, D) for t in (dq, dk, dv)], -1)
+
+
+def attention_bwd(qkv, dout, nhead: int, attn_bias=None, key_bias=None,
+                  round_in: bool = False, drop: Optional[Drop] = None):
+    """Cotangent of ``attention``'s packed input: (B, N, 3D) dq | dk | dv
+    from its output cotangent ``dout`` (B, N, D), with the forward's bias,
+    rounding and dropout (csrc/attention_bwd.cu)."""
+    if not _on_card(qkv, dout, attn_bias, key_bias):
+        return attention_bwd_plain(qkv, dout, nhead, attn_bias, key_bias,
+                                   round_in, drop)
+    B, N, D, Dh, bias, kind = _attention_check(qkv, nhead, attn_bias, key_bias)
+    _check(dout, "dout", (B, N, D))
+    dqkv = torch.empty_like(qkv)
+    stats = torch.empty((B * nhead * N * 3,), device=qkv.device, dtype=torch.float32)
+    _launch(load_library().pd_attention_bwd, _ptr(qkv), _ptr(dout), _ptr(bias),
+            kind, _ptr(dqkv), _ptr(stats), B, N, nhead, Dh, 1.0 / Dh**0.5,
+            int(round_in), *(drop.args() if drop else _NO_DROP), _stream(qkv))
+    attention_bwd.launches += 1
+    return dqkv
+
+
+attention_bwd.launches = 0
+
+
+def _sum_partials(part: torch.Tensor) -> torch.Tensor:
+    """(S, ...) float32 partials -> their sum over S, in order."""
+    out = torch.empty(part.shape[1:], device=part.device, dtype=torch.float32)
+    _launch(load_library().pd_sum_partials, _ptr(part), _ptr(out), part.shape[0],
+            out.numel(), _stream(part))
+    return out
+
+
+def layernorm_bwd_plain(x, g, dh, eps: float, residual=None,
+                        round_out: bool = False):
+    mean = x.mean(-1, keepdim=True)
+    rstd = torch.rsqrt(((x - mean) ** 2).mean(-1, keepdim=True) + eps)
+    xhat = (x - mean) * rstd
+    dxhat = dh * g
+    dx = rstd * (dxhat - dxhat.mean(-1, keepdim=True)
+                 - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    if residual is not None:
+        dx = dx + residual
+    if round_out:
+        dx = round_bf16(dx)
+    return dx, (dh * xhat).sum(0), dh.sum(0)
+
+
+def layernorm_bwd(x, g, dh, eps: float, residual=None, round_out: bool = False):
+    """Backward of ``layernorm`` on (rows, D) from its saved input x and the
+    output cotangent dh: (dx [+ residual], dg, db). x-hat and rstd are
+    recomputed from x, as ``_ln_bwd`` does from ``_ln_fwd``."""
+    if not _on_card(x, g, dh, residual):
+        return layernorm_bwd_plain(x, g, dh, eps, residual, round_out)
+    rows, D = x.shape
+    _check(x, "x", (rows, D))
+    _check(g, "g", (D,))
+    _check(dh, "dh", (rows, D))
+    _check(residual, "residual", (rows, D))
+    lib = load_library()
+    blocks = -(-rows // lib.pd_layernorm_bwd_rows_per_block())
+    dx = torch.empty_like(x)
+    part = torch.empty((2, blocks, D), device=x.device, dtype=torch.float32)
+    _launch(lib.pd_layernorm_bwd, _ptr(x), _ptr(g), _ptr(dh), _ptr(residual),
+            _ptr(dx), _ptr(part[0]), _ptr(part[1]), rows, D, eps, int(round_out),
+            _stream(x))
+    dgb = _sum_partials(part.transpose(0, 1).contiguous())
+    layernorm_bwd.launches += 1
+    return dx, dgb[0], dgb[1]
+
+
+layernorm_bwd.launches = 0
+
+
+def linear_wgrad_plain(x, dy, round_in: bool = False):
+    xr, dyr = (round_bf16(x), round_bf16(dy)) if round_in else (x, dy)
+    return xr.t() @ dyr, dy.sum(0)
+
+
+# Row split of the weight gradient: enough (split, tile) blocks to fill the
+# card several times, each split at least this many rows.
+_WGRAD_MIN_ROWS = 1024
+_WGRAD_TARGET_BLOCKS = 4 * 132
+
+
+def wgrad_rows(M: int, K: int, N: int) -> int:
+    """Rows per split of ``linear_wgrad`` for an (M, K) x (M, N) product."""
+    tiles = -(-K // 64) * -(-N // 64)
+    splits = max(1, min(-(-M // _WGRAD_MIN_ROWS), -(-_WGRAD_TARGET_BLOCKS // tiles)))
+    return -(-M // splits)
+
+
+def linear_wgrad(x, dy, round_in: bool = False):
+    """Weight and bias gradients of ``y = x @ W + b``: (x^T dy (K, N),
+    colsum(dy) (N,)), float32. ``round_in`` rounds both operands to bf16 and
+    runs the product on the tensor cores (the bf16 mode); the bias gradient
+    sums the unrounded dy, as the TPU kernel does."""
+    if not _on_card(x, dy):
+        return linear_wgrad_plain(x, dy, round_in)
+    M, K = x.shape
+    N = dy.shape[1]
+    _check(x, "x", (M, K))
+    _check(dy, "dy", (M, N))
+    rows = wgrad_rows(M, K, N)
+    S = -(-M // rows)
+    pw = torch.empty((S, K, N), device=x.device, dtype=torch.float32)
+    pb = torch.empty((S, N), device=x.device, dtype=torch.float32)
+    _launch(load_library().pd_linear_wgrad, _ptr(x), _ptr(dy), _ptr(pw), _ptr(pb),
+            M, K, N, rows, int(round_in), _stream(x))
+    linear_wgrad.launches += 1
+    return _sum_partials(pw), _sum_partials(pb)
+
+
+linear_wgrad.launches = 0
+
+
+def act_dropout_bwd_plain(dh, a, act: str, drop: Optional[Drop] = None):
+    out = dh if drop is None else dh * dropout_mask(drop, dh.shape, dh.device)
+    if act == "relu":
+        return torch.where(a > 0, out, 0.0)
+    if act == "gelu":  # d/da a Phi(a) = Phi(a) + a phi(a), exact erf
+        cdf = 0.5 * (1.0 + torch.erf(a * (2.0**-0.5)))
+        return out * (cdf + a * torch.exp(-0.5 * a * a) * (2.0 * math.pi) ** -0.5)
+    if act != "none":
+        raise ValueError(f"unknown activation {act!r}")
+    return out
+
+
+def act_dropout_bwd(dh, a, act: str, drop: Optional[Drop] = None):
+    """Cotangent of ``drop(act(a))``: dh times the mask times act'(a), one
+    elementwise pass. ``a`` (the pre-activation) may be None for act none."""
+    if not _on_card(dh, a):
+        return act_dropout_bwd_plain(dh, a, act, drop)
+    _check(dh, "dh", tuple(dh.shape))
+    if act != "none":
+        _check(a, "a", tuple(dh.shape))
+    out = torch.empty_like(dh)
+    _launch(load_library().pd_act_dropout_bwd, _ptr(dh),
+            _ptr(a if act != "none" else None), _ptr(out), dh.numel(), _ACT[act],
+            *(drop.args() if drop else _NO_DROP), _stream(dh))
+    act_dropout_bwd.launches += 1
+    return out
+
+
+act_dropout_bwd.launches = 0
+
+
 # ------------------------------------------------------------------- tables
 KERNELS = SimpleNamespace(
     layernorm=layernorm, linear=linear, attention=attention,
@@ -654,6 +967,8 @@ KERNELS = SimpleNamespace(
     ggs_phase=ggs_phase, ggs_phase_chunked=ggs_phase_chunked,
     superglue_coupling=superglue_coupling, superglue_sinkhorn=superglue_sinkhorn,
     superglue_matches=superglue_matches,
+    attention_bwd=attention_bwd, layernorm_bwd=layernorm_bwd,
+    linear_wgrad=linear_wgrad, act_dropout_bwd=act_dropout_bwd,
 )
 PLAIN = SimpleNamespace(
     layernorm=layernorm_plain, linear=linear_plain, attention=attention_plain,
@@ -663,6 +978,8 @@ PLAIN = SimpleNamespace(
     superglue_coupling=superglue_coupling_plain,
     superglue_sinkhorn=superglue_sinkhorn_plain,
     superglue_matches=superglue_matches_plain,
+    attention_bwd=attention_bwd_plain, layernorm_bwd=layernorm_bwd_plain,
+    linear_wgrad=linear_wgrad_plain, act_dropout_bwd=act_dropout_bwd_plain,
 )
 
 

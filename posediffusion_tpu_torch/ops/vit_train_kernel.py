@@ -1,0 +1,332 @@
+"""The training trunks on the kernels, forward and hand-derived backward, as
+``posediffusion_tpu.ops.vit_train_kernel`` (``fused_vit_trunk_train``,
+``fused_encoder_trunk_train``).
+
+The TPU kernels (``_fwd_call`` / ``_bwd_call``) keep a batch chunk's
+activations and cotangents in VMEM across all layers. A Hopper block cannot,
+so here each layer is a sequence of launches over the whole batch:
+
+* forward, per layer: LayerNorm, QKV product, attention (dropout of p),
+  output product + residual (dropout m1), LayerNorm, FF product +
+  activation (dropout mff), FF product + residual (dropout m2). It saves
+  each block's input x and the post-attention x1 (both at the full batch:
+  80 GB allows it), so the backward's MLP half needs no attention
+  re-forward.
+* backward, per layer in reverse, as ``_trunk_bwd_kernel`` (:595-720): the
+  MLP half from the saved x1 (LayerNorm and the first FF product
+  recomputed), then the attention half from the saved x (LayerNorm, QKV and
+  attention recomputed; not the output products, whose results the
+  backward does not read), each with the closed-form VJPs of ``_mlp_residual_bwd`` and
+  ``_attn_residual_bwd``: dgrad products dY W^T (``linear`` with
+  ``trans_w``), weight gradients X^T dY as float32 row-split partials
+  (``linear_wgrad``), the attention backward (``attention_bwd``), the
+  activation and dropout backward (``act_dropout_bwd``) and the LayerNorm
+  backward with the residual cotangent added (``layernorm_bwd``).
+
+Weights are float32 stacks (the optimizer's precision); ``act_bf16`` feeds
+the products bf16 copies of them and rounds their activation operands, as
+the TPU kernel's ``cast``; ``residual_bf16`` rounds the residual stream (the
+JAX package's bf16 ``residual_dtype``), which stays a float32 tensor here.
+Dropout masks are hashed from (seed, layer, site, element)
+(``kernels.drop_args``), so the backward draws the forward's masks.
+
+``ops`` is ``kernels.KERNELS`` (kernels on a card, plain versions on the
+CPU), or ``kernels.PLAIN`` (the same hand-derived math in plain PyTorch on
+any device) for trunks built inside ``plain_route()``. The DINOv2
+LayerScale flavour (``_LS_KEYS``) is not ported.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+
+import torch
+
+from posediffusion_tpu_torch.ops.kernels import KERNELS, PLAIN, drop_args
+
+WEIGHT_KEYS = ("g1", "b1", "wqkv", "bqkv", "wproj", "bproj",
+               "g2", "b2", "wfc1", "bfc1", "wfc2", "bfc2")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrunkSpec:
+    """What a train trunk computes, besides its tensors."""
+
+    nhead: int
+    eps: float
+    act: str  # "gelu" (ViT) or "relu" (denoiser)
+    act_bf16: bool = False
+    residual_bf16: bool = False
+    dropout: float = 0.0
+    seed: int = 0
+    plain: bool = False  # PLAIN ops on any device (``plain_route``)
+
+    def drop(self, layer: int, site: str):
+        return drop_args(self.seed, layer, site, self.dropout)
+
+    @property
+    def ops(self):
+        return PLAIN if self.plain else KERNELS
+
+
+# ---------------------------------------------------------------- stacking
+def stack_vit_params_train(vit) -> dict:
+    """``VisionTransformer`` blocks -> float32 per-array stacks (matrices
+    (in, out)), built differentiably so gradients reach the parameters."""
+    b = vit.blocks
+    return {
+        "g1": _stack_grad([x.norm1.weight for x in b]),
+        "b1": _stack_grad([x.norm1.bias for x in b]),
+        "wqkv": _stack_grad([x.attn.qkv.weight.t() for x in b]),
+        "bqkv": _stack_grad([x.attn.qkv.bias for x in b]),
+        "wproj": _stack_grad([x.attn.proj.weight.t() for x in b]),
+        "bproj": _stack_grad([x.attn.proj.bias for x in b]),
+        "g2": _stack_grad([x.norm2.weight for x in b]),
+        "b2": _stack_grad([x.norm2.bias for x in b]),
+        "wfc1": _stack_grad([x.mlp.fc1.weight.t() for x in b]),
+        "bfc1": _stack_grad([x.mlp.fc1.bias for x in b]),
+        "wfc2": _stack_grad([x.mlp.fc2.weight.t() for x in b]),
+        "bfc2": _stack_grad([x.mlp.fc2.bias for x in b]),
+    }
+
+
+def stack_encoder_trunk_params(trunk) -> dict:
+    """Denoiser ``TransformerEncoder`` layers -> the same float32 stacks
+    under the shared key names, built differentiably."""
+    L = trunk.layers
+    return {
+        "g1": _stack_grad([x.norm1.weight for x in L]),
+        "b1": _stack_grad([x.norm1.bias for x in L]),
+        "wqkv": _stack_grad([x.self_attn.in_proj_weight.t() for x in L]),
+        "bqkv": _stack_grad([x.self_attn.in_proj_bias for x in L]),
+        "wproj": _stack_grad([x.self_attn.out_proj.weight.t() for x in L]),
+        "bproj": _stack_grad([x.self_attn.out_proj.bias for x in L]),
+        "g2": _stack_grad([x.norm2.weight for x in L]),
+        "b2": _stack_grad([x.norm2.bias for x in L]),
+        "wfc1": _stack_grad([x.linear1.weight.t() for x in L]),
+        "bfc1": _stack_grad([x.linear1.bias for x in L]),
+        "wfc2": _stack_grad([x.linear2.weight.t() for x in L]),
+        "bfc2": _stack_grad([x.linear2.bias for x in L]),
+    }
+
+
+def _stack_grad(tensors):
+    return torch.stack(tensors).to(torch.float32).contiguous()
+
+
+def _layer(weights, l: int, act_bf16: bool):
+    """Layer ``l``'s weights as a dict; matrices as the products take them
+    (bf16 copies in the bf16 mode)."""
+    w = {k: t[l] for k, t in zip(WEIGHT_KEYS, weights)}
+    if act_bf16:
+        for k in ("wqkv", "wproj", "wfc1", "wfc2"):
+            w[k] = w[k].to(torch.bfloat16)
+    return w
+
+
+# ------------------------------------------------------------ forward math
+def _attn_branch(ops, s: TrunkSpec, l, w, x, B, N, attn_bias, key_bias):
+    """x -> (h, qkv, a): LayerNorm, QKV and attention, what the output
+    projection reads (the backward recomputes these and no more)."""
+    M = x.shape[0]
+    h = ops.layernorm(x, w["g1"], w["b1"], s.eps)
+    qkv = ops.linear(h, w["wqkv"], w["bqkv"], round_a=s.act_bf16)
+    a = ops.attention(qkv.view(B, N, -1), s.nhead, attn_bias=attn_bias,
+                      key_bias=key_bias, round_in=s.act_bf16,
+                      drop=s.drop(l, "attn")).view(M, -1)
+    return h, qkv, a
+
+
+def _attn_half(ops, s: TrunkSpec, l, w, x, B, N, attn_bias, key_bias):
+    """x -> x1: the attention branch, then the projection + x."""
+    a = _attn_branch(ops, s, l, w, x, B, N, attn_bias, key_bias)[2]
+    return ops.linear(a, w["wproj"], w["bproj"], residual=x, round_a=s.act_bf16,
+                      drop=s.drop(l, "m1"), round_out=s.residual_bf16)
+
+
+def _mlp_branch(ops, s: TrunkSpec, l, w, x1, want_pre=False):
+    """x1 -> (h, hidden) (with ``want_pre``, (h, hidden, pre-activation)):
+    LayerNorm and the first FF product with its activation and dropout."""
+    h = ops.layernorm(x1, w["g2"], w["b2"], s.eps)
+    hm = ops.linear(h, w["wfc1"], w["bfc1"], act=s.act, round_a=s.act_bf16,
+                    drop=s.drop(l, "mff"), want_pre=want_pre)
+    return (h, *hm) if want_pre else (h, hm)
+
+
+def _mlp_half(ops, s: TrunkSpec, l, w, x1):
+    """x1 -> y: the MLP branch, then the second FF product + x1."""
+    hm = _mlp_branch(ops, s, l, w, x1)[1]
+    return ops.linear(hm, w["wfc2"], w["bfc2"], residual=x1, round_a=s.act_bf16,
+                      drop=s.drop(l, "m2"), round_out=s.residual_bf16)
+
+
+def trunk_forward(s: TrunkSpec, x, weights, attn_bias=None, key_bias=None,
+                  save: bool = False):
+    """All layers on x (B, N, D) -> (y (B, N, D), [(x, x1) of each layer,
+    (B*N, D)] when ``save``).
+
+    Under autograd with ``PLAIN`` ops this is also a differentiable reference
+    of the trunk (``torch.autograd`` of the plain forward)."""
+    B, N, D = x.shape
+    ops = s.ops
+    h = x.reshape(B * N, D)
+    L = weights[0].shape[0]
+    saved = []
+    for l in range(L):
+        w = _layer(weights, l, s.act_bf16)
+        x1 = _attn_half(ops, s, l, w, h, B, N, attn_bias, key_bias)
+        if save:
+            saved.append((h, x1))
+        h = _mlp_half(ops, s, l, w, x1)
+    return h.view(B, N, D), saved
+
+
+# ----------------------------------------------------------- backward math
+def _drop_bwd(ops, dy, drop):
+    return dy if drop is None else ops.act_dropout_bwd(dy, None, "none", drop)
+
+
+def _mlp_half_bwd(ops, s: TrunkSpec, l, w, x1, dy, grads):
+    """``_mlp_residual_bwd``: cotangent dy of y -> cotangent of x1."""
+    h, hm, a1 = _mlp_branch(ops, s, l, w, x1, want_pre=True)
+    do = _drop_bwd(ops, dy, s.drop(l, "m2"))
+    grads["wfc2"][l], grads["bfc2"][l] = ops.linear_wgrad(hm, do, s.act_bf16)
+    dhm = ops.linear(do, w["wfc2"], None, trans_w=True, round_a=s.act_bf16)
+    da1 = ops.act_dropout_bwd(dhm, a1, s.act, s.drop(l, "mff"))
+    grads["wfc1"][l], grads["bfc1"][l] = ops.linear_wgrad(h, da1, s.act_bf16)
+    dh = ops.linear(da1, w["wfc1"], None, trans_w=True, round_a=s.act_bf16)
+    dx1, grads["g2"][l], grads["b2"][l] = ops.layernorm_bwd(
+        x1, w["g2"], dh, s.eps, residual=dy, round_out=s.residual_bf16)
+    return dx1
+
+
+def _attn_half_bwd(ops, s: TrunkSpec, l, w, x, dx1, B, N, attn_bias, key_bias,
+                   grads):
+    """``_attn_residual_bwd``: cotangent dx1 of x1 -> cotangent of x."""
+    h, qkv, a = _attn_branch(ops, s, l, w, x, B, N, attn_bias, key_bias)
+    do = _drop_bwd(ops, dx1, s.drop(l, "m1"))
+    grads["wproj"][l], grads["bproj"][l] = ops.linear_wgrad(a, do, s.act_bf16)
+    da = ops.linear(do, w["wproj"], None, trans_w=True, round_a=s.act_bf16)
+    dqkv = ops.attention_bwd(qkv.view(B, N, -1), da.view(B, N, -1), s.nhead,
+                             attn_bias=attn_bias, key_bias=key_bias,
+                             round_in=s.act_bf16, drop=s.drop(l, "attn"))
+    dqkv = dqkv.view(B * N, -1)
+    grads["wqkv"][l], grads["bqkv"][l] = ops.linear_wgrad(h, dqkv, s.act_bf16)
+    dh = ops.linear(dqkv, w["wqkv"], None, trans_w=True, round_a=s.act_bf16)
+    dx, grads["g1"][l], grads["b1"][l] = ops.layernorm_bwd(
+        x, w["g1"], dh, s.eps, residual=dx1, round_out=s.residual_bf16)
+    return dx
+
+
+def trunk_backward(s: TrunkSpec, saved, dy, weights, attn_bias=None,
+                   key_bias=None):
+    """Cotangent dy (B, N, D) of the trunk's output -> (dx, weight grads in
+    WEIGHT_KEYS order, float32 stacks)."""
+    B, N, D = dy.shape
+    ops = s.ops
+    grads = {k: torch.empty_like(t) for k, t in zip(WEIGHT_KEYS, weights)}
+    g = dy.reshape(B * N, D).to(torch.float32).contiguous()
+    if s.residual_bf16:  # the cotangent enters at the residual type
+        g = g.to(torch.bfloat16).to(torch.float32)
+    for l in reversed(range(len(saved))):
+        x, x1 = saved[l]
+        w = _layer(weights, l, s.act_bf16)
+        g = _mlp_half_bwd(ops, s, l, w, x1, g, grads)
+        g = _attn_half_bwd(ops, s, l, w, x, g, B, N, attn_bias, key_bias, grads)
+    return g.view(B, N, D), [grads[k] for k in WEIGHT_KEYS]
+
+
+class _TrainTrunk(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, attn_bias, key_bias, spec: TrunkSpec, *weights):
+        with torch.no_grad():
+            y, saved = trunk_forward(spec, x.contiguous(), weights, attn_bias,
+                                     key_bias, save=True)
+        ctx.spec = spec
+        ctx.saved = saved  # activations, not inputs: kept off save_for_backward
+        ctx.save_for_backward(attn_bias, key_bias, *weights)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        attn_bias, key_bias, *weights = ctx.saved_tensors
+        with torch.no_grad():
+            dx, dw = trunk_backward(ctx.spec, ctx.saved, dy, weights, attn_bias,
+                                    key_bias)
+        ctx.saved = None
+        return (dx, None, None, None, *dw)
+
+
+_plain_route = False
+
+
+@contextlib.contextmanager
+def plain_route():
+    """Trunks built inside this block take the plain PyTorch route on any
+    device, forward and backward (the route is fixed when the trunk runs
+    forward): a whole train step's kernel-against-plain comparison."""
+    global _plain_route
+    before, _plain_route = _plain_route, True
+    try:
+        yield
+    finally:
+        _plain_route = before
+
+
+def train_trunk(x, stacks, spec: TrunkSpec, attn_bias=None, key_bias=None):
+    """The differentiable trunk that ``spec`` describes, on x (B, N, D)
+    float32: on the kernels, or inside ``plain_route()`` in plain PyTorch."""
+    if _plain_route:
+        spec = dataclasses.replace(spec, plain=True)
+    if x.dtype != torch.float32:
+        raise TypeError(f"train trunk input must be float32, got {x.dtype}")
+    if spec.residual_bf16:
+        x = x.to(torch.bfloat16).to(torch.float32)  # the residual_dtype cast
+    weights = [stacks[k] for k in WEIGHT_KEYS]
+    return _TrainTrunk.apply(x, attn_bias, key_bias, spec, *weights)
+
+
+def fused_vit_trunk_train(
+    x: torch.Tensor,  # (B, N, D) float32 tokens
+    stacks: dict,  # stack_vit_params_train
+    attn_bias: torch.Tensor,  # (N, N) additive, pre-softmax, no gradient
+    nhead: int = 6,
+    act_bf16: bool = False,
+    residual_bf16: bool = False,
+) -> torch.Tensor:
+    """Differentiable ViT trunk (GELU, LayerNorm eps 1e-6, shared (N, N)
+    bias, no dropout): forward and backward on the kernels. Gradients reach
+    x and the stacks."""
+    spec = TrunkSpec(nhead=nhead, eps=1e-6, act="gelu", act_bf16=act_bf16,
+                     residual_bf16=residual_bf16)
+    return train_trunk(x, stacks, spec, attn_bias=attn_bias.contiguous())
+
+
+def fused_encoder_trunk_train(
+    x: torch.Tensor,  # (B, N, D) float32 tokens
+    stacks: dict,  # stack_encoder_trunk_params
+    key_bias: torch.Tensor,  # (B, N) additive key bias (0 / NEG), no gradient
+    seed: int = 0,
+    nhead: int = 4,
+    act_bf16: bool = False,
+    residual_bf16: bool = False,
+    dropout: float = 0.0,
+) -> torch.Tensor:
+    """Differentiable denoiser trunk (torch TransformerEncoder semantics:
+    pre-norm, ReLU, LayerNorm eps 1e-5, dropout at the four sites)."""
+    spec = TrunkSpec(nhead=nhead, eps=1e-5, act="relu", act_bf16=act_bf16,
+                     residual_bf16=residual_bf16, dropout=dropout,
+                     seed=int(seed))
+    return train_trunk(x, stacks, spec, key_bias=key_bias.contiguous())
+
+
+def trunk_reference(x, stacks, spec: TrunkSpec, attn_bias=None,
+                    key_bias=None) -> torch.Tensor:
+    """The trunk's plain forward under autograd (no custom backward): the
+    yardstick of the hand-derived backward."""
+    spec = dataclasses.replace(spec, plain=True)
+    if spec.residual_bf16:
+        x = x.to(torch.bfloat16).to(torch.float32)
+    return trunk_forward(spec, x, [stacks[k] for k in WEIGHT_KEYS], attn_bias,
+                         key_bias)[0]

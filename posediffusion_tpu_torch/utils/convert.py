@@ -15,7 +15,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from posediffusion_tpu.utils.manifest import OPTIONAL_CONSTANT_KEYS
+from posediffusion_tpu_torch.utils.manifest import OPTIONAL_CONSTANT_KEYS
 
 VIT_PREFIX = "image_feature_extractor._net."
 DENOISER_PREFIX = "diffuser.model."

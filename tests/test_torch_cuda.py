@@ -10,12 +10,18 @@ multiples of 32 or 64) as well as the main path's widths (attention up to
 the 593 tokens of a 336px ViT row, and SuperGlue's 1,024-keypoint sets).
 Tolerances: float32 sums in another order, 1e-5 relative to max(1,
 |plain|); with bf16 rounding sites, one flipped bf16 rounding, 2^-7 of the
-same scale. The GGS phases (30 momentum iterations) are held to 5e-5
+same scale; a weight gradient on the tensor cores (bf16 operands) over tens
+of thousands of rows, 1e-4 (their float32 accumulation does not round each
+partial sum to nearest); the train trunks, 1e-4 (f32, two layers forward
+and backward) and 2^-5 (bf16 operands and residuals); dropout masks
+bitwise. The GGS phases (30 momentum iterations) are held to 5e-5
 absolute, the JAX GGS kernel test's bound; chunked against resident to
 1e-5. SuperGlue: chip_smoke.py's bounds (coupling 1e-4 relative, Z 1e-4,
 matches identical on the same Z, the whole matcher identical except at
 near-ties of Z).
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -28,6 +34,7 @@ pytestmark = pytest.mark.cuda
 
 TOL_F32 = 1e-5
 TOL_BF16 = 2.0**-7
+TOL_WGRAD_TC = 1e-4
 
 
 @pytest.fixture
@@ -396,3 +403,149 @@ def test_fused_match_pairs_kernel_vs_plain(cuda):
     assert gap < chip_smoke.NEAR_TIE, f"{count} mismatches, largest tie gap {gap:.2e}"
     agree = (mk == mp) & (mp >= 0)
     assert (sk[agree] - sp[agree]).abs().max().item() <= 1e-4
+
+
+# ------------------------------------------------ the train trunks' kernels
+# Tolerances as above; the dropout masks compare bitwise (the kernels and
+# the plain versions hash the same integers).
+@pytest.mark.parametrize("M,K_,N", [(77, 130, 70), (4224, 384, 1536)])
+@pytest.mark.parametrize("wdtype,round_a", [(torch.float32, False), (torch.bfloat16, True)])
+def test_linear_train_modes(cuda, M, K_, N, wdtype, round_a):
+    """dgrad (W read transposed, no bias), the dropout epilogue with the
+    bf16 residual stream, and the saved pre-activation."""
+    r = _gen(M)
+    a = _t(r.normal(size=(M, K_)), cuda)
+    wt = _t(r.normal(size=(N, K_)) / np.sqrt(K_), cuda, wdtype)
+    _close(K.linear(a, wt, None, trans_w=True, round_a=round_a),
+           K.linear_plain(a, wt, None, trans_w=True, round_a=round_a), TOL_F32)
+    w = _t(r.normal(size=(K_, N)) / np.sqrt(K_), cuda, wdtype)
+    b, res = _t(r.normal(size=N), cuda), _t(r.normal(size=(M, N)), cuda)
+    d = K.drop_args(5, 2, "m1", 0.1)
+    kw = dict(residual=res, round_a=round_a, drop=d, round_out=round_a)
+    _close(K.linear(a, w, b, **kw), K.linear_plain(a, w, b, **kw),
+           TOL_BF16 if round_a else TOL_F32)
+    y, pre = K.linear(a, w, b, act="gelu", round_a=round_a, drop=d, want_pre=True)
+    yp, prep = K.linear_plain(a, w, b, act="gelu", round_a=round_a, drop=d, want_pre=True)
+    _close(y, yp, TOL_F32)
+    _close(pre, prep, TOL_F32)
+
+
+def test_dropout_masks_bitwise(cuda):
+    """The masks the kernels apply equal ``dropout_mask`` bit for bit: the
+    linear epilogue (zero weight, unit bias), the elementwise backward (unit
+    cotangent) and the attention forward (one key: p = 1 before the mask)."""
+    M, N = 2880 * 16, 512
+    d = K.drop_args(123, 7, "m2", 0.1)
+    mask = K.dropout_mask(d, (M, N), cuda)
+    y = K.linear(torch.zeros(M, 8, device=cuda), torch.zeros(8, N, device=cuda),
+                 torch.ones(N, device=cuda), drop=d)
+    assert torch.equal(y, mask)
+    assert torch.equal(K.act_dropout_bwd(torch.ones(M, N, device=cuda), None, "none", d), mask)
+    da = K.drop_args(123, 7, "attn", 0.1)
+    B, H, Dh = 2880, 4, 128
+    qkv = torch.zeros(B, 1, 3 * H * Dh, device=cuda)
+    qkv[..., 2 * H * Dh:] = 1.0
+    out = K.attention(qkv, H, drop=da).view(B, H, Dh)
+    assert torch.equal(out[..., 0], K.dropout_mask(da, (B, H, 1, 1), cuda).view(B, H))
+
+
+@pytest.mark.parametrize("B,N,H,Dh,bias_kind,drop", [
+    (4, 264, 6, 64, "attn", 0.0), (40, 16, 4, 128, "key", 0.1),
+    (3, 70, 2, 32, "none", 0.1), (2, 593, 6, 64, "attn", 0.0)])
+@pytest.mark.parametrize("round_in", [False, True])
+def test_attention_train(cuda, B, N, H, Dh, bias_kind, drop, round_in):
+    r = _gen(N + B)
+    qkv = _t(r.normal(size=(B, N, 3 * H * Dh)), cuda)
+    dout = _t(r.normal(size=(B, N, H * Dh)), cuda)
+    kw = {}
+    if bias_kind == "attn":
+        seg = np.arange(N) * 3 // N
+        kw["attn_bias"] = _t(np.where(seg[:, None] == seg[None], 0.0, K.NEG), cuda)
+    elif bias_kind == "key":
+        kw["key_bias"] = _t(np.where(np.arange(N)[None] < r.integers(1, N + 1, (B, 1)),
+                                     0.0, K.NEG), cuda)
+    d = K.drop_args(9, 3, "attn", drop)
+    tol = TOL_BF16 if round_in else TOL_F32
+    _close(K.attention(qkv, H, round_in=round_in, drop=d, **kw),
+           K.attention_plain(qkv, H, round_in=round_in, drop=d, **kw), tol)
+    out = K.attention_bwd(qkv, dout, H, round_in=round_in, drop=d, **kw)
+    assert torch.isfinite(out).all()
+    _close(out, K.attention_bwd_plain(qkv, dout, H, round_in=round_in, drop=d, **kw), tol)
+    assert torch.equal(out, K.attention_bwd(qkv, dout, H, round_in=round_in, drop=d, **kw))
+
+
+@pytest.mark.parametrize("rows,D", [(5000, 384), (37, 512), (3, 64)])
+@pytest.mark.parametrize("round_out", [False, True])
+def test_layernorm_bwd(cuda, rows, D, round_out):
+    r = _gen(rows)
+    x = _t(r.normal(size=(rows, D)) * 2 + 1, cuda)
+    g, dh = _t(1 + 0.1 * r.normal(size=D), cuda), _t(r.normal(size=(rows, D)), cuda)
+    for res in (None, _t(r.normal(size=(rows, D)), cuda)):
+        out = K.layernorm_bwd(x, g, dh, 1e-6, residual=res, round_out=round_out)
+        ref = K.layernorm_bwd_plain(x, g, dh, 1e-6, residual=res, round_out=round_out)
+        _close(out[0], ref[0], TOL_BF16 if round_out else TOL_F32)
+        _close(out[1], ref[1], TOL_F32)
+        _close(out[2], ref[2], TOL_F32)
+
+
+@pytest.mark.parametrize("M,K_,N", [(77, 130, 70), (20000, 384, 1536), (46080, 512, 1024)])
+@pytest.mark.parametrize("round_in", [False, True])
+def test_linear_wgrad(cuda, M, K_, N, round_in):
+    r = _gen(M)
+    x, dy = _t(r.normal(size=(M, K_)), cuda), _t(r.normal(size=(M, N)), cuda)
+    dw, db = K.linear_wgrad(x, dy, round_in)
+    rw, rb = K.linear_wgrad_plain(x, dy, round_in)
+    # the tensor cores' float32 accumulation does not round each partial sum
+    # to nearest: over tens of thousands of rows it drifts ~1e-5 relative
+    _close(dw, rw, TOL_WGRAD_TC if round_in else TOL_F32)
+    _close(db, rb, TOL_F32)
+    assert torch.equal(dw, K.linear_wgrad(x, dy, round_in)[0])
+
+
+@pytest.mark.parametrize("act", ["none", "relu", "gelu"])
+def test_act_dropout_bwd(cuda, act):
+    r = _gen(1)
+    dh, a = _t(r.normal(size=(999, 77)), cuda), _t(r.normal(size=(999, 77)), cuda)
+    d = K.drop_args(2, 1, "mff", 0.1)
+    _close(K.act_dropout_bwd(dh, a, act, d), K.act_dropout_bwd_plain(dh, a, act, d), TOL_F32)
+
+
+@pytest.mark.parametrize("flavor,act_bf16", [("vit", False), ("vit", True), ("encoder", False)])
+def test_train_trunks_match_plain(cuda, flavor, act_bf16):
+    """Both train trunks, forward and backward, kernel route against the
+    plain route: float32 sums in another order through 2 layers forward and
+    backward (1e-4); bf16 operands and residuals 2^-5 (several rounding
+    sites in a row)."""
+    from posediffusion_tpu_torch.ops import vit_train_kernel as V
+
+    r = _gen(7)
+    B, N, D, H = (8, 264, 384, 6) if flavor == "vit" else (96, 16, 512, 4)
+    L = 2
+    st = {"g1": 1 + 0.1 * r.normal(size=(L, D)), "b1": 0.1 * r.normal(size=(L, D)),
+          "wqkv": r.normal(size=(L, D, 3 * D)) / np.sqrt(D), "bqkv": 0.1 * r.normal(size=(L, 3 * D)),
+          "wproj": r.normal(size=(L, D, D)) / np.sqrt(D), "bproj": 0.1 * r.normal(size=(L, D)),
+          "g2": 1 + 0.1 * r.normal(size=(L, D)), "b2": 0.1 * r.normal(size=(L, D)),
+          "wfc1": r.normal(size=(L, D, 2 * D)) / np.sqrt(D), "bfc1": 0.1 * r.normal(size=(L, 2 * D)),
+          "wfc2": r.normal(size=(L, 2 * D, D)) / np.sqrt(2 * D), "bfc2": 0.1 * r.normal(size=(L, D))}
+    x = r.normal(size=(B, N, D))
+    cot = _t(r.normal(size=(B, N, D)), cuda)
+    if flavor == "vit":
+        seg = np.arange(N) * 3 // N
+        bias = _t(np.where(seg[:, None] == seg[None], 0.0, K.NEG), cuda)
+    else:
+        bias = _t(np.where(np.arange(N)[None] < r.integers(8, N + 1, (B, 1)), 0.0, K.NEG), cuda)
+
+    def run(plain):
+        xt = _t(x, cuda).requires_grad_(True)
+        sd = {k: _t(v, cuda).requires_grad_(True) for k, v in st.items()}
+        with V.plain_route() if plain else contextlib.nullcontext():
+            if flavor == "vit":
+                y = V.fused_vit_trunk_train(xt, sd, bias, H, act_bf16, act_bf16)
+            else:
+                y = V.fused_encoder_trunk_train(xt, sd, bias, 77, H, dropout=0.1)
+        y.backward(cot)
+        return [y.detach(), xt.grad] + [sd[k].grad for k in V.WEIGHT_KEYS]
+
+    tol = 2.0**-5 if act_bf16 else 1e-4
+    for out, ref in zip(run(False), run(True)):
+        _close(out, ref, tol)

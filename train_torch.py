@@ -1,0 +1,225 @@
+"""Co3D training with the PyTorch port on one card, as train.py.
+
+Same config (cfgs/default_train.yaml) and dotted-override CLI:
+
+    python train_torch.py train.CO3D_DIR=... train.CO3D_ANNOTATION_DIR=... \\
+        exp_dir=exp/run1
+    python train_torch.py ... device=cpu      # the kernels' plain versions
+
+The loop is train.py's: an epoch loop with a sampling-based eval every
+``eval_interval`` epochs (not at epoch 0), the dynamic batch sampler (frames
+per sequence drawn per batch, padded to a frame bucket, ``max_images``
+images a batch), a producer thread that decodes and collates the next
+batches while the card trains, ``batch_repeat`` tiling of the diffusion
+batch, AdamW with warmup-cosine restarts and clipping at ``clip_grad``,
+full-state checkpoints every ``ckpt_interval`` epochs and per-epoch
+averages in ``<exp_dir>/stats.jsonl``.
+
+It runs on the card (``device=cuda``, the default) through the train
+kernels; ``device=cpu`` runs their plain versions. Weights are drawn from
+``seed`` (``init_random_weights``) unless ``train.resume_ckpt`` names a
+reference ``.pth`` (strict load) or a checkpoint directory (``True``: the
+newest under ``exp_dir``), which restores the model, the optimizer and the
+epoch. Data parallelism over several cards is not ported yet.
+"""
+
+from __future__ import annotations
+
+import os
+import queue
+import threading
+import time
+
+
+def data_producer(dataset, sampler, out_q, n_batches, stop_event, num_workers=8):
+    """Decode and augment a batch's items in a worker pool (PIL releases the
+    GIL) and collate them padded to the sampler's frame bucket, off the
+    training thread. Exceptions reach the consumer, then the None sentinel."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from posediffusion_tpu_torch.data.sampler import collate_batch
+
+    def put(item) -> bool:
+        while not stop_event.is_set():
+            try:
+                out_q.put(item, timeout=1.0)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    it = iter(sampler)
+    pool = ThreadPoolExecutor(max_workers=max(num_workers, 1))
+    try:
+        for _ in range(n_batches):
+            if stop_event.is_set():
+                return
+            spec = next(it)
+            items = list(pool.map(dataset.__getitem__, spec))
+            if not put(collate_batch(items, pad_frames_to=sampler.bucket_for(spec[0][1]))):
+                return
+        put(None)
+    except Exception as e:  # noqa: BLE001 - forwarded to the training thread
+        put(e)
+        put(None)
+    finally:
+        pool.shutdown(wait=False, cancel_futures=True)
+
+
+def _to_device(batch, device):
+    import torch
+
+    return {k: torch.as_tensor(v).to(device, non_blocking=True) for k, v in batch.items()}
+
+
+def run(cfg) -> dict:
+    """Train with a loaded config; returns a summary of the run (losses, the
+    last eval metrics, the last checkpoint, the largest parameter change)."""
+    import numpy as np
+    import torch
+
+    from posediffusion_tpu_torch.data.factory import get_co3d_dataset
+    from posediffusion_tpu_torch.data.sampler import DynamicBatchSampler, collate_batch
+    from posediffusion_tpu_torch.models.pose_diffusion import (
+        PoseDiffusionModel,
+        init_random_weights,
+    )
+    from posediffusion_tpu_torch.training.checkpoints import (
+        latest_checkpoint,
+        load_reference_checkpoint,
+        restore,
+        save,
+    )
+    from posediffusion_tpu_torch.training.optim import EXTRACTOR_PREFIX, make_optimizer
+    from posediffusion_tpu_torch.training.stats import StatsLogger
+    from posediffusion_tpu_torch.training.step import eval_step, train_step
+    from posediffusion_tpu_torch.utils.config import device_from_cfg, model_config_from_cfg
+    from posediffusion_tpu_torch.utils.precision import pin_full_float32
+    from posediffusion_tpu_torch.utils.seeding import seed_all_random_engines
+
+    device = torch.device(device_from_cfg(cfg))
+    pin_full_float32()
+    seed_all_random_engines(cfg.seed)
+    t = cfg.train
+
+    dataset, eval_dataset = get_co3d_dataset(cfg)
+    print(f"train sequences: {len(dataset)}  eval sequences: {len(eval_dataset)}")
+    buckets = tuple(t.get("frame_buckets") or (4, 8, 16, 24, 32, 51))
+    sampler = DynamicBatchSampler(
+        len(dataset), dataset_len=t.len_train, max_images=t.max_images,
+        images_per_seq=tuple(t.images_per_seq), frame_buckets=buckets,
+        seed=cfg.seed, shape_seed=cfg.seed + 31,
+    )
+    eval_sampler = DynamicBatchSampler(
+        len(eval_dataset), dataset_len=t.len_eval, max_images=t.max_images // 2,
+        images_per_seq=tuple(t.images_per_seq), frame_buckets=buckets,
+        seed=cfg.seed + 1, shape_seed=cfg.seed + 37,
+    )
+
+    config = model_config_from_cfg(cfg.MODEL)
+    model = PoseDiffusionModel(config)
+    init_random_weights(model, cfg.seed)
+    model.to(device)
+    optimizer, schedule = make_optimizer(
+        model, lr=t.lr, T_0=t.restart_num, iters_per_epoch=t.len_train,
+        clip_grad=t.clip_grad,
+        frozen_prefixes=(EXTRACTOR_PREFIX,) if config.freeze_extractor else None,
+    )
+    if config.freeze_extractor:
+        print("extractor frozen: no updates (incl. weight decay) to the backbone")
+    gen = torch.Generator().manual_seed(cfg.seed)  # the loss's draws
+    if t.resume_ckpt:
+        resume = str(t.resume_ckpt)
+        if resume.endswith(".pth"):
+            load_reference_checkpoint(resume, model)
+            print(f"Resumed weights from reference ckpt {resume}")
+        else:
+            path = latest_checkpoint(resume if os.path.isdir(resume) else cfg.exp_dir)
+            if path:
+                state = restore(path, model, optimizer)
+                gen.set_state(state["generator"])
+                print(f"Resumed full state from {path}")
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"params: {n_params / 1e6:.1f}M on {device}")
+    initial = {k: v.detach().cpu().clone() for k, v in model.named_parameters()}
+
+    stats = StatsLogger(
+        ["loss", "lr", "sec/it", "Auc_30", "Racc_5", "Racc_15", "Racc_30",
+         "Tacc_5", "Tacc_15", "Tacc_30"],
+        jsonl_path=os.path.join(cfg.exp_dir, "stats.jsonl"),
+    )
+    eval_gen = torch.Generator(device=device).manual_seed(cfg.seed + 1)
+    losses, step_seconds, eval_metrics, ckpt = [], [], None, None
+    start_epoch = optimizer.step_count // max(t.len_train, 1)
+    for epoch in range(start_epoch, t.epochs):
+        stats.new_epoch()
+        seed_all_random_engines(cfg.seed + epoch)
+
+        if epoch != 0 and epoch % t.eval_interval == 0:
+            print(f"---------- eval at epoch {epoch} ----------")
+            model.eval()
+            for bi, spec in enumerate(eval_sampler):
+                items = [eval_dataset[s] for s in spec]
+                batch = _to_device(collate_batch(items, pad_frames_to=eval_sampler.bucket_for(spec[0][1])), device)
+                _, eval_metrics = eval_step(model, batch, generator=eval_gen)
+                stats.update(eval_metrics, stat_set="eval")
+                if bi % t.print_interval == 0:
+                    print(stats.status_string("eval", max_it=t.len_eval))
+
+        print(f"---------- train epoch {epoch} ----------")
+        model.train()
+        q = queue.Queue(maxsize=4)
+        stop = threading.Event()
+        producer = threading.Thread(
+            target=data_producer,
+            args=(dataset, sampler, q, t.len_train, stop, t.num_workers), daemon=True,
+        )
+        producer.start()
+        try:
+            step_i = 0
+            while True:
+                batch = q.get()
+                if batch is None:
+                    break
+                if isinstance(batch, Exception):
+                    raise RuntimeError("data producer failed") from batch
+                batch = _to_device(batch, device)
+                t0 = time.perf_counter()
+                metrics = train_step(model, optimizer, batch, batch_repeat=t.batch_repeat,
+                                     generator=gen)
+                step_seconds.append(time.perf_counter() - t0)
+                losses.append(metrics["loss"])
+                stats.update(metrics, stat_set="train")
+                if step_i % t.print_interval == 0:
+                    print(stats.status_string("train", max_it=t.len_train))
+                step_i += 1
+        finally:
+            stop.set()
+            producer.join(timeout=10)
+
+        stats.plot(os.path.join(cfg.exp_dir, "stats.png"))
+        if epoch % t.ckpt_interval == 0 or epoch == t.epochs - 1:
+            ckpt = save(cfg.exp_dir, model, optimizer, optimizer.step_count,
+                        extra={"generator": gen.get_state()})
+            print(f"saved checkpoint {ckpt}")
+
+    stats.flush()
+    stats.plot(os.path.join(cfg.exp_dir, "stats.png"))
+    change = max(float((p.detach().cpu() - initial[k]).abs().max())
+                 for k, p in model.named_parameters())
+    return {"losses": losses, "step_seconds": step_seconds, "steps": optimizer.step_count,
+            "eval": eval_metrics, "checkpoint": ckpt, "param_change": change,
+            "finite": bool(np.isfinite(losses).all()) if losses else False}
+
+
+def main(argv=None):
+    from posediffusion_tpu_torch.utils.config import cli_config
+
+    cfg = cli_config("default_train", argv)
+    print("Model Config:")
+    print(cfg.to_yaml())
+    return run(cfg)
+
+
+if __name__ == "__main__":
+    main()
