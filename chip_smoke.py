@@ -1,6 +1,7 @@
 """Drive the PyTorch port's inference paths, without GGS, with GGS from a
-matches file, and with GGS from matches extracted from the images, once on
-an NVIDIA card.
+matches file, and with GGS from matches extracted from the images, and its
+training path, with the DINO ViT-S/16, DINOv2 ViT-S/14 and DINO ViT-B/16
+backbones, once on an NVIDIA card.
 
     python3 chip_smoke.py             # from the repository root, one CUDA card
     python3 chip_smoke.py --profile   # also: torch.profiler over one GGS inference,
@@ -44,6 +45,17 @@ Phases (any failure exits non-zero and prints no result line):
              batch_repeat 90, one batched eval, checkpoints): finite losses,
              moved parameters, every kernel of the path launched; and the
              train timings and peak memory;
+  5b. backbones  DINOv2 ViT-S/14 (LayerScale) and DINO ViT-B/16: linear
+             with a gain and layerscale_bwd against their plain versions at
+             DINOv2's 512 x 348 rows (dgamma bitwise across two runs); the
+             LayerScale train trunk kernel against plain route (12 blocks x
+             64 images, f32 and bf16); demo_torch with DINOv2 without GGS and
+             with GGS from a matches table; train_torch.py with DINOv2 at
+             the reference train config (4 steps, one eval, checkpoints; 24
+             layerscale_bwd launches a step, every gain moved); the DINOv2
+             step's time on both routes and its peak memory; ViT-B's
+             fused_vit_trunk at 20 x 264 x 768, layernorm_bwd at 135,168 x
+             768 and one train step at 512 images with its peak memory;
   6. timing  CUDA-event medians of the inferences, the conditioned tail,
              the match extraction stages, and each kernel beside its plain
              version, its bound (bytes or operations over the H100's peaks)
@@ -132,6 +144,8 @@ TPU_KERNELS = {
                     "_mlp_residual_bwd :278 and _attn_residual_bwd :356, partials summed :937-940",
     "act_dropout_bwd": f"{TRAIN_SITE}:866 (_bwd_call -> :905), _mlp_residual_bwd :330-340 "
                        "(dropout and activation backward) and the m1/m2 masks :314, :434",
+    "layerscale_bwd": f"{TRAIN_SITE}:866 (_bwd_call -> :905), the LayerScale gradients "
+                      ":316-319 and :436-456 (_LS_KEYS :85)",
 }
 SOURCES = {
     "layernorm": "posediffusion_tpu_torch/csrc/layernorm.cu",
@@ -148,6 +162,7 @@ SOURCES = {
     "layernorm_bwd": "posediffusion_tpu_torch/csrc/layernorm.cu",
     "linear_wgrad": "posediffusion_tpu_torch/csrc/linear.cu",
     "act_dropout_bwd": "posediffusion_tpu_torch/csrc/train.cu",
+    "layerscale_bwd": "posediffusion_tpu_torch/csrc/train.cu",
 }
 NO_GGS_PATH = ("layernorm", "linear", "attention", "sampler_prologue", "sampler_epilogue")
 GGS_PATH = NO_GGS_PATH + ("ggs_phase", "ggs_phase_chunked")
@@ -162,6 +177,12 @@ TRAIN_OVERRIDES = ("train.category=apple", "train.min_num_images=20",
                    "train.images_per_seq=[16,17]", "train.frame_buckets=[16]",
                    "train.epochs=2", "train.len_train=3", "train.len_eval=1",
                    "train.eval_interval=1", "train.ckpt_interval=1")
+# DINOv2 ViT-S/14 (LayerScale): serving and training at full width and depth;
+# 257 + 65 + 26 = 348 packed tokens at 224px. DINO ViT-B/16 (D 768, 12 heads).
+DINOV2 = "MODEL.IMAGE_FEATURE_EXTRACTOR.modelname=dinov2_vits14"
+VITB = "MODEL.IMAGE_FEATURE_EXTRACTOR.modelname=dino_vitb16"
+DINOV2_TRAIN_PATH = TRAIN_PATH + ("layerscale_bwd",)
+LS_PER_STEP = 24  # layerscale_bwd: 2 sites x 12 blocks (the encoder has no gains)
 VIT_CHUNK = 64  # images in the ViT train-trunk parity cases
 VIT_IMAGES = 512  # a train step's images (max_images)
 ENC_ROWS = 2880  # the denoiser's rows: 32 sequences x batch_repeat 90
@@ -210,18 +231,19 @@ def block_flops(tokens, N, D, F):
     return 2 * tokens * D * (3 * D + D + 2 * F), 4 * tokens * N * D
 
 
-def trunk_bounds(tokens, N, D, F, L, act_bytes, weight_bytes, peak_products):
-    """Least ms of a train trunk's forward (saving x and x1 per layer) and of
-    its backward as the TPU kernel does it: the recomputed qkv and first FF
-    products and attention forward, dgrad and wgrad of the four products,
-    and the attention backward (dv, dp, dq, dk); attention in float32 on
-    the FMA units."""
+def trunk_bounds(tokens, N, D, F, L, act_bytes, weight_bytes, peak_products, saved=2):
+    """Least ms of a train trunk's forward (saving ``saved`` (tokens, D)
+    arrays per layer: x and x1, and with LayerScale the two pre-gain
+    outputs) and of its backward as the TPU kernel does it: the recomputed
+    qkv and first FF products and attention forward, dgrad and wgrad of the
+    four products, and the attention backward (dv, dp, dq, dk); attention
+    in float32 on the FMA units."""
     P, A = block_flops(tokens, N, D, F)
     fwd_ops = L * (P / peak_products + A / PEAK_F32)
     bwd_ops = L * ((2 * P + 2 * tokens * D * (3 * D + F)) / peak_products + 3 * A / PEAK_F32)
     x = tokens * D * act_bytes
-    fwd = max((2 * x + 2 * L * x + weight_bytes) / HBM_BYTES_PER_S, fwd_ops) * 1e3
-    bwd = max((2 * L * x + 2 * x + 2 * weight_bytes) / HBM_BYTES_PER_S, bwd_ops) * 1e3
+    fwd = max((2 * x + saved * L * x + weight_bytes) / HBM_BYTES_PER_S, fwd_ops) * 1e3
+    bwd = max((saved * L * x + 2 * x + 2 * weight_bytes) / HBM_BYTES_PER_S, bwd_ops) * 1e3
     return fwd, bwd
 # Match extraction with random matcher weights: 1,024 keypoints per frame
 # (the regime where the JAX package runs its fused SuperGlue kernel), then the
@@ -465,6 +487,16 @@ class Report:
             self.failures.append(f"{name} {detail}")
 
 
+def demo_cfg(work, folder, *extra):
+    """cfgs/default.yaml for demo_torch on ``folder``: random weights from
+    SEED, outputs under ``work``, then ``extra``."""
+    from posediffusion_tpu_torch.utils.config import load_config
+
+    return load_config("default", [
+        f"image_folder={folder}", "ckpt=random", f"seed={SEED}",
+        f"out_dir={os.path.join(work, 'out')}", *extra])
+
+
 def _check_launches(report, path, names, launches):
     print(f"  launches during the {path} path: {launches}")
     for name in names:
@@ -502,6 +534,68 @@ def _library_grad_ms(torch, fn, inputs, cot, reps=5):
                     reps=reps)
 
 
+def _trunk_grads(run, x, stacks, cot):
+    """[(name, tensor)] of a train trunk's output, input gradient and the
+    gradient of every stack (the LayerScale gains too), from ``run(x, stacks)``."""
+    xs = x.detach().clone().requires_grad_(True)
+    st = {k: v.clone().requires_grad_(True) for k, v in stacks.items()}
+    y = run(xs, st)
+    y.backward(cot)
+    return [("y", y.detach()), ("dx", xs.grad)] + [(k, st[k].grad) for k in stacks]
+
+
+def _worst_rel(outs_a, outs_b):
+    """(largest |a - b| / max(1, |b|), its name) over paired (name, tensor) lists."""
+    return max(((a - b).abs().max().item() / max(1.0, b.abs().max().item()), name)
+               for (name, a), (_, b) in zip(outs_a, outs_b))
+
+
+def _train_cfg(work, exp, *extra):
+    """cfgs/default_train.yaml on the Co3D tree of samples/apple (written
+    under build/), with TRAIN_OVERRIDES, then ``extra``."""
+    from posediffusion_tpu_torch.utils.config import load_config
+
+    co3d_dir, ann_dir = write_co3d_tree(os.path.join(REPO, "build", "co3d_apple"),
+                                        os.path.join(REPO, "samples", "apple"))
+    return load_config("default_train", [
+        f"train.CO3D_DIR={co3d_dir}", f"train.CO3D_ANNOTATION_DIR={ann_dir}", *TRAIN_OVERRIDES,
+        f"exp_dir={os.path.join(work, exp)}", f"seed={SEED}", *extra])
+
+
+def _train_batch(cfg, dev, timesteps):
+    """One train batch of the config's sampler (512 images) on the card, and
+    fixed draws for its loss (t, noise, dropout seed)."""
+    import torch
+
+    from posediffusion_tpu_torch.data.factory import get_co3d_dataset
+    from posediffusion_tpu_torch.data.sampler import DynamicBatchSampler, collate_batch
+
+    t = cfg.train
+    dataset, _ = get_co3d_dataset(cfg)
+    sampler = DynamicBatchSampler(len(dataset), dataset_len=1, max_images=t.max_images,
+                                  images_per_seq=tuple(t.images_per_seq),
+                                  frame_buckets=tuple(t.frame_buckets), seed=SEED)
+    spec = next(iter(sampler))
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in collate_batch(
+        [dataset[s] for s in spec], pad_frames_to=sampler.bucket_for(spec[0][1])).items()}
+    n_rows = batch["images"].shape[0] * t.batch_repeat
+    cpu = torch.Generator().manual_seed(SEED + 11)
+    draws = dict(t=torch.randint(0, timesteps, (n_rows,), generator=cpu),
+                 noise=torch.randn((n_rows, *batch["pose_encodings"].shape[1:]), generator=cpu),
+                 drop_seed=1234)
+    return batch, draws, n_rows
+
+
+def _step_launches(K, step):
+    """Launch counts of one call of ``step``."""
+    import torch
+
+    K.reset_launch_counts()
+    step()
+    torch.cuda.synchronize()
+    return K.launch_counts()
+
+
 def train_slice(report, dev, work, smi, t_start):
     """The training slice: its kernels against their plain versions at the
     path's shapes (parity), train_torch.py at the reference train config
@@ -511,9 +605,7 @@ def train_slice(report, dev, work, smi, t_start):
     import torch.nn.functional as F
 
     import train_torch
-    from posediffusion_tpu_torch.data.factory import get_co3d_dataset
     from posediffusion_tpu_torch.data.images import load_and_preprocess_images
-    from posediffusion_tpu_torch.data.sampler import DynamicBatchSampler, collate_batch
     from posediffusion_tpu_torch.models.feature_extractor import _embed_pack_scales
     from posediffusion_tpu_torch.models.layers import key_bias_from_mask
     from posediffusion_tpu_torch.models.pose_diffusion import (
@@ -655,13 +747,6 @@ def train_slice(report, dev, work, smi, t_start):
     h_e = rnd(Be, Ne, De)
     cot_e = rnd(Be, Ne, De)
 
-    def trunk_grads(run, x, stacks, cot):
-        xs = x.detach().clone().requires_grad_(True)
-        st = {k: v.clone().requires_grad_(True) for k, v in stacks.items()}
-        y = run(xs, st)
-        y.backward(cot)
-        return [("y", y.detach()), ("dx", xs.grad)] + [(k, st[k].grad) for k in V.WEIGHT_KEYS]
-
     def vit_run(mode, plain):
         def run(x, st):
             with _route(V, plain):
@@ -679,16 +764,14 @@ def train_slice(report, dev, work, smi, t_start):
 
     for mode in (False, True):
         tag = "bf16 operands and residuals" if mode else "f32"
-        outs = zip(trunk_grads(vit_run(mode, False), tok, vst, cot_v),
-                   trunk_grads(vit_run(mode, True), tok, vst, cot_v))
-        worst = max(((a - b).abs().max().item() / max(1.0, b.abs().max().item()), name)
-                    for (name, a), (_, b) in outs)
+        worst = _worst_rel(_trunk_grads(vit_run(mode, False), tok, vst, cot_v),
+                           _trunk_grads(vit_run(mode, True), tok, vst, cot_v))
         report.check(f"fused_vit_trunk_train {tag} (12 blocks, {VIT_CHUNK}x{Nv}): output and "
                      f"every gradient, worst {worst[1]}", worst[0],
                      TOL_TRAIN_BF16 if mode else TOL_TRAIN_F32)
         errs[("trunk_vit", mode)] = worst[0]
-    outs = list(zip(trunk_grads(enc_run(False), h_e, est, cot_e),
-                    trunk_grads(enc_run(True), h_e, est, cot_e)))
+    outs = list(zip(_trunk_grads(enc_run(False), h_e, est, cot_e),
+                    _trunk_grads(enc_run(True), h_e, est, cot_e)))
     tag = f"(8 layers, {Be}x{Ne}, dropout 0.1)"
     _close_rel(report, f"fused_encoder_trunk_train f32 y {tag}", outs[0][0][1], outs[0][1][1],
                TOL_TRAIN_F32)
@@ -704,34 +787,17 @@ def train_slice(report, dev, work, smi, t_start):
                  mean_err, TOL_ENCODER_GRAD_MEAN)
     report.check(f"fused_encoder_trunk_train f32 gradients, largest share beyond "
                  f"{ENCODER_GRAD_OUTLIER:.0e} {tag}", share, TOL_ENCODER_GRAD_SHARE)
-    outs = zip(trunk_grads(enc_run(False, "gelu"), h_e, est, cot_e),
-               trunk_grads(enc_run(True, "gelu"), h_e, est, cot_e))
-    worst = max(((a - b).abs().max().item() / max(1.0, b.abs().max().item()), name)
-                for (name, a), (_, b) in outs)
+    worst = _worst_rel(_trunk_grads(enc_run(False, "gelu"), h_e, est, cot_e),
+                       _trunk_grads(enc_run(True, "gelu"), h_e, est, cot_e))
     report.check(f"encoder train trunk with GELU for ReLU, f32 {tag}: output and every "
                  f"gradient, worst {worst[1]} (no kinks)", worst[0], TOL_F32)
     del outs
     torch.cuda.synchronize()
 
     # one whole train step, kernel route against plain route, same weights/draws
-    tree = os.path.join(REPO, "build", "co3d_apple")
-    co3d_dir, ann_dir = write_co3d_tree(tree, apple)
-    cfg = load_config("default_train", [
-        f"train.CO3D_DIR={co3d_dir}", f"train.CO3D_ANNOTATION_DIR={ann_dir}", *TRAIN_OVERRIDES,
-        f"exp_dir={os.path.join(work, 'train')}", f"seed={SEED}"])
+    cfg = _train_cfg(work, "train")
     t = cfg.train
-    dataset, _ = get_co3d_dataset(cfg)
-    sampler = DynamicBatchSampler(len(dataset), dataset_len=1, max_images=t.max_images,
-                                  images_per_seq=tuple(t.images_per_seq),
-                                  frame_buckets=tuple(t.frame_buckets), seed=SEED)
-    spec = next(iter(sampler))
-    batch = {k: torch.as_tensor(v, device=dev) for k, v in collate_batch(
-        [dataset[s] for s in spec], pad_frames_to=sampler.bucket_for(spec[0][1])).items()}
-    n_rows = batch["images"].shape[0] * t.batch_repeat
-    cpu = torch.Generator().manual_seed(SEED + 11)
-    draws = dict(t=torch.randint(0, model.config.timesteps, (n_rows,), generator=cpu),
-                 noise=torch.randn((n_rows, *batch["pose_encodings"].shape[1:]), generator=cpu),
-                 drop_seed=1234)
+    batch, draws, n_rows = _train_batch(cfg, dev, model.config.timesteps)
     print(f"  train batch {tuple(batch['images'].shape)}, batch_repeat {t.batch_repeat}: "
           f"{n_rows} diffusion rows")
     start = {k: v.detach().clone() for k, v in model.state_dict().items()}
@@ -791,19 +857,20 @@ def train_slice(report, dev, work, smi, t_start):
                 torch, lambda: train_step(model, opt, batch, t.batch_repeat, draws=draws),
                 reps=3, warmup=1)
     torch.cuda.reset_peak_memory_stats()
-    train_step(model, opt, batch, t.batch_repeat, draws=draws)
-    torch.cuda.synchronize()
+    step_launches = _step_launches(
+        K, lambda: train_step(model, opt, batch, t.batch_repeat, draws=draws))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  launches of one train step: {step_launches}")
     timings["optimizer step (clip + AdamW)"] = _time_ms(torch, opt.step, reps=5)
     full = tok20.repeat(VIT_IMAGES // 20 + 1, 1, 1)[:VIT_IMAGES].contiguous()
     cot_full = rnd(*full.shape)
     for plain in (False, True):
         r = " plain" if plain else ""
         timings[f"vit trunk fwd+bwd{r}"] = _time_ms(
-            torch, lambda: trunk_grads(vit_run(False, plain), full, vst, cot_full), reps=3,
+            torch, lambda: _trunk_grads(vit_run(False, plain), full, vst, cot_full), reps=3,
             warmup=1)
         timings[f"encoder trunk fwd+bwd{r}"] = _time_ms(
-            torch, lambda: trunk_grads(enc_run(plain), h_e, est, cot_e), reps=3, warmup=1)
+            torch, lambda: _trunk_grads(enc_run(plain), h_e, est, cot_e), reps=3, warmup=1)
         with torch.no_grad():
             timings[f"vit trunk fwd{r}"] = _time_ms(
                 torch, lambda: vit_run(False, plain)(full, vst), reps=3, warmup=1)
@@ -832,7 +899,298 @@ def train_slice(report, dev, work, smi, t_start):
             "case": f"{name} (launches: train path)",
         })
     timings["peak memory of a train step (GB)"] = peak_gb
-    return kernels_json, timings, launches
+    return kernels_json, timings, step_launches
+
+def backbones_slice(report, dev, work, smi, t_start, dino_step_launches):
+    """DINOv2 ViT-S/14 (TPU kernels 9 and 10 with LayerScale) and DINO
+    ViT-B/16: linear with a gain and layerscale_bwd against their plain
+    versions at DINOv2's train shapes, the LayerScale train trunk kernel
+    against plain route, demo_torch serving DINOv2 without and with GGS,
+    train_torch.py with DINOv2 at the reference train config, the timings;
+    then ViT-B: fused_vit_trunk at D 768, layernorm_bwd at 135,168 x 768 and
+    one train step at 512 images. Returns (kernel JSON entries, timings,
+    TPU-kernel rows)."""
+    import torch
+
+    import demo_torch
+    import train_torch
+    from posediffusion_tpu_torch.data.images import load_and_preprocess_images
+    from posediffusion_tpu_torch.models.feature_extractor import _embed_pack_scales
+    from posediffusion_tpu_torch.models.pose_diffusion import (
+        PoseDiffusionModel,
+        init_random_weights,
+    )
+    from posediffusion_tpu_torch.ops import kernels as K
+    from posediffusion_tpu_torch.ops import vit_train_kernel as V
+    from posediffusion_tpu_torch.ops.vit_kernel import (
+        fused_vit_trunk,
+        fused_vit_trunk_plain,
+        stack_vit_params,
+    )
+    from posediffusion_tpu_torch.training.checkpoints import restore
+    from posediffusion_tpu_torch.training.optim import make_optimizer
+    from posediffusion_tpu_torch.training.step import train_step
+    from posediffusion_tpu_torch.utils.config import load_config, model_config_from_cfg
+
+    apple = os.path.join(REPO, "samples", "apple")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)  # noqa: E731
+    timings, cases = {}, {}
+    imgs20 = torch.as_tensor(load_and_preprocess_images(apple, IMAGE_SIZE)[0], device=dev)
+
+    # ---- parity: the gain in linear's epilogue and layerscale_bwd at
+    # DINOv2's train shapes (512 images x 348 tokens)
+    print("[dinov2-parity] linear + gain, layerscale_bwd, the LayerScale train trunk")
+    Nv, Dv, Fv = 348, 384, 1536
+    M = VIT_IMAGES * Nv
+    hm, res = rnd(M, Fv), rnd(M, Dv)
+    w2, b2, gain = rnd(Fv, Dv) / Fv**0.5, rnd(Dv), 1 + 0.1 * rnd(Dv)
+    for mode in (False, True):
+        tag = "bf16" if mode else "f32"
+        w = w2.to(torch.bfloat16) if mode else w2
+        kw = dict(residual=res, round_a=mode, round_out=mode, gain=gain, want_pre=True)
+        (y, pre), (yp, prep) = K.linear(hm, w, b2, **kw), K.linear_plain(hm, w, b2, **kw)
+        name = f"linear fc2 + gain + residual {tag} ({M}x{Fv} @ {Fv}x{Dv})"
+        err = max(_close_rel(report, name, y, yp, TOL_BF16 if mode else TOL_F32),
+                  _close_rel(report, f"{name}: pre-gain output", pre, prep, TOL_F32))
+        kw.pop("want_pre")
+        cases[f"linear+gain {tag}"] = (
+            name, lambda w=w, kw=kw: K.linear(hm, w, b2, **kw),
+            lambda w=w, kw=kw: K.linear_plain(hm, w, b2, **kw),
+            bound(nbytes(hm, w, b2, gain, res) + M * Dv * 4, 2 * M * Fv * Dv,
+                  PEAK_BF16 if mode else PEAK_F32), err)
+        del y, pre, yp, prep
+    dy_ls, o_ls = rnd(M, Dv), rnd(M, Dv)
+    d_m2 = K.drop_args(SEED, 0, "m2", 0.1)
+    out_k, dg_k = K.layerscale_bwd(dy_ls, o_ls, gain, d_m2)
+    out_p, dg_p = K.layerscale_bwd_plain(dy_ls, o_ls, gain, d_m2)
+    ls_err = max(_close_rel(report, f"layerscale_bwd cotangent ({M}x{Dv}, dropout 0.1)",
+                            out_k, out_p, TOL_F32),
+                 _close_rel(report, "layerscale_bwd dgamma", dg_k, dg_p, TOL_F32))
+    report.require("layerscale_bwd dgamma repeats bitwise",
+                   torch.equal(dg_k, K.layerscale_bwd(dy_ls, o_ls, gain, d_m2)[1]))
+    del out_k, out_p
+
+    # the DINOv2 train trunk (12 blocks, LayerScale), kernel route against plain
+    cfg_model = model_config_from_cfg(load_config("default_train", [DINOV2]).MODEL)
+    model = PoseDiffusionModel(cfg_model)
+    init_random_weights(model, SEED)
+    model.to(dev)
+    vit = model.image_feature_extractor._net
+    with torch.no_grad():
+        tok20, bias, _ = _embed_pack_scales(vit, imgs20, model.config.scale_factors)
+        vst = {k: v.detach().clone() for k, v in V.stack_vit_params_train(vit).items()}
+    tok = tok20.repeat(VIT_CHUNK // 20 + 1, 1, 1)[:VIT_CHUNK].contiguous()
+    cot = rnd(*tok.shape)
+    report.require(f"DINOv2 packs {Nv} tokens at 224px", tok.shape[1] == Nv,
+                   f"({tuple(tok.shape)})")
+
+    def ls_run(mode, plain):
+        def run(x, st):
+            with _route(V, plain):
+                return V.fused_vit_trunk_train(x, st, bias, 6, mode, mode, layer_scale=True)
+        return run
+
+    for mode in (False, True):
+        tag = "bf16 operands and residuals" if mode else "f32"
+        worst = _worst_rel(_trunk_grads(ls_run(mode, False), tok, vst, cot),
+                           _trunk_grads(ls_run(mode, True), tok, vst, cot))
+        report.check(f"DINOv2 fused_vit_trunk_train {tag} (12 blocks, LayerScale, "
+                     f"{VIT_CHUNK}x{Nv}): output and all 14 gradient stacks, worst {worst[1]}",
+                     worst[0], TOL_TRAIN_BF16 if mode else TOL_TRAIN_F32)
+    torch.cuda.synchronize()
+    print(f"  [dinov2-parity] done at {time.perf_counter() - t_start:.0f} s", flush=True)
+
+    # ---- serving: demo_torch with DINOv2, without GGS and with GGS from a table
+    print("[dinov2-serve] demo_torch on samples/apple, modelname dinov2_vits14")
+    matches = write_matches(os.path.join(work, "matches_dinov2_100.npz"), apple, 100, SEED + 100)
+    # 20 frames at 100/pair: 19,000 matches take the chunked GGS kernel
+    for what, extra, path in (("no GGS", ["GGS.enable=False"], NO_GGS_PATH),
+                              ("GGS 100/pair", ["GGS.enable=True", f"GGS.matches_file={matches}"],
+                               NO_GGS_PATH + ("ggs_phase_chunked",))):
+        K.reset_launch_counts()
+        out = demo_torch.run(demo_cfg(work, apple, DINOV2, *extra), dev.type)
+        torch.cuda.synchronize()
+        _check_launches(report, f"DINOv2 {what}", path, K.launch_counts())
+        _check_cameras(report, out, imgs20.shape[0], f"DINOv2 {what}")
+    print(f"  [dinov2-serve] done at {time.perf_counter() - t_start:.0f} s", flush=True)
+
+    # ---- training: train_torch.py with DINOv2 at the reference train config
+    cfg = _train_cfg(work, "train_dinov2", DINOV2, "train.len_train=2")
+    print("[dinov2-train] train_torch.py, modelname dinov2_vits14, cfgs/default_train.yaml: "
+          + " ".join(TRAIN_OVERRIDES) + " train.len_train=2")
+    shutil.rmtree(cfg.exp_dir, ignore_errors=True)
+    K.reset_launch_counts()
+    result = train_torch.run(cfg)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    _check_launches(report, "DINOv2 train", DINOV2_TRAIN_PATH, launches)
+    print(f"  {result['steps']} steps, losses {[round(x, 5) for x in result['losses']]}, "
+          f"step seconds (host clock) {[round(x, 3) for x in result['step_seconds']]}, "
+          f"eval {result['eval']}")
+    report.require("DINOv2 layerscale_bwd launches per train step",
+                   launches["layerscale_bwd"] == LS_PER_STEP * result["steps"],
+                   f"({launches['layerscale_bwd']} in {result['steps']} steps)")
+    report.require("DINOv2 train losses finite", result["finite"])
+    report.require("DINOv2 eval metrics finite", result["eval"] is not None
+                   and all(np.isfinite(v) for v in result["eval"].values()))
+    report.require("DINOv2 checkpoint written", bool(result["checkpoint"])
+                   and os.path.exists(result["checkpoint"]))
+    init = PoseDiffusionModel(cfg_model)
+    init_random_weights(init, SEED)
+    trained = PoseDiffusionModel(cfg_model)
+    restore(result["checkpoint"], trained)
+    moved = {k: (trained.state_dict()[k] - v).abs().max().item()
+             for k, v in init.state_dict().items() if not k.startswith("diffuser.") or
+             k.startswith("diffuser.model.")}
+    gammas = {k: v for k, v in moved.items() if k.endswith(".gamma")}
+    others = {k: v for k, v in moved.items() if not k.endswith(".gamma")}
+    print(f"  from the checkpoint: {len(gammas)} gains, smallest change "
+          f"{min(gammas.values()):.3e}; {sum(v > 0 for v in others.values())} of "
+          f"{len(others)} other parameters moved, largest change {max(others.values()):.3e}")
+    report.require("DINOv2 every LayerScale gain moved",
+                   len(gammas) == 2 * cfg_model.vit_depth and min(gammas.values()) > 0)
+    report.require("DINOv2 other parameters moved", max(others.values()) > 0)
+    del init, trained
+    print(f"  [dinov2-train] done at {time.perf_counter() - t_start:.0f} s", flush=True)
+
+    # ---- timings (CUDA events after warm-up)
+    print(f"[dinov2-timing] card: {smi}")
+    t = cfg.train
+    batch, draws, _ = _train_batch(cfg, dev, model.config.timesteps)
+    opt, _ = make_optimizer(model, lr=t.lr, T_0=t.restart_num, iters_per_epoch=t.len_train,
+                            clip_grad=t.clip_grad)
+    for plain in (False, True):
+        with _route(V, plain):
+            timings["DINOv2 train step " + ("plain route" if plain else "kernel route")] = \
+                _time_ms(torch, lambda: train_step(model, opt, batch, t.batch_repeat,
+                                                   draws=draws), reps=2, warmup=1)
+    torch.cuda.reset_peak_memory_stats()
+    step = _step_launches(K, lambda: train_step(model, opt, batch, t.batch_repeat, draws=draws))
+    timings["DINOv2 peak memory of a train step (GB)"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  launches of one DINOv2 train step: {step}")
+    report.require("DINOv2 train step: 24 layerscale_bwd launches",
+                   step["layerscale_bwd"] == LS_PER_STEP, f"({step['layerscale_bwd']})")
+    report.require("DINOv2 train step: as many linear launches as DINO's",
+                   step["linear"] == dino_step_launches["linear"],
+                   f"({step['linear']} and {dino_step_launches['linear']})")
+    full = tok20.repeat(VIT_IMAGES // 20 + 1, 1, 1)[:VIT_IMAGES].contiguous()
+    cot_full = rnd(*full.shape)
+    for plain in (False, True):
+        r = " plain" if plain else ""
+        timings[f"DINOv2 vit trunk fwd+bwd{r}"] = _time_ms(
+            torch, lambda: _trunk_grads(ls_run(False, plain), full, vst, cot_full), reps=2,
+            warmup=1)
+        with torch.no_grad():
+            timings[f"DINOv2 vit trunk fwd{r}"] = _time_ms(
+                torch, lambda: ls_run(False, plain)(full, vst), reps=2, warmup=1)
+    del full, cot_full, batch, opt
+    for name, kern, plain, (b_ms, b_by), _ in cases.values():
+        timings[name] = _time_ms(torch, kern, reps=5)
+        timings[f"{name} plain"] = _time_ms(torch, plain, reps=5)
+        print(f"  {name}: kernel {timings[name]:.4f} ms, plain {timings[name + ' plain']:.4f} "
+              f"ms, bound {b_ms:.4f} ms ({b_by})")
+    del cases, hm
+    ls_ms = _time_ms(torch, lambda: K.layerscale_bwd(dy_ls, o_ls, gain, d_m2), reps=10)
+    ls_plain_ms = _time_ms(torch, lambda: K.layerscale_bwd_plain(dy_ls, o_ls, gain, d_m2),
+                           reps=10)
+    ls_bound = bound(nbytes(dy_ls, o_ls, gain) + nbytes(dy_ls) + Dv * 4, 3 * M * Dv)
+    ls_case = f"layerscale_bwd DINOv2 m2 ({M}x{Dv}, dropout 0.1)"
+    timings[ls_case] = ls_ms
+    timings[f"{ls_case} plain"] = ls_plain_ms
+    del dy_ls, o_ls, res
+    kernels_json = [{
+        "name": "layerscale_bwd", "route": "cuda", "source": SOURCES["layerscale_bwd"],
+        "replaces": TPU_KERNELS["layerscale_bwd"], "launches": launches["layerscale_bwd"],
+        "max_abs_err": ls_err, "ms": ls_ms, "plain_ms": ls_plain_ms, "bound_ms": ls_bound[0],
+        "bound_by": ls_bound[1], "library_ms": None,
+        "case": f"{ls_case} (launches: DINOv2 train path)",
+    }]
+    print(f"  {ls_case}: kernel {ls_ms:.4f} ms, plain {ls_plain_ms:.4f} ms, bound "
+          f"{ls_bound[0]:.4f} ms ({ls_bound[1]})")
+    L_v = 12
+    w_vit = L_v * (4 * Dv * Dv + 2 * Dv * Fv)
+    tb = trunk_bounds(M, Nv, Dv, Fv, L_v, 4, 4 * w_vit, PEAK_F32, saved=4)
+    tt = timings
+    rows = [
+        (9, f"_fwd_call DINOv2 {VIT_IMAGES}x{Nv}, f32, LayerScale", tt["DINOv2 vit trunk fwd"],
+         tt["DINOv2 vit trunk fwd plain"], tb[0], None),
+        (10, f"_bwd_call DINOv2 {VIT_IMAGES}x{Nv}, f32, LayerScale (fwd+bwd less fwd)",
+         tt["DINOv2 vit trunk fwd+bwd"] - tt["DINOv2 vit trunk fwd"],
+         tt["DINOv2 vit trunk fwd+bwd plain"] - tt["DINOv2 vit trunk fwd plain"], tb[1], None),
+    ]
+    del model, vit, vst, tok, cot, tok20
+    torch.cuda.empty_cache()
+    print(f"  [dinov2-timing] done at {time.perf_counter() - t_start:.0f} s", flush=True)
+
+    # ---- DINO ViT-B/16: D 768, 12 heads, FF 3,072
+    print("[vitb] fused_vit_trunk at D 768, layernorm_bwd at D 768, one train step")
+    cfg_b = model_config_from_cfg(load_config("default_train", [VITB]).MODEL)
+    vitb_model = PoseDiffusionModel(cfg_b)
+    init_random_weights(vitb_model, SEED)
+    vitb_model.to(dev)
+    vitb = vitb_model.image_feature_extractor._net
+    Db, Fb = vitb.embed_dim, 4 * vitb.embed_dim
+    with torch.no_grad():
+        tokb, biasb, _ = _embed_pack_scales(vitb, imgs20, cfg_b.scale_factors)
+        for wdt, act, tol in ((torch.float32, False, TOL_VIT_F32),
+                              (torch.bfloat16, True, TOL_VIT_BF16)):
+            st = stack_vit_params(vitb, wdt)
+            err = (fused_vit_trunk(tokb, st, 12, act, biasb)
+                   - fused_vit_trunk_plain(tokb, st, 12, act, biasb)).abs().max().item()
+            report.check(f"ViT-B fused_vit_trunk {'bf16' if act else 'f32'} (12 blocks, "
+                         f"{tuple(tokb.shape)}, 12 heads)", err, tol)
+        stb = stack_vit_params(vitb, torch.bfloat16)
+        timings["ViT-B vit trunk (fused_vit_trunk, bf16, 20x264x768)"] = _time_ms(
+            torch, lambda: fused_vit_trunk(tokb, stb, 12, True, biasb))
+        timings["ViT-B vit trunk plain (fused_vit_trunk_plain, bf16)"] = _time_ms(
+            torch, lambda: fused_vit_trunk_plain(tokb, stb, 12, True, biasb))
+    Mb = VIT_IMAGES * tokb.shape[1]
+    x_ln, dh_ln, res_ln = rnd(Mb, Db), rnd(Mb, Db), rnd(Mb, Db)
+    g_ln = 1 + 0.1 * rnd(Db)
+    out_k = K.layernorm_bwd(x_ln, g_ln, dh_ln, 1e-6, residual=res_ln)
+    out_p = K.layernorm_bwd_plain(x_ln, g_ln, dh_ln, 1e-6, residual=res_ln)
+    for part, a, b in zip(("dx", "dg", "db"), out_k, out_p):
+        _close_rel(report, f"layernorm_bwd {part} ViT-B ({Mb}x{Db})", a, b, TOL_F32)
+    lnb = f"layernorm_bwd ViT-B ({Mb}x{Db}, + residual)"
+    timings[lnb] = _time_ms(torch, lambda: K.layernorm_bwd(x_ln, g_ln, dh_ln, 1e-6,
+                                                           residual=res_ln), reps=5)
+    timings[f"{lnb} plain"] = _time_ms(torch, lambda: K.layernorm_bwd_plain(
+        x_ln, g_ln, dh_ln, 1e-6, residual=res_ln), reps=5)
+    lnb_bound = bound(nbytes(x_ln, dh_ln, res_ln, g_ln) + nbytes(x_ln) + 2 * Db * 4, 12 * Mb * Db)
+    print(f"  {lnb}: kernel {timings[lnb]:.4f} ms, plain {timings[lnb + ' plain']:.4f} ms, "
+          f"bound {lnb_bound[0]:.4f} ms ({lnb_bound[1]})")
+    del out_k, out_p, x_ln, dh_ln, res_ln
+    torch.cuda.empty_cache()
+    cfg_vb = _train_cfg(work, "train_vitb", VITB)
+    batch, draws, _ = _train_batch(cfg_vb, dev, cfg_b.timesteps)
+    tb_ = cfg_vb.train
+    opt, _ = make_optimizer(vitb_model, lr=tb_.lr, T_0=tb_.restart_num,
+                            iters_per_epoch=tb_.len_train, clip_grad=tb_.clip_grad)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m = train_step(vitb_model, opt, batch, tb_.batch_repeat, draws=draws)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    timings["ViT-B peak memory of a train step (GB)"] = torch.cuda.max_memory_allocated() / 1e9
+    report.require("ViT-B train step loss finite", np.isfinite(m["loss"]), f"({m['loss']:.5f})")
+    timings["ViT-B train step kernel route (512 images, batch_repeat 90)"] = _time_ms(
+        torch, lambda: train_step(vitb_model, opt, batch, tb_.batch_repeat, draws=draws),
+        reps=1, warmup=0)
+    print(f"  ViT-B first train step {first * 1e3:.1f} ms (host clock); loss {m['loss']:.5f}")
+    Pb, Ab = block_flops(20 * tokb.shape[1], tokb.shape[1], Db, Fb)
+    w_b = 12 * (4 * Db * Db + 2 * Db * Fb)
+    rows.append((1, "fused_vit_trunk ViT-B 20x264x768, bf16",
+                 timings["ViT-B vit trunk (fused_vit_trunk, bf16, 20x264x768)"],
+                 timings["ViT-B vit trunk plain (fused_vit_trunk_plain, bf16)"],
+                 max(bound(2 * nbytes(tokb) + 2 * w_b, 0)[0], 12 * (Pb + Ab) / PEAK_BF16 * 1e3),
+                 None))
+    del vitb_model, vitb, opt, batch
+    torch.cuda.empty_cache()
+    for name, v in timings.items():
+        print(f"  {name}: {v:.3f}{'' if '(GB)' in name else ' ms'}")
+    print(f"  [vitb] done at {time.perf_counter() - t_start:.0f} s", flush=True)
+    return kernels_json, timings, rows
 
 
 def main(argv) -> int:
@@ -884,7 +1242,6 @@ def main(argv) -> int:
         stack_vit_params,
     )
     from posediffusion_tpu_torch.data.images import load_and_preprocess_images
-    from posediffusion_tpu_torch.utils.config import load_config
     from posediffusion_tpu_torch.utils.precision import pin_full_float32
 
     dev = torch.device("cuda")
@@ -1181,13 +1538,8 @@ def main(argv) -> int:
     # ---- 3. main path: demo_torch's flow on samples/apple, GGS off
     print("[main] demo_torch on samples/apple, GGS off, random weights")
 
-    def demo_cfg(folder, *extra):
-        return load_config("default", [
-            f"image_folder={folder}", "ckpt=random", f"seed={SEED}",
-            f"out_dir={os.path.join(work, 'out')}", *extra])
-
     K.reset_launch_counts()
-    out_plain = demo_torch.run(demo_cfg(apple, "GGS.enable=False"), "cuda")
+    out_plain = demo_torch.run(demo_cfg(work, apple, "GGS.enable=False"), "cuda")
     torch.cuda.synchronize()
     launches = K.launch_counts()
     _check_launches(report, "no-GGS", NO_GGS_PATH, launches)
@@ -1204,8 +1556,8 @@ def main(argv) -> int:
     fused_trunk.launches = 0
     ggs_outs = []
     for (folder, d, fr), path in zip(runs, files):
-        out = demo_torch.run(demo_cfg(folder, "GGS.enable=True", f"GGS.matches_file={path}"),
-                             "cuda")
+        out = demo_torch.run(demo_cfg(work, folder, "GGS.enable=True",
+                                      f"GGS.matches_file={path}"), "cuda")
         _check_cameras(report, out, fr or n_frames, f"GGS {d}/pair, {fr or n_frames} frames")
         ggs_outs.append(out)
     torch.cuda.synchronize()
@@ -1235,8 +1587,9 @@ def main(argv) -> int:
     K.reset_launch_counts()
     for folder, n, kp in ((apple, n_frames, MATCH_KEYPOINTS), (subset, SUBSET_FRAMES, None)):
         extra = [] if kp is None else [f"GGS.max_keypoints={kp}"]
-        out = demo_torch.run(demo_cfg(folder, "GGS.enable=True", f"GGS.matcher_ckpt_dir={wdir}",
-                                      *MATCH_ARGS, *extra), "cuda")
+        out = demo_torch.run(demo_cfg(work, folder, "GGS.enable=True",
+                                      f"GGS.matcher_ckpt_dir={wdir}", *MATCH_ARGS, *extra),
+                             "cuda")
         what = f"extracted matches, {n} frames, max_keypoints {kp or 4096}"
         _check_cameras(report, out, n, what)
         report.require(f"{what}: GGS sampled with matches", out["ggs_matches"] > 0,
@@ -1247,7 +1600,9 @@ def main(argv) -> int:
     print(f"  [match] done at {time.perf_counter() - t_start:.0f} s", flush=True)
 
     # ---- 5. the training slice: parity of its kernels, train_torch.py, timings
-    train_json, train_timings, _ = train_slice(report, dev, work, smi, t_start)
+    train_json, train_timings, dino_step = train_slice(report, dev, work, smi, t_start)
+    # ---- 5b. DINOv2 (LayerScale) serving and training, and ViT-B
+    bb_json, bb_timings, bb_rows = backbones_slice(report, dev, work, smi, t_start, dino_step)
 
     # ---- 6. timing (default mode, CUDA events after warm-up)
     print(f"[timing] medians of {N_TIMED}, card: {smi}")
@@ -1484,8 +1839,9 @@ def main(argv) -> int:
             "bound_by": ggs_bound[1], "library_ms": None,
             "case": f"200-iteration phase, 20 frames, {d}/pair (launches: GGS path)",
         })
-    kernels_json += train_json
+    kernels_json += train_json + bb_json
     timings.update(train_timings)
+    timings.update(bb_timings)
 
     # the ten TPU kernels' rows (PERF.md section 6): each row's case, its
     # kernel route and plain route, its bound and a one-call yardstick
@@ -1547,6 +1903,7 @@ def main(argv) -> int:
          tt["encoder trunk fwd+bwd"] - tt["encoder trunk fwd"],
          tt["encoder trunk fwd+bwd plain"] - tt["encoder trunk fwd plain"], tb_enc[1], None),
     ]
+    rows = sorted(rows + bb_rows, key=lambda r: r[0])
     for r in rows:
         print(f"  TPU kernel {r[0]}: {r[1]}: kernel {r[2]:.3f} ms, plain {r[3]:.3f} ms, "
               f"bound {r[4]:.4f} ms, library {r[5]}")

@@ -19,11 +19,12 @@
 //
 // a is (M, K) float32; W is (K, N), or (N, K) read transposed (trans_w: the
 // dgrad product dY W^T with W in its forward layout), float32 or bfloat16;
-// bias (N,) or null; residual and y (M, N) float32. round_a rounds a to
-// bfloat16 as it is staged (the cast(...) of the TPU kernels' bf16 mode).
-// The epilogue, in the TPU kernels' order: + bias, [pre <- v], activation,
-// x dropout mask, [round to bf16, + residual, round to bf16 when the
-// residual stream is bf16 (round_out)].
+// bias (N,) or null; gain (N,) or null; residual and y (M, N) float32.
+// round_a rounds a to bfloat16 as it is staged (the cast(...) of the TPU
+// kernels' bf16 mode). The epilogue, in the TPU kernels' order: + bias,
+// [pre <- v], activation, x gain[n] (DINOv2's LayerScale, (a@W + b) * ls at
+// vit_train_kernel.py:210-212, :238-240), x dropout mask, [round to bf16,
+// + residual, round to bf16 when the residual stream is bf16 (round_out)].
 //
 // Bound: compute. The ViT's train products (M = 512 images x 264 tokens =
 // 135,168 rows, K and N 384 to 1,536) are 40-160 GFLOP each; the sampler's
@@ -57,6 +58,7 @@ __device__ __forceinline__ float activate(float v, int act) {
 
 struct Epilogue {
   const float* bias;
+  const float* gain;
   const float* res;
   float* y;
   float* pre;
@@ -68,7 +70,9 @@ struct Epilogue {
     const size_t idx = (size_t)m * N + n;
     float v = acc + (bias ? bias[n] : 0.f);
     if (pre) pre[idx] = v;
-    v = activate(v, act) * drop_mul(drop, (unsigned int)idx);
+    v = activate(v, act);
+    if (gain) v *= gain[n];
+    v *= drop_mul(drop, (unsigned int)idx);
     if (res) {
       if (round_out) v = round_bf16(v);
       v += res[idx];
@@ -410,14 +414,16 @@ wgrad_bf16_tc_kernel(const float* __restrict__ X, const float* __restrict__ dY,
 }  // namespace
 
 PD_API int pd_linear(const void* a, const void* w, int w_bf16, int trans_w,
-                     const void* bias, const void* res, void* y, void* pre,
+                     const void* bias, const void* gain, const void* res,
+                     void* y, void* pre,
                      int M, int N, int K, int round_a, int act,
                      unsigned int drop_key, int drop_thr, float drop_scale,
                      int round_out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const float* A = (const float*)a;
-  Epilogue ep{(const float*)bias, (const float*)res, (float*)y, (float*)pre,
-              act, round_out, DropArgs{drop_key, drop_thr, drop_scale}};
+  Epilogue ep{(const float*)bias, (const float*)gain, (const float*)res,
+              (float*)y, (float*)pre, act, round_out,
+              DropArgs{drop_key, drop_thr, drop_scale}};
   if (w_bf16 && round_a) {
     dim3 grid((N + TC_BN - 1) / TC_BN, (M + TC_BM - 1) / TC_BM);
     linear_bf16_tc_kernel<<<grid, TC_THREADS, 0, s>>>(

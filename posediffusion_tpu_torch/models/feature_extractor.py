@@ -1,13 +1,24 @@
 """Multi-scale image feature extractor, as in
 ``posediffusion_tpu.models.feature_extractor``: ImageNet-normalise, run the
 ViT at scales 1, 1/2 and 1/3 packed into one token row (197 + 50 + 17 = 264
-tokens at 224px), and average the per-scale CLS features.
+tokens at 224px with patch 16; 257 + 65 + 26 = 348 with DINOv2's patch 14),
+and average the per-scale CLS features.
 
-``extract_features_fused`` is the inference path: the patch embedding,
+Backbones (``modelname``, the reference's contract): ``dino_vits16``,
+``dino_vitb16`` and ``dinov2_vits14`` (LayerScale, patch 14, position grid
+37). The JAX package's ``resnet50`` / ``resnet101`` are not ported.
+
+``extract_features_fused`` is the DINO inference path: the patch embedding,
 position interpolation, packing, CLS LayerNorm and average are plain
 PyTorch, and the 12-block trunk is ``ops.vit_kernel.fused_vit_trunk``.
-``extract_features_train`` is the same flow for training, differentiable,
-with the trunk in ``ops.vit_train_kernel.fused_vit_trunk_train``.
+``extract_features_blocks`` is the DINOv2 inference path, which in the JAX
+package takes the Flax blocks, not the fused trunk
+(``posediffusion_tpu/models/pose_diffusion.py:409-414``): the module's
+blocks with their attention in ``kernels.attention`` (TPU kernel 5's
+counterpart) and the LayerNorms, products and gains in plain PyTorch, as
+XLA computes them there. ``extract_features_train`` is the flow for
+training, differentiable, with the trunk (LayerScale included) in
+``ops.vit_train_kernel.fused_vit_trunk_train``.
 """
 
 from __future__ import annotations
@@ -19,6 +30,7 @@ from torch import nn
 
 from posediffusion_tpu_torch.models.vit import VisionTransformer
 from posediffusion_tpu_torch.ops.image import imagenet_normalize
+from posediffusion_tpu_torch.ops.kernels import attention
 from posediffusion_tpu_torch.ops.vit_kernel import fused_vit_trunk, stack_vit_params
 from posediffusion_tpu_torch.ops.vit_train_kernel import (
     fused_vit_trunk_train,
@@ -27,17 +39,22 @@ from posediffusion_tpu_torch.ops.vit_train_kernel import (
 
 
 class MultiScaleImageFeatureExtractor(nn.Module):
-    """The DINO ViT backbone (``dino_vits16``; the ResNet and DINOv2
-    backbones of the JAX package are not ported)."""
+    """The ViT backbone that ``modelname`` names: DINO (``dino_vits16``,
+    ``dino_vitb16``: ``patch_size``) or DINOv2 (``dinov2_vits14``: patch 14,
+    grid 37, LayerScale), as ``posediffusion_tpu/models/feature_extractor.py
+    :44-63``. The ResNet backbones raise: they are not ported."""
 
     def __init__(self, scale_factors: Sequence[float] = (1.0, 1.0 / 2, 1.0 / 3),
-                 patch_size: int = 16, embed_dim: int = 384, depth: int = 12,
-                 num_heads: int = 6):
+                 modelname: str = "dino_vits16", patch_size: int = 16,
+                 embed_dim: int = 384, depth: int = 12, num_heads: int = 6):
         super().__init__()
+        if "resnet" in modelname:
+            raise NotImplementedError(f"backbone {modelname} is not ported")
         self.scale_factors = tuple(scale_factors)
+        dinov2 = "dinov2" in modelname
         self._net = VisionTransformer(
-            patch_size=patch_size, embed_dim=embed_dim, depth=depth,
-            num_heads=num_heads,
+            patch_size=14 if dinov2 else patch_size, embed_dim=embed_dim, depth=depth,
+            num_heads=num_heads, pos_grid=37 if dinov2 else 14, layer_scale=dinov2,
         )
 
     @property
@@ -70,12 +87,30 @@ def extract_features_fused(
     act_bf16: bool = False,
     weight_dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
-    """(B, 3, H, W) -> (B, D) with the trunk in the kernels."""
+    """(B, 3, H, W) -> (B, D) with the trunk in the kernels (DINO only: the
+    JAX package's fused trunk has no LayerScale)."""
+    if vit.layer_scale:
+        raise ValueError("the fused inference trunk has no LayerScale: "
+                         "DINOv2 takes extract_features_blocks")
     x, bias, offsets = _embed_pack_scales(vit, images_nchw, scale_factors)
     x = fused_vit_trunk(
         x, stack_vit_params(vit, weight_dtype), nhead=vit.num_heads,
         act_bf16=act_bf16, attn_bias=bias,
     )
+    return _multiscale_cls_head(vit, x, offsets)
+
+
+@torch.no_grad()
+def extract_features_blocks(
+    vit: VisionTransformer,
+    images_nchw: torch.Tensor,  # (B, 3, H, W) in [0, 1]
+    scale_factors: Sequence[float] = (1.0, 1.0 / 2, 1.0 / 3),
+) -> torch.Tensor:
+    """(B, 3, H, W) -> (B, D) through the module's blocks, float32, with the
+    attention in ``kernels.attention``: the DINOv2 inference path."""
+    x, bias, offsets = _embed_pack_scales(vit, images_nchw, scale_factors)
+    for blk in vit.blocks:
+        x = blk(x, bias, attention)
     return _multiscale_cls_head(vit, x, offsets)
 
 
@@ -88,10 +123,12 @@ def extract_features_train(
 ) -> torch.Tensor:
     """(B, 3, H, W) -> (B, D), differentiable: patch embedding, positions,
     packing and the CLS head in plain PyTorch (autograd), the trunk in
-    ``fused_vit_trunk_train`` with float32 weight stacks."""
+    ``fused_vit_trunk_train`` with float32 weight stacks (and LayerScale
+    gains when the blocks have them)."""
     x, bias, offsets = _embed_pack_scales(vit, images_nchw, scale_factors)
     x = fused_vit_trunk_train(
         x, stack_vit_params_train(vit), bias, nhead=vit.num_heads,
         act_bf16=act_bf16, residual_bf16=residual_bf16,
+        layer_scale=vit.layer_scale,
     )
     return _multiscale_cls_head(vit, x, offsets)

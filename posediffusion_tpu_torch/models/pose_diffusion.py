@@ -2,11 +2,14 @@
 ``posediffusion_tpu.models.pose_diffusion``.
 
 The module tree carries the released checkpoint's keys:
-``image_feature_extractor._net.*`` (DINO ViT), ``diffuser.model.*``
-(denoiser) and the 13 schedule buffers ``diffuser.<name>``, so a reference
-``.pth`` loads with a strict ``load_state_dict``.
+``image_feature_extractor._net.*`` (the ViT; DINOv2's adds
+``blocks.N.ls{1,2}.gamma``), ``diffuser.model.*`` (denoiser) and the 13
+schedule buffers ``diffuser.<name>``, so a reference ``.pth`` loads with a
+strict ``load_state_dict``. Backbones: ``dino_vits16`` (the default),
+``dino_vitb16`` and ``dinov2_vits14``.
 
-``sample`` runs ``extract_features_fused`` (ViT trunk on the kernels), then
+``sample`` runs ``extract_features_fused`` (DINO: ViT trunk on the kernels;
+DINOv2: ``extract_features_blocks``, its attention on the kernels), then
 ``fused_sample_loop`` for the unconditioned steps [n_cond, T) (all of them
 without GGS), then, with a ``cond_fn``, the conditioned tail t < n_cond in
 ``p_sample_loop`` with ``denoiser_apply_fused`` (trunk on the kernels) and
@@ -14,7 +17,8 @@ the GGS ``cond_fn`` (its phases on the GGS kernels). Which code runs each
 kernel is decided by the images' device alone.
 
 ``loss`` is the training loss (``posediffusion_tpu``'s ``loss``, :260-385):
-``extract_features_train`` (TPU kernel 9/10's ViT flavour), ``batch_repeat``
+``extract_features_train`` (TPU kernel 9/10's ViT flavour, with LayerScale
+for DINOv2), ``batch_repeat``
 tiling of the features and poses, then ``p_losses`` over
 ``denoiser_train_apply`` (the encoder flavour, with dropout), masked by the
 frame mask. Its draws (t, the noise, the dropout seed) are arguments, or
@@ -42,11 +46,18 @@ from posediffusion_tpu_torch.models.denoiser import (
 )
 from posediffusion_tpu_torch.models.feature_extractor import (
     MultiScaleImageFeatureExtractor,
+    extract_features_blocks,
     extract_features_fused,
     extract_features_train,
 )
+from posediffusion_tpu_torch.models.vit import LayerScale
 from posediffusion_tpu_torch.ops.denoiser_kernel import stack_trunk_params
 from posediffusion_tpu_torch.ops.sampler_kernel import fused_sample_loop
+
+
+# the JAX package's backbones (posediffusion_tpu/utils/config.py:128); the
+# ResNets are not ported and raise in the extractor
+KNOWN_BACKBONES = ("dino_vits16", "dino_vitb16", "dinov2_vits14", "resnet50", "resnet101")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,7 +78,7 @@ class PoseDiffusionConfig:
     # backbone
     vit_depth: int = 12
     vit_heads: int = 6
-    patch_size: int = 16
+    patch_size: int = 16  # DINO's; DINOv2 takes 14 (the extractor sets it)
     scale_factors: Tuple[float, ...] = (1.0, 1.0 / 2, 1.0 / 3)
     # precision of the kernel paths: the weight stacks of both trunks, and
     # bf16 rounding of the ViT's product operands (the JAX main path's
@@ -105,12 +116,14 @@ class PoseDiffusionModel(nn.Module):
         super().__init__()
         if config.pose_encoding_type != "absT_quaR_logFL":
             raise ValueError(f"unknown pose encoding {config.pose_encoding_type}")
-        if config.modelname != "dino_vits16":
-            raise ValueError(f"backbone {config.modelname} is not ported")
+        if config.modelname not in KNOWN_BACKBONES:
+            raise ValueError(f"unsupported backbone {config.modelname} "
+                             f"(known: {KNOWN_BACKBONES})")
         self.config = config
         c = config
         self.image_feature_extractor = MultiScaleImageFeatureExtractor(
-            scale_factors=c.scale_factors, patch_size=c.patch_size, embed_dim=c.z_dim, depth=c.vit_depth,
+            scale_factors=c.scale_factors, modelname=c.modelname,
+            patch_size=c.patch_size, embed_dim=c.z_dim, depth=c.vit_depth,
             num_heads=c.vit_heads,
         )
         denoiser = Denoiser(
@@ -134,15 +147,20 @@ class PoseDiffusionModel(nn.Module):
 
     @torch.no_grad()
     def extract_features(self, images: torch.Tensor) -> torch.Tensor:
-        """(B, N, 3, H, W) in [0, 1] -> (B, N, z_dim), trunk on the kernels."""
+        """(B, N, 3, H, W) in [0, 1] -> (B, N, z_dim): DINO's trunk on the
+        kernels; DINOv2's blocks in float32 with their attention on the
+        kernels, as the JAX package routes them (:409-414, :432)."""
         B, N = images.shape[:2]
-        z = extract_features_fused(
-            self.image_feature_extractor._net,
-            images.reshape(B * N, *images.shape[2:]),
-            scale_factors=self.config.scale_factors,
-            act_bf16=self.config.extractor_act_bf16,
-            weight_dtype=self.weight_dtype,
-        )
+        vit = self.image_feature_extractor._net
+        flat = images.reshape(B * N, *images.shape[2:])
+        if vit.layer_scale:
+            z = extract_features_blocks(vit, flat, self.config.scale_factors)
+        else:
+            z = extract_features_fused(
+                vit, flat, scale_factors=self.config.scale_factors,
+                act_bf16=self.config.extractor_act_bf16,
+                weight_dtype=self.weight_dtype,
+            )
         return z.reshape(B, N, -1)
 
     def loss(
@@ -239,12 +257,15 @@ class PoseDiffusionModel(nn.Module):
 @torch.no_grad()
 def init_random_weights(model: nn.Module, seed: int, std: float = 0.02) -> None:
     """Fill every parameter with seeded draws: N(0, std), plus 1 for
-    LayerNorm weights. Buffers (the schedule) keep their values. The draws
-    come from one CPU generator, so the weights do not depend on the device."""
+    LayerNorm weights and LayerScale gains (gains near 0 would scale every
+    branch and its gradient away). Buffers (the schedule) keep their values.
+    The draws come from one CPU generator, so the weights do not depend on
+    the device."""
     gen = torch.Generator().manual_seed(seed)
     for module in model.modules():
         for name, p in module.named_parameters(recurse=False):
             draw = torch.randn(p.shape, generator=gen) * std
-            if isinstance(module, nn.LayerNorm) and name == "weight":
+            if (isinstance(module, nn.LayerNorm) and name == "weight") or isinstance(
+                    module, LayerScale):
                 draw += 1.0
             p.copy_(draw)

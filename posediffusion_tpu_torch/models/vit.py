@@ -1,21 +1,25 @@
-"""DINO ViT-S/16 backbone, as in ``posediffusion_tpu.models.vit``.
+"""DINO ViT-S/16 and ViT-B/16 and DINOv2 ViT-S/14 backbones, as in
+``posediffusion_tpu.models.vit``.
 
 Keys are those of the DINO checkpoint (``cls_token``, ``pos_embed``,
 ``patch_embed.proj``, ``blocks.N.{norm1, attn.qkv, attn.proj, norm2,
-mlp.fc1, mlp.fc2}``, ``norm``). Position embeddings are resampled with
-torch's bicubic (Keys a = -0.75) for the smaller scales.
+mlp.fc1, mlp.fc2}``, ``norm``), plus DINOv2's LayerScale gains
+``blocks.N.ls1.gamma`` and ``blocks.N.ls2.gamma`` with ``layer_scale``.
+Position embeddings are resampled with torch's bicubic (Keys a = -0.75) for
+the smaller scales. For DINOv2 (patch 14, a 37 x 37 grid) this follows the
+JAX package, not DINOv2 upstream: no ``interpolate_offset`` and no
+antialiasing.
 
 Several scales of one image run as ONE token row: ``pack_scales`` embeds
 each scale and concatenates the rows, with a block-diagonal additive bias
 (0 within a scale, NEG across) that makes packed attention exactly
 per-scale attention. ``forward`` runs the blocks in plain PyTorch; the
-inference path runs them through the kernels instead
-(``models/feature_extractor.extract_features_fused``).
+inference paths run them through the kernels (``models/feature_extractor``).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -33,10 +37,17 @@ class Attention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor, attn_bias: Optional[torch.Tensor]):
+    def forward(self, x: torch.Tensor, attn_bias: Optional[torch.Tensor],
+                attend: Optional[Callable] = None):
+        """``attend`` (e.g. ``kernels.attention``) takes the packed QKV
+        (B, N, 3D), the head count and ``attn_bias``; without it the
+        attention is plain PyTorch."""
         B, N, D = x.shape
         Dh = D // self.num_heads
-        q, k, v = self.qkv(x).view(B, N, 3, self.num_heads, Dh).permute(2, 0, 3, 1, 4)
+        qkv = self.qkv(x)
+        if attend is not None:
+            return self.proj(attend(qkv.contiguous(), self.num_heads, attn_bias=attn_bias))
+        q, k, v = qkv.view(B, N, 3, self.num_heads, Dh).permute(2, 0, 3, 1, 4)
         s = (q @ k.transpose(-1, -2)) * (1.0 / Dh**0.5)
         if attn_bias is not None:
             s = s + attn_bias
@@ -54,17 +65,34 @@ class Mlp(nn.Module):
         return self.fc2(F.gelu(self.fc1(x)))  # exact erf GELU
 
 
+class LayerScale(nn.Module):
+    """DINOv2's per-channel gain of a residual branch (``ls1_gamma`` /
+    ``ls2_gamma`` in the JAX package)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x):
+        return x * self.gamma
+
+
 class Block(nn.Module):
-    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 layer_scale: bool = False):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         self.attn = Attention(dim, num_heads)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        # the gain after the projection, before the residual
+        # (posediffusion_tpu/models/vit.py:78-90)
+        self.ls1 = LayerScale(dim) if layer_scale else nn.Identity()
+        self.ls2 = LayerScale(dim) if layer_scale else nn.Identity()
 
-    def forward(self, x, attn_bias=None):
-        x = x + self.attn(self.norm1(x), attn_bias)
-        return x + self.mlp(self.norm2(x))
+    def forward(self, x, attn_bias=None, attend=None):
+        x = x + self.ls1(self.attn(self.norm1(x), attn_bias, attend))
+        return x + self.ls2(self.mlp(self.norm2(x)))
 
 
 class PatchEmbed(nn.Module):
@@ -75,17 +103,19 @@ class PatchEmbed(nn.Module):
 
 class VisionTransformer(nn.Module):
     def __init__(self, patch_size: int = 16, embed_dim: int = 384, depth: int = 12,
-                 num_heads: int = 6, mlp_ratio: float = 4.0, pos_grid: int = 14):
+                 num_heads: int = 6, mlp_ratio: float = 4.0, pos_grid: int = 14,
+                 layer_scale: bool = False):
         super().__init__()
         self.patch_size = patch_size
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.pos_grid = pos_grid
+        self.layer_scale = layer_scale
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, 1 + pos_grid**2, embed_dim))
         self.patch_embed = PatchEmbed(patch_size, embed_dim)
         self.blocks = nn.ModuleList(
-            Block(embed_dim, num_heads, mlp_ratio) for _ in range(depth)
+            Block(embed_dim, num_heads, mlp_ratio, layer_scale) for _ in range(depth)
         )
         self.norm = nn.LayerNorm(embed_dim, eps=1e-6)
 
@@ -147,3 +177,15 @@ class VisionTransformer(nn.Module):
         if offsets is None:
             return self.norm(x[:, 0])
         return self.norm(torch.stack([x[:, int(o)] for o in offsets[:-1]], dim=1))
+
+
+def vit_base(patch_size: int = 16) -> VisionTransformer:
+    """DINO ViT-B (``dino_vitb16``): D 768, 12 heads, FF 3,072."""
+    return VisionTransformer(patch_size=patch_size, embed_dim=768, depth=12, num_heads=12)
+
+
+def vit_small_dinov2() -> VisionTransformer:
+    """DINOv2 ViT-S/14 (``dinov2_vits14``): patch 14, LayerScale, a 37 x 37
+    position grid (518px), so pos_embed is (1, 1,370, 384)."""
+    return VisionTransformer(patch_size=14, embed_dim=384, depth=12, num_heads=6,
+                             pos_grid=37, layer_scale=True)

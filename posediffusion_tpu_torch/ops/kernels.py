@@ -1,13 +1,13 @@
 """The hand-written Hopper kernels, their plain PyTorch versions, and routing.
 
-Fourteen kernels (sources in ``posediffusion_tpu_torch/csrc``) carry the TPU
+Fifteen kernels (sources in ``posediffusion_tpu_torch/csrc``) carry the TPU
 kernels of the inference paths with and without GGS, of match extraction and
-of the training trunks:
+of the training trunks (DINOv2's LayerScale included):
 
 =======================  =====================================================
 ``layernorm``            row LayerNorm, eps and bf16 output rounding as arguments
-``linear``               ``drop(act(a @ W + b)) [+ residual]``, W float32 or
-                         bfloat16, read transposed for the dgrad product
+``linear``               ``drop(act(a @ W + b) * gain) [+ residual]``, W float32
+                         or bfloat16, read transposed for the dgrad product
 ``attention``            softmax attention over a packed (B, N, 3D) QKV buffer,
                          optional dropout of the normalised p
 ``sampler_prologue``     layer-0 fold-in of the fused sampler
@@ -21,6 +21,7 @@ of the training trunks:
 ``layernorm_bwd``        LayerNorm dx (+ residual cotangent), dg and db
 ``linear_wgrad``         weight and bias gradients X^T dY, colsum(dY)
 ``act_dropout_bwd``      dropout mask times GELU' or ReLU' of the cotangent
+``layerscale_bwd``       LayerScale's cotangent and gain gradient, dropout mask
 =======================  =====================================================
 
 Dropout masks come from a counter hash of (seed, layer, site, element)
@@ -76,7 +77,7 @@ _F = ctypes.c_float
 _DROP = [_U, _I, _F]  # a dropout site: key, threshold, scale (DropArgs)
 _SIGNATURES = {
     "pd_layernorm": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
-    "pd_linear": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, *_DROP, _I, _P],
+    "pd_linear": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, *_DROP, _I, _P],
     "pd_attention": [_P, _P, _I, _P, _I, _I, _I, _I, _F, _I, *_DROP, _P],
     "pd_sampler_prologue": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "pd_sampler_epilogue": [
@@ -93,6 +94,7 @@ _SIGNATURES = {
     "pd_linear_wgrad": [_P] * 4 + [_I] * 5 + [_P],
     "pd_act_dropout_bwd": [_P, _P, _P, _L, _I, *_DROP, _P],
     "pd_sum_partials": [_P, _P, _I, _L, _P],
+    "pd_layerscale_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, *_DROP, _P],
 }
 _MAX_SMEM = 232448  # bytes of shared memory one Hopper block may use
 
@@ -326,7 +328,7 @@ def _activate(y, act: str):
 def linear_plain(a, w, bias, act: str = "none", residual=None,
                  round_a: bool = False, trans_w: bool = False,
                  drop: Optional[Drop] = None, round_out: bool = False,
-                 want_pre: bool = False):
+                 want_pre: bool = False, gain=None):
     if round_a:
         a = round_bf16(a)
     wf = w.float()
@@ -334,6 +336,8 @@ def linear_plain(a, w, bias, act: str = "none", residual=None,
     if bias is not None:
         pre = pre + bias
     y = _activate(pre, act)
+    if gain is not None:
+        y = y * gain
     if drop is not None:
         y = y * dropout_mask(drop, y.shape, y.device)
     if residual is not None:
@@ -347,25 +351,27 @@ def linear_plain(a, w, bias, act: str = "none", residual=None,
 
 def linear(a, w, bias, act: str = "none", residual=None, round_a: bool = False,
            trans_w: bool = False, drop: Optional[Drop] = None,
-           round_out: bool = False, want_pre: bool = False):
-    """``drop(act(a @ W + bias)) [+ residual]``; a (M, K) float32, W (K, N),
-    or (N, K) with ``trans_w`` (the dgrad product dY W^T of a forward weight),
-    float32 or bfloat16; bias (N,) or None; residual (M, N). ``round_out``
-    rounds the branch and the sum to bf16 (a bf16 residual stream);
-    ``want_pre`` also returns the pre-activation ``a @ W + bias``."""
-    if not _on_card(a, w, bias, residual):
+           round_out: bool = False, want_pre: bool = False, gain=None):
+    """``drop(act(a @ W + bias) * gain) [+ residual]``; a (M, K) float32, W
+    (K, N), or (N, K) with ``trans_w`` (the dgrad product dY W^T of a forward
+    weight), float32 or bfloat16; bias and gain (N,) or None (gain: DINOv2's
+    LayerScale); residual (M, N). ``round_out`` rounds the branch and the sum
+    to bf16 (a bf16 residual stream); ``want_pre`` also returns the
+    pre-activation ``a @ W + bias``."""
+    if not _on_card(a, w, bias, residual, gain):
         return linear_plain(a, w, bias, act, residual, round_a, trans_w, drop,
-                            round_out, want_pre)
+                            round_out, want_pre, gain)
     M, K = a.shape
     N = w.shape[0] if trans_w else w.shape[1]
     _check(a, "a", (M, K))
     _check(w, "w", (N, K) if trans_w else (K, N), (torch.float32, torch.bfloat16))
     _check(bias, "bias", (N,))
+    _check(gain, "gain", (N,))
     _check(residual, "residual", (M, N))
     y = torch.empty((M, N), device=a.device, dtype=torch.float32)
     pre = torch.empty_like(y) if want_pre else None
     _launch(load_library().pd_linear, _ptr(a), _ptr(w),
-            int(w.dtype == torch.bfloat16), int(trans_w), _ptr(bias),
+            int(w.dtype == torch.bfloat16), int(trans_w), _ptr(bias), _ptr(gain),
             _ptr(residual), _ptr(y), _ptr(pre), M, N, K, int(round_a),
             _ACT[act], *(drop.args() if drop else _NO_DROP), int(round_out),
             _stream(a))
@@ -861,6 +867,10 @@ def layernorm_bwd_plain(x, g, dh, eps: float, residual=None,
     return dx, (dh * xhat).sum(0), dh.sum(0)
 
 
+# csrc/layernorm.cu: LNB_MAX_D, 32 columns of a row in each lane's registers
+LAYERNORM_BWD_MAX_D = 1024
+
+
 def layernorm_bwd(x, g, dh, eps: float, residual=None, round_out: bool = False):
     """Backward of ``layernorm`` on (rows, D) from its saved input x and the
     output cotangent dh: (dx [+ residual], dg, db). x-hat and rstd are
@@ -872,6 +882,8 @@ def layernorm_bwd(x, g, dh, eps: float, residual=None, round_out: bool = False):
     _check(g, "g", (D,))
     _check(dh, "dh", (rows, D))
     _check(residual, "residual", (rows, D))
+    if D > LAYERNORM_BWD_MAX_D:
+        raise ValueError(f"layernorm_bwd: D {D} > {LAYERNORM_BWD_MAX_D}")
     lib = load_library()
     blocks = -(-rows // lib.pd_layernorm_bwd_rows_per_block())
     dx = torch.empty_like(x)
@@ -960,6 +972,49 @@ def act_dropout_bwd(dh, a, act: str, drop: Optional[Drop] = None):
 act_dropout_bwd.launches = 0
 
 
+def layerscale_bwd_plain(dy, o_pre, gamma, drop: Optional[Drop] = None):
+    do = dy if drop is None else dy * dropout_mask(drop, dy.shape, dy.device)
+    return do * gamma, (do * o_pre).sum(0)
+
+
+# Rows per block of ``layerscale_bwd``: enough blocks to fill the card four
+# times, each at least this many rows.
+_LS_MIN_ROWS = 64
+LAYERSCALE_MAX_D = 1024  # csrc/train.cu: one thread per column of a block
+
+
+def layerscale_rows(M: int) -> int:
+    blocks = max(1, min(-(-M // _LS_MIN_ROWS), _WGRAD_TARGET_BLOCKS))
+    return -(-M // blocks)
+
+
+def layerscale_bwd(dy, o_pre, gamma, drop: Optional[Drop] = None):
+    """Backward of DINOv2's LayerScale after a product and before the
+    site's dropout, ``y = drop(o_pre * gamma)``: from the cotangent dy (M, D)
+    and the saved pre-gain output o_pre (M, D) -> (dy * mask * gamma,
+    dgamma = sum over rows of dy * mask * o_pre), float32. dgamma is summed
+    from per-block partials in order (no atomics)."""
+    if not _on_card(dy, o_pre, gamma):
+        return layerscale_bwd_plain(dy, o_pre, gamma, drop)
+    M, D = dy.shape
+    _check(dy, "dy", (M, D))
+    _check(o_pre, "o_pre", (M, D))
+    _check(gamma, "gamma", (D,))
+    if D > LAYERSCALE_MAX_D:
+        raise ValueError(f"layerscale_bwd: D {D} > {LAYERSCALE_MAX_D}")
+    rows = layerscale_rows(M)
+    out = torch.empty_like(dy)
+    part = torch.empty((-(-M // rows), D), device=dy.device, dtype=torch.float32)
+    _launch(load_library().pd_layerscale_bwd, _ptr(dy), _ptr(o_pre), _ptr(gamma),
+            _ptr(out), _ptr(part), M, D, rows, *(drop.args() if drop else _NO_DROP),
+            _stream(dy))
+    layerscale_bwd.launches += 1
+    return out, _sum_partials(part)
+
+
+layerscale_bwd.launches = 0
+
+
 # ------------------------------------------------------------------- tables
 KERNELS = SimpleNamespace(
     layernorm=layernorm, linear=linear, attention=attention,
@@ -969,6 +1024,7 @@ KERNELS = SimpleNamespace(
     superglue_matches=superglue_matches,
     attention_bwd=attention_bwd, layernorm_bwd=layernorm_bwd,
     linear_wgrad=linear_wgrad, act_dropout_bwd=act_dropout_bwd,
+    layerscale_bwd=layerscale_bwd,
 )
 PLAIN = SimpleNamespace(
     layernorm=layernorm_plain, linear=linear_plain, attention=attention_plain,
@@ -980,6 +1036,7 @@ PLAIN = SimpleNamespace(
     superglue_matches=superglue_matches_plain,
     attention_bwd=attention_bwd_plain, layernorm_bwd=layernorm_bwd_plain,
     linear_wgrad=linear_wgrad_plain, act_dropout_bwd=act_dropout_bwd_plain,
+    layerscale_bwd=layerscale_bwd_plain,
 )
 
 

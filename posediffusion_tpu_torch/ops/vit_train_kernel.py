@@ -12,6 +12,15 @@ so here each layer is a sequence of launches over the whole batch:
   each block's input x and the post-attention x1 (both at the full batch:
   80 GB allows it), so the backward's MLP half needs no attention
   re-forward.
+* DINOv2's LayerScale (``layer_scale``, the gains ``LS_KEYS``): the output
+  and second FF products multiply their columns by ls1 / ls2 in the
+  epilogue (``_attn_residual`` :211, ``_mlp_residual`` :239), and also write
+  their pre-gain outputs o_pre, which the forward saves beside x and x1
+  (6.57 GB more at 512 images x 348 tokens). The TPU kernel recomputes those
+  products for the gains' gradients (:317, :440-455); the saved o_pre spares
+  that. In the backward ``layerscale_bwd`` takes the place of the m1 / m2
+  dropout backward: it gives the gain's gradient sum(do * o_pre) and the
+  cotangent do * gamma (:316-319, :436-456).
 * backward, per layer in reverse, as ``_trunk_bwd_kernel`` (:595-720): the
   MLP half from the saved x1 (LayerNorm and the first FF product
   recomputed), then the attention half from the saved x (LayerNorm, QKV and
@@ -32,8 +41,7 @@ Dropout masks are hashed from (seed, layer, site, element)
 
 ``ops`` is ``kernels.KERNELS`` (kernels on a card, plain versions on the
 CPU), or ``kernels.PLAIN`` (the same hand-derived math in plain PyTorch on
-any device) for trunks built inside ``plain_route()``. The DINOv2
-LayerScale flavour (``_LS_KEYS``) is not ported.
+any device) for trunks built inside ``plain_route()``.
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ from posediffusion_tpu_torch.ops.kernels import KERNELS, PLAIN, drop_args
 
 WEIGHT_KEYS = ("g1", "b1", "wqkv", "bqkv", "wproj", "bproj",
                "g2", "b2", "wfc1", "bfc1", "wfc2", "bfc2")
+LS_KEYS = ("ls1", "ls2")  # DINOv2 LayerScale gains (D,), after the weights
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,9 +70,15 @@ class TrunkSpec:
     dropout: float = 0.0
     seed: int = 0
     plain: bool = False  # PLAIN ops on any device (``plain_route``)
+    layer_scale: bool = False  # DINOv2's ls1 / ls2 gains (``LS_KEYS``)
 
     def drop(self, layer: int, site: str):
         return drop_args(self.seed, layer, site, self.dropout)
+
+    @property
+    def keys(self):
+        """The weight stacks' names, in the order the trunk takes them."""
+        return WEIGHT_KEYS + (LS_KEYS if self.layer_scale else ())
 
     @property
     def ops(self):
@@ -73,9 +88,10 @@ class TrunkSpec:
 # ---------------------------------------------------------------- stacking
 def stack_vit_params_train(vit) -> dict:
     """``VisionTransformer`` blocks -> float32 per-array stacks (matrices
-    (in, out)), built differentiably so gradients reach the parameters."""
+    (in, out)), built differentiably so gradients reach the parameters; with
+    the LayerScale gains ``ls1`` / ``ls2`` (L, D) when the blocks have them."""
     b = vit.blocks
-    return {
+    stacks = {
         "g1": _stack_grad([x.norm1.weight for x in b]),
         "b1": _stack_grad([x.norm1.bias for x in b]),
         "wqkv": _stack_grad([x.attn.qkv.weight.t() for x in b]),
@@ -89,6 +105,10 @@ def stack_vit_params_train(vit) -> dict:
         "wfc2": _stack_grad([x.mlp.fc2.weight.t() for x in b]),
         "bfc2": _stack_grad([x.mlp.fc2.bias for x in b]),
     }
+    if vit.layer_scale:
+        stacks["ls1"] = _stack_grad([x.ls1.gamma for x in b])
+        stacks["ls2"] = _stack_grad([x.ls2.gamma for x in b])
+    return stacks
 
 
 def stack_encoder_trunk_params(trunk) -> dict:
@@ -115,11 +135,11 @@ def _stack_grad(tensors):
     return torch.stack(tensors).to(torch.float32).contiguous()
 
 
-def _layer(weights, l: int, act_bf16: bool):
+def _layer(s: TrunkSpec, weights, l: int):
     """Layer ``l``'s weights as a dict; matrices as the products take them
     (bf16 copies in the bf16 mode)."""
-    w = {k: t[l] for k, t in zip(WEIGHT_KEYS, weights)}
-    if act_bf16:
+    w = {k: t[l] for k, t in zip(s.keys, weights)}
+    if s.act_bf16:
         for k in ("wqkv", "wproj", "wfc1", "wfc2"):
             w[k] = w[k].to(torch.bfloat16)
     return w
@@ -138,11 +158,19 @@ def _attn_branch(ops, s: TrunkSpec, l, w, x, B, N, attn_bias, key_bias):
     return h, qkv, a
 
 
+def _with_pre(s: TrunkSpec, out):
+    """A branch product's result as (out, o_pre): the pre-gain output that
+    ``want_pre`` returns with LayerScale, else None."""
+    return out if s.layer_scale else (out, None)
+
+
 def _attn_half(ops, s: TrunkSpec, l, w, x, B, N, attn_bias, key_bias):
-    """x -> x1: the attention branch, then the projection + x."""
+    """x -> (x1, o_pre): the attention branch, then the projection [x ls1]
+    + x; o_pre is the projection before the gain (LayerScale only)."""
     a = _attn_branch(ops, s, l, w, x, B, N, attn_bias, key_bias)[2]
-    return ops.linear(a, w["wproj"], w["bproj"], residual=x, round_a=s.act_bf16,
-                      drop=s.drop(l, "m1"), round_out=s.residual_bf16)
+    return _with_pre(s, ops.linear(
+        a, w["wproj"], w["bproj"], residual=x, round_a=s.act_bf16, drop=s.drop(l, "m1"),
+        round_out=s.residual_bf16, gain=w.get("ls1"), want_pre=s.layer_scale))
 
 
 def _mlp_branch(ops, s: TrunkSpec, l, w, x1, want_pre=False):
@@ -155,16 +183,19 @@ def _mlp_branch(ops, s: TrunkSpec, l, w, x1, want_pre=False):
 
 
 def _mlp_half(ops, s: TrunkSpec, l, w, x1):
-    """x1 -> y: the MLP branch, then the second FF product + x1."""
+    """x1 -> (y, o_pre): the MLP branch, then the second FF product [x ls2]
+    + x1; o_pre as in ``_attn_half``."""
     hm = _mlp_branch(ops, s, l, w, x1)[1]
-    return ops.linear(hm, w["wfc2"], w["bfc2"], residual=x1, round_a=s.act_bf16,
-                      drop=s.drop(l, "m2"), round_out=s.residual_bf16)
+    return _with_pre(s, ops.linear(
+        hm, w["wfc2"], w["bfc2"], residual=x1, round_a=s.act_bf16, drop=s.drop(l, "m2"),
+        round_out=s.residual_bf16, gain=w.get("ls2"), want_pre=s.layer_scale))
 
 
 def trunk_forward(s: TrunkSpec, x, weights, attn_bias=None, key_bias=None,
                   save: bool = False):
-    """All layers on x (B, N, D) -> (y (B, N, D), [(x, x1) of each layer,
-    (B*N, D)] when ``save``).
+    """All layers on x (B, N, D) -> (y (B, N, D), per layer when ``save``
+    (x, x1, o1_pre, o2_pre), (B*N, D) each; the o_pre are None without
+    LayerScale).
 
     Under autograd with ``PLAIN`` ops this is also a differentiable reference
     of the trunk (``torch.autograd`` of the plain forward)."""
@@ -174,23 +205,32 @@ def trunk_forward(s: TrunkSpec, x, weights, attn_bias=None, key_bias=None,
     L = weights[0].shape[0]
     saved = []
     for l in range(L):
-        w = _layer(weights, l, s.act_bf16)
-        x1 = _attn_half(ops, s, l, w, h, B, N, attn_bias, key_bias)
+        w = _layer(s, weights, l)
+        x1, o1 = _attn_half(ops, s, l, w, h, B, N, attn_bias, key_bias)
+        y, o2 = _mlp_half(ops, s, l, w, x1)
         if save:
-            saved.append((h, x1))
-        h = _mlp_half(ops, s, l, w, x1)
+            saved.append((h, x1, o1, o2))
+        h = y
     return h.view(B, N, D), saved
 
 
 # ----------------------------------------------------------- backward math
-def _drop_bwd(ops, dy, drop):
+def _drop_bwd(ops, s: TrunkSpec, l, w, dy, site, o_pre, grads):
+    """The cotangent of a branch's product output from that of the branch:
+    the site's dropout backward, and with LayerScale the gain's (whose
+    gradient goes into ``grads``)."""
+    drop = s.drop(l, site)
+    if s.layer_scale:
+        ls = "ls1" if site == "m1" else "ls2"
+        do, grads[ls][l] = ops.layerscale_bwd(dy, o_pre, w[ls], drop)
+        return do
     return dy if drop is None else ops.act_dropout_bwd(dy, None, "none", drop)
 
 
-def _mlp_half_bwd(ops, s: TrunkSpec, l, w, x1, dy, grads):
+def _mlp_half_bwd(ops, s: TrunkSpec, l, w, x1, dy, grads, o_pre=None):
     """``_mlp_residual_bwd``: cotangent dy of y -> cotangent of x1."""
     h, hm, a1 = _mlp_branch(ops, s, l, w, x1, want_pre=True)
-    do = _drop_bwd(ops, dy, s.drop(l, "m2"))
+    do = _drop_bwd(ops, s, l, w, dy, "m2", o_pre, grads)
     grads["wfc2"][l], grads["bfc2"][l] = ops.linear_wgrad(hm, do, s.act_bf16)
     dhm = ops.linear(do, w["wfc2"], None, trans_w=True, round_a=s.act_bf16)
     da1 = ops.act_dropout_bwd(dhm, a1, s.act, s.drop(l, "mff"))
@@ -202,10 +242,10 @@ def _mlp_half_bwd(ops, s: TrunkSpec, l, w, x1, dy, grads):
 
 
 def _attn_half_bwd(ops, s: TrunkSpec, l, w, x, dx1, B, N, attn_bias, key_bias,
-                   grads):
+                   grads, o_pre=None):
     """``_attn_residual_bwd``: cotangent dx1 of x1 -> cotangent of x."""
     h, qkv, a = _attn_branch(ops, s, l, w, x, B, N, attn_bias, key_bias)
-    do = _drop_bwd(ops, dx1, s.drop(l, "m1"))
+    do = _drop_bwd(ops, s, l, w, dx1, "m1", o_pre, grads)
     grads["wproj"][l], grads["bproj"][l] = ops.linear_wgrad(a, do, s.act_bf16)
     da = ops.linear(do, w["wproj"], None, trans_w=True, round_a=s.act_bf16)
     dqkv = ops.attention_bwd(qkv.view(B, N, -1), da.view(B, N, -1), s.nhead,
@@ -222,19 +262,19 @@ def _attn_half_bwd(ops, s: TrunkSpec, l, w, x, dx1, B, N, attn_bias, key_bias,
 def trunk_backward(s: TrunkSpec, saved, dy, weights, attn_bias=None,
                    key_bias=None):
     """Cotangent dy (B, N, D) of the trunk's output -> (dx, weight grads in
-    WEIGHT_KEYS order, float32 stacks)."""
+    ``s.keys`` order, float32 stacks)."""
     B, N, D = dy.shape
     ops = s.ops
-    grads = {k: torch.empty_like(t) for k, t in zip(WEIGHT_KEYS, weights)}
+    grads = {k: torch.empty_like(t) for k, t in zip(s.keys, weights)}
     g = dy.reshape(B * N, D).to(torch.float32).contiguous()
     if s.residual_bf16:  # the cotangent enters at the residual type
         g = g.to(torch.bfloat16).to(torch.float32)
     for l in reversed(range(len(saved))):
-        x, x1 = saved[l]
-        w = _layer(weights, l, s.act_bf16)
-        g = _mlp_half_bwd(ops, s, l, w, x1, g, grads)
-        g = _attn_half_bwd(ops, s, l, w, x, g, B, N, attn_bias, key_bias, grads)
-    return g.view(B, N, D), [grads[k] for k in WEIGHT_KEYS]
+        x, x1, o1, o2 = saved[l]
+        w = _layer(s, weights, l)
+        g = _mlp_half_bwd(ops, s, l, w, x1, g, grads, o2)
+        g = _attn_half_bwd(ops, s, l, w, x, g, B, N, attn_bias, key_bias, grads, o1)
+    return g.view(B, N, D), [grads[k] for k in s.keys]
 
 
 class _TrainTrunk(torch.autograd.Function):
@@ -283,7 +323,7 @@ def train_trunk(x, stacks, spec: TrunkSpec, attn_bias=None, key_bias=None):
         raise TypeError(f"train trunk input must be float32, got {x.dtype}")
     if spec.residual_bf16:
         x = x.to(torch.bfloat16).to(torch.float32)  # the residual_dtype cast
-    weights = [stacks[k] for k in WEIGHT_KEYS]
+    weights = [stacks[k] for k in spec.keys]
     return _TrainTrunk.apply(x, attn_bias, key_bias, spec, *weights)
 
 
@@ -294,12 +334,14 @@ def fused_vit_trunk_train(
     nhead: int = 6,
     act_bf16: bool = False,
     residual_bf16: bool = False,
+    layer_scale: bool = False,
 ) -> torch.Tensor:
     """Differentiable ViT trunk (GELU, LayerNorm eps 1e-6, shared (N, N)
-    bias, no dropout): forward and backward on the kernels. Gradients reach
+    bias, no dropout; with ``layer_scale`` DINOv2's gains ``ls1`` / ``ls2``
+    from the stacks): forward and backward on the kernels. Gradients reach
     x and the stacks."""
     spec = TrunkSpec(nhead=nhead, eps=1e-6, act="gelu", act_bf16=act_bf16,
-                     residual_bf16=residual_bf16)
+                     residual_bf16=residual_bf16, layer_scale=layer_scale)
     return train_trunk(x, stacks, spec, attn_bias=attn_bias.contiguous())
 
 
@@ -328,5 +370,5 @@ def trunk_reference(x, stacks, spec: TrunkSpec, attn_bias=None,
     spec = dataclasses.replace(spec, plain=True)
     if spec.residual_bf16:
         x = x.to(torch.bfloat16).to(torch.float32)
-    return trunk_forward(spec, x, [stacks[k] for k in WEIGHT_KEYS], attn_bias,
+    return trunk_forward(spec, x, [stacks[k] for k in spec.keys], attn_bias,
                          key_bias)[0]

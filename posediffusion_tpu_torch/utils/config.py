@@ -111,9 +111,13 @@ def model_config_from_cfg(model_cfg: Config):
     tr = model_cfg.get_path("DENOISER.TRANSFORMER", Config())
     diff = model_cfg.get("DIFFUSER", Config())
     extractor = model_cfg.get("IMAGE_FEATURE_EXTRACTOR", Config())
+    modelname = extractor.get("modelname", "dino_vits16")
     config = PoseDiffusionConfig(
         pose_encoding_type=model_cfg.get("pose_encoding_type", "absT_quaR_logFL"),
-        modelname=extractor.get("modelname", "dino_vits16"),
+        modelname=modelname,
+        # the backbone's width and heads (posediffusion_tpu/utils/config.py:131-132)
+        z_dim=768 if modelname == "dino_vitb16" else 384,
+        vit_heads=12 if modelname == "dino_vitb16" else 6,
         freeze_extractor=bool(extractor.get("freeze", False)),
         vit_depth=int(extractor.get("depth", 12)),
         scale_factors=tuple(extractor.get("scale_factors", (1.0, 1.0 / 2, 1.0 / 3))),

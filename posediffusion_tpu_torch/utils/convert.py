@@ -37,7 +37,9 @@ def _norm(p, prefix: str) -> Dict[str, torch.Tensor]:
 
 
 def vit_state_dict_from_jax(net, prefix: str = "") -> Dict[str, torch.Tensor]:
-    """Flax ``VisionTransformer`` params -> DINO ViT keys."""
+    """Flax ``VisionTransformer`` params -> DINO ViT keys, and DINOv2's
+    LayerScale gains ``ls1_gamma`` / ``ls2_gamma`` -> ``blocks.N.ls{1,2}.gamma``
+    (the layout ``posediffusion_tpu/utils/convert.py:97-100`` reads)."""
     sd = {
         f"{prefix}cls_token": _t(net["cls_token"]),
         f"{prefix}pos_embed": _t(net["pos_embed"]),
@@ -56,6 +58,9 @@ def vit_state_dict_from_jax(net, prefix: str = "") -> Dict[str, torch.Tensor]:
         sd.update(_norm(bp["norm2"], f"{b}.norm2"))
         sd.update(_dense(bp["mlp"]["fc1"], f"{b}.mlp.fc1"))
         sd.update(_dense(bp["mlp"]["fc2"], f"{b}.mlp.fc2"))
+        if "ls1_gamma" in bp:
+            sd[f"{b}.ls1.gamma"] = _t(bp["ls1_gamma"])
+            sd[f"{b}.ls2.gamma"] = _t(bp["ls2_gamma"])
         i += 1
     return sd
 
@@ -87,7 +92,8 @@ def denoiser_state_dict_from_jax(p, prefix: str = "") -> Dict[str, torch.Tensor]
 
 def state_dict_from_jax(params_np, schedule=None) -> Dict[str, torch.Tensor]:
     """Full JAX model params ``{"extractor": {"params": {"net": ...}},
-    "denoiser": {"params": ...}}`` -> the reference checkpoint's keys.
+    "denoiser": {"params": ...}}`` -> the reference checkpoint's keys (with
+    the LayerScale gains of a DINOv2 backbone).
 
     The schedule buffers (``diffuser.<name>``) are not JAX parameters; pass
     the port's ``DiffusionSchedule`` to include them, as a strict load of

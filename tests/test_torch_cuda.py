@@ -147,6 +147,14 @@ def test_wrappers_check_their_inputs(cuda):
         K.layernorm(a, torch.ones(15, device=cuda), torch.zeros(16, device=cuda), 1e-5)
     with pytest.raises(ValueError, match="head width"):
         K.attention(torch.randn(1, 8, 3 * 256, device=cuda), 1)
+    wide = torch.randn(4, 1056, device=cuda)
+    g = torch.ones(1056, device=cuda)
+    with pytest.raises(ValueError, match="1024"):
+        K.layernorm_bwd(wide, g, wide, 1e-6)
+    with pytest.raises(ValueError, match="1024"):
+        K.layerscale_bwd(wide, wide, g)
+    with pytest.raises(ValueError, match="shape"):
+        K.linear(a, w, b, gain=torch.ones(5, device=cuda))
 
 
 def test_launch_counts(cuda):
@@ -474,7 +482,7 @@ def test_attention_train(cuda, B, N, H, Dh, bias_kind, drop, round_in):
     assert torch.equal(out, K.attention_bwd(qkv, dout, H, round_in=round_in, drop=d, **kw))
 
 
-@pytest.mark.parametrize("rows,D", [(5000, 384), (37, 512), (3, 64)])
+@pytest.mark.parametrize("rows,D", [(5000, 384), (37, 512), (3, 64), (3000, 768), (40, 1000)])
 @pytest.mark.parametrize("round_out", [False, True])
 def test_layernorm_bwd(cuda, rows, D, round_out):
     r = _gen(rows)
@@ -502,6 +510,37 @@ def test_linear_wgrad(cuda, M, K_, N, round_in):
     assert torch.equal(dw, K.linear_wgrad(x, dy, round_in)[0])
 
 
+@pytest.mark.parametrize("M,K_,N", [(77, 130, 70), (4176, 1536, 384)])
+@pytest.mark.parametrize("wdtype,round_a", [(torch.float32, False), (torch.bfloat16, True)])
+def test_linear_gain(cuda, M, K_, N, wdtype, round_a):
+    """DINOv2's LayerScale in the epilogue: (a @ W + b) x gain, the m2 mask,
+    + residual (bf16 stream in the bf16 mode), and the pre-gain output."""
+    r = _gen(M + 1)
+    a = _t(r.normal(size=(M, K_)), cuda)
+    w = _t(r.normal(size=(K_, N)) / np.sqrt(K_), cuda, wdtype)
+    b, gain = _t(r.normal(size=N), cuda), _t(1 + 0.1 * r.normal(size=N), cuda)
+    res = _t(r.normal(size=(M, N)), cuda)
+    kw = dict(residual=res, round_a=round_a, drop=K.drop_args(5, 2, "m2", 0.1),
+              round_out=round_a, gain=gain, want_pre=True)
+    (y, pre), (yp, prep) = K.linear(a, w, b, **kw), K.linear_plain(a, w, b, **kw)
+    _close(y, yp, TOL_BF16 if round_a else TOL_F32)
+    _close(pre, prep, TOL_F32)
+
+
+@pytest.mark.parametrize("M,D", [(999, 77), (17400, 384), (3000, 768)])
+@pytest.mark.parametrize("drop", [0.0, 0.1])
+def test_layerscale_bwd(cuda, M, D, drop):
+    r = _gen(M)
+    dy, o_pre = _t(r.normal(size=(M, D)), cuda), _t(r.normal(size=(M, D)), cuda)
+    gamma = _t(1 + 0.1 * r.normal(size=D), cuda)
+    d = K.drop_args(4, 3, "m1", drop)
+    out, dg = K.layerscale_bwd(dy, o_pre, gamma, d)
+    ref, rg = K.layerscale_bwd_plain(dy, o_pre, gamma, d)
+    _close(out, ref, TOL_F32)
+    _close(dg, rg, TOL_F32)
+    assert torch.equal(dg, K.layerscale_bwd(dy, o_pre, gamma, d)[1])
+
+
 @pytest.mark.parametrize("act", ["none", "relu", "gelu"])
 def test_act_dropout_bwd(cuda, act):
     r = _gen(1)
@@ -510,7 +549,8 @@ def test_act_dropout_bwd(cuda, act):
     _close(K.act_dropout_bwd(dh, a, act, d), K.act_dropout_bwd_plain(dh, a, act, d), TOL_F32)
 
 
-@pytest.mark.parametrize("flavor,act_bf16", [("vit", False), ("vit", True), ("encoder", False)])
+@pytest.mark.parametrize("flavor,act_bf16", [("vit", False), ("vit", True), ("encoder", False),
+                                             ("vit_ls", False), ("vit_ls", True)])
 def test_train_trunks_match_plain(cuda, flavor, act_bf16):
     """Both train trunks, forward and backward, kernel route against the
     plain route: float32 sums in another order through 2 layers forward and
@@ -519,7 +559,8 @@ def test_train_trunks_match_plain(cuda, flavor, act_bf16):
     from posediffusion_tpu_torch.ops import vit_train_kernel as V
 
     r = _gen(7)
-    B, N, D, H = (8, 264, 384, 6) if flavor == "vit" else (96, 16, 512, 4)
+    B, N, D, H = {"vit": (8, 264, 384, 6), "vit_ls": (8, 348, 384, 6),
+                  "encoder": (96, 16, 512, 4)}[flavor]
     L = 2
     st = {"g1": 1 + 0.1 * r.normal(size=(L, D)), "b1": 0.1 * r.normal(size=(L, D)),
           "wqkv": r.normal(size=(L, D, 3 * D)) / np.sqrt(D), "bqkv": 0.1 * r.normal(size=(L, 3 * D)),
@@ -527,9 +568,11 @@ def test_train_trunks_match_plain(cuda, flavor, act_bf16):
           "g2": 1 + 0.1 * r.normal(size=(L, D)), "b2": 0.1 * r.normal(size=(L, D)),
           "wfc1": r.normal(size=(L, D, 2 * D)) / np.sqrt(D), "bfc1": 0.1 * r.normal(size=(L, 2 * D)),
           "wfc2": r.normal(size=(L, 2 * D, D)) / np.sqrt(2 * D), "bfc2": 0.1 * r.normal(size=(L, D))}
+    if flavor == "vit_ls":
+        st.update({k: 1 + 0.1 * r.normal(size=(L, D)) for k in V.LS_KEYS})
     x = r.normal(size=(B, N, D))
     cot = _t(r.normal(size=(B, N, D)), cuda)
-    if flavor == "vit":
+    if flavor != "encoder":
         seg = np.arange(N) * 3 // N
         bias = _t(np.where(seg[:, None] == seg[None], 0.0, K.NEG), cuda)
     else:
@@ -539,12 +582,13 @@ def test_train_trunks_match_plain(cuda, flavor, act_bf16):
         xt = _t(x, cuda).requires_grad_(True)
         sd = {k: _t(v, cuda).requires_grad_(True) for k, v in st.items()}
         with V.plain_route() if plain else contextlib.nullcontext():
-            if flavor == "vit":
-                y = V.fused_vit_trunk_train(xt, sd, bias, H, act_bf16, act_bf16)
-            else:
+            if flavor == "encoder":
                 y = V.fused_encoder_trunk_train(xt, sd, bias, 77, H, dropout=0.1)
+            else:
+                y = V.fused_vit_trunk_train(xt, sd, bias, H, act_bf16, act_bf16,
+                                            flavor == "vit_ls")
         y.backward(cot)
-        return [y.detach(), xt.grad] + [sd[k].grad for k in V.WEIGHT_KEYS]
+        return [y.detach(), xt.grad] + [sd[k].grad for k in st]
 
     tol = 2.0**-5 if act_bf16 else 1e-4
     for out, ref in zip(run(False), run(True)):

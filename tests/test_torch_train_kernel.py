@@ -7,7 +7,8 @@
   kernel tests' own tolerances (tests/test_vit_train_kernel.py:71,90,180);
 * the hand-derived backward against ``torch.autograd`` of the plain forward,
   with dropout 0.1 masks from the port's generator: the only place where
-  dropout above 0 is checked on the CPU;
+  dropout above 0 is checked on the CPU (the ViT with DINOv2's LayerScale
+  gains too);
 * the plain versions of the new kernels against autograd;
 * the dropout masks' statistics.
 
@@ -24,10 +25,12 @@ torch = pytest.importorskip("torch")
 from posediffusion_tpu.ops import vit_train_kernel as JV
 from posediffusion_tpu_torch.ops import kernels as K
 from posediffusion_tpu_torch.ops.vit_train_kernel import (
+    LS_KEYS,
     WEIGHT_KEYS,
     TrunkSpec,
     fused_encoder_trunk_train,
     fused_vit_trunk_train,
+    train_trunk,
     trunk_reference,
 )
 
@@ -98,6 +101,8 @@ def _port_grads(flavor, x, stacks, bias, r, act_bf16=False, bf16_res=False,
     st = {k: torch.tensor(v, requires_grad=True) for k, v in stacks.items()}
     if flavor == "vit":
         y = fused_vit_trunk_train(xt, st, torch.tensor(bias), H, act_bf16, bf16_res)
+    elif flavor == "vit_ls":  # DINOv2's gains, with the encoder's dropout sites
+        y = train_trunk(xt, st, _spec(flavor, dropout, seed), attn_bias=torch.tensor(bias))
     else:
         y = fused_encoder_trunk_train(xt, st, torch.tensor(bias), seed, H, act_bf16,
                                       bf16_res, dropout)
@@ -119,8 +124,18 @@ FLAVORS = ("vit", "encoder")
 def _inputs(rng, flavor):
     x = rng.normal(size=(B, N, D)).astype(np.float32)
     r = rng.normal(size=(B, N, D)).astype(np.float32)
-    bias = packing_bias() if flavor == "vit" else key_bias(rng)
-    return x, random_stacks(rng), bias, r
+    bias = key_bias(rng) if flavor == "encoder" else packing_bias()
+    stacks = random_stacks(rng)
+    if flavor == "vit_ls":
+        for k in LS_KEYS:
+            stacks[k] = (1.0 + 0.1 * rng.normal(size=(L, D))).astype(np.float32)
+    return x, stacks, bias, r
+
+
+def _spec(flavor, dropout, seed):
+    vit = flavor != "encoder"
+    return TrunkSpec(nhead=H, eps=1e-6 if vit else 1e-5, act="gelu" if vit else "relu",
+                     dropout=dropout, seed=seed, layer_scale=flavor == "vit_ls")
 
 
 class TestAgainstJax:
@@ -176,20 +191,20 @@ class TestAgainstJax:
 
 class TestHandDerivedBackward:
     @pytest.mark.parametrize("flavor,dropout", [("vit", 0.0), ("encoder", 0.0),
-                                                ("encoder", 0.1)])
+                                                ("encoder", 0.1), ("vit_ls", 0.0),
+                                                ("vit_ls", 0.1)])
     def test_matches_autograd_of_plain_forward(self, rng, flavor, dropout):
         """float32 on both sides, dropout masks from the port's generator:
-        round-off only (1e-5 x scale)."""
+        round-off only (1e-5 x scale). ``vit_ls``: the LayerScale gains'
+        gradients from ``layerscale_bwd``, at the m1 / m2 sites' masks."""
         x, stacks, bias, r = _inputs(rng, flavor)
         _, py, pgx, pg = _port_grads(flavor, x, stacks, bias, r, dropout=dropout,
                                      seed=1234)
         xt = torch.tensor(x, requires_grad=True)
         st = {k: torch.tensor(v, requires_grad=True) for k, v in stacks.items()}
-        spec = TrunkSpec(nhead=H, eps=1e-6 if flavor == "vit" else 1e-5,
-                         act="gelu" if flavor == "vit" else "relu",
-                         dropout=dropout, seed=1234)
-        kw = ({"attn_bias": torch.tensor(bias)} if flavor == "vit"
-              else {"key_bias": torch.tensor(bias)})
+        spec = _spec(flavor, dropout, 1234)
+        kw = ({"key_bias": torch.tensor(bias)} if flavor == "encoder"
+              else {"attn_bias": torch.tensor(bias)})
         y = trunk_reference(xt, st, spec, **kw)
         (y * torch.tensor(r)).sum().backward()
         np.testing.assert_allclose(py, y.detach().numpy(), atol=1e-6)
