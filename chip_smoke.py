@@ -6,6 +6,12 @@ backbones, once on an NVIDIA card.
     python3 chip_smoke.py             # from the repository root, one CUDA card
     python3 chip_smoke.py --profile   # also: torch.profiler over one GGS inference,
                                       # from a matches table and from the images
+    python3 chip_smoke.py --parent DIR
+        # also: the same calls with DIR's csrc/attention.cu (a checkout of the
+        # parent commit, e.g. unpacked with git archive into build/) built
+        # alone and swapped in: each attention case and the end-to-end
+        # numbers before and after, in the order new, parent, parent, new
+    python3 chip_smoke.py --attention [--parent DIR]   # the attention cases alone
 
 Phases (any failure exits non-zero and prints no result line):
   1. build   the CUDA kernels from posediffusion_tpu_torch/csrc (one nvcc per
@@ -59,7 +65,11 @@ Phases (any failure exits non-zero and prints no result line):
   6. timing  CUDA-event medians of the inferences, the conditioned tail,
              the match extraction stages, and each kernel beside its plain
              version, its bound (bytes or operations over the H100's peaks)
-             and a one-call PyTorch yardstick where one exists.
+             and a one-call PyTorch yardstick where one exists; every
+             attention forward the port runs (SuperGlue self and cross, the
+             ViT at 264 and 593 tokens, the denoiser, DINOv2, the train
+             trunks) against its plain version and bitwise against itself,
+             beside SDPA (float32, and bf16 operands for the bf16 cases).
 Then one JSON line of the kernels, the card's name and power limit, and the
 result line {"ok": true, "device": {...}}.
 
@@ -210,6 +220,7 @@ TOL_STEP_CHANGE = 5e-2  # Adam's first step is ~lr sign(g): only near-zero g fli
 HBM_BYTES_PER_S = 3.35e12
 PEAK_F32 = 67e12  # FLOP/s outside the tensor cores
 PEAK_BF16 = 989e12  # dense bf16 tensor-core FLOP/s
+PEAK_TF32 = 495e12  # dense TF32 tensor-core FLOP/s
 GGS_FLOP_PER_MATCH = 120  # Sampson residual and its analytic gradient, per iteration
 
 
@@ -222,6 +233,25 @@ def bound(nbytes, flops, peak=PEAK_F32):
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+DEAD_BIAS = -1e8  # csrc/attention.cu kDeadBias: a key at or below it is masked
+
+
+def attention_bound(qkv, attn_bias=None, key_bias=None, round_in=False):
+    """Least ms of ``kernels.attention`` on (B, N, 3D) qkv, for the route the
+    kernel takes: q.k^T and p.V (4 D operations per live (query, key) cell;
+    a masked key adds exactly 0, and the kernel skips tiles of them) as bf16
+    MMAs with ``round_in``, else as 3xTF32 MMAs (three TF32 products each)."""
+    B, N, D3 = qkv.shape
+    cells = B * N * N
+    if attn_bias is not None:
+        cells = B * int((attn_bias > DEAD_BIAS).sum())
+    if key_bias is not None:
+        cells = N * int((key_bias > DEAD_BIAS).sum())
+    ops = 4 * cells * (D3 // 3)
+    return bound(nbytes(qkv, attn_bias, key_bias) + B * N * D3 // 3 * 4,
+                 ops if round_in else 3 * ops, PEAK_BF16 if round_in else PEAK_TF32)
 
 
 def block_flops(tokens, N, D, F):
@@ -237,9 +267,10 @@ def trunk_bounds(tokens, N, D, F, L, act_bytes, weight_bytes, peak_products, sav
     outputs) and of its backward as the TPU kernel does it: the recomputed
     qkv and first FF products and attention forward, dgrad and wgrad of the
     four products, and the attention backward (dv, dp, dq, dk); attention
-    in float32 on the FMA units."""
+    forward as 3xTF32 MMAs (the attention kernel's float32 route), attention
+    backward on the FMA units."""
     P, A = block_flops(tokens, N, D, F)
-    fwd_ops = L * (P / peak_products + A / PEAK_F32)
+    fwd_ops = L * (P / peak_products + 3 * A / PEAK_TF32)
     bwd_ops = L * ((2 * P + 2 * tokens * D * (3 * D + F)) / peak_products + 3 * A / PEAK_F32)
     x = tokens * D * act_bytes
     fwd = max((2 * x + saved * L * x + weight_bytes) / HBM_BYTES_PER_S, fwd_ops) * 1e3
@@ -469,6 +500,79 @@ def _time_ms(torch, fn, reps=N_TIMED, inner=1, warmup=2):
     return statistics.median(times)
 
 
+def load_parent_attention(parent_dir):
+    """--parent DIR: build DIR's csrc/attention.cu (a checkout of the parent
+    commit) alone into build/parent_attention/ and return its pd_attention,
+    bound like the port's, to be swapped in (``attention_launching``) so that
+    the same calls are timed before and after."""
+    import ctypes
+
+    from posediffusion_tpu_torch.ops import kernels as K
+
+    src = os.path.join(parent_dir, "posediffusion_tpu_torch", "csrc", "attention.cu")
+    out_dir = os.path.join(REPO, "build", "parent_attention")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "libparent_attention.so")
+    K._run_all([[K._nvcc(), *K._NVCC_FLAGS, "-shared", "-o", path, src]])
+    fn = ctypes.CDLL(path).pd_attention
+    fn.argtypes = K._SIGNATURES["pd_attention"]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@contextlib.contextmanager
+def attention_launching(fn):
+    """``kernels.attention`` launches ``fn`` (a pd_attention) inside the
+    block; None keeps the port's own."""
+    from posediffusion_tpu_torch.ops import kernels as K
+
+    lib = K.load_library()
+    own = lib.pd_attention
+    if fn is not None:
+        lib.pd_attention = fn
+    try:
+        yield
+    finally:
+        lib.pd_attention = own
+
+
+def _kernel_device_ms(torch, fn, kernel="attention_kernel", calls=20):
+    """Device time of ``kernel`` per call of ``fn``, from torch.profiler's
+    CUDA activity: the kernel's own time, without the host's launch cost that
+    CUDA events around a short call measure instead."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and kernel in e.key)
+    return us / 1e3 / calls
+
+
+PARENT_TAG = " [parent attention]"
+
+
+def _time_vs_parent(torch, timings, name, fn, parent, **kw):
+    """timings[name] = _time_ms(fn); with the parent's pd_attention
+    (``parent``, --parent) also timings[name + PARENT_TAG] with it swapped
+    in, each the mean of two runs in the order new, parent, parent, new."""
+    if parent is None:
+        timings[name] = _time_ms(torch, fn, **kw)
+        return
+    runs = {False: [], True: []}
+    for old in (False, True, True, False):
+        with attention_launching(parent if old else None):
+            runs[old].append(_time_ms(torch, fn, **kw))
+    timings[name] = statistics.mean(runs[False])
+    timings[name + PARENT_TAG] = statistics.mean(runs[True])
+
+
+
 class Report:
     def __init__(self):
         self.failures = []
@@ -596,7 +700,7 @@ def _step_launches(K, step):
     return K.launch_counts()
 
 
-def train_slice(report, dev, work, smi, t_start):
+def train_slice(report, dev, work, smi, t_start, parent=None):
     """The training slice: its kernels against their plain versions at the
     path's shapes (parity), train_torch.py at the reference train config
     (the path), and its timings. Returns (kernel JSON entries, timings,
@@ -853,9 +957,13 @@ def train_slice(report, dev, work, smi, t_start):
     for plain in (False, True):
         name = "train step " + ("plain route" if plain else "kernel route")
         with _route(V, plain):
-            timings[f"{name} (512 images, batch_repeat 90)"] = _time_ms(
-                torch, lambda: train_step(model, opt, batch, t.batch_repeat, draws=draws),
-                reps=3, warmup=1)
+            step = lambda: train_step(model, opt, batch, t.batch_repeat, draws=draws)  # noqa: E731
+            if plain:
+                timings[f"{name} (512 images, batch_repeat 90)"] = _time_ms(
+                    torch, step, reps=3, warmup=1)
+            else:
+                _time_vs_parent(torch, timings, f"{name} (512 images, batch_repeat 90)", step,
+                                parent, reps=3, warmup=1)
     torch.cuda.reset_peak_memory_stats()
     step_launches = _step_launches(
         K, lambda: train_step(model, opt, batch, t.batch_repeat, draws=draws))
@@ -901,7 +1009,7 @@ def train_slice(report, dev, work, smi, t_start):
     timings["peak memory of a train step (GB)"] = peak_gb
     return kernels_json, timings, step_launches
 
-def backbones_slice(report, dev, work, smi, t_start, dino_step_launches):
+def backbones_slice(report, dev, work, smi, t_start, dino_step_launches, parent=None):
     """DINOv2 ViT-S/14 (TPU kernels 9 and 10 with LayerScale) and DINO
     ViT-B/16: linear with a gain and layerscale_bwd against their plain
     versions at DINOv2's train shapes, the LayerScale train trunk kernel
@@ -1062,9 +1170,12 @@ def backbones_slice(report, dev, work, smi, t_start, dino_step_launches):
                             clip_grad=t.clip_grad)
     for plain in (False, True):
         with _route(V, plain):
-            timings["DINOv2 train step " + ("plain route" if plain else "kernel route")] = \
-                _time_ms(torch, lambda: train_step(model, opt, batch, t.batch_repeat,
-                                                   draws=draws), reps=2, warmup=1)
+            name = "DINOv2 train step " + ("plain route" if plain else "kernel route")
+            step = lambda: train_step(model, opt, batch, t.batch_repeat, draws=draws)  # noqa: E731
+            if plain:
+                timings[name] = _time_ms(torch, step, reps=2, warmup=1)
+            else:
+                _time_vs_parent(torch, timings, name, step, parent, reps=2, warmup=1)
     torch.cuda.reset_peak_memory_stats()
     step = _step_launches(K, lambda: train_step(model, opt, batch, t.batch_repeat, draws=draws))
     timings["DINOv2 peak memory of a train step (GB)"] = torch.cuda.max_memory_allocated() / 1e9
@@ -1193,6 +1304,126 @@ def backbones_slice(report, dev, work, smi, t_start, dino_step_launches):
     return kernels_json, timings, rows
 
 
+def attention_slice(report, dev, smi, parent=None):
+    """Every attention forward the port runs, at its path's shape: the kernel
+    against its plain version (and against itself, bitwise), then its time
+    (CUDA events around the call, and the kernel's device time alone, which
+    is what the short cases' host-bound calls hide) beside the plain
+    version's, SDPA's (float32, and bf16 operands as a second yardstick for
+    the bf16-mode cases), its bound and, with --parent, the parent commit's
+    kernel. Returns {case: numbers}."""
+    import torch
+    import torch.nn.functional as F
+
+    from posediffusion_tpu_torch.ops import kernels as K
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)  # noqa: E731
+
+    def packing(lengths):  # the block-diagonal bias of scales packed in one row
+        seg = torch.cat([torch.full((n,), i, device=dev) for i, n in enumerate(lengths)])
+        return torch.where(seg[:, None] == seg[None], 0.0, K.NEG).contiguous()
+
+    def key_mask(B, N, least, neg):  # the first 'least'..N keys of each sequence live
+        live = torch.arange(N, device=dev)[None] < torch.randint(
+            least, N + 1, (B, 1), generator=gen, device=dev)
+        return torch.where(live, 0.0, neg).contiguous()
+
+    sg_self = key_mask(2 * SG_PAIRS, MATCH_KEYPOINTS, int(0.6 * MATCH_KEYPOINTS), K.SG_NEG)
+    sg_cross = sg_self.view(SG_PAIRS, 2, -1).flip(1).reshape(2 * SG_PAIRS, -1).contiguous()
+    den = torch.zeros(1, 20, device=dev)
+    den[:, -3:] = K.NEG
+    d_attn = K.drop_args(SEED, 0, "attn", 0.1)
+    # (name, qkv, heads, kwargs)
+    cases = [
+        ("row 4: SuperGlue self 64x1024, 4 heads of 64, f32, key mask",
+         rnd(2 * SG_PAIRS, MATCH_KEYPOINTS, 768), 4, dict(key_bias=sg_self)),
+        ("SuperGlue cross 64x1024, 4 heads of 64, f32, key mask",
+         rnd(2 * SG_PAIRS, MATCH_KEYPOINTS, 768), 4, dict(key_bias=sg_cross)),
+        ("row 5: ViT 20x264, 6 heads of 64, bf16 mode, packing bias",
+         rnd(20, 264, 1152), 6, dict(attn_bias=packing((197, 50, 17)), round_in=True)),
+        ("ViT 336px 20x593, 6 heads of 64, bf16 mode, packing bias",
+         rnd(20, 593, 1152), 6, dict(attn_bias=packing((442, 101, 50)), round_in=True)),
+        ("denoiser 1x20, 4 heads of 128, f32, key bias",
+         rnd(1, 20, 1536), 4, dict(key_bias=den)),
+        ("ViT 20x264, 6 heads of 64, f32, packing bias",
+         rnd(20, 264, 1152), 6, dict(attn_bias=packing((197, 50, 17)))),
+        ("DINOv2 20x348, 6 heads of 64, f32, packing bias",
+         rnd(20, 348, 1152), 6, dict(attn_bias=packing((257, 65, 26)))),
+        (f"train ViT {VIT_IMAGES}x264, 6 heads of 64, f32, dropout 0.1",
+         rnd(VIT_IMAGES, 264, 1152), 6, dict(attn_bias=packing((197, 50, 17)), drop=d_attn)),
+        (f"train encoder {ENC_ROWS}x16, 4 heads of 128, f32, key bias, dropout 0.1",
+         rnd(ENC_ROWS, 16, 1536), 4, dict(key_bias=key_mask(ENC_ROWS, 16, 8, K.NEG),
+                                          drop=d_attn)),
+    ]
+    print(f"[attention] every attention forward of the port, card: {smi}")
+    out = {}
+    with torch.no_grad():
+        for name, qkv, H, kw in cases:
+            bf16 = kw.get("round_in", False)
+            y = K.attention(qkv, H, **kw)
+            err = _close_rel(report, f"attention {name}", y, K.attention_plain(qkv, H, **kw),
+                             TOL_BF16 if bf16 else TOL_F32)
+            report.require(f"attention {name}: two calls bitwise equal",
+                           torch.equal(y, K.attention(qkv, H, **kw)))
+            del y
+            B, N, D3 = qkv.shape
+            inner = 10 if B * N * N < 1 << 24 else 1
+            row = {"max_abs_err": err}
+            if parent is not None:
+                with attention_launching(parent):
+                    yp = K.attention(qkv, H, **kw)
+                row["parent_max_abs_err"] = (yp - K.attention_plain(qkv, H, **kw)).abs().max().item()
+                del yp
+            t = {}
+            _time_vs_parent(torch, t, "ms", lambda: K.attention(qkv, H, **kw), parent,
+                            inner=inner)
+            row["ms"] = t["ms"]
+            if parent is not None:
+                row["parent_ms"] = t["ms" + PARENT_TAG]
+            row["device_ms"] = _kernel_device_ms(torch, lambda: K.attention(qkv, H, **kw))
+            if parent is not None:
+                with attention_launching(parent):
+                    row["parent_device_ms"] = _kernel_device_ms(
+                        torch, lambda: K.attention(qkv, H, **kw))
+            row["plain_ms"] = _time_ms(torch, lambda: K.attention_plain(qkv, H, **kw),
+                                       reps=5, inner=inner)
+            bias_key = "attn_bias" if "attn_bias" in kw else "key_bias"
+            if not bf16 and bias_key in kw:
+                # masked entries at -1e7, above the kernel's skip threshold:
+                # the same function (e = 0 either way), no tile skipped
+                kw_all = dict(kw, **{bias_key: kw[bias_key].clamp_min(-1e7)})
+                report.require(f"attention {name}: skipping masked tiles changes no bit",
+                               torch.equal(K.attention(qkv, H, **kw),
+                                           K.attention(qkv, H, **kw_all)))
+                row["ms_no_skip"] = _time_ms(torch, lambda: K.attention(qkv, H, **kw_all),
+                                             inner=inner)
+            q, k, v = qkv.view(B, N, 3, H, D3 // 3 // H).permute(2, 0, 3, 1, 4)
+            bias = kw.get("attn_bias")
+            if "key_bias" in kw:
+                bias = kw["key_bias"][:, None, None, :]
+            # SDPA has no dropout of the normalised p with a given mask: no
+            # yardstick for the train cases
+            if "drop" not in kw:
+                row["sdpa_ms"] = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=bias), inner=inner)
+                if bf16:
+                    qb, kb, vb = (a.to(torch.bfloat16) for a in (q, k, v))
+                    bb = bias.to(torch.bfloat16)
+                    row["sdpa_bf16_ms"] = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+                        qb, kb, vb, attn_mask=bb), inner=inner)
+            row["bound_ms"], row["bound_by"] = attention_bound(
+                qkv, kw.get("attn_bias"), kw.get("key_bias"), bf16)
+            out[name] = row
+            print(f"  {name}: " + ", ".join(
+                f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in row.items()),
+                flush=True)
+            del q, k, v
+    del cases
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv) -> int:
     import torch
 
@@ -1260,6 +1491,20 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     K.load_library()
     print(f"[build] {K.library_path().name} in {time.perf_counter() - t0:.1f} s")
+    parent = None
+    if "--parent" in argv:
+        parent_dir = argv[argv.index("--parent") + 1]
+        t0 = time.perf_counter()
+        parent = load_parent_attention(parent_dir)
+        print(f"[build] the parent's attention kernel ({parent_dir}) in "
+              f"{time.perf_counter() - t0:.1f} s")
+    if "--attention" in argv:  # the attention cases alone
+        attn = attention_slice(report, dev, smi, parent)
+        print(json.dumps({"attention_cases": attn, "card": smi}))
+        if report.failures:
+            print("FAILED:\n  " + "\n  ".join(report.failures), file=sys.stderr)
+            return 1
+        return 0
 
     # ---- 2. kernel parity at the paths' shapes
     print("[parity] kernels against their plain versions")
@@ -1600,9 +1845,10 @@ def main(argv) -> int:
     print(f"  [match] done at {time.perf_counter() - t_start:.0f} s", flush=True)
 
     # ---- 5. the training slice: parity of its kernels, train_torch.py, timings
-    train_json, train_timings, dino_step = train_slice(report, dev, work, smi, t_start)
+    train_json, train_timings, dino_step = train_slice(report, dev, work, smi, t_start, parent)
     # ---- 5b. DINOv2 (LayerScale) serving and training, and ViT-B
-    bb_json, bb_timings, bb_rows = backbones_slice(report, dev, work, smi, t_start, dino_step)
+    bb_json, bb_timings, bb_rows = backbones_slice(report, dev, work, smi, t_start, dino_step,
+                                                   parent)
 
     # ---- 6. timing (default mode, CUDA events after warm-up)
     print(f"[timing] medians of {N_TIMED}, card: {smi}")
@@ -1610,9 +1856,10 @@ def main(argv) -> int:
     with torch.no_grad():
         z = model.extract_features(imgs)
         stb = stack_vit_params(vit, torch.bfloat16)
-        timings = {
-            "inference (extract + 100-step sampler)": _time_ms(
-                torch, lambda: model.sample(imgs, x0=x0, noises=noises)),
+        timings = {}
+        _time_vs_parent(torch, timings, "inference (extract + 100-step sampler)",
+                        lambda: model.sample(imgs, x0=x0, noises=noises), parent)
+        timings |= {
             "GGS inference (extract + 90 steps + 10 GGS steps, 100/pair)": _time_ms(
                 torch, lambda: model.sample(imgs, x0=x0, noises=noises, cond_fn=cond100,
                                             cond_start_step=10), reps=5),
@@ -1697,8 +1944,9 @@ def main(argv) -> int:
 
         print(f"  matcher input: {len(pairs)} pairs, K_eff {x_all.shape[1]}, "
               f"{int(va_all.sum())} valid keypoints in {n_frames} frames")
-        timings[f"matcher (fused_match_pairs, {len(pairs)} pairs, K {x_all.shape[1]})"] = \
-            _time_ms(torch, lambda: matcher(SGK.fused_match_pairs), reps=3, warmup=1)
+        _time_vs_parent(torch, timings,
+                        f"matcher (fused_match_pairs, {len(pairs)} pairs, K {x_all.shape[1]})",
+                        lambda: matcher(SGK.fused_match_pairs), parent, reps=3, warmup=1)
         timings["matcher plain (fused_match_pairs_plain)"] = _time_ms(
             torch, lambda: matcher(SGK.fused_match_pairs_plain), reps=3, warmup=1)
         kpts_np, all_m = X.match_all_pairs(sg_net, feats, sizes, pairs, 50, 0.0)
@@ -1724,8 +1972,9 @@ def main(argv) -> int:
         k_sub = X.stack_feats(X.detect_frames(sp_net, sub_grays))[0].shape[1]
         report.require(f"{SUBSET_FRAMES} frames at the default 4,096 keypoints match at K 4,096",
                        k_sub == 4096, f"(K_eff {k_sub})")
-        timings["GGS inference with extraction (images -> matches -> cameras)"] = _time_ms(
-            torch, ggs_with_extraction, reps=3, warmup=1)
+        _time_vs_parent(torch, timings,
+                        "GGS inference with extraction (images -> matches -> cameras)",
+                        ggs_with_extraction, parent, reps=3, warmup=1)
 
         # the SuperGlue kernels at one chunk's shapes, beside their plain versions
         sg_calls = {
@@ -1761,12 +2010,9 @@ def main(argv) -> int:
             tc = w.dtype == torch.bfloat16 and kwargs.get("round_a")
             return bound(nbytes(a, w, b) + Mm * Nn * 4, 2 * Mm * Nn * Kk,
                          PEAK_BF16 if tc else PEAK_F32)
-        if key == "attention":  # bf16 mode: q, k, v and p rounded to bf16, tensor cores
-            qkv = args[0]
-            Bq, Nq, D3 = qkv.shape
-            return bound(nbytes(qkv, kwargs.get("attn_bias")) + Bq * Nq * D3 // 3 * 4,
-                         4 * Bq * Nq * Nq * (D3 // 3),
-                         PEAK_BF16 if kwargs.get("round_in") else PEAK_F32)
+        if key == "attention":
+            return attention_bound(args[0], kwargs.get("attn_bias"), kwargs.get("key_bias"),
+                                   kwargs.get("round_in", False))
         if key == "sampler_prologue":
             x, wsin, wcos, wx, zf, tc = args[:6]
             rows, Dd = x.shape[0], wsin.shape[1]
@@ -1840,6 +2086,7 @@ def main(argv) -> int:
             "case": f"200-iteration phase, 20 frames, {d}/pair (launches: GGS path)",
         })
     kernels_json += train_json + bb_json
+    attention_cases = attention_slice(report, dev, smi, parent)
     timings.update(train_timings)
     timings.update(bb_timings)
 
@@ -1880,7 +2127,7 @@ def main(argv) -> int:
         (3, "fused_trunk one pass, 20 rows, bf16", tt["fused_trunk (8 layers, 20 rows, bf16)"],
          tt["fused_trunk plain"], max(step_ops, bound(2 * w_den, 0)[0]), None),
         (4, sg_name, tt[sg_name], tt[f"{sg_name} plain"],
-         bound(nbytes(qsg, ksg) + Bs * Ns * D3s // 3 * 4, 4 * Bs * Ns * Ns * (D3s // 3))[0],
+         attention_bound(qsg, key_bias=ksg)[0],
          sdpa_key_ms),
         (5, jk["attention"]["case"], jk["attention"]["ms"], jk["attention"]["plain_ms"],
          jk["attention"]["bound_ms"], jk["attention"]["library_ms"]),
@@ -1939,7 +2186,14 @@ def main(argv) -> int:
     if report.failures:
         print("FAILED:\n  " + "\n  ".join(report.failures), file=sys.stderr)
         return 1
+    if parent is not None:
+        print(f"[parent] the same session with the parent commit's attention kernel, card: {smi}")
+        for name, ms in timings.items():
+            if name + PARENT_TAG in timings:
+                old = timings[name + PARENT_TAG]
+                print(f"  {name}: {ms:.3f} ms, parent {old:.3f} ms ({100 * (ms / old - 1):+.2f}%)")
     print(json.dumps({"rows": rows_json}))
+    print(json.dumps({"attention_cases": attention_cases}))
     print(json.dumps({"timings_ms": timings, "card": smi,
                       "launches_per_sampler_step": 2 + 7 * model.config.num_encoder_layers,
                       "ggs_launches_per_inference": 50}))

@@ -11,13 +11,20 @@ Backbones (``modelname``, the reference's contract): ``dino_vits16``,
 ``extract_features_fused`` is the DINO inference path: the patch embedding,
 position interpolation, packing, CLS LayerNorm and average are plain
 PyTorch, and the 12-block trunk is ``ops.vit_kernel.fused_vit_trunk``.
-``extract_features_blocks`` is the DINOv2 inference path, which in the JAX
-package takes the Flax blocks, not the fused trunk
+``extract_features_blocks`` is the DINOv2 inference path (and DINO's at
+``compute_dtype=bfloat16``), which in the JAX package takes the Flax
+blocks, not the fused trunk
 (``posediffusion_tpu/models/pose_diffusion.py:409-414``): the module's
 blocks with their attention in ``kernels.attention`` (TPU kernel 5's
 counterpart) and the LayerNorms, products and gains in plain PyTorch, as
-XLA computes them there. ``extract_features_train`` is the flow for
-training, differentiable, with the trunk (LayerScale included) in
+XLA computes them there. With ``bf16`` (DINO only) the blocks follow the
+Flax blocks' ``dtype=bfloat16`` rounding sites as XLA evaluates them
+(``posediffusion_tpu/models/vit.py``): the residual stream, each Dense's
+operands, product and result, the attention's q, k, v, p and output (the
+TPU kernel's bf16 sites: ``round_in``), the GELU; LayerNorms and the CLS
+head stay float32. DINOv2 refuses it (``BF16_LAYER_SCALE_GAP``).
+``extract_features_train`` is the flow for training, differentiable, with
+the trunk (LayerScale included) in
 ``ops.vit_train_kernel.fused_vit_trunk_train``.
 """
 
@@ -30,7 +37,7 @@ from torch import nn
 
 from posediffusion_tpu_torch.models.vit import VisionTransformer
 from posediffusion_tpu_torch.ops.image import imagenet_normalize
-from posediffusion_tpu_torch.ops.kernels import attention
+from posediffusion_tpu_torch.ops.kernels import attention, round_bf16
 from posediffusion_tpu_torch.ops.vit_kernel import fused_vit_trunk, stack_vit_params
 from posediffusion_tpu_torch.ops.vit_train_kernel import (
     fused_vit_trunk_train,
@@ -100,17 +107,66 @@ def extract_features_fused(
     return _multiscale_cls_head(vit, x, offsets)
 
 
+# Why DINOv2 (LayerScale) does not serve at compute_dtype=bfloat16.
+BF16_LAYER_SCALE_GAP = (
+    "compute_dtype=bfloat16 serving is not ported for LayerScale backbones "
+    "(dinov2_vits14): the float32 gains promote the JAX package's bf16 stream "
+    "to float32 and XLA then drops bf16 roundings this route cannot place; at "
+    "depth 2, width 64 the closest emulation stays 2e-3 to 1.1e-2 from the "
+    "Flax bf16 features, against 1.4e-2 for the float32 route. Serve it at "
+    "compute_dtype=float32.")
+
+
+def _dense_bf16(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    """Flax ``nn.Dense(dtype=bfloat16)``: input, kernel and bias cast to
+    bf16, the product and the biased result bf16 values."""
+    y = round_bf16(round_bf16(x) @ round_bf16(lin.weight).t())
+    return round_bf16(y + round_bf16(lin.bias))
+
+
+def _gelu_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(approximate=False)`` on bf16, 0.5 x erfc(-x sqrt(1/2)),
+    as XLA computes it: the constant and erfc's result bf16 values, the
+    product inside erfc's argument not rounded, the result bf16."""
+    t = -x * round_bf16(torch.tensor(0.5**0.5))
+    return round_bf16(0.5 * x * round_bf16(torch.special.erfc(t)))
+
+
+def _block_bf16(blk, x: torch.Tensor, xu: torch.Tensor, bias):
+    """One Flax ``ViTBlock(dtype=bfloat16)`` without LayerScale, as XLA
+    evaluates it: (x, xu) -> (x', xu'). The residual stream x carries each
+    sum rounded to bf16; the LayerNorm after a sum reads it before that
+    rounding (xu: XLA keeps the add fused into the LayerNorm in float32)."""
+    a = blk.attn
+    qkv = _dense_bf16(blk.norm1(xu), a.qkv)
+    o = round_bf16(attention(qkv.contiguous(), a.num_heads, attn_bias=bias, round_in=True))
+    x1u = x + _dense_bf16(o, a.proj)
+    x1 = round_bf16(x1u)
+    h = _dense_bf16(_gelu_bf16(_dense_bf16(blk.norm2(x1u), blk.mlp.fc1)), blk.mlp.fc2)
+    return round_bf16(x1 + h), x1 + h
+
+
 @torch.no_grad()
 def extract_features_blocks(
     vit: VisionTransformer,
     images_nchw: torch.Tensor,  # (B, 3, H, W) in [0, 1]
     scale_factors: Sequence[float] = (1.0, 1.0 / 2, 1.0 / 3),
+    bf16: bool = False,
 ) -> torch.Tensor:
-    """(B, 3, H, W) -> (B, D) through the module's blocks, float32, with the
-    attention in ``kernels.attention``: the DINOv2 inference path."""
+    """(B, 3, H, W) -> (B, D) through the module's blocks with the attention
+    in ``kernels.attention``: float32 (the DINOv2 inference path), or with
+    ``bf16`` the Flax bf16 blocks' rounding sites (DINO's route at
+    ``compute_dtype=bfloat16``; a LayerScale ViT raises)."""
     x, bias, offsets = _embed_pack_scales(vit, images_nchw, scale_factors)
-    for blk in vit.blocks:
-        x = blk(x, bias, attention)
+    if bf16:
+        if vit.layer_scale:
+            raise ValueError(BF16_LAYER_SCALE_GAP)
+        x = xu = round_bf16(x)
+        for blk in vit.blocks:
+            x, xu = _block_bf16(blk, x, xu, bias)
+    else:
+        for blk in vit.blocks:
+            x = blk(x, bias, attention)
     return _multiscale_cls_head(vit, x, offsets)
 
 

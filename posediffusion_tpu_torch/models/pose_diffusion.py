@@ -9,7 +9,8 @@ strict ``load_state_dict``. Backbones: ``dino_vits16`` (the default),
 ``dino_vitb16`` and ``dinov2_vits14``.
 
 ``sample`` runs ``extract_features_fused`` (DINO: ViT trunk on the kernels;
-DINOv2: ``extract_features_blocks``, its attention on the kernels), then
+DINOv2, and DINO at ``compute_dtype=bfloat16``: ``extract_features_blocks``,
+its attention on the kernels), then
 ``fused_sample_loop`` for the unconditioned steps [n_cond, T) (all of them
 without GGS), then, with a ``cond_fn``, the conditioned tail t < n_cond in
 ``p_sample_loop`` with ``denoiser_apply_fused`` (trunk on the kernels) and
@@ -149,12 +150,15 @@ class PoseDiffusionModel(nn.Module):
     def extract_features(self, images: torch.Tensor) -> torch.Tensor:
         """(B, N, 3, H, W) in [0, 1] -> (B, N, z_dim): DINO's trunk on the
         kernels; DINOv2's blocks in float32 with their attention on the
-        kernels, as the JAX package routes them (:409-414, :432)."""
+        kernels; at ``compute_dtype=bfloat16`` DINO's blocks at the Flax
+        bf16 blocks' rounding sites (DINOv2 raises), as the JAX package
+        routes them (:409-414, :432; its extractor's ``dtype``, :170)."""
         B, N = images.shape[:2]
         vit = self.image_feature_extractor._net
         flat = images.reshape(B * N, *images.shape[2:])
-        if vit.layer_scale:
-            z = extract_features_blocks(vit, flat, self.config.scale_factors)
+        bf16 = self.config.compute_dtype == "bfloat16"
+        if vit.layer_scale or bf16:
+            z = extract_features_blocks(vit, flat, self.config.scale_factors, bf16=bf16)
         else:
             z = extract_features_fused(
                 vit, flat, scale_factors=self.config.scale_factors,

@@ -79,6 +79,7 @@ _SIGNATURES = {
     "pd_layernorm": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
     "pd_linear": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, *_DROP, _I, _P],
     "pd_attention": [_P, _P, _I, _P, _I, _I, _I, _I, _F, _I, *_DROP, _P],
+    "pd_attention_smem_bytes": [_I, _I, _I],
     "pd_sampler_prologue": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "pd_sampler_epilogue": [
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P,
@@ -414,9 +415,29 @@ def attention_plain(qkv, nhead: int, attn_bias=None, key_bias=None,
     return (p @ v).transpose(1, 2).reshape(B, N, D3 // 3)
 
 
-# csrc/attention.cu: kMaxDh. Its shared memory (a 64-key K and V tile, 32
-# query rows, a p strip per warp) does not grow with N: 90,624 B at Dh 128.
+# csrc/attention.cu: kMaxDh; the MMA depth needs Dh % 8 == 0.
 ATTENTION_MAX_DH = 128
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@functools.cache
+def attention_smem_bytes(N: int, Dh: int, round_in: bool) -> int:
+    """Dynamic shared memory of one ``attention`` launch (csrc/attention.cu,
+    smem_bytes): K and V tiles of up to 64 keys in bf16 mode, 32 in float32
+    mode (two stages when N needs more than one tile) and, in float32 mode,
+    the block's q rows (16 a warp, up to 4 warps); the head padded to 32, 64
+    or 128 columns, rows padded for conflict-free fragment loads. At most
+    141,312 B (Dh 128, bf16 mode), under the 232,448 B a block may use."""
+    warps = min(4, -(-N // 16))
+    tile = 64 if round_in else 32
+    kt = tile if N >= tile else _round_up(N, 16)
+    stages = 2 if N > kt else 1
+    dp = 32 if Dh <= 32 else 64 if Dh <= 64 else 128
+    sq, sv = dp + (16 if round_in else 8), dp + 4
+    return 4 * ((0 if round_in else 16 * warps * sq) + stages * kt * (sq + sv))
 
 
 def _attention_check(qkv, nhead, attn_bias, key_bias):
@@ -447,10 +468,18 @@ def attention(qkv, nhead: int, attn_bias=None, key_bias=None,
     block-diagonal scale packing); ``key_bias`` (B, N) masks keys (the
     denoiser's frame mask). Use NEG, not -inf, for a masked entry. ``drop``
     multiplies the normalised p (element ((b H + h) N + i) N + j) by its
-    dropout mask before the bf16 rounding and p.V."""
+    dropout mask before the bf16 rounding and p.V. On the card both products
+    run on the tensor cores: bf16 MMAs with ``round_in`` (q, k, v and p are
+    bf16 values there), 3xTF32 (float32 accuracy) without."""
     if not _on_card(qkv, attn_bias, key_bias):
         return attention_plain(qkv, nhead, attn_bias, key_bias, round_in, drop)
     B, N, D, Dh, bias, kind = _attention_check(qkv, nhead, attn_bias, key_bias)
+    if Dh % 8:
+        raise ValueError(f"head width {Dh} is not a multiple of 8 (the MMA depth)")
+    if qkv.data_ptr() % 16:
+        raise ValueError("qkv must be 16-byte aligned (the kernel copies 16-byte chunks)")
+    if attention_smem_bytes(N, Dh, bool(round_in)) > _MAX_SMEM:
+        raise ValueError(f"attention at N {N}, Dh {Dh} exceeds one block's shared memory")
     out = torch.empty((B, N, D), device=qkv.device, dtype=torch.float32)
     _launch(load_library().pd_attention, _ptr(qkv), _ptr(bias), kind,
             _ptr(out), B, N, nhead, Dh, 1.0 / Dh**0.5, int(round_in),

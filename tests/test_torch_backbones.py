@@ -161,6 +161,52 @@ class TestModules:
         np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
 
 
+class TestBf16Serving:
+    """``compute_dtype=bfloat16``: the JAX package serves through the Flax
+    extractor in bf16 (``extract_features(..., fused=False)``,
+    posediffusion_tpu/models/pose_diffusion.py:409-414), and so does the
+    port (``extract_features_blocks(bf16=True)``)."""
+
+    @staticmethod
+    def _pair(rng, name):
+        cfg = dict(z_dim=64, vit_depth=2, vit_heads=2, d_model=64, nhead=2,
+                   num_encoder_layers=1, dim_feedforward=128, mlp_hidden_dim=16, timesteps=4,
+                   scale_factors=SCALES, modelname=name, compute_dtype="bfloat16")
+        jm = JModel(JConfig(**cfg))
+        params = {
+            "extractor": with_gains(random_params(jm.extractor, rng, jnp.zeros((1, 3, 64, 64))),
+                                    rng),
+            "denoiser": random_params(jm.denoiser, rng, jnp.zeros((1, 2, 9)),
+                                      jnp.zeros((1,), jnp.int32), jnp.zeros((1, 2, 64)),
+                                      kernel_std=0.02),
+        }
+        pm = PoseDiffusionModel(PoseDiffusionConfig(**cfg))
+        pm.load_state_dict(state_dict_from_jax(params, pm.schedule), strict=True)
+        return jm, params, pm, cfg
+
+    def test_dino_follows_the_flax_bf16_route(self, rng, monkeypatch):
+        """The attention in the JAX Pallas kernel's own bf16 sites (interpret
+        mode: the route on a TPU) and the Flax blocks' bf16 casts as XLA
+        evaluates them: 1e-5 at depth 2, width 64 (the port's float32 route
+        is ~1.6e-2 away from the same reference, so the bound tells the
+        routes apart)."""
+        monkeypatch.setenv("POSEDIFFUSION_ATTN_IMPL", "interpret")
+        jm, params, pm, cfg = self._pair(rng, "dino_vits16")
+        images = rng.uniform(size=(1, 3, 3, 64, 64)).astype(np.float32)
+        ref = np.asarray(jax.jit(lambda p, im: jm.extract_features(p, im, fused=False))(
+            params, images))
+        z = pm.extract_features(torch.tensor(images)).numpy()
+        np.testing.assert_allclose(z, ref, atol=1e-5)
+        f32 = PoseDiffusionModel(PoseDiffusionConfig(**{**cfg, "compute_dtype": "float32"}))
+        f32.load_state_dict(pm.state_dict(), strict=True)
+        assert np.abs(f32.extract_features(torch.tensor(images)).numpy() - ref).max() > 1e-3
+
+    def test_dinov2_refuses_bf16_serving(self, rng):
+        _, _, pm, _ = self._pair(rng, DINOV2)
+        with pytest.raises(ValueError, match="not ported for LayerScale"):
+            pm.extract_features(torch.rand(1, 2, 3, 64, 64))
+
+
 # ------------------------------------------------------------- train trunk
 L, D, H, N, B = 2, 64, 2, 20, 6
 

@@ -85,7 +85,8 @@ def test_linear(cuda, M, K_, N, wdtype, round_a, act):
 
 
 @pytest.mark.parametrize("B,N,H,Dh", [(20, 264, 6, 64), (1, 20, 4, 128), (3, 33, 2, 32),
-                                      (20, 593, 6, 64), (2, 1024, 1, 128)])
+                                      (20, 593, 6, 64), (2, 1024, 1, 128), (2, 1, 2, 64),
+                                      (3, 16, 4, 128), (2, 17, 2, 32), (1, 20, 4, 64)])
 @pytest.mark.parametrize("bias_kind", ["none", "attn", "key"])
 @pytest.mark.parametrize("round_in", [False, True])
 def test_attention(cuda, B, N, H, Dh, bias_kind, round_in):
@@ -101,6 +102,80 @@ def test_attention(cuda, B, N, H, Dh, bias_kind, round_in):
     assert torch.isfinite(out).all()
     _close(out, K.attention_plain(qkv, H, round_in=round_in, **kw),
            TOL_BF16 if round_in else TOL_F32)
+
+
+@pytest.mark.parametrize("N", [1, 20, 100])
+@pytest.mark.parametrize("round_in", [False, True])
+def test_attention_fully_masked_sequence(cuda, N, round_in):
+    """A sequence whose keys are all masked (kind 2) gets a uniform p, the
+    mean of V, as the plain version does; its neighbours are untouched."""
+    r = _gen(N + 1)
+    B, H, Dh = 3, 2, 64
+    qkv = _t(r.normal(size=(B, N, 3 * H * Dh)), cuda)
+    key_bias = torch.zeros(B, N, device=cuda)
+    key_bias[1] = K.NEG
+    out = K.attention(qkv, H, key_bias=key_bias, round_in=round_in)
+    tol = TOL_BF16 if round_in else TOL_F32
+    _close(out, K.attention_plain(qkv, H, key_bias=key_bias, round_in=round_in), tol)
+    v = qkv[1, :, 2 * H * Dh:]
+    mean = (K.round_bf16(v) if round_in else v).mean(0, keepdim=True).expand(N, -1)
+    _close(out[1], mean, tol)
+
+
+@pytest.mark.parametrize("B,N,H,Dh,bias_kind", [(20, 264, 6, 64, "attn"), (4, 1024, 4, 64, "key"),
+                                                (1, 20, 4, 128, "key"), (40, 16, 4, 128, "key")])
+@pytest.mark.parametrize("round_in", [False, True])
+def test_attention_repeats_bitwise(cuda, B, N, H, Dh, bias_kind, round_in):
+    """No atomics: two calls give the same bits (with dropout too)."""
+    r = _gen(B + N)
+    qkv = _t(r.normal(size=(B, N, 3 * H * Dh)), cuda)
+    if bias_kind == "attn":
+        seg = np.arange(N) * 3 // N
+        kw = dict(attn_bias=_t(np.where(seg[:, None] == seg[None], 0.0, K.NEG), cuda))
+    else:
+        kw = dict(key_bias=_t(np.where(r.uniform(size=(B, N)) < 0.8, 0.0, K.NEG), cuda))
+    for drop in (None, K.drop_args(1, 2, "attn", 0.1)):
+        a = K.attention(qkv, H, round_in=round_in, drop=drop, **kw)
+        assert torch.equal(a, K.attention(qkv, H, round_in=round_in, drop=drop, **kw))
+
+
+@pytest.mark.parametrize("round_in", [False, True])
+def test_attention_masked_tiles_and_row_block(cuda, round_in):
+    """The kernel skips a key tile that is masked for all of a warp's rows
+    once they have seen a live key (it adds exactly 0). A packing bias gives
+    such tiles; rows 16-31, one warp's rows, masked against every key, must
+    still get the uniform p (the mean of V) of the plain version."""
+    B, N, H, Dh = 3, 200, 2, 64
+    qkv = _t(_gen(5).normal(size=(B, N, 3 * H * Dh)), cuda)
+    seg = np.arange(N) * 3 // N
+    bias = np.where(seg[:, None] == seg[None], 0.0, K.NEG)
+    bias[16:32] = K.NEG
+    bias = _t(bias, cuda)
+    out = K.attention(qkv, H, attn_bias=bias, round_in=round_in)
+    tol = TOL_BF16 if round_in else TOL_F32
+    _close(out, K.attention_plain(qkv, H, attn_bias=bias, round_in=round_in), tol)
+    v = qkv[..., 2 * H * Dh:]
+    mean = (K.round_bf16(v) if round_in else v).mean(1, keepdim=True).expand(-1, 16, -1)
+    _close(out[:, 16:32], mean, tol)
+
+
+def test_attention_shared_memory_formula(cuda):
+    """The wrapper's shared-memory formula is the kernel's."""
+    lib = K.load_library()
+    for N in (1, 16, 17, 20, 33, 64, 65, 264, 4096):
+        for Dh in (8, 32, 40, 64, 128):
+            for round_in in (False, True):
+                assert K.attention_smem_bytes(N, Dh, round_in) == \
+                    lib.pd_attention_smem_bytes(N, Dh, int(round_in)), (N, Dh, round_in)
+    assert max(K.attention_smem_bytes(4096, 128, m) for m in (False, True)) == 141312
+
+
+def test_attention_refuses_what_it_cannot_run(cuda):
+    with pytest.raises(ValueError, match="multiple of 8"):
+        K.attention(torch.randn(1, 8, 3 * 2 * 12, device=cuda), 2)
+    flat = torch.randn(8 * 3 * 64 + 1, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        K.attention(flat[1:].view(1, 8, 3 * 64), 1)
 
 
 def _sampler_inputs(dev, rows=20, D=512, TD=9, NH=10, R=4, HID=128):
@@ -379,6 +454,19 @@ def test_attention_superglue_shapes(cuda, layout):
     if layout == "cross":
         bias = bias.view(C, 2, N).flip(1).reshape(2 * C, N).contiguous()
     qkv = _t(_gen(1).normal(size=(2 * C, N, 768)), cuda)
+    _close(K.attention(qkv, 4, key_bias=bias), K.attention_plain(qkv, 4, key_bias=bias),
+           TOL_F32)
+
+
+@pytest.mark.parametrize("layout", ["self", "cross"])
+def test_attention_superglue_shapes_4096(cuda, layout):
+    """The same at the matcher's default 4,096 keypoints (2C = 4 sequences)."""
+    C, N = 2, 4096
+    _, mask0, mask1 = _sg_case(cuda, C, N, 8)
+    bias = torch.where(torch.stack([mask0, mask1], 1) > 0.5, 0.0, K.SG_NEG).reshape(2 * C, N)
+    if layout == "cross":
+        bias = bias.view(C, 2, N).flip(1).reshape(2 * C, N).contiguous()
+    qkv = _t(_gen(2).normal(size=(2 * C, N, 768)), cuda)
     _close(K.attention(qkv, 4, key_bias=bias), K.attention_plain(qkv, 4, key_bias=bias),
            TOL_F32)
 

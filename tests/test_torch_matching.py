@@ -398,6 +398,69 @@ class TestAttentionPlain:
         np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
 
 
+    @staticmethod
+    def _reference(q, k, v, **kw):
+        """mha_attention in interpret mode on (B, N, H * Dh) arrays."""
+        B, N, D = q.shape
+        H = kw.pop("H")
+        heads = lambda a: jnp.asarray(a.reshape(B, N, H, D // H).transpose(0, 2, 1, 3))
+        ref = mha_attention(heads(q), heads(k), heads(v), impl="interpret", **kw)
+        return np.asarray(ref).transpose(0, 2, 1, 3).reshape(B, N, D)
+
+    @pytest.mark.parametrize("N", [1, 17, 20, 33])
+    @pytest.mark.parametrize("Dh", [32, 64, 128])
+    def test_key_mask_shapes(self, rng, N, Dh):
+        """The plain version against _pallas_attention at the CUDA kernel's
+        ragged edges (one key, a tile of 16 plus one, the denoiser's 20
+        frames, two tiles plus one) and head widths: 1e-5."""
+        B, H = 2, 2
+        q, k, v = (rng.normal(size=(B, N, H * Dh)).astype(np.float32) for _ in range(3))
+        mask = rng.uniform(size=(B, N)) < 0.7
+        mask[:, 0] = True
+        ref = self._reference(q, k, v, H=H, mask=jnp.asarray(mask))
+        out = K.attention_plain(torch.tensor(np.concatenate([q, k, v], -1)), H,
+                                key_bias=torch.where(torch.tensor(mask), 0.0, K.NEG))
+        np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
+
+    @pytest.mark.parametrize("N", [1, 17, 20, 33])
+    @pytest.mark.parametrize("Dh", [32, 64, 128])
+    def test_attn_bias_shapes(self, rng, N, Dh):
+        """The plain version against _pallas_attention_bias at the same
+        shapes, a block-diagonal packing bias: 1e-5."""
+        B, H = 2, 2
+        q, k, v = (rng.normal(size=(B, N, H * Dh)).astype(np.float32) for _ in range(3))
+        seg = np.arange(N) * 3 // N
+        bias = np.where(seg[:, None] == seg[None], 0.0, K.NEG).astype(np.float32)
+        ref = self._reference(q, k, v, H=H, attn_bias=jnp.asarray(bias))
+        out = K.attention_plain(torch.tensor(np.concatenate([q, k, v], -1)), H,
+                                attn_bias=torch.tensor(bias))
+        np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
+
+    @pytest.mark.parametrize("kind", ["key_mask", "attn_bias"])
+    def test_fully_masked_row(self, rng, kind):
+        """A row whose keys are all masked (a whole sequence for the key mask,
+        one query row for the bias) gets a uniform p, the mean of V, in both:
+        1e-5. N is a multiple of 8, so the Pallas route pads no keys that
+        would join the uniform average."""
+        B, N, H, Dh = 2, 24, 2, 64
+        q, k, v = (rng.normal(size=(B, N, H * Dh)).astype(np.float32) for _ in range(3))
+        qkv = torch.tensor(np.concatenate([q, k, v], -1))
+        if kind == "key_mask":
+            mask = np.ones((B, N), bool)
+            mask[1] = False
+            ref = self._reference(q, k, v, H=H, mask=jnp.asarray(mask))
+            out = K.attention_plain(qkv, H, key_bias=torch.where(torch.tensor(mask), 0.0, K.NEG))
+            np.testing.assert_allclose(out[1].numpy(), np.broadcast_to(v[1].mean(0), (N, H * Dh)),
+                                       atol=1e-5)
+        else:
+            bias = np.zeros((N, N), np.float32)
+            bias[5] = K.NEG
+            ref = self._reference(q, k, v, H=H, attn_bias=jnp.asarray(bias))
+            out = K.attention_plain(qkv, H, attn_bias=torch.tensor(bias))
+            np.testing.assert_allclose(out[:, 5].numpy(), v.mean(1), atol=1e-5)
+        np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
+
+
 # ------------------------------------------------------------------- RANSAC
 _SCENES = {
     "general": (lambda r: synthetic_two_view(r), dict(max_error_px=1.0)),
