@@ -7,26 +7,31 @@ backbones, once on an NVIDIA card.
     python3 chip_smoke.py --profile   # also: torch.profiler over one GGS inference,
                                       # from a matches table and from the images
     python3 chip_smoke.py --parent DIR
-        # also: the same calls with DIR's csrc/attention.cu (a checkout of the
-        # parent commit, e.g. unpacked with git archive into build/) built
-        # alone and swapped in: each attention case and the end-to-end
-        # numbers before and after, in the order new, parent, parent, new
-    python3 chip_smoke.py --attention [--parent DIR]   # the attention cases alone
+        # also, first: the calls a serving or training user waits for, each
+        # timed in a child process with this checkout's port and with DIR's
+        # (the parent commit's posediffusion_tpu_torch/ and cfgs/, unpacked
+        # with git archive into a gitignored directory; its kernels build
+        # under DIR/build/kernels), in the order new, parent, parent, new
+    python3 chip_smoke.py --attention   # the attention cases alone
 
 Phases (any failure exits non-zero and prints no result line):
   1. build   the CUDA kernels from posediffusion_tpu_torch/csrc (one nvcc per
              source, in parallel);
   2. parity  each kernel against its plain PyTorch version at the paths'
              shapes: ViT-S/16 over 20 frames x 264 packed tokens (224px) and
-             x 593 (336px); the sampler's 20 frames, 8 layers, 100 steps; the
-             denoiser trunk of the GGS steps; the GGS phases at 100 and 1,024
+             x 593 (336px); the sampler's 20 frames, 8 layers, 100 steps, its
+             four 20-row products on the few-rows route of linear (with and
+             without the folded LayerNorm, and bitwise against themselves);
+             the denoiser trunk of the GGS steps; the GGS phases at 100 and 1,024
              matches per pair, a whole 5-phase cond_fn and the 10-step
              conditioned tail; f32 and default (bf16) mode; SuperGlue at 32
              pairs of 1,024 keypoints (products, key-mask attention self and
              cross, coupling, Sinkhorn, matches, the whole matcher);
   3. main    demo_torch's flow on samples/apple (20 frames, 224px, seeded
              random weights, GGS off): finite cameras and ARE, and every
-             kernel of that path launched during it;
+             kernel of that path launched during it; a sampler step is 42
+             launches and neither the sampler nor the GGS tail launches
+             layernorm;
   4. ggs     demo_torch's flow with GGS on, from synthetic matches projected
              through samples/apple's ground-truth cameras: 20 frames at 100
              and at 1,024 matches per pair, and the first 6 frames at 100;
@@ -65,7 +70,10 @@ Phases (any failure exits non-zero and prints no result line):
   6. timing  CUDA-event medians of the inferences, the conditioned tail,
              the match extraction stages, and each kernel beside its plain
              version, its bound (bytes or operations over the H100's peaks)
-             and a one-call PyTorch yardstick where one exists; every
+             and a one-call PyTorch yardstick where one exists (the four
+             20-row products also by device time, beside torch.matmul on a
+             float32 copy of the weight); a sampler step's device time
+             against its wall time; every
              attention forward the port runs (SuperGlue self and cross, the
              ViT at 264 and 593 tokens, the denoiser, DINOv2, the train
              trunks) against its plain version and bitwise against itself,
@@ -136,6 +144,10 @@ SUPERGLUE_SITE = "posediffusion_tpu/ops/superglue_kernel.py:285 (fused_match_pai
 TPU_KERNELS = {
     "layernorm": TRUNK_SITES,
     "linear": f"{TRUNK_SITES}; {SUPERGLUE_SITE}, its GNN and final products",
+    "linear_rows": ("posediffusion_tpu/ops/denoiser_kernel.py:42 (encoder_layer_math: "
+                    "_layer_norm + jnp.dot :55-57, :76, :80-81, :83) in "
+                    "posediffusion_tpu/ops/sampler_kernel.py:141 (fused_sample_loop -> :362) "
+                    "and posediffusion_tpu/ops/denoiser_kernel.py:151 (fused_trunk -> :176)"),
     "attention": (f"{TRUNK_SITES}; posediffusion_tpu/ops/attention.py:66 "
                   "(_pallas_attention, key mask) and :125 (_pallas_attention_bias); "
                   f"{SUPERGLUE_SITE}, its per-head attention"),
@@ -160,6 +172,7 @@ TPU_KERNELS = {
 SOURCES = {
     "layernorm": "posediffusion_tpu_torch/csrc/layernorm.cu",
     "linear": "posediffusion_tpu_torch/csrc/linear.cu",
+    "linear_rows": "posediffusion_tpu_torch/csrc/linear.cu",
     "attention": "posediffusion_tpu_torch/csrc/attention.cu",
     "sampler_prologue": "posediffusion_tpu_torch/csrc/sampler.cu",
     "sampler_epilogue": "posediffusion_tpu_torch/csrc/sampler.cu",
@@ -174,12 +187,16 @@ SOURCES = {
     "act_dropout_bwd": "posediffusion_tpu_torch/csrc/train.cu",
     "layerscale_bwd": "posediffusion_tpu_torch/csrc/train.cu",
 }
-NO_GGS_PATH = ("layernorm", "linear", "attention", "sampler_prologue", "sampler_epilogue")
+# The kernels around the sampler's products; the sampler's products take the
+# few-rows route (linear_rows) up to 32 rows: the serving paths' 20 frames,
+# not the in-training eval's batched sequences.
+TRUNK_KERNELS = ("layernorm", "linear", "attention", "sampler_prologue", "sampler_epilogue")
+NO_GGS_PATH = TRUNK_KERNELS + ("linear_rows",)
 GGS_PATH = NO_GGS_PATH + ("ggs_phase", "ggs_phase_chunked")
 SUPERGLUE_KERNELS = ("superglue_coupling", "superglue_sinkhorn", "superglue_matches")
 MATCH_PATH = GGS_PATH + SUPERGLUE_KERNELS
 TRAIN_KERNELS = ("attention_bwd", "layernorm_bwd", "linear_wgrad", "act_dropout_bwd")
-TRAIN_PATH = NO_GGS_PATH + TRAIN_KERNELS  # the sampler kernels: the in-training eval
+TRAIN_PATH = TRUNK_KERNELS + TRAIN_KERNELS  # the sampler kernels: the in-training eval
 # The train path: train_torch.py at cfgs/default_train.yaml (512 images a step,
 # 32 sequences x 16 frames at 224px, batch_repeat 90, dropout 0.1) on a
 # Co3D-format tree of samples/apple.
@@ -192,6 +209,9 @@ TRAIN_OVERRIDES = ("train.category=apple", "train.min_num_images=20",
 DINOV2 = "MODEL.IMAGE_FEATURE_EXTRACTOR.modelname=dinov2_vits14"
 VITB = "MODEL.IMAGE_FEATURE_EXTRACTOR.modelname=dino_vitb16"
 DINOV2_TRAIN_PATH = TRAIN_PATH + ("layerscale_bwd",)
+# DINOv2 serves through its module blocks (attention on the kernel), so its
+# serving path's LayerNorms and products are the sampler's, all folded
+DINOV2_SERVE_PATH = ("linear_rows", "attention", "sampler_prologue", "sampler_epilogue")
 LS_PER_STEP = 24  # layerscale_bwd: 2 sites x 12 blocks (the encoder has no gains)
 VIT_CHUNK = 64  # images in the ViT train-trunk parity cases
 VIT_IMAGES = 512  # a train step's images (max_images)
@@ -500,46 +520,11 @@ def _time_ms(torch, fn, reps=N_TIMED, inner=1, warmup=2):
     return statistics.median(times)
 
 
-def load_parent_attention(parent_dir):
-    """--parent DIR: build DIR's csrc/attention.cu (a checkout of the parent
-    commit) alone into build/parent_attention/ and return its pd_attention,
-    bound like the port's, to be swapped in (``attention_launching``) so that
-    the same calls are timed before and after."""
-    import ctypes
-
-    from posediffusion_tpu_torch.ops import kernels as K
-
-    src = os.path.join(parent_dir, "posediffusion_tpu_torch", "csrc", "attention.cu")
-    out_dir = os.path.join(REPO, "build", "parent_attention")
-    os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, "libparent_attention.so")
-    K._run_all([[K._nvcc(), *K._NVCC_FLAGS, "-shared", "-o", path, src]])
-    fn = ctypes.CDLL(path).pd_attention
-    fn.argtypes = K._SIGNATURES["pd_attention"]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@contextlib.contextmanager
-def attention_launching(fn):
-    """``kernels.attention`` launches ``fn`` (a pd_attention) inside the
-    block; None keeps the port's own."""
-    from posediffusion_tpu_torch.ops import kernels as K
-
-    lib = K.load_library()
-    own = lib.pd_attention
-    if fn is not None:
-        lib.pd_attention = fn
-    try:
-        yield
-    finally:
-        lib.pd_attention = own
-
-
 def _kernel_device_ms(torch, fn, kernel="attention_kernel", calls=20):
-    """Device time of ``kernel`` per call of ``fn``, from torch.profiler's
-    CUDA activity: the kernel's own time, without the host's launch cost that
-    CUDA events around a short call measure instead."""
+    """Device time of ``kernel`` (every kernel and copy when None) per call
+    of ``fn``, from torch.profiler's CUDA activity: the kernels' own time,
+    without the host's launch cost that CUDA events around a short call
+    measure instead."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -550,27 +535,244 @@ def _kernel_device_ms(torch, fn, kernel="attention_kernel", calls=20):
             fn()
         torch.cuda.synchronize()
     us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and kernel in e.key)
+             if e.device_type == DeviceType.CUDA and (kernel is None or kernel in e.key))
     return us / 1e3 / calls
 
 
-PARENT_TAG = " [parent attention]"
+def rows_products(lw, x, attn, hff):
+    """The four products of one denoiser layer (weights ``lw`` in
+    encoder_layer_math's order) as the sampler runs them at 20 rows: (name,
+    linear args, linear kwargs) with the pre-norm LayerNorms folded in."""
+    g1, b1, wqkv, bqkv, wout, bout, g2, b2, wl1, bl1, wl2, bl2 = lw
+    return [
+        ("in_proj", (x, wqkv, bqkv), dict(ln=(g1, b1, 1e-5))),
+        ("out_proj", (attn, wout, bout), dict(residual=x)),
+        ("linear1", (x, wl1, bl1), dict(act="relu", ln=(g2, b2, 1e-5))),
+        ("linear2", (hff, wl2, bl2), dict(residual=x)),
+    ]
 
 
-def _time_vs_parent(torch, timings, name, fn, parent, **kw):
-    """timings[name] = _time_ms(fn); with the parent's pd_attention
-    (``parent``, --parent) also timings[name + PARENT_TAG] with it swapped
-    in, each the mean of two runs in the order new, parent, parent, new."""
-    if parent is None:
-        timings[name] = _time_ms(torch, fn, **kw)
-        return
-    runs = {False: [], True: []}
-    for old in (False, True, True, False):
-        with attention_launching(parent if old else None):
-            runs[old].append(_time_ms(torch, fn, **kw))
-    timings[name] = statistics.mean(runs[False])
-    timings[name + PARENT_TAG] = statistics.mean(runs[True])
+def layer_product_calls(torch, K, lw, gen, dev):
+    """The four products of one denoiser layer at 20 rows as ``K`` (a
+    kernels module, this checkout's or a parent commit's) runs them inside
+    ``encoder_layer_math``: LayerNorm folded into in_proj and linear1 where
+    ``linear`` takes ``ln``, else a layernorm launch and then the product."""
+    import inspect
 
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)  # noqa: E731
+    x, attn, hff = rnd(20, 512), rnd(20, 512), torch.relu(rnd(20, 1024))
+    folds = "ln" in inspect.signature(K.linear).parameters
+    calls = {}
+    for name, args, kw in rows_products(lw, x, attn, hff):
+        if "ln" in kw and not folds:
+            ln, rest = kw["ln"], {k: v for k, v in kw.items() if k != "ln"}
+            calls[name] = lambda a=args, ln=ln, kw=rest: K.linear(
+                K.layernorm(a[0], *ln), *a[1:], **kw)
+        else:
+            calls[name] = lambda a=args, kw=kw: K.linear(*a, **kw)
+    return calls
+
+
+def timed_calls(root):
+    """--timed-calls ROOT (a child process of --parent): time, with the port
+    imported from ROOT (this checkout, or a directory holding a parent
+    commit's posediffusion_tpu_torch/ and cfgs/), the calls that --parent
+    compares, and print them as the last line, one JSON object."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    import posediffusion_tpu_torch
+
+    found = os.path.dirname(os.path.abspath(posediffusion_tpu_torch.__file__))
+    if found != os.path.join(os.path.abspath(root), "posediffusion_tpu_torch"):
+        raise SystemExit(f"the port came from {found}, not from {root}")
+    from posediffusion_tpu_torch.data.images import load_and_preprocess_images
+    from posediffusion_tpu_torch.diffusion import ggs as G
+    from posediffusion_tpu_torch.matching import extract as X
+    from posediffusion_tpu_torch.matching.superglue import encode_keypoints
+    from posediffusion_tpu_torch.models.pose_diffusion import (
+        PoseDiffusionConfig,
+        PoseDiffusionModel,
+        init_random_weights,
+    )
+    from posediffusion_tpu_torch.ops import kernels as K
+    from posediffusion_tpu_torch.ops import superglue_kernel as SGK
+    from posediffusion_tpu_torch.ops.denoiser_kernel import layer_weights, stack_trunk_params
+    from posediffusion_tpu_torch.ops.ggs_grad import pack_matches_grouped
+    from posediffusion_tpu_torch.ops.sampler_kernel import fused_sample_loop
+    from posediffusion_tpu_torch.training.optim import make_optimizer
+    from posediffusion_tpu_torch.training.step import train_step
+    from posediffusion_tpu_torch.utils.config import load_config, model_config_from_cfg
+    from posediffusion_tpu_torch.utils.precision import pin_full_float32
+
+    pin_full_float32()
+    dev = torch.device("cuda")
+    apple = os.path.join(REPO, "samples", "apple")
+    work = os.path.join(REPO, "outputs", "chip_smoke", "timed_calls")
+    os.makedirs(work, exist_ok=True)
+    t0 = time.perf_counter()
+    K.load_library()
+    print(f"  [{root}] kernels built in {time.perf_counter() - t0:.1f} s", file=sys.stderr,
+          flush=True)
+    t = {}
+    model = PoseDiffusionModel(PoseDiffusionConfig())
+    init_random_weights(model, SEED)
+    model.to(dev)
+    den = model.diffuser.model
+    imgs = torch.as_tensor(load_and_preprocess_images(apple, IMAGE_SIZE)[0], device=dev)[None]
+    n = imgs.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x0 = torch.randn((1, n, 9), generator=gen, device=dev)
+    noises = torch.randn((model.config.timesteps, 1, n, 9), generator=gen, device=dev)
+    hw = (IMAGE_SIZE, IMAGE_SIZE)
+    gm = pack_matches_grouped(*synthetic_matches(apple, 100, SEED + 100), n, device=dev)
+    cond = G.make_ggs_cond_fn(None, hw, G.GGSConfig(), gm, K.KERNELS)
+    with torch.no_grad():
+        t["inference without GGS (20 frames)"] = _time_ms(
+            torch, lambda: model.sample(imgs, x0=x0, noises=noises))
+        t["GGS inference, 100/pair"] = _time_ms(
+            torch, lambda: model.sample(imgs, x0=x0, noises=noises, cond_fn=cond,
+                                        cond_start_step=10), reps=5)
+        z = model.extract_features(imgs)
+        t["sampler (fused_sample_loop, 100 steps)"] = _time_ms(
+            torch, lambda: fused_sample_loop(den, model.schedule, z, x0=x0, noises=noises))
+        lw = layer_weights(stack_trunk_params(den._trunk))[0]
+        for name, call in layer_product_calls(torch, K, lw, gen, dev).items():
+            t[f"{name}, 20 rows (CUDA events)"] = _time_ms(torch, call, inner=10)
+            t[f"{name}, 20 rows (device)"] = _kernel_device_ms(torch, call, None)
+    del model, den, z
+    torch.cuda.empty_cache()
+
+    # one DINO train step at the reference train config (512 images)
+    cfg_path = os.path.join(REPO, "cfgs", "default_train.yaml")
+    cfg = _train_cfg(work, "train", cfg=cfg_path)
+    tm = PoseDiffusionModel(model_config_from_cfg(load_config(cfg_path).MODEL))
+    init_random_weights(tm, SEED)
+    tm.to(dev)
+    batch, draws, _ = _train_batch(cfg, dev, tm.config.timesteps)
+    tr = cfg.train
+    opt, _ = make_optimizer(tm, lr=tr.lr, T_0=tr.restart_num, iters_per_epoch=tr.len_train,
+                            clip_grad=tr.clip_grad)
+    t["DINO train step (512 images, batch_repeat 90)"] = _time_ms(
+        torch, lambda: train_step(tm, opt, batch, tr.batch_repeat, draws=draws), reps=3, warmup=1)
+    del tm, opt, batch
+    torch.cuda.empty_cache()
+
+    # the matcher: 190 pairs of the 20 frames at 1,024 keypoints
+    sp_net, sg_net = X.load_matcher_weights(write_matcher_weights(
+        os.path.join(work, "matcher"), SEED), dev)
+    paths = sorted(os.path.join(apple, f) for f in os.listdir(apple) if f.endswith(".jpg"))
+    grays, sizes = X.load_grays(paths)
+    pairs = [(a, b) for a in range(n) for b in range(a + 1, n)]
+    with torch.no_grad():
+        kp, sc, de, va = X.stack_feats(X.detect_frames(sp_net, grays, MATCH_KEYPOINTS))
+        x_all = encode_keypoints(sg_net, de, kp, sc,
+                                 torch.as_tensor(np.asarray(sizes, np.float32), device=dev))
+        st = SGK.stack_superglue_params(sg_net)
+        ia = torch.as_tensor([p[0] for p in pairs], device=dev)
+        ib = torch.as_tensor([p[1] for p in pairs], device=dev)
+
+        def matcher():
+            for i0 in range(0, len(pairs), SG_PAIRS):
+                sa, sb = ia[i0:i0 + SG_PAIRS], ib[i0:i0 + SG_PAIRS]
+                SGK.fused_match_pairs(torch.stack([x_all[sa], x_all[sb]], 1), va[sa], va[sb],
+                                      st, match_threshold=0.0)
+
+        t[f"matcher (fused_match_pairs, {len(pairs)} pairs, K {x_all.shape[1]})"] = _time_ms(
+            torch, matcher, reps=3, warmup=1)
+    print(json.dumps({"timed_calls": t, "root": root}))
+    return 0
+
+
+def parent_phase(report, parent_dir, smi):
+    """--parent DIR: ``timed_calls`` in four child processes, this
+    checkout's port and DIR's in the order new, parent, parent, new; each
+    call's mean over the two runs of each. Returns {call: numbers}."""
+    print(f"[parent] the same calls with this checkout and with {parent_dir} (the parent "
+          f"commit), in child processes, order new, parent, parent, new; card: {smi}",
+          flush=True)
+    runs = {"new": [], "parent": []}
+    for who in ("new", "parent", "parent", "new"):
+        root = REPO if who == "new" else os.path.abspath(parent_dir)
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--timed-calls", root],
+                             capture_output=True, text=True, timeout=900)
+        print(out.stderr.strip()[-2000:] if out.returncode else "", end="")
+        if out.returncode != 0 or not out.stdout.strip():
+            report.failures.append(f"--parent: the {who} run exited {out.returncode}")
+            print(out.stdout[-2000:])
+            return None
+        runs[who].append(json.loads(out.stdout.strip().splitlines()[-1])["timed_calls"])
+        print(f"  {who} run in {time.perf_counter() - t0:.0f} s", flush=True)
+    result = {}
+    for name in runs["new"][0]:
+        new = [r[name] for r in runs["new"]]
+        old = [r[name] for r in runs["parent"]]
+        result[name] = {"new": statistics.mean(new), "parent": statistics.mean(old),
+                        "new_runs": new, "parent_runs": old}
+        print(f"  {name}: {statistics.mean(new):.4f} ms, parent {statistics.mean(old):.4f} ms "
+              f"({100 * (statistics.mean(new) / statistics.mean(old) - 1):+.2f}%); "
+              f"runs {new[0]:.4f}, {old[0]:.4f}, {old[1]:.4f}, {new[1]:.4f}", flush=True)
+    return result
+
+
+def rows_entries(torch, F, cases, rows_by_shape):
+    """Kernels-line entries of the few-rows route at the sampler's four
+    product shapes (bf16 weights, 20 rows), and the 20 x 512 LayerNorm case
+    on the layernorm entry's side: CUDA-event and device (profiler) times,
+    the plain version's, the bound, and the library yardstick, timed only:
+    torch.matmul on a float32 copy of the weight (TF32 off), after
+    F.layer_norm where the LayerNorm is folded in. Device times are means of
+    two measurements in the order kernel, library, matmul, matmul, library,
+    kernel (the card's clocks drift between them). ``launches`` is the
+    no-GGS path's count at the entry's (M, K, N)."""
+    entries = []
+    for pname in ("in_proj", "out_proj", "linear1", "linear2"):
+        name, kernel, plain, args, kwargs, err = cases[f"linear_rows {pname}"]
+        a, w, b = args[:3]
+        (Mm, Kk), Nn = a.shape, w.shape[1]
+        wf, ln = w.float(), kwargs.get("ln")
+        call = lambda: kernel(*args, **kwargs)  # noqa: E731
+        matmul = lambda: torch.matmul(a, wf)  # noqa: E731
+        library = matmul if ln is None else (
+            lambda: torch.matmul(F.layer_norm(a, (Kk,), ln[0], ln[1], ln[2]), wf))
+        b_ms, b_by = bound(nbytes(a, w, b, kwargs.get("residual"), *(ln[:2] if ln else ()))
+                           + Mm * Nn * 4, 2 * Mm * Nn * Kk + (8 * Mm * Kk if ln else 0))
+        dev_ms = {"kernel": [], "library": [], "matmul": []}
+        for who in ("kernel", "library", "matmul", "matmul", "library", "kernel"):
+            fn, kern = {"kernel": (call, "linear_rows_kernel"), "library": (library, None),
+                        "matmul": (matmul, None)}[who]
+            dev_ms[who].append(_kernel_device_ms(torch, fn, kern))
+        e = {
+            "name": f"linear_rows {pname}", "route": "cuda", "source": SOURCES["linear_rows"],
+            "replaces": TPU_KERNELS["linear_rows"], "launches": rows_by_shape.get((Mm, Kk, Nn), 0),
+            "max_abs_err": err, "ms": _time_ms(torch, call, inner=10),
+            "plain_ms": _time_ms(torch, lambda: plain(*args, **kwargs), inner=10),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": _time_ms(torch, library, inner=10),
+            "device_ms": statistics.mean(dev_ms["kernel"]),
+            "library_device_ms": statistics.mean(dev_ms["library"]),
+            "matmul_device_ms": statistics.mean(dev_ms["matmul"]),
+            "case": f"{name} (launches: no-GGS path)",
+        }
+        print(f"  {e['name']}: device {e['device_ms']:.4f} ms (torch.matmul f32 "
+              f"{e['matmul_device_ms']:.4f}, with F.layer_norm {e['library_device_ms']:.4f}), "
+              f"events {e['ms']:.4f} ms, plain {e['plain_ms']:.4f}, library {e['library_ms']:.4f}, "
+              f"bound {b_ms:.5f} ms ({b_by}), {e['launches']} launches")
+        entries.append(e)
+    name, kernel, plain, args, _, err = cases["layernorm_rows"]
+    x, g, b, eps = args[:4]
+    library = lambda: F.layer_norm(x, (x.shape[1],), g, b, eps)  # noqa: E731
+    b_ms, b_by = bound(2 * nbytes(x) + 2 * x.shape[1] * 4, 8 * x.numel())
+    rows20 = {
+        "case": name, "max_abs_err": err, "ms": _time_ms(torch, lambda: kernel(*args), inner=10),
+        "device_ms": _kernel_device_ms(torch, lambda: kernel(*args), "layernorm"),
+        "plain_ms": _time_ms(torch, lambda: plain(*args), inner=10), "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": _time_ms(torch, library, inner=10),
+        "library_device_ms": _kernel_device_ms(torch, library, None),
+        "launches": 0,  # the sampler and the GGS tail fold their LayerNorms
+    }
+    print(f"  layernorm {name}: {rows20}")
+    return entries, rows20
 
 
 class Report:
@@ -654,14 +856,15 @@ def _worst_rel(outs_a, outs_b):
                for (name, a), (_, b) in zip(outs_a, outs_b))
 
 
-def _train_cfg(work, exp, *extra):
-    """cfgs/default_train.yaml on the Co3D tree of samples/apple (written
-    under build/), with TRAIN_OVERRIDES, then ``extra``."""
+def _train_cfg(work, exp, *extra, cfg="default_train"):
+    """cfgs/default_train.yaml (or the file ``cfg``) on the Co3D tree of
+    samples/apple (written under build/), with TRAIN_OVERRIDES, then
+    ``extra``."""
     from posediffusion_tpu_torch.utils.config import load_config
 
     co3d_dir, ann_dir = write_co3d_tree(os.path.join(REPO, "build", "co3d_apple"),
                                         os.path.join(REPO, "samples", "apple"))
-    return load_config("default_train", [
+    return load_config(cfg, [
         f"train.CO3D_DIR={co3d_dir}", f"train.CO3D_ANNOTATION_DIR={ann_dir}", *TRAIN_OVERRIDES,
         f"exp_dir={os.path.join(work, exp)}", f"seed={SEED}", *extra])
 
@@ -700,7 +903,7 @@ def _step_launches(K, step):
     return K.launch_counts()
 
 
-def train_slice(report, dev, work, smi, t_start, parent=None):
+def train_slice(report, dev, work, smi, t_start):
     """The training slice: its kernels against their plain versions at the
     path's shapes (parity), train_torch.py at the reference train config
     (the path), and its timings. Returns (kernel JSON entries, timings,
@@ -958,12 +1161,8 @@ def train_slice(report, dev, work, smi, t_start, parent=None):
         name = "train step " + ("plain route" if plain else "kernel route")
         with _route(V, plain):
             step = lambda: train_step(model, opt, batch, t.batch_repeat, draws=draws)  # noqa: E731
-            if plain:
-                timings[f"{name} (512 images, batch_repeat 90)"] = _time_ms(
-                    torch, step, reps=3, warmup=1)
-            else:
-                _time_vs_parent(torch, timings, f"{name} (512 images, batch_repeat 90)", step,
-                                parent, reps=3, warmup=1)
+            timings[f"{name} (512 images, batch_repeat 90)"] = _time_ms(
+                torch, step, reps=3, warmup=1)
     torch.cuda.reset_peak_memory_stats()
     step_launches = _step_launches(
         K, lambda: train_step(model, opt, batch, t.batch_repeat, draws=draws))
@@ -1009,7 +1208,7 @@ def train_slice(report, dev, work, smi, t_start, parent=None):
     timings["peak memory of a train step (GB)"] = peak_gb
     return kernels_json, timings, step_launches
 
-def backbones_slice(report, dev, work, smi, t_start, dino_step_launches, parent=None):
+def backbones_slice(report, dev, work, smi, t_start, dino_step_launches):
     """DINOv2 ViT-S/14 (TPU kernels 9 and 10 with LayerScale) and DINO
     ViT-B/16: linear with a gain and layerscale_bwd against their plain
     versions at DINOv2's train shapes, the LayerScale train trunk kernel
@@ -1113,9 +1312,9 @@ def backbones_slice(report, dev, work, smi, t_start, dino_step_launches, parent=
     print("[dinov2-serve] demo_torch on samples/apple, modelname dinov2_vits14")
     matches = write_matches(os.path.join(work, "matches_dinov2_100.npz"), apple, 100, SEED + 100)
     # 20 frames at 100/pair: 19,000 matches take the chunked GGS kernel
-    for what, extra, path in (("no GGS", ["GGS.enable=False"], NO_GGS_PATH),
+    for what, extra, path in (("no GGS", ["GGS.enable=False"], DINOV2_SERVE_PATH),
                               ("GGS 100/pair", ["GGS.enable=True", f"GGS.matches_file={matches}"],
-                               NO_GGS_PATH + ("ggs_phase_chunked",))):
+                               DINOV2_SERVE_PATH + ("ggs_phase_chunked",))):
         K.reset_launch_counts()
         out = demo_torch.run(demo_cfg(work, apple, DINOV2, *extra), dev.type)
         torch.cuda.synchronize()
@@ -1172,10 +1371,7 @@ def backbones_slice(report, dev, work, smi, t_start, dino_step_launches, parent=
         with _route(V, plain):
             name = "DINOv2 train step " + ("plain route" if plain else "kernel route")
             step = lambda: train_step(model, opt, batch, t.batch_repeat, draws=draws)  # noqa: E731
-            if plain:
-                timings[name] = _time_ms(torch, step, reps=2, warmup=1)
-            else:
-                _time_vs_parent(torch, timings, name, step, parent, reps=2, warmup=1)
+            timings[name] = _time_ms(torch, step, reps=2, warmup=1)
     torch.cuda.reset_peak_memory_stats()
     step = _step_launches(K, lambda: train_step(model, opt, batch, t.batch_repeat, draws=draws))
     timings["DINOv2 peak memory of a train step (GB)"] = torch.cuda.max_memory_allocated() / 1e9
@@ -1304,14 +1500,13 @@ def backbones_slice(report, dev, work, smi, t_start, dino_step_launches, parent=
     return kernels_json, timings, rows
 
 
-def attention_slice(report, dev, smi, parent=None):
+def attention_slice(report, dev, smi):
     """Every attention forward the port runs, at its path's shape: the kernel
     against its plain version (and against itself, bitwise), then its time
     (CUDA events around the call, and the kernel's device time alone, which
     is what the short cases' host-bound calls hide) beside the plain
     version's, SDPA's (float32, and bf16 operands as a second yardstick for
-    the bf16-mode cases), its bound and, with --parent, the parent commit's
-    kernel. Returns {case: numbers}."""
+    the bf16-mode cases) and its bound. Returns {case: numbers}."""
     import torch
     import torch.nn.functional as F
 
@@ -1370,22 +1565,8 @@ def attention_slice(report, dev, smi, parent=None):
             B, N, D3 = qkv.shape
             inner = 10 if B * N * N < 1 << 24 else 1
             row = {"max_abs_err": err}
-            if parent is not None:
-                with attention_launching(parent):
-                    yp = K.attention(qkv, H, **kw)
-                row["parent_max_abs_err"] = (yp - K.attention_plain(qkv, H, **kw)).abs().max().item()
-                del yp
-            t = {}
-            _time_vs_parent(torch, t, "ms", lambda: K.attention(qkv, H, **kw), parent,
-                            inner=inner)
-            row["ms"] = t["ms"]
-            if parent is not None:
-                row["parent_ms"] = t["ms" + PARENT_TAG]
+            row["ms"] = _time_ms(torch, lambda: K.attention(qkv, H, **kw), inner=inner)
             row["device_ms"] = _kernel_device_ms(torch, lambda: K.attention(qkv, H, **kw))
-            if parent is not None:
-                with attention_launching(parent):
-                    row["parent_device_ms"] = _kernel_device_ms(
-                        torch, lambda: K.attention(qkv, H, **kw))
             row["plain_ms"] = _time_ms(torch, lambda: K.attention_plain(qkv, H, **kw),
                                        reps=5, inner=inner)
             bias_key = "attn_bias" if "attn_bias" in kw else "key_bias"
@@ -1491,15 +1672,11 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     K.load_library()
     print(f"[build] {K.library_path().name} in {time.perf_counter() - t0:.1f} s")
-    parent = None
+    parent_calls = None
     if "--parent" in argv:
-        parent_dir = argv[argv.index("--parent") + 1]
-        t0 = time.perf_counter()
-        parent = load_parent_attention(parent_dir)
-        print(f"[build] the parent's attention kernel ({parent_dir}) in "
-              f"{time.perf_counter() - t0:.1f} s")
+        parent_calls = parent_phase(report, argv[argv.index("--parent") + 1], smi)
     if "--attention" in argv:  # the attention cases alone
-        attn = attention_slice(report, dev, smi, parent)
+        attn = attention_slice(report, dev, smi)
         print(json.dumps({"attention_cases": attn, "card": smi}))
         if report.failures:
             print("FAILED:\n  " + "\n  ".join(report.failures), file=sys.stderr)
@@ -1592,15 +1769,32 @@ def main(argv) -> int:
                       K.sampler_prologue_plain, (xs, *inp.prologue, 0), {}, False,
                       tag("sampler_prologue"))
             lw = inp.layers[0]
-            hl = case(f"layernorm den {mode}", K.layernorm, K.layernorm_plain,
-                      (hp, lw[0], lw[1], 1e-5, False), {}, False)
-            qd = case(f"linear den qkv {mode} ({hl.shape[0]}x512 @ 512x1536)", K.linear,
+            rows = hp.shape[0]
+            hl = case(f"layernorm den {mode} ({rows}x512)", K.layernorm, K.layernorm_plain,
+                      (hp, lw[0], lw[1], 1e-5, False), {}, False, tag("layernorm_rows"))
+            qd = case(f"linear den qkv {mode} ({rows}x512 @ 512x1536)", K.linear,
                       K.linear_plain, (hl, lw[2], lw[3]), {}, False)
-            case(f"attention den {mode} (1x{hl.shape[0]}, 4 heads)", K.attention,
-                 K.attention_plain, (qd.view(1, hl.shape[0], -1), 4),
-                 dict(key_bias=inp.key_bias), False)
+            ad = case(f"attention den {mode} (1x{rows}, 4 heads)", K.attention,
+                      K.attention_plain, (qd.view(1, rows, -1), 4),
+                      dict(key_bias=inp.key_bias), False)
             case(f"linear den ff1+relu {mode}", K.linear, K.linear_plain,
                  (hl, lw[8], lw[9]), dict(act="relu"), False)
+            # the four products of a layer as the sampler runs them: the
+            # few-rows route, LayerNorm folded into in_proj and linear1
+            hff = torch.relu(K.linear_plain(hp, lw[8], lw[9], ln=(lw[6], lw[7], 1e-5)))
+            for pname, args, kw in rows_products(lw, hp, ad.reshape(rows, -1), hff):
+                tagged = tag(f"linear_rows {pname}")
+                case(f"linear_rows {pname} {mode} ({rows}x{args[1].shape[0]} @ "
+                     f"{args[1].shape[0]}x{args[1].shape[1]})", K.linear, K.linear_plain,
+                     args, kw, False, tagged)
+                y = K.linear(*args, **kw)
+                report.require(f"linear_rows {pname} {mode}: four calls bitwise equal",
+                               all(torch.equal(y, K.linear(*args, **kw)) for _ in range(3)))
+                if "ln" in kw:  # the same product on the LayerNorm's output
+                    h_ln = K.layernorm_plain(args[0], *kw["ln"])
+                    case(f"linear_rows {pname} {mode} on a normalised input",
+                         K.linear, K.linear_plain,
+                         (h_ln, *args[1:]), {k: v for k, v in kw.items() if k != "ln"}, False)
             case(f"sampler_epilogue {mode}", K.sampler_epilogue, K.sampler_epilogue_plain,
                  (hp, *inp.head, inp.coef, inp.noise, xs, 0, inp.head_eps), {}, False,
                  tag("sampler_epilogue"))
@@ -1700,6 +1894,24 @@ def main(argv) -> int:
         report.check(f"conditioned tail, 10 steps, GGS.iter_num 10, 100/pair (plain spread "
                      f"under a {CHAOS_PERTURBATION:.1e} perturbation: {spread:.2e})",
                      err, max(TOL_GGS_TAIL, CHAOS_FACTOR * spread))
+        # the sampler and the tail's trunk passes launch no layernorm: both
+        # LayerNorms of a layer ride its products (2 + 5 L launches a step)
+        L = model.config.num_encoder_layers
+        T = model.config.timesteps
+        counts = {}
+        for what, run in (("the sampler", lambda: fused_sample_loop(
+                              den, model.schedule, z, x0=x0, noises=noises)),
+                          ("the GGS tail", lambda: tail(K.KERNELS, x_head))):
+            K.reset_launch_counts()
+            run()
+            torch.cuda.synchronize()
+            counts[what] = K.launch_counts()
+            print(f"  launches of {what}: {counts[what]}")
+            report.require(f"{what} launches no layernorm and runs linear_rows",
+                           counts[what]["layernorm"] == 0 and counts[what]["linear_rows"] > 0)
+        per_step = sum(counts["the sampler"].values()) / T
+        report.require(f"a sampler step is 2 + 5 L = {2 + 5 * L} launches", per_step == 2 + 5 * L,
+                       f"({per_step:g})")
     torch.cuda.synchronize()
 
     # SuperGlue at the matcher's shapes: 32 pairs of 1,024 keypoints, f32,
@@ -1788,6 +2000,8 @@ def main(argv) -> int:
     torch.cuda.synchronize()
     launches = K.launch_counts()
     _check_launches(report, "no-GGS", NO_GGS_PATH, launches)
+    rows_by_shape = dict(K.linear_rows.by_shape)
+    print(f"  linear_rows launches by (M, K, N): {rows_by_shape}")
     _check_cameras(report, out_plain, n_frames, "no-GGS")
 
     # ---- 4. GGS path: the same flow with GGS on, from synthetic matches
@@ -1845,10 +2059,9 @@ def main(argv) -> int:
     print(f"  [match] done at {time.perf_counter() - t_start:.0f} s", flush=True)
 
     # ---- 5. the training slice: parity of its kernels, train_torch.py, timings
-    train_json, train_timings, dino_step = train_slice(report, dev, work, smi, t_start, parent)
+    train_json, train_timings, dino_step = train_slice(report, dev, work, smi, t_start)
     # ---- 5b. DINOv2 (LayerScale) serving and training, and ViT-B
-    bb_json, bb_timings, bb_rows = backbones_slice(report, dev, work, smi, t_start, dino_step,
-                                                   parent)
+    bb_json, bb_timings, bb_rows = backbones_slice(report, dev, work, smi, t_start, dino_step)
 
     # ---- 6. timing (default mode, CUDA events after warm-up)
     print(f"[timing] medians of {N_TIMED}, card: {smi}")
@@ -1856,10 +2069,9 @@ def main(argv) -> int:
     with torch.no_grad():
         z = model.extract_features(imgs)
         stb = stack_vit_params(vit, torch.bfloat16)
-        timings = {}
-        _time_vs_parent(torch, timings, "inference (extract + 100-step sampler)",
-                        lambda: model.sample(imgs, x0=x0, noises=noises), parent)
-        timings |= {
+        timings = {
+            "inference (extract + 100-step sampler)": _time_ms(
+                torch, lambda: model.sample(imgs, x0=x0, noises=noises)),
             "GGS inference (extract + 90 steps + 10 GGS steps, 100/pair)": _time_ms(
                 torch, lambda: model.sample(imgs, x0=x0, noises=noises, cond_fn=cond100,
                                             cond_start_step=10), reps=5),
@@ -1888,6 +2100,24 @@ def main(argv) -> int:
             torch, lambda: fused_trunk(hd, zb, stk, 4), inner=10)
         timings["fused_trunk plain"] = _time_ms(
             torch, lambda: fused_trunk_plain(hd, zb, stk, 4), inner=10)
+        timings["fused_trunk device (profiler)"] = _kernel_device_ms(
+            torch, lambda: fused_trunk(hd, zb, stk, 4), None)
+        # a sampler step's host/device split: the kernels' device time (the
+        # once-per-call set-up amortised over the steps) against the wall time
+        step_dev = _kernel_device_ms(torch, lambda: fused_sample_loop(
+            den, model.schedule, z, x0=x0, noises=noises), None, calls=3) / T
+        step_wall = timings["sampler (fused_sample_loop, 100 steps)"] / T
+        timings["sampler step device (profiler)"] = step_dev
+        timings["sampler step wall (CUDA events)"] = step_wall
+        # the route's mean device time inside the loop, where the 8 layers'
+        # weights (33.6 MB in bf16) cycle through the 50 MB L2, beside the
+        # same products called alone (the kernels line, weights warm)
+        timings["linear_rows mean per launch inside the sampler (device)"] = _kernel_device_ms(
+            torch, lambda: fused_sample_loop(den, model.schedule, z, x0=x0, noises=noises),
+            "linear_rows_kernel", calls=3) / (4 * L * T)
+        print(f"  a sampler step: device {1e3 * step_dev:.2f} us of {1e3 * step_wall:.2f} us "
+              f"wall ({100 * (1 - step_dev / step_wall):.1f}% of the step the card is idle, "
+              f"{2 + 5 * L} launches)")
         for tok, bb, px in ((tokens, bias, 224), (tokens336, bias336, 336)):
             Bt, Nt, _ = tok.shape
             qkv_t = torch.randn((Bt, Nt, 3 * D), generator=gen, device=dev)
@@ -1944,9 +2174,8 @@ def main(argv) -> int:
 
         print(f"  matcher input: {len(pairs)} pairs, K_eff {x_all.shape[1]}, "
               f"{int(va_all.sum())} valid keypoints in {n_frames} frames")
-        _time_vs_parent(torch, timings,
-                        f"matcher (fused_match_pairs, {len(pairs)} pairs, K {x_all.shape[1]})",
-                        lambda: matcher(SGK.fused_match_pairs), parent, reps=3, warmup=1)
+        timings[f"matcher (fused_match_pairs, {len(pairs)} pairs, K {x_all.shape[1]})"] = \
+            _time_ms(torch, lambda: matcher(SGK.fused_match_pairs), reps=3, warmup=1)
         timings["matcher plain (fused_match_pairs_plain)"] = _time_ms(
             torch, lambda: matcher(SGK.fused_match_pairs_plain), reps=3, warmup=1)
         kpts_np, all_m = X.match_all_pairs(sg_net, feats, sizes, pairs, 50, 0.0)
@@ -1972,9 +2201,8 @@ def main(argv) -> int:
         k_sub = X.stack_feats(X.detect_frames(sp_net, sub_grays))[0].shape[1]
         report.require(f"{SUBSET_FRAMES} frames at the default 4,096 keypoints match at K 4,096",
                        k_sub == 4096, f"(K_eff {k_sub})")
-        _time_vs_parent(torch, timings,
-                        "GGS inference with extraction (images -> matches -> cameras)",
-                        ggs_with_extraction, parent, reps=3, warmup=1)
+        timings["GGS inference with extraction (images -> matches -> cameras)"] = _time_ms(
+            torch, ggs_with_extraction, reps=3, warmup=1)
 
         # the SuperGlue kernels at one chunk's shapes, beside their plain versions
         sg_calls = {
@@ -2039,7 +2267,7 @@ def main(argv) -> int:
 
     kernels_json = []
     with torch.no_grad():
-        for key in NO_GGS_PATH:
+        for key in TRUNK_KERNELS:
             name, kernel, plain, args, kwargs, err = cases[key]
             args_k = [a.clone() if torch.is_tensor(a) else a for a in args]
             ms = _time_ms(torch, lambda: kernel(*args_k, **kwargs), inner=10)
@@ -2055,6 +2283,9 @@ def main(argv) -> int:
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": library_ms, "case": name,
             })
+        rows_json, ln_rows20 = rows_entries(torch, F, cases, rows_by_shape)
+        kernels_json[TRUNK_KERNELS.index("layernorm")]["rows20"] = ln_rows20
+        kernels_json += rows_json
     Ks1 = Kp + 1
     sg_bounds = {
         "superglue_coupling": bound(nbytes(m_sg, sg_f0, sg_f1) + Cp * Ks1 * (Ks1 + 2) * 4,
@@ -2086,7 +2317,7 @@ def main(argv) -> int:
             "case": f"200-iteration phase, 20 frames, {d}/pair (launches: GGS path)",
         })
     kernels_json += train_json + bb_json
-    attention_cases = attention_slice(report, dev, smi, parent)
+    attention_cases = attention_slice(report, dev, smi)
     timings.update(train_timings)
     timings.update(bb_timings)
 
@@ -2186,16 +2417,12 @@ def main(argv) -> int:
     if report.failures:
         print("FAILED:\n  " + "\n  ".join(report.failures), file=sys.stderr)
         return 1
-    if parent is not None:
-        print(f"[parent] the same session with the parent commit's attention kernel, card: {smi}")
-        for name, ms in timings.items():
-            if name + PARENT_TAG in timings:
-                old = timings[name + PARENT_TAG]
-                print(f"  {name}: {ms:.3f} ms, parent {old:.3f} ms ({100 * (ms / old - 1):+.2f}%)")
+    if parent_calls is not None:
+        print(json.dumps({"parent_calls": parent_calls, "card": smi}))
     print(json.dumps({"rows": rows_json}))
     print(json.dumps({"attention_cases": attention_cases}))
     print(json.dumps({"timings_ms": timings, "card": smi,
-                      "launches_per_sampler_step": 2 + 7 * model.config.num_encoder_layers,
+                      "launches_per_sampler_step": per_step,
                       "ggs_launches_per_inference": 50}))
     print(json.dumps({"kernels": kernels_json}))
     print(smi)
@@ -2206,4 +2433,6 @@ def main(argv) -> int:
 
 
 if __name__ == "__main__":
+    if "--timed-calls" in sys.argv:
+        sys.exit(timed_calls(sys.argv[sys.argv.index("--timed-calls") + 1]))
     sys.exit(main(sys.argv[1:]))

@@ -28,15 +28,20 @@
 //
 // Bound: compute. The ViT's train products (M = 512 images x 264 tokens =
 // 135,168 rows, K and N 384 to 1,536) are 40-160 GFLOP each; the sampler's
-// (M = 20 rows) are bound by memory and launch latency.
-// Design: two forward kernels, chosen by the operand types.
+// (M = 20 rows) are bound by reading the weights once (0.16-0.47 us at
+// HBM rate) and, in practice, by latency.
+// Design: three forward kernels.
+//   * M <= 32 and W not transposed (the denoiser's 20-row products, TPU
+//     kernels 2 and 3): the few-rows route, linear_rows_kernel below. It
+//     streams each weight element once with 16-byte copies, splits K over a
+//     cluster of 8 blocks and N over enough column tiles to fill the card,
+//     and can fold the pre-norm LayerNorm of a into its staging.
 //   * bf16 a and bf16 W: WMMA bfloat16 tensor-core tiles (64 x 64 per block,
 //     four warps of 32 x 32), f32 accumulation in the fragments, the
 //     epilogue from a shared-memory copy of the tile.
-//   * float32 a (bf16 or f32 W): FMA tiles staged through shared memory, W
-//     widened to float32 as it is staged, so the products are those of the
-//     JAX kernel's f32 dot with a bf16 weight. A 32 x 32 tile for small M
-//     keeps more blocks in flight for the sampler's 20-row products.
+//   * float32 a (bf16 or f32 W): 64 x 64 FMA tiles staged through shared
+//     memory, W widened to float32 as it is staged, so the products are
+//     those of the JAX kernel's f32 dot with a bf16 weight.
 // The weight gradient reduces over all M rows into a small (K, N) result:
 // the rows are split into S ranges, one block per (range, 64 x 64 output
 // tile) writes an f32 partial (S, K, N), and a second pass (train.cu,
@@ -44,7 +49,11 @@
 // per-batch-chunk partials (:937-940): deterministic, no atomics. It has the
 // same FMA and WMMA modes; db is the column sum of dY in the same pass.
 // No wgmma, TMA or multi-stage pipeline yet: correct first, fast later.
+#include <cooperative_groups.h>
+#include <cuda_pipeline.h>
 #include <mma.h>
+
+#include <cstdint>
 
 #include "common.cuh"
 
@@ -236,15 +245,305 @@ linear_bf16_tc_kernel(const float* __restrict__ A,
 template <typename WT>
 void launch_fma(const float* a, const WT* w, int trans, const Epilogue& ep,
                 int M, int N, int K, int round_a, cudaStream_t s) {
-  if (M <= 32) {
-    dim3 grid((N + 31) / 32, (M + 31) / 32);
-    linear_fma_kernel<WT, 32, 32, 2, 2><<<grid, FMA_THREADS, 0, s>>>(
-        a, w, trans, ep, M, N, K, round_a);
-  } else {
-    dim3 grid((N + 63) / 64, (M + 63) / 64);
-    linear_fma_kernel<WT, 64, 64, 4, 4><<<grid, FMA_THREADS, 0, s>>>(
-        a, w, trans, ep, M, N, K, round_a);
+  dim3 grid((N + 63) / 64, (M + 63) / 64);
+  linear_fma_kernel<WT, 64, 64, 4, 4><<<grid, FMA_THREADS, 0, s>>>(
+      a, w, trans, ep, M, N, K, round_a);
+}
+
+// ---- the few-rows route: y = epi(LN?(a) @ W) for M <= 32
+//
+// At 20 rows a product does 20 FMAs per weight element, so reading W once
+// (bytes) and doing its FMAs (operations) both take ~0.5 us on the whole
+// card at the largest of the sampler's shapes; what costs is latency and
+// too few blocks. The grid is (column tiles of BN, 8) with the 8 blocks of a
+// column tile one thread-block cluster, each owning a slice of K:
+//   * staging: the block copies its K slice of a (M x slice, f32) and of W
+//     (slice x BN, in W's own type) into shared memory with 16-byte
+//     cp.async copies, all in flight at once (element copies when a row is
+//     not 16-byte aligned: K % 4 or N * sizeof(W) % 16 not 0);
+//   * LayerNorm (ln_g != null; the slice is one chunk, K <= 1,024): a and W
+//     are two copy groups, so W is still landing while, with a in, 8 lanes
+//     of the warp that owns a row take the sum and the centred sum of
+//     squares of the block's slice of it; after one cluster barrier lane q
+//     of the 8 reads rank q's pair, and shuffles merge them (the mean, then
+//     the centred variance: sum over slices of M2_q + n_q (mean_q -
+//     mean)^2); the lanes normalise the row in place, then round it to bf16
+//     with round_a: the sites of layernorm(round_out) + linear(round_a);
+//   * products: warp w owns rows 4w .. 4w+3 (warps past M idle); a lane
+//     owns 8 columns (one 16-byte bf16 load from shared memory) and every
+//     KL-th k of the slice, so it does 32 f32 FMAs per k with W widened to
+//     float32, the JAX kernel's f32 dot with a bf16 weight (no TF32);
+//   * reduction, in a fixed order: the KL lanes of a column group by a
+//     butterfly of shuffles; then warp w stores its 4 rows into slot `rank`
+//     of block w's shared memory (a distributed shared memory store), and
+//     after one cluster barrier block w adds its 8 slots in rank order and
+//     runs the shared Epilogue on rows 4w .. 4w+3. No atomics: the result
+//     repeats bitwise.
+// Every weight element is read from device memory once per call.
+constexpr int FR_ROWS = 32;      // row limit of the route (ops/kernels.py)
+constexpr int FR_THREADS = 256;  // 8 warps x 4 rows
+constexpr int FR_CLUSTER = 8;    // blocks of a cluster split K, one per warp
+constexpr int FR_KCH = 128;      // k of a slice staged at a time
+constexpr int FR_LDA = FR_KCH + 8;  // a row of the staged a: 8 rows' k in 8 banks
+
+namespace cg = cooperative_groups;
+
+__host__ __device__ constexpr int rows_smem_bytes(int bn, int w_bytes) {
+  // a chunk (32 x FR_LDA), the cluster's partial tiles of this block's rows
+  // (8 x 4 x bn), the slice's row statistics (2 x 32), the LayerNorm's g
+  // and b for the slice (2 x FR_KCH), then the W chunk (FR_KCH x bn)
+  return 4 * (FR_ROWS * FR_LDA + FR_ROWS * bn + 2 * FR_ROWS + 2 * FR_KCH) +
+         FR_KCH * bn * w_bytes;
+}
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&w)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    w[2 * i] = f.x;
+    w[2 * i + 1] = f.y;
   }
+}
+
+__device__ __forceinline__ void load8(const float* p, float (&w)[8]) {
+  const float4 u = *reinterpret_cast<const float4*>(p);
+  const float4 v = *reinterpret_cast<const float4*>(p + 4);
+  w[0] = u.x; w[1] = u.y; w[2] = u.z; w[3] = u.w;
+  w[4] = v.x; w[5] = v.y; w[6] = v.z; w[7] = v.w;
+}
+
+// Split cluster barrier: arrive (no ordering) now, wait before the first
+// access to another block's shared memory, which must have started.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+template <typename WT, int BN>
+__global__ void __cluster_dims__(1, FR_CLUSTER, 1) __launch_bounds__(FR_THREADS)
+linear_rows_kernel(const float* __restrict__ A, const WT* __restrict__ W,
+                   Epilogue ep, const float* __restrict__ ln_g,
+                   const float* __restrict__ ln_b, float eps, int M, int N,
+                   int K, int round_a, int vec_a, int vec_w) {
+  constexpr int CG = BN / 8, KL = 32 / CG;  // column groups, k lanes of a warp
+  constexpr int WV = 16 / sizeof(WT);       // W elements in 16 bytes
+  constexpr int SLOT = 4 * BN;              // one block's partial of 4 rows
+  extern __shared__ __align__(16) float smem[];
+  float* As = smem;                          // [FR_ROWS][FR_LDA]
+  float* Rs = As + FR_ROWS * FR_LDA;         // [FR_CLUSTER][4][BN]
+  float* s_sum = Rs + FR_CLUSTER * SLOT;     // [FR_ROWS] x 2
+  float* s_m2 = s_sum + FR_ROWS;
+  float* s_g = s_m2 + FR_ROWS;               // [FR_KCH] x 2
+  float* s_b = s_g + FR_KCH;
+  WT* Ws = reinterpret_cast<WT*>(s_b + FR_KCH);  // [FR_KCH][BN]
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n0 = blockIdx.x * BN;
+  const int ncols = min(BN, N - n0);
+  const int slice = ((K + FR_CLUSTER - 1) / FR_CLUSTER + 3) & ~3;
+  const int k0 = min(K, rank * slice), k1 = min(K, k0 + slice);
+  const bool ln = ln_g != nullptr;
+  if (!ln) cluster_arrive_relaxed();  // with ln, the statistics' barrier
+
+  // rows M .. 4 ceil(M / 4) - 1 feed the last warp's FMAs: keep them zero
+  const int mpad = (M + 3) & ~3;
+  for (int i = tid; i < (mpad - M) * FR_KCH; i += FR_THREADS)
+    As[(M + i / FR_KCH) * FR_LDA + i % FR_KCH] = 0.f;
+
+  auto stage = [&](int kc, int kn) {
+    if (vec_a) {
+      const int q = kn / 4;  // K % 4 == 0, so every slice is whole float4s
+      for (int i = tid; i < M * q; i += FR_THREADS) {
+        const int m = i / q, c = 4 * (i % q);
+        __pipeline_memcpy_async(As + m * FR_LDA + c, A + (size_t)m * K + kc + c, 16);
+      }
+    } else {
+      for (int i = tid; i < M * kn; i += FR_THREADS) {
+        const int m = i / kn, c = i % kn;
+        As[m * FR_LDA + c] = A[(size_t)m * K + kc + c];
+      }
+    }
+    __pipeline_commit();  // a, then W: two groups
+    if (vec_w) {
+      constexpr int CPR = BN / WV;  // 16-byte chunks per row of the tile
+      for (int i = tid; i < kn * CPR; i += FR_THREADS) {
+        const int r = i / CPR, c = WV * (i % CPR);
+        WT* dst = Ws + r * BN + c;
+        if (c < ncols)  // N * sizeof(W) % 16 == 0: no chunk straddles N
+          __pipeline_memcpy_async(dst, W + (size_t)(kc + r) * N + n0 + c, 16);
+        else
+          *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+      }
+    } else {
+      for (int i = tid; i < kn * BN; i += FR_THREADS) {
+        const int r = i / BN, c = i % BN;
+        Ws[r * BN + c] = c < ncols ? W[(size_t)(kc + r) * N + n0 + c] : WT(0.f);
+      }
+    }
+    __pipeline_commit();
+  };
+
+  if (k0 < k1) stage(k0, min(FR_KCH, k1 - k0));
+  if (ln) {  // the slice is one chunk (the wrapper holds K <= 8 FR_KCH)
+    for (int i = tid; i < k1 - k0; i += FR_THREADS) {
+      s_g[i] = ln_g[k0 + i];
+      s_b[i] = ln_b[k0 + i];
+    }
+    __pipeline_wait_prior(1);  // a has landed; W may still be in flight
+    __syncthreads();
+    // row m belongs to the 8 lanes tid / 8 == m of warp m / 4, the warp
+    // whose products read it
+    const int n = k1 - k0, m = tid >> 3, sub = tid & 7;
+    float* x = As + m * FR_LDA;
+    float s = 0.f;
+    if (m < M)
+      for (int c = sub; c < n; c += 8) s += x[c];
+#pragma unroll
+    for (int o = 1; o < 8; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    const float mq = n > 0 ? s / (float)n : 0.f;
+    float q = 0.f;
+    if (m < M)
+      for (int c = sub; c < n; c += 8) q += (x[c] - mq) * (x[c] - mq);
+#pragma unroll
+    for (int o = 1; o < 8; o <<= 1) q += __shfl_xor_sync(0xffffffffu, q, o);
+    if (m < M && sub == 0) {
+      s_sum[m] = s;
+      s_m2[m] = q;
+    }
+    cluster.sync();
+    // lane sub merges rank sub's slice; a butterfly gives every lane the
+    // same sums (each level adds the same two values on both lanes)
+    const int nr = min(K, (sub + 1) * slice) - min(K, sub * slice);
+    float sr = 0.f, m2r = 0.f;
+    if (m < M) {
+      sr = cluster.map_shared_rank(s_sum, sub)[m];
+      m2r = cluster.map_shared_rank(s_m2, sub)[m];
+    }
+    float total = sr;
+#pragma unroll
+    for (int o = 1; o < 8; o <<= 1) total += __shfl_xor_sync(0xffffffffu, total, o);
+    const float mean = total / (float)K;
+    const float d = nr > 0 ? sr / (float)nr - mean : 0.f;
+    float var = m2r + (float)nr * d * d;
+#pragma unroll
+    for (int o = 1; o < 8; o <<= 1) var += __shfl_xor_sync(0xffffffffu, var, o);
+    const float rstd = rsqrtf(var / (float)K + eps);
+    if (m < M) {
+      for (int c = sub; c < n; c += 8) {
+        float v = (x[c] - mean) * rstd * s_g[c] + s_b[c];
+        x[c] = round_a ? round_bf16(v) : v;
+      }
+    }
+  }
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  const int row0 = 4 * warp;
+  const int cg8 = 8 * (lane % CG), kl = lane / CG;
+  float acc[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  for (int kc = k0; kc < k1; kc += FR_KCH) {
+    const int kn = min(FR_KCH, k1 - kc);
+    if (kc > k0) {
+      __pipeline_wait_prior(0);
+      __syncthreads();
+    }
+    if (round_a && !ln) {  // with ln, rounded as they were normalised
+      for (int i = tid; i < M * kn; i += FR_THREADS) {
+        const int m = i / kn, c = i % kn;
+        As[m * FR_LDA + c] = round_bf16(As[m * FR_LDA + c]);
+      }
+      __syncthreads();
+    }
+    if (row0 < M) {
+      const float* ap = As + row0 * FR_LDA;
+#pragma unroll 4
+      for (int kk = kl; kk < kn; kk += KL) {
+        float w[8];
+        load8(Ws + kk * BN + cg8, w);
+        const float a[4] = {ap[kk], ap[FR_LDA + kk], ap[2 * FR_LDA + kk],
+                            ap[3 * FR_LDA + kk]};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
+      }
+    }
+    if (kc + FR_KCH < k1) {
+      __syncthreads();
+      stage(kc + FR_KCH, min(FR_KCH, k1 - kc - FR_KCH));
+    }
+  }
+
+  if (!ln) cluster_wait();  // every block of the cluster has started
+  if (row0 < M) {
+#pragma unroll
+    for (int o = CG; o < 32; o <<= 1)  // the lanes of one column group
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          acc[i][j] += __shfl_xor_sync(0xffffffffu, acc[i][j], o);
+    float* slot = cluster.map_shared_rank(Rs, warp) + rank * SLOT + cg8;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (kl == i) {  // KL >= 4: lane k stores row row0 + k of its columns
+        *reinterpret_cast<float4*>(slot + i * BN) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+        *reinterpret_cast<float4*>(slot + i * BN + 4) =
+            make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+      }
+    }
+  }
+  cluster.sync();  // the slots are full; nothing reads another block after it
+  for (int i = tid; i < SLOT; i += FR_THREADS) {
+    const int m = 4 * rank + i / BN, c = i % BN;
+    if (m >= M || c >= ncols) continue;
+    float v = 0.f;
+#pragma unroll
+    for (int r = 0; r < FR_CLUSTER; ++r) v += Rs[r * SLOT + i];
+    ep.store(v, m, n0 + c, N);
+  }
+}
+
+template <typename WT, int BN>
+int launch_rows(const float* a, const WT* w, const Epilogue& ep,
+                const float* ln_g, const float* ln_b, float eps, int M, int N,
+                int K, int round_a, cudaStream_t s) {
+  auto kern = linear_rows_kernel<WT, BN>;
+  constexpr int smem = rows_smem_bytes(BN, sizeof(WT));
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const int vec_a = K % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0;
+  const int vec_w = ((size_t)N * sizeof(WT)) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  dim3 grid((N + BN - 1) / BN, FR_CLUSTER);
+  kern<<<grid, FR_THREADS, smem, s>>>(a, w, ep, ln_g, ln_b, eps, M, N, K,
+                                      round_a, vec_a, vec_w);
+  return (int)cudaGetLastError();
+}
+
+template <typename WT>
+int launch_rows_bn(const float* a, const WT* w, const Epilogue& ep,
+                   const float* ln_g, const float* ln_b, float eps, int M,
+                   int N, int K, int bn, int round_a, cudaStream_t s) {
+  switch (bn) {
+    case 16: return launch_rows<WT, 16>(a, w, ep, ln_g, ln_b, eps, M, N, K, round_a, s);
+    case 32: return launch_rows<WT, 32>(a, w, ep, ln_g, ln_b, eps, M, N, K, round_a, s);
+    case 64: return launch_rows<WT, 64>(a, w, ep, ln_g, ln_b, eps, M, N, K, round_a, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // ---- weight gradient: partial[s] = X[rows of s]^T dY[rows of s]
@@ -435,6 +734,32 @@ PD_API int pd_linear(const void* a, const void* w, int w_bf16, int trans_w,
     launch_fma<float>(A, (const float*)w, trans_w, ep, M, N, K, round_a, s);
   }
   return (int)cudaGetLastError();
+}
+
+// The few-rows route: a (M, K) float32 with M <= 32, W (K, N) float32 or
+// bfloat16, the Epilogue's operands as pd_linear's; ln_g and ln_b (K,) (or
+// null) fold LayerNorm(a; eps) into the staging (K <= 1,024); bn (16, 32 or 64) the
+// columns of a block, chosen by the wrapper (ops/kernels.linear_rows_tile).
+PD_API int pd_linear_rows(const void* a, const void* w, int w_bf16,
+                          const void* bias, const void* gain, const void* res,
+                          void* y, void* pre, const void* ln_g,
+                          const void* ln_b, float eps, int M, int N, int K,
+                          int bn, int round_a, int act, unsigned int drop_key,
+                          int drop_thr, float drop_scale, int round_out,
+                          void* stream) {
+  if (M < 1 || M > FR_ROWS || N < 1 || K < 1) return (int)cudaErrorInvalidValue;
+  if (ln_g && K > FR_CLUSTER * FR_KCH) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  Epilogue ep{(const float*)bias, (const float*)gain, (const float*)res,
+              (float*)y, (float*)pre, act, round_out,
+              DropArgs{drop_key, drop_thr, drop_scale}};
+  const float* A = (const float*)a;
+  const float* g = (const float*)ln_g;
+  const float* b = (const float*)ln_b;
+  if (w_bf16)
+    return launch_rows_bn(A, (const __nv_bfloat16*)w, ep, g, b, eps, M, N, K, bn,
+                          round_a, s);
+  return launch_rows_bn(A, (const float*)w, ep, g, b, eps, M, N, K, bn, round_a, s);
 }
 
 // X (M, K), dY (M, N) -> partials pw (S, K, N) and pb (S, N) (pb may be

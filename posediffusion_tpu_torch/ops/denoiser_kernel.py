@@ -5,12 +5,15 @@ trunks, as ``posediffusion_tpu.ops.denoiser_kernel.encoder_layer_math``, and
 
 The layer is seven launches: LayerNorm, QKV product, attention, output
 product + residual, LayerNorm, first FF product + activation, second FF
-product + residual. The denoiser runs it with eps 1e-5, ReLU, a (B, N) key
-bias and float32 activations; the ViT with eps 1e-6, exact-erf GELU, the
-(N, N) scale-packing bias and, by default, bf16-rounded activations.
+product + residual. At most ``kernels.LINEAR_ROWS_MAX`` rows (the
+denoiser's 20 frames) it is five: both LayerNorms fold into the product
+they feed (``linear(ln=...)``, the few-rows route), since the layer is
+pre-norm. The denoiser runs it with eps 1e-5, ReLU, a (B, N) key bias and
+float32 activations; the ViT with eps 1e-6, exact-erf GELU, the (N, N)
+scale-packing bias and, by default, bf16-rounded activations.
 
 The TPU's ``fused_trunk`` runs all layers in one Pallas launch with the
-activations in VMEM; here each layer is the same seven launches, so the
+activations in VMEM; here each layer is the same five launches, so the
 trunk of the GGS-conditioned steps (one pass per step) reuses the kernels of
 the fused sampler. ``fused_trunk.launches`` counts the passes on the card.
 """
@@ -19,7 +22,12 @@ from __future__ import annotations
 
 import torch
 
-from posediffusion_tpu_torch.ops.kernels import KERNELS, PLAIN
+from posediffusion_tpu_torch.ops.kernels import (
+    KERNELS,
+    LINEAR_ROWS_LN_MAX_K,
+    LINEAR_ROWS_MAX,
+    PLAIN,
+)
 
 # order of a layer's weights in encoder_layer_math's signature
 TRUNK_KEYS = ("g1", "b1", "wqkv", "bqkv", "wout", "bout",
@@ -37,13 +45,19 @@ def encoder_layer_math(
     versions on the CPU) or ``kernels.PLAIN`` (plain versions anywhere)."""
     rows = x.shape[0]
     B = rows // seq_len
-    h = ops.layernorm(x, g1, b1, eps, act_bf16)
-    qkv = ops.linear(h, wqkv, bqkv, round_a=act_bf16)
+    fold = rows <= LINEAR_ROWS_MAX and x.shape[1] <= LINEAR_ROWS_LN_MAX_K
+
+    def normed_linear(x, g, b, w, bias, **kw):
+        if fold:  # layernorm(round_out) then linear(round_a): the same sites
+            return ops.linear(x, w, bias, round_a=act_bf16, ln=(g, b, eps), **kw)
+        return ops.linear(ops.layernorm(x, g, b, eps, act_bf16), w, bias,
+                          round_a=act_bf16, **kw)
+
+    qkv = normed_linear(x, g1, b1, wqkv, bqkv)
     a = ops.attention(qkv.view(B, seq_len, -1), nhead, attn_bias=attn_bias,
                       key_bias=key_bias, round_in=act_bf16)
     x = ops.linear(a.reshape(rows, -1), wout, bout, residual=x, round_a=act_bf16)
-    h = ops.layernorm(x, g2, b2, eps, act_bf16)
-    h = ops.linear(h, wl1, bl1, act=act, round_a=act_bf16)
+    h = normed_linear(x, g2, b2, wl1, bl1, act=act)
     return ops.linear(h, wl2, bl2, residual=x, round_a=act_bf16)
 
 

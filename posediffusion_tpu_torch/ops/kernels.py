@@ -1,6 +1,6 @@
 """The hand-written Hopper kernels, their plain PyTorch versions, and routing.
 
-Fifteen kernels (sources in ``posediffusion_tpu_torch/csrc``) carry the TPU
+Sixteen kernels (sources in ``posediffusion_tpu_torch/csrc``) carry the TPU
 kernels of the inference paths with and without GGS, of match extraction and
 of the training trunks (DINOv2's LayerScale included):
 
@@ -8,6 +8,9 @@ of the training trunks (DINOv2's LayerScale included):
 ``layernorm``            row LayerNorm, eps and bf16 output rounding as arguments
 ``linear``               ``drop(act(a @ W + b) * gain) [+ residual]``, W float32
                          or bfloat16, read transposed for the dgrad product
+``linear_rows``          the same for at most 32 rows (the sampler's products):
+                         W streamed once over a cluster split of K, with the
+                         pre-norm LayerNorm of a optionally folded in
 ``attention``            softmax attention over a packed (B, N, 3D) QKV buffer,
                          optional dropout of the normalised p
 ``sampler_prologue``     layer-0 fold-in of the fused sampler
@@ -78,6 +81,7 @@ _DROP = [_U, _I, _F]  # a dropout site: key, threshold, scale (DropArgs)
 _SIGNATURES = {
     "pd_layernorm": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
     "pd_linear": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, *_DROP, _I, _P],
+    "pd_linear_rows": [_P, _P, _I] + [_P] * 7 + [_F] + [_I] * 6 + [*_DROP, _I, _P],
     "pd_attention": [_P, _P, _I, _P, _I, _I, _I, _I, _F, _I, *_DROP, _P],
     "pd_attention_smem_bytes": [_I, _I, _I],
     "pd_sampler_prologue": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -329,7 +333,9 @@ def _activate(y, act: str):
 def linear_plain(a, w, bias, act: str = "none", residual=None,
                  round_a: bool = False, trans_w: bool = False,
                  drop: Optional[Drop] = None, round_out: bool = False,
-                 want_pre: bool = False, gain=None):
+                 want_pre: bool = False, gain=None, ln=None):
+    if ln is not None:
+        a = layernorm_plain(a, *ln)
     if round_a:
         a = round_bf16(a)
     wf = w.float()
@@ -350,18 +356,7 @@ def linear_plain(a, w, bias, act: str = "none", residual=None,
     return (y, pre) if want_pre else y
 
 
-def linear(a, w, bias, act: str = "none", residual=None, round_a: bool = False,
-           trans_w: bool = False, drop: Optional[Drop] = None,
-           round_out: bool = False, want_pre: bool = False, gain=None):
-    """``drop(act(a @ W + bias) * gain) [+ residual]``; a (M, K) float32, W
-    (K, N), or (N, K) with ``trans_w`` (the dgrad product dY W^T of a forward
-    weight), float32 or bfloat16; bias and gain (N,) or None (gain: DINOv2's
-    LayerScale); residual (M, N). ``round_out`` rounds the branch and the sum
-    to bf16 (a bf16 residual stream); ``want_pre`` also returns the
-    pre-activation ``a @ W + bias``."""
-    if not _on_card(a, w, bias, residual, gain):
-        return linear_plain(a, w, bias, act, residual, round_a, trans_w, drop,
-                            round_out, want_pre, gain)
+def _linear_check(a, w, bias, residual, gain, trans_w: bool):
     M, K = a.shape
     N = w.shape[0] if trans_w else w.shape[1]
     _check(a, "a", (M, K))
@@ -369,6 +364,38 @@ def linear(a, w, bias, act: str = "none", residual=None, round_a: bool = False,
     _check(bias, "bias", (N,))
     _check(gain, "gain", (N,))
     _check(residual, "residual", (M, N))
+    return M, K, N
+
+
+def _ln_tensors(ln):
+    return () if ln is None else tuple(ln[:2])
+
+
+def linear(a, w, bias, act: str = "none", residual=None, round_a: bool = False,
+           trans_w: bool = False, drop: Optional[Drop] = None,
+           round_out: bool = False, want_pre: bool = False, gain=None, ln=None):
+    """``drop(act(LN(a) @ W + bias) * gain) [+ residual]``; a (M, K) float32,
+    W (K, N), or (N, K) with ``trans_w`` (the dgrad product dY W^T of a
+    forward weight), float32 or bfloat16; bias and gain (N,) or None (gain:
+    DINOv2's LayerScale); residual (M, N). ``round_out`` rounds the branch
+    and the sum to bf16 (a bf16 residual stream); ``want_pre`` also returns
+    the pre-activation ``LN(a) @ W + bias``. ``ln = (g, b, eps)`` applies
+    ``layernorm`` to a first (round_a then rounds the normalised rows).
+
+    On the card, up to LINEAR_ROWS_MAX rows with W not transposed take the
+    few-rows route (``linear_rows``), which alone folds ``ln``; asking for
+    ``ln`` on any other route raises."""
+    if not _on_card(a, w, bias, residual, gain, *_ln_tensors(ln)):
+        return linear_plain(a, w, bias, act, residual, round_a, trans_w, drop,
+                            round_out, want_pre, gain, ln)
+    if a.shape[0] <= LINEAR_ROWS_MAX and not trans_w:
+        return _linear_rows_launch(a, w, bias, act, residual, round_a, drop, round_out,
+                                   want_pre, gain, ln)
+    if ln is not None:
+        raise ValueError(f"ln is folded only on the few-rows route (at most "
+                         f"{LINEAR_ROWS_MAX} rows, W not transposed), not at "
+                         f"{a.shape[0]} rows{' with trans_w' if trans_w else ''}")
+    M, K, N = _linear_check(a, w, bias, residual, gain, trans_w)
     y = torch.empty((M, N), device=a.device, dtype=torch.float32)
     pre = torch.empty_like(y) if want_pre else None
     _launch(load_library().pd_linear, _ptr(a), _ptr(w),
@@ -381,6 +408,76 @@ def linear(a, w, bias, act: str = "none", residual=None, round_a: bool = False,
 
 
 linear.launches = 0
+
+
+# csrc/linear.cu: FR_ROWS, the few-rows route's row limit; FR_CLUSTER, the
+# blocks of a cluster that split K; a folded LayerNorm needs each block's
+# slice of K in one staged chunk (FR_CLUSTER x FR_KCH).
+LINEAR_ROWS_MAX = 32
+LINEAR_ROWS_CLUSTER = 8
+LINEAR_ROWS_LN_MAX_K = 8 * 128
+_SMS = 132  # streaming multiprocessors of an H100 SXM
+
+
+def linear_rows_tile(N: int) -> int:
+    """Columns per block of the few-rows route: the widest of 64, 32 and 16
+    whose ceil(N / tile) column tiles x LINEAR_ROWS_CLUSTER K slices still
+    give every SM a block (16 at N 512, 32 at 1,024, 64 at 1,536)."""
+    for tile in (64, 32):
+        if -(-N // tile) * LINEAR_ROWS_CLUSTER >= _SMS:
+            return tile
+    return 16
+
+
+def linear_rows_plain(a, w, bias, act: str = "none", residual=None,
+                      round_a: bool = False, drop: Optional[Drop] = None,
+                      round_out: bool = False, want_pre: bool = False, gain=None,
+                      ln=None):
+    return linear_plain(a, w, bias, act, residual, round_a, False, drop, round_out,
+                        want_pre, gain, ln)
+
+
+def linear_rows(a, w, bias, act: str = "none", residual=None,
+                round_a: bool = False, drop: Optional[Drop] = None,
+                round_out: bool = False, want_pre: bool = False, gain=None,
+                ln=None):
+    """The few-rows route of ``linear`` (csrc/linear.cu, linear_rows_kernel):
+    a (M, K) with M <= LINEAR_ROWS_MAX, W (K, N), each weight element read
+    once; ``ln = (g, b, eps)`` folds the pre-norm LayerNorm of a into the
+    staging. The same function as ``linear_plain``. Counts its launches in
+    ``linear_rows.launches`` and, per (M, K, N), in ``linear_rows.by_shape``."""
+    if not _on_card(a, w, bias, residual, gain, *_ln_tensors(ln)):
+        return linear_rows_plain(a, w, bias, act, residual, round_a, drop,
+                                 round_out, want_pre, gain, ln)
+    return _linear_rows_launch(a, w, bias, act, residual, round_a, drop, round_out,
+                               want_pre, gain, ln)
+
+
+def _linear_rows_launch(a, w, bias, act, residual, round_a, drop, round_out, want_pre,
+                        gain, ln):
+    M, K, N = _linear_check(a, w, bias, residual, gain, False)
+    if M > LINEAR_ROWS_MAX:
+        raise ValueError(f"the few-rows route takes at most {LINEAR_ROWS_MAX} rows, not {M}")
+    g, b, eps = (None, None, 0.0) if ln is None else ln
+    if ln is not None:
+        if K > LINEAR_ROWS_LN_MAX_K:
+            raise ValueError(f"ln folds rows of at most {LINEAR_ROWS_LN_MAX_K}, not {K}")
+        _check(g, "ln g", (K,))
+        _check(b, "ln b", (K,))
+    y = torch.empty((M, N), device=a.device, dtype=torch.float32)
+    pre = torch.empty_like(y) if want_pre else None
+    _launch(load_library().pd_linear_rows, _ptr(a), _ptr(w),
+            int(w.dtype == torch.bfloat16), _ptr(bias), _ptr(gain), _ptr(residual),
+            _ptr(y), _ptr(pre), _ptr(g), _ptr(b), float(eps), M, N, K,
+            linear_rows_tile(N), int(round_a), _ACT[act],
+            *(drop.args() if drop else _NO_DROP), int(round_out), _stream(a))
+    linear_rows.launches += 1
+    linear_rows.by_shape[(M, K, N)] = linear_rows.by_shape.get((M, K, N), 0) + 1
+    return (y, pre) if want_pre else y
+
+
+linear_rows.launches = 0
+linear_rows.by_shape = {}
 
 
 # ----------------------------------------------------------------- attention
@@ -1046,7 +1143,7 @@ layerscale_bwd.launches = 0
 
 # ------------------------------------------------------------------- tables
 KERNELS = SimpleNamespace(
-    layernorm=layernorm, linear=linear, attention=attention,
+    layernorm=layernorm, linear=linear, linear_rows=linear_rows, attention=attention,
     sampler_prologue=sampler_prologue, sampler_epilogue=sampler_epilogue,
     ggs_phase=ggs_phase, ggs_phase_chunked=ggs_phase_chunked,
     superglue_coupling=superglue_coupling, superglue_sinkhorn=superglue_sinkhorn,
@@ -1056,7 +1153,8 @@ KERNELS = SimpleNamespace(
     layerscale_bwd=layerscale_bwd,
 )
 PLAIN = SimpleNamespace(
-    layernorm=layernorm_plain, linear=linear_plain, attention=attention_plain,
+    layernorm=layernorm_plain, linear=linear_plain, linear_rows=linear_rows_plain,
+    attention=attention_plain,
     sampler_prologue=sampler_prologue_plain,
     sampler_epilogue=sampler_epilogue_plain,
     ggs_phase=ggs_phase_plain, ggs_phase_chunked=ggs_phase_chunked_plain,
@@ -1076,3 +1174,4 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in vars(KERNELS).values():
         fn.launches = 0
+    linear_rows.by_shape.clear()

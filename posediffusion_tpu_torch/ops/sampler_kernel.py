@@ -7,7 +7,8 @@ harmonic embedding and the 702 -> 512 projection with the first weight
 split by input rows: sin(xE) W_sin + cos(xE) W_cos + x W_x + zf + tc),
 then ``encoder_layer_math`` for each of the L layers, then
 ``sampler_epilogue`` (head MLP and the posterior update in place). That is
-2 + 7 L launches per step (58 at L = 8) and nothing else: the noise, the
+2 + 5 L launches per step (42 at L = 8; the LayerNorms ride the products at
+up to 32 rows, 2 + 7 L above) and nothing else: the noise, the
 per-step scalars cx = c1 a + c2 and ce = c1 b, sigma (0 at t = 0), the
 time-embedding projection tc, the feature projection zf and the weight
 stacks are computed once before the loop, as the JAX wrapper computes them

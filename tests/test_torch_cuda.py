@@ -84,6 +84,123 @@ def test_linear(cuda, M, K_, N, wdtype, round_a, act):
                K.linear_plain(a, w, b, act, residual, round_a), TOL_F32)
 
 
+# The few-rows route (M <= 32, csrc/linear.cu linear_rows_kernel): the
+# sampler's four products per layer and a ragged shape (K not a multiple of
+# 4, N of 8: element copies instead of 16-byte ones).
+ROWS_SHAPES = [(512, 1536), (512, 512), (512, 1024), (1024, 512), (130, 70)]
+
+
+def _rows_case(dev, M, K_, N, wdtype, seed=0):
+    r = _gen(seed + M + K_ + N)
+    a = _t(r.normal(size=(M, K_)) * 2 + 0.5, dev)
+    w = _t(r.normal(size=(K_, N)) / np.sqrt(K_), dev, wdtype)
+    b, res = _t(r.normal(size=N), dev), _t(r.normal(size=(M, N)), dev)
+    ln = (_t(1 + 0.1 * r.normal(size=K_), dev), _t(0.1 * r.normal(size=K_), dev), 1e-5)
+    return a, w, b, res, ln
+
+
+@pytest.mark.parametrize("M", [1, 7, 20, 32])
+@pytest.mark.parametrize("K_,N", ROWS_SHAPES)
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["none", "relu"])
+def test_linear_rows(cuda, M, K_, N, wdtype, act):
+    a, w, b, res, ln = _rows_case(cuda, M, K_, N, wdtype)
+    for residual in (None, res):
+        for norm in (None, ln):
+            K.reset_launch_counts()
+            out = K.linear(a, w, b, act, residual, ln=norm)
+            assert K.launch_counts()["linear_rows"] == 1
+            assert K.launch_counts()["linear"] == 0
+            _close(out, K.linear_plain(a, w, b, act, residual, ln=norm), TOL_F32)
+
+
+@pytest.mark.parametrize("K_,N", [(512, 1536), (130, 70)])
+def test_linear_rows_epilogue_and_rounding(cuda, K_, N):
+    """round_a (after the folded LayerNorm), the gain, dropout, the bf16
+    residual stream and the saved pre-activation, on the few-rows route."""
+    a, w, b, res, ln = _rows_case(cuda, 20, K_, N, torch.bfloat16, seed=1)
+    gain = _t(1 + 0.1 * _gen(2).normal(size=N), cuda)
+    kw = dict(residual=res, round_a=True, drop=K.drop_args(3, 1, "m2", 0.1), round_out=True,
+              gain=gain, want_pre=True, ln=ln)
+    (y, pre), (yp, prep) = K.linear(a, w, b, "gelu", **kw), K.linear_plain(a, w, b, "gelu", **kw)
+    _close(y, yp, TOL_BF16)
+    _close(pre, prep, TOL_F32)
+
+
+@pytest.mark.parametrize("K_,N", ROWS_SHAPES)
+def test_linear_rows_repeats_bitwise(cuda, K_, N):
+    """No atomics: the K split is summed in a fixed order."""
+    a, w, b, res, ln = _rows_case(cuda, 20, K_, N, torch.bfloat16, seed=3)
+    y = K.linear(a, w, b, "relu", res, ln=ln)
+    for _ in range(3):
+        assert torch.equal(y, K.linear(a, w, b, "relu", res, ln=ln))
+
+
+def test_linear_rows_limit_and_refusals(cuda):
+    """33 rows take the tiled route; ln there, or with trans_w, raises; the
+    route itself refuses more than LINEAR_ROWS_MAX rows."""
+    a, w, b, res, ln = _rows_case(cuda, 33, 512, 512, torch.bfloat16)
+    K.reset_launch_counts()
+    _close(K.linear(a, w, b, "relu", res), K.linear_plain(a, w, b, "relu", res), TOL_F32)
+    assert K.launch_counts()["linear"] == 1 and K.launch_counts()["linear_rows"] == 0
+    with pytest.raises(ValueError, match="few-rows route"):
+        K.linear(a, w, b, ln=ln)
+    with pytest.raises(ValueError, match="at most 32 rows"):
+        K.linear_rows(a, w, b)
+    with pytest.raises(ValueError, match="trans_w"):
+        K.linear(a[:20], w.t().contiguous(), None, trans_w=True, ln=ln)
+    with pytest.raises(ValueError, match="shape"):
+        K.linear(a[:20], w, b, ln=(ln[0][:7], ln[1], 1e-5))
+    wide = torch.randn(20, 1100, device=cuda)
+    with pytest.raises(ValueError, match="at most 1024"):
+        K.linear(wide, torch.randn(1100, 8, device=cuda), None,
+                 ln=(torch.ones(1100, device=cuda), torch.zeros(1100, device=cuda), 1e-5))
+
+
+@pytest.mark.parametrize("M,K_,N", [(20, 2100, 96), (3, 1030, 72)])
+def test_linear_rows_several_chunks(cuda, M, K_, N):
+    """K above 8 x 128: each block stages its slice of K in several chunks."""
+    a, w, b, res, _ = _rows_case(cuda, M, K_, N, torch.bfloat16, seed=5)
+    for round_a in (False, True):
+        _close(K.linear(a, w, b, "relu", res, round_a),
+               K.linear_plain(a, w, b, "relu", res, round_a), TOL_F32)
+
+
+def test_linear_rows_misaligned_operands(cuda):
+    """Operands that start off a 16-byte boundary take element copies and
+    give the same result."""
+    a, w, b, res, ln = _rows_case(cuda, 20, 512, 1024, torch.bfloat16, seed=4)
+    a_off = torch.empty(a.numel() + 1, device=cuda)[1:].view_as(a).copy_(a)
+    w_off = torch.empty(w.numel() + 1, device=cuda, dtype=w.dtype)[1:].view_as(w).copy_(w)
+    assert a_off.data_ptr() % 16 and w_off.data_ptr() % 16
+    ref = K.linear_plain(a, w, b, "relu", res, ln=ln)
+    _close(K.linear(a_off, w_off, b, "relu", res, ln=ln), ref, TOL_F32)
+
+
+def test_encoder_layer_fold_launches(cuda):
+    """A sampler-sized layer is five launches and no layernorm; 33 rows seven."""
+    from posediffusion_tpu_torch.ops.denoiser_kernel import encoder_layer_math
+
+    r = _gen(9)
+    D, F = 512, 1024
+    ws = [_t(1 + 0.1 * r.normal(size=D), cuda), _t(0.1 * r.normal(size=D), cuda),
+          _t(r.normal(size=(D, 3 * D)) / np.sqrt(D), cuda, torch.bfloat16),
+          _t(r.normal(size=3 * D), cuda),
+          _t(r.normal(size=(D, D)) / np.sqrt(D), cuda, torch.bfloat16), _t(r.normal(size=D), cuda),
+          _t(1 + 0.1 * r.normal(size=D), cuda), _t(0.1 * r.normal(size=D), cuda),
+          _t(r.normal(size=(D, F)) / np.sqrt(D), cuda, torch.bfloat16), _t(r.normal(size=F), cuda),
+          _t(r.normal(size=(F, D)) / np.sqrt(F), cuda, torch.bfloat16), _t(r.normal(size=D), cuda)]
+    for rows, launches, norms in ((20, 5, 0), (33, 7, 2)):
+        x = _t(r.normal(size=(rows, D)), cuda)
+        kb = torch.zeros(1, rows, device=cuda)
+        K.reset_launch_counts()
+        out = encoder_layer_math(x, *ws, nhead=4, seq_len=rows, key_bias=kb)
+        counts = K.launch_counts()
+        assert sum(counts.values()) == launches and counts["layernorm"] == norms
+        ref = encoder_layer_math(x, *ws, nhead=4, seq_len=rows, key_bias=kb, ops=K.PLAIN)
+        _close(out, ref, 1e-4)
+
+
 @pytest.mark.parametrize("B,N,H,Dh", [(20, 264, 6, 64), (1, 20, 4, 128), (3, 33, 2, 32),
                                       (20, 593, 6, 64), (2, 1024, 1, 128), (2, 1, 2, 64),
                                       (3, 16, 4, 128), (2, 17, 2, 32), (1, 20, 4, 64)])
