@@ -7,8 +7,10 @@ backbones, once on an NVIDIA card.
     python3 chip_smoke.py --profile   # also: torch.profiler over one GGS inference,
                                       # from a matches table and from the images
     python3 chip_smoke.py --parent DIR
-        # also, first: the calls a serving or training user waits for, each
-        # timed in a child process with this checkout's port and with DIR's
+        # also, first: the calls a serving or training user waits for (and
+        # the train backward's attention_bwd and linear_wgrad at their
+        # largest cases), each timed in a child process with this
+        # checkout's port and with DIR's
         # (the parent commit's posediffusion_tpu_torch/ and cfgs/, unpacked
         # with git archive into a gitignored directory; its kernels build
         # under DIR/build/kernels), in the order new, parent, parent, new
@@ -46,7 +48,10 @@ Phases (any failure exits non-zero and prints no result line):
   5. train   the training slice (TPU kernels 9 and 10): the train kernels
              (attention_bwd, layernorm_bwd, linear_wgrad and dgrad,
              act_dropout_bwd, the dropout masks bitwise) against their plain
-             versions at the ViT's and the denoiser's train shapes; both
+             versions at the ViT's and the denoiser's train shapes (the
+             tensor-core attention_bwd and linear_wgrad in both modes, and
+             bitwise against themselves: attention_bwd at 64 x 264 and
+             2,880 x 16, linear_wgrad at fc1 and qkv); both
              train trunks forward and backward (12 blocks x 64 images, f32
              and bf16; 8 layers x 2,880 x 16 with dropout 0.1, and the
              same with GELU for ReLU as a kink-free witness); one whole
@@ -58,7 +63,8 @@ Phases (any failure exits non-zero and prints no result line):
              train timings and peak memory;
   5b. backbones  DINOv2 ViT-S/14 (LayerScale) and DINO ViT-B/16: linear
              with a gain and layerscale_bwd against their plain versions at
-             DINOv2's 512 x 348 rows (dgamma bitwise across two runs); the
+             DINOv2's 512 x 348 rows (dgamma bitwise across two runs),
+             attention_bwd at 64 x 348 with DINOv2's packing bias; the
              LayerScale train trunk kernel against plain route (12 blocks x
              64 images, f32 and bf16); demo_torch with DINOv2 without GGS and
              with GGS from a matches table; train_torch.py with DINOv2 at
@@ -281,17 +287,46 @@ def block_flops(tokens, N, D, F):
     return 2 * tokens * D * (3 * D + D + 2 * F), 4 * tokens * N * D
 
 
+def attention_bwd_bound(qkv, attn_bias=None, key_bias=None, round_in=False):
+    """Least ms of ``kernels.attention_bwd`` on (B, N, 3D) qkv: the five
+    products of the backward (q.k^T and do.v^T to recompute p and dp, then
+    p_d^T do, ds k and ds^T q: 10 D operations per live (query, key) cell; a
+    masked cell's p is exactly 0) as bf16 MMAs with ``round_in``, else as
+    3xTF32 MMAs; qkv, dout and the bias read once, dqkv written once."""
+    B, N, D3 = qkv.shape
+    cells = B * N * N
+    if attn_bias is not None:
+        cells = B * int((attn_bias > DEAD_BIAS).sum())
+    if key_bias is not None:
+        cells = N * int((key_bias > DEAD_BIAS).sum())
+    ops = 10 * cells * (D3 // 3)
+    return bound(2 * nbytes(qkv) + nbytes(attn_bias, key_bias) + B * N * D3 // 3 * 4,
+                 ops if round_in else 3 * ops, PEAK_BF16 if round_in else PEAK_TF32)
+
+
+def wgrad_bound(x, dy, round_in=False):
+    """Least ms of ``kernels.linear_wgrad``: x and dy read once, dW and db
+    written once; 2 M K N operations as bf16 MMAs with ``round_in``, else as
+    3xTF32 MMAs (three TF32 products each)."""
+    (M, K_), N = x.shape, dy.shape[1]
+    ops = 2 * M * K_ * N
+    return bound(nbytes(x, dy) + (K_ + 1) * N * 4, ops if round_in else 3 * ops,
+                 PEAK_BF16 if round_in else PEAK_TF32)
+
+
 def trunk_bounds(tokens, N, D, F, L, act_bytes, weight_bytes, peak_products, saved=2):
     """Least ms of a train trunk's forward (saving ``saved`` (tokens, D)
     arrays per layer: x and x1, and with LayerScale the two pre-gain
-    outputs) and of its backward as the TPU kernel does it: the recomputed
-    qkv and first FF products and attention forward, dgrad and wgrad of the
-    four products, and the attention backward (dv, dp, dq, dk); attention
-    forward as 3xTF32 MMAs (the attention kernel's float32 route), attention
-    backward on the FMA units."""
+    outputs) and of its backward as the port does it: the recomputed qkv and
+    first FF products and the dgrad of the four products at
+    ``peak_products``; the four weight gradients and the attention products
+    (forward q.k^T and p.V; backward dv, dp, dq, dk and the recomputed s) on
+    the tensor cores, as 3xTF32 MMAs (three TF32 products each) when the
+    products are float32."""
     P, A = block_flops(tokens, N, D, F)
+    tc = 3 / PEAK_TF32 if peak_products == PEAK_F32 else 1 / peak_products
     fwd_ops = L * (P / peak_products + 3 * A / PEAK_TF32)
-    bwd_ops = L * ((2 * P + 2 * tokens * D * (3 * D + F)) / peak_products + 3 * A / PEAK_F32)
+    bwd_ops = L * ((P + 2 * tokens * D * (3 * D + F)) / peak_products + P * tc + 2.5 * A * tc)
     x = tokens * D * act_bytes
     fwd = max((2 * x + saved * L * x + weight_bytes) / HBM_BYTES_PER_S, fwd_ops) * 1e3
     bwd = max((saved * L * x + 2 * x + 2 * weight_bytes) / HBM_BYTES_PER_S, bwd_ops) * 1e3
@@ -643,6 +678,23 @@ def timed_calls(root):
     del model, den, z
     torch.cuda.empty_cache()
 
+    # the train backward's two redesigned kernels at their largest cases:
+    # fc1's weight gradient and the ViT's attention backward, float32
+    M, Dv, Nv = VIT_IMAGES * 264, 384, 264
+    x_fc = torch.randn((M, Dv), generator=gen, device=dev)
+    dy_fc = torch.randn((M, 4 * Dv), generator=gen, device=dev)
+    t[f"linear_wgrad fc1 f32 ({M}x{Dv})^T ({M}x{4 * Dv})"] = _time_ms(
+        torch, lambda: K.linear_wgrad(x_fc, dy_fc), reps=5)
+    del x_fc, dy_fc
+    seg = torch.tensor([0] * 197 + [1] * 50 + [2] * 17, device=dev)
+    vbias = torch.where(seg[:, None] == seg[None], 0.0, K.NEG).contiguous()
+    qkv = torch.randn((VIT_CHUNK, Nv, 3 * Dv), generator=gen, device=dev)
+    dout = torch.randn((VIT_CHUNK, Nv, Dv), generator=gen, device=dev)
+    t[f"attention_bwd vit f32 ({VIT_CHUNK}x{Nv}, 6 heads, packing bias)"] = _time_ms(
+        torch, lambda: K.attention_bwd(qkv, dout, 6, attn_bias=vbias), reps=5)
+    del qkv, dout
+    torch.cuda.empty_cache()
+
     # one DINO train step at the reference train config (512 images)
     cfg_path = os.path.join(REPO, "cfgs", "default_train.yaml")
     cfg = _train_cfg(work, "train", cfg=cfg_path)
@@ -956,14 +1008,23 @@ def train_slice(report, dev, work, smi, t_start):
             torch, lambda q: F.scaled_dot_product_attention(
                 *q.view(Bv, Nv, 3, Hv, 64).permute(2, 0, 3, 1, 4), attn_mask=vbias),
             [qkv_v], dout_v.view(Bv, Nv, Hv, 64).transpose(1, 2)),
-        bound(nbytes(qkv_v, dout_v, vbias) + nbytes(qkv_v), 10 * Bv * Hv * Nv**2 * 64))
+        attention_bwd_bound(qkv_v, vbias))
+    report.require(f"attention_bwd vit f32 ({Bv}x{Nv}) repeats bitwise", torch.equal(
+        K.attention_bwd(qkv_v, dout_v, Hv, attn_bias=vbias),
+        K.attention_bwd(qkv_v, dout_v, Hv, attn_bias=vbias)))
     kw = dict(key_bias=ebias, drop=d_attn)
     _close_rel(report, f"attention dropout enc f32 ({Be}x{Ne}, {He} heads, p 0.1)",
                K.attention(qkv_e, He, **kw), K.attention_plain(qkv_e, He, **kw), TOL_F32)
-    errs[("attention_bwd", "enc")] = _close_rel(
-        report, f"attention_bwd enc f32 ({Be}x{Ne}, {He} heads, key bias, dropout 0.1)",
-        K.attention_bwd(qkv_e, dout_e, He, **kw), K.attention_bwd_plain(qkv_e, dout_e, He, **kw),
-        TOL_F32)
+    for mode in (False, True):
+        tag = "bf16" if mode else "f32"
+        out_e = K.attention_bwd(qkv_e, dout_e, He, round_in=mode, **kw)
+        errs[("attention_bwd", f"enc {tag}")] = _close_rel(
+            report, f"attention_bwd enc {tag} ({Be}x{Ne}, {He} heads, key bias, dropout 0.1)",
+            out_e, K.attention_bwd_plain(qkv_e, dout_e, He, round_in=mode, **kw),
+            TOL_BF16 if mode else TOL_F32)
+        report.require(f"attention_bwd enc {tag} repeats bitwise",
+                       torch.equal(out_e, K.attention_bwd(qkv_e, dout_e, He, round_in=mode, **kw)))
+    del out_e
 
     M, Df = VIT_IMAGES * Nv, 4 * Dv  # the ViT's rows at the full batch, fc1's width
     x_ln, dh_ln, res_ln = rnd(M, Dv), rnd(M, Dv), rnd(M, Dv)
@@ -1003,7 +1064,8 @@ def train_slice(report, dev, work, smi, t_start):
         f"linear_wgrad fc1 f32 ({M}x{Dv})^T ({M}x{Df})",
         lambda: K.linear_wgrad(x_fc, dy_fc), lambda: K.linear_wgrad_plain(x_fc, dy_fc),
         lambda: _time_ms(torch, lambda: torch.matmul(x_fc.t(), dy_fc), reps=5),
-        bound(nbytes(x_fc, dy_fc) + (Dv + 1) * Df * 4, 2 * M * Dv * Df))
+        wgrad_bound(x_fc, dy_fc))
+    del dw_k, db_k, dw_p, db_p
 
     a_fc = rnd(M, Df)
     errs["act_dropout_bwd"] = _close_rel(
@@ -1137,6 +1199,7 @@ def train_slice(report, dev, work, smi, t_start):
     result = train_torch.run(cfg)
     torch.cuda.synchronize()
     launches = K.launch_counts()
+    wgrad_by_shape = dict(K.linear_wgrad.by_shape)
     _check_launches(report, "train", TRAIN_PATH, launches)
     print(f"  {result['steps']} steps, losses {[round(x, 5) for x in result['losses']]}, "
           f"step seconds (host clock) {[round(x, 3) for x in result['step_seconds']]}, "
@@ -1190,21 +1253,55 @@ def train_slice(report, dev, work, smi, t_start):
     print(f"  peak memory of a train step: {peak_gb:.2f} GB "
           "(torch.cuda.max_memory_allocated)")
 
+    # the qkv product's weight gradient (27 tiles of 128 x 128), made after
+    # the step's peak memory is read
+    Dq = 3 * Dv
+    dy_q = rnd(M, Dq)
+    dw_k, db_k = K.linear_wgrad(x_fc, dy_q)
+    errs[("linear_wgrad qkv", False)] = max(
+        _close_rel(report, f"linear_wgrad qkv dW f32 ({M}x{Dv})^T ({M}x{Dq})", dw_k,
+                   K.linear_wgrad_plain(x_fc, dy_q)[0], TOL_F32),
+        _close_rel(report, "linear_wgrad qkv db f32", db_k, dy_q.sum(0), TOL_F32))
+    report.require("linear_wgrad qkv f32 repeats bitwise",
+                   torch.equal(dw_k, K.linear_wgrad(x_fc, dy_q)[0]))
+    cases["linear_wgrad qkv"] = (
+        f"linear_wgrad qkv f32 ({M}x{Dv})^T ({M}x{Dq})",
+        lambda: K.linear_wgrad(x_fc, dy_q), lambda: K.linear_wgrad_plain(x_fc, dy_q),
+        lambda: _time_ms(torch, lambda: torch.matmul(x_fc.t(), dy_q), reps=5),
+        wgrad_bound(x_fc, dy_q))
     kernels_json = []
-    for key in TRAIN_KERNELS:
+    for key in TRAIN_KERNELS + ("linear_wgrad qkv",):
         name, kern, plain, library, (bound_ms, bound_by) = cases[key]
+        kernel = key.split()[0]
         ms = _time_ms(torch, kern, reps=5)
         plain_ms = _time_ms(torch, plain, reps=5)
         library_ms = library()
         err = max(v for k, v in errs.items() if (k if isinstance(k, str) else k[0]) == key)
+        n = launches[kernel] if key == kernel else wgrad_by_shape.get((M, Dv, 3 * Dv), 0)
         print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), {n} launches")
         kernels_json.append({
-            "name": key, "route": "cuda", "source": SOURCES[key], "replaces": TPU_KERNELS[key],
-            "launches": launches[key], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-            "case": f"{name} (launches: train path)",
+            "name": key, "route": "cuda", "source": SOURCES[kernel],
+            "replaces": TPU_KERNELS[kernel], "launches": n, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms,
+            "case": f"{name} (launches: train path{'' if key == kernel else ', this shape'})",
         })
+    # device time by the profiler: attention_bwd's two kernels, and the
+    # weight gradient's kernel beside cuBLAS's on the same operands
+    for e in kernels_json:
+        kern = cases[e["name"]][1]
+        if e["name"] == "attention_bwd":
+            e["device_ms"] = {k: _kernel_device_ms(torch, kern, k)
+                              for k in ("attn_bwd_dq_kernel", "attn_bwd_dkv_kernel")}
+        elif e["name"].startswith("linear_wgrad"):
+            dy = dy_fc if e["name"] == "linear_wgrad" else dy_q
+            e["device_ms"] = _kernel_device_ms(torch, kern, "wgrad_tf32_kernel")
+            e["library_device_ms"] = _kernel_device_ms(
+                torch, lambda dy=dy: torch.matmul(x_fc.t(), dy), None)
+        if "device_ms" in e:
+            print(f"  {e['name']} by device time: {e['device_ms']}, library "
+                  f"{e.get('library_device_ms')}")
     timings["peak memory of a train step (GB)"] = peak_gb
     return kernels_json, timings, step_launches
 
@@ -1218,6 +1315,7 @@ def backbones_slice(report, dev, work, smi, t_start, dino_step_launches):
     one train step at 512 images. Returns (kernel JSON entries, timings,
     TPU-kernel rows)."""
     import torch
+    import torch.nn.functional as F
 
     import demo_torch
     import train_torch
@@ -1291,6 +1389,35 @@ def backbones_slice(report, dev, work, smi, t_start, dino_step_launches):
     cot = rnd(*tok.shape)
     report.require(f"DINOv2 packs {Nv} tokens at 224px", tok.shape[1] == Nv,
                    f"({tuple(tok.shape)})")
+    # attention_bwd at DINOv2's 348 tokens and its packing bias (257 / 65 / 26)
+    qkv_d, dout_d = rnd(VIT_CHUNK, Nv, 3 * Dv), rnd(VIT_CHUNK, Nv, Dv)
+    abwd_err = 0.0
+    for mode in (False, True):
+        tag = "bf16" if mode else "f32"
+        out_d = K.attention_bwd(qkv_d, dout_d, 6, attn_bias=bias, round_in=mode)
+        abwd_err = max(abwd_err, _close_rel(
+            report, f"attention_bwd DINOv2 {tag} ({VIT_CHUNK}x{Nv}, 6 heads, packing bias)",
+            out_d, K.attention_bwd_plain(qkv_d, dout_d, 6, attn_bias=bias, round_in=mode),
+            TOL_BF16 if mode else TOL_F32))
+        report.require(f"attention_bwd DINOv2 {tag} repeats bitwise", torch.equal(
+            out_d, K.attention_bwd(qkv_d, dout_d, 6, attn_bias=bias, round_in=mode)))
+    del out_d
+    abwd_case = f"attention_bwd DINOv2 f32 ({VIT_CHUNK}x{Nv}, 6 heads, packing bias)"
+    abwd = dict(
+        ms=_time_ms(torch, lambda: K.attention_bwd(qkv_d, dout_d, 6, attn_bias=bias), reps=5),
+        plain_ms=_time_ms(torch, lambda: K.attention_bwd_plain(qkv_d, dout_d, 6, attn_bias=bias),
+                          reps=5),
+        library_ms=_library_grad_ms(
+            torch, lambda q: F.scaled_dot_product_attention(
+                *q.view(VIT_CHUNK, Nv, 3, 6, 64).permute(2, 0, 3, 1, 4), attn_mask=bias),
+            [qkv_d], dout_d.view(VIT_CHUNK, Nv, 6, 64).transpose(1, 2)))
+    ab_bound = attention_bwd_bound(qkv_d, bias)
+    timings[abwd_case] = abwd["ms"]
+    timings[f"{abwd_case} plain"] = abwd["plain_ms"]
+    timings[f"{abwd_case} SDPA backward"] = abwd["library_ms"]
+    print(f"  {abwd_case}: kernel {abwd['ms']:.4f} ms, plain {abwd['plain_ms']:.4f} ms, SDPA "
+          f"backward {abwd['library_ms']:.4f} ms, bound {ab_bound[0]:.4f} ms ({ab_bound[1]})")
+    del qkv_d, dout_d
 
     def ls_run(mode, plain):
         def run(x, st):
@@ -1407,6 +1534,11 @@ def backbones_slice(report, dev, work, smi, t_start, dino_step_launches):
     timings[f"{ls_case} plain"] = ls_plain_ms
     del dy_ls, o_ls, res
     kernels_json = [{
+        "name": "attention_bwd dinov2", "route": "cuda", "source": SOURCES["attention_bwd"],
+        "replaces": TPU_KERNELS["attention_bwd"], "launches": launches["attention_bwd"],
+        "max_abs_err": abwd_err, "bound_ms": ab_bound[0], "bound_by": ab_bound[1], **abwd,
+        "case": f"{abwd_case} (launches: DINOv2 train path)",
+    }, {
         "name": "layerscale_bwd", "route": "cuda", "source": SOURCES["layerscale_bwd"],
         "replaces": TPU_KERNELS["layerscale_bwd"], "launches": launches["layerscale_bwd"],
         "max_abs_err": ls_err, "ms": ls_ms, "plain_ms": ls_plain_ms, "bound_ms": ls_bound[0],

@@ -46,9 +46,11 @@
 // the rows are split into S ranges, one block per (range, 64 x 64 output
 // tile) writes an f32 partial (S, K, N), and a second pass (train.cu,
 // pd_sum_partials) sums the S partials in order. That is the TPU kernel's
-// per-batch-chunk partials (:937-940): deterministic, no atomics. It has the
-// same FMA and WMMA modes; db is the column sum of dY in the same pass.
-// No wgmma, TMA or multi-stage pipeline yet: correct first, fast later.
+// per-batch-chunk partials (:937-940): deterministic, no atomics. In float32
+// mode its products are 3xTF32 tensor-core MMAs (wgrad_tf32_kernel, a 128 x
+// 128 tile fed by a cp.async ring), in bf16 mode WMMA bfloat16 tiles; db is
+// the column sum of dY in the same pass. The forward kernels have no wgmma,
+// TMA or multi-stage pipeline yet: correct first, fast later.
 #include <cooperative_groups.h>
 #include <cuda_pipeline.h>
 #include <mma.h>
@@ -565,71 +567,194 @@ __device__ void bias_partial(float bacc, float* red, float* pb, int n0, int N) {
   }
 }
 
-__global__ void __launch_bounds__(FMA_THREADS)
-wgrad_fma_kernel(const float* __restrict__ X, const float* __restrict__ dY,
-                 float* __restrict__ pw, float* __restrict__ pb, int M, int K,
-                 int N, int rows, int round_in) {
-  constexpr int BM = 64, BN = 64, TM = 4, TN = 4;  // BM: rows of dW (k)
-  constexpr int TX = BN / TN, TY = BM / TM;
-  __shared__ float Xs[FMA_BK][BM + 4];
-  __shared__ float Ds[FMA_BK][BN + 4];
+// ---- float32 mode: 3xTF32 on the tensor cores (mma.sync m16n8k8)
+//
+// dW[k][n] = sum_m X[m][k] dY[m][n]: MMA rows are dW's k, MMA columns its n,
+// the MMA depth runs over data rows m. Both operands contract over rows, so
+// both are MN-major in memory; TF32 wgmma reads only K-major operands from
+// shared memory and would need a transposing stage, so this tile uses
+// mma.sync, which takes its fragments from registers in any order.
+//   * Block: a 128 x 128 tile of dW (WG_BK x WG_BN), 8 warps of 64 (k) x 32
+//     (n), 16 MMA tiles a warp. The split's rows stream through a ring of
+//     WG_STAGES slices of 32 rows of X (32 x 128) and dY (32 x 128) with
+//     cp.async: 16-byte copies when a row is 16-byte aligned (K, N % 4 == 0
+//     and aligned bases), element copies otherwise, zeros past the split or
+//     the matrix. One barrier per slice.
+//   * Fragments: the MMA rows of a warp map to dW rows so that a lane's 8
+//     rows are two float4 runs (4g .. 4g + 3 and 32 + 4g ..), and its 4
+//     columns per 8-column MMA tile one float4 (4g .. 4g + 3, MMA tile nt
+//     = component nt): per 8 data rows a lane loads 6 float4s. Shared rows
+//     are WG_BK + 8 floats (8 mod 32 banks): the 8 lanes of a quarter-warp
+//     (t = 0..3 rows, g = 0..1) hit 8 distinct 4-bank groups.
+//   * Precision: each operand splits into hi = tf32(x) and lo = x - hi, a
+//     product is hi.lo + lo.hi + hi.hi (three MMAs, about 2^-21 relative).
+//     The tensor core truncates each sum into its accumulator, so a slice's
+//     32 rows go into a zeroed accumulator and are then added, rounded to
+//     nearest, into the running one: the truncations stay relative to a
+//     slice's sum, not to the whole split's.
+//   * db: the blocks of k tile 0 sum the raw dY values their first four
+//     warps load (a lane's rows t and t + 4 of every 8, then the 4 lanes of
+//     a column by shuffles), in a fixed order.
+constexpr int WG_BK = 128, WG_BN = 128;  // dW tile of a block (k x n)
+constexpr int WG_SLICE = 32;             // data rows a stage
+constexpr int WG_STAGES = 4;             // three in flight while one is read
+constexpr int WG_THREADS = 256;
+constexpr int WG_LD = WG_BK + 8;         // shared row stride, floats
+constexpr int WG_SMEM = 4 * WG_STAGES * 2 * WG_SLICE * WG_LD;  // 139,264 B
+static_assert(WG_BK == WG_BN, "X and dY slices share one layout");
 
-  const int tid = threadIdx.x;
-  const int tx = tid % TX, ty = tid / TX;
-  const int n0 = blockIdx.x * BN, k0 = blockIdx.y * BM, s = blockIdx.z;
+__global__ void __launch_bounds__(WG_THREADS, 1)
+wgrad_tf32_kernel(const float* __restrict__ X, const float* __restrict__ dY,
+                  float* __restrict__ pw, float* __restrict__ pb, int M, int K,
+                  int N, int rows, int vec_x, int vec_d) {
+  extern __shared__ float4 wg_smem4[];
+  float* smem = reinterpret_cast<float*>(wg_smem4);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wk = (warp >> 2) * 64, wn = (warp & 3) * 32;
+  const int n0 = blockIdx.x * WG_BN, k0 = blockIdx.y * WG_BK, s = blockIdx.z;
   const int r0 = s * rows, r1 = min(M, r0 + rows);
+  const int slices = (r1 - r0 + WG_SLICE - 1) / WG_SLICE;
+  const bool bias = pb != nullptr && blockIdx.y == 0 && warp < 4;  // warp-uniform
 
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  // slice q of the split into ring slot q % WG_STAGES (X then dY)
+  auto stage = [&](int q) {
+    float* xs = smem + (q % WG_STAGES) * 2 * WG_SLICE * WG_LD;
+    float* ds = xs + WG_SLICE * WG_LD;
+    const int m0 = r0 + q * WG_SLICE;
+    auto copy = [&](float* dst, const float* src, int ld, int c0, int lim, int vec) {
+      if (vec) {
+        for (int e = tid; e < WG_SLICE * (WG_BK / 4); e += WG_THREADS) {
+          const int r = e / (WG_BK / 4), c = 4 * (e % (WG_BK / 4));
+          const bool ok = m0 + r < r1 && c0 + c < lim;  // lim % 4 == 0: whole chunks
+          cp_async16(dst + r * WG_LD + c, ok ? src + (size_t)(m0 + r) * ld + c0 + c : src, ok);
+        }
+      } else {
+        for (int e = tid; e < WG_SLICE * WG_BK; e += WG_THREADS) {
+          const int r = e / WG_BK, c = e % WG_BK;
+          const bool ok = m0 + r < r1 && c0 + c < lim;
+          cp_async4(dst + r * WG_LD + c, ok ? src + (size_t)(m0 + r) * ld + c0 + c : src, ok);
+        }
+      }
+    };
+    copy(xs, X, K, k0, K, vec_x);
+    copy(ds, dY, N, n0, N, vec_d);
+  };
 
-  float bacc = 0.f;  // column tid % BN of dY, this thread's rows
-  for (int m0 = r0; m0 < r1; m0 += FMA_BK) {
-    for (int i = tid; i < FMA_BK * BM; i += FMA_THREADS) {
-      const int mm = i / BM, c = i % BM;
-      const int gm = m0 + mm, gk = k0 + c;
-      float v = (gm < r1 && gk < K) ? X[(size_t)gm * K + gk] : 0.f;
-      Xs[mm][c] = round_in ? round_bf16(v) : v;
-    }
-    for (int i = tid; i < FMA_BK * BN; i += FMA_THREADS) {
-      const int mm = i / BN, c = i % BN;
-      const int gm = m0 + mm, gn = n0 + c;
-      float v = (gm < r1 && gn < N) ? dY[(size_t)gm * N + gn] : 0.f;
-      bacc += v;
-      Ds[mm][c] = round_in ? round_bf16(v) : v;
-    }
-    __syncthreads();
+  float acc[4][4][4], tmp[4][4][4];
 #pragma unroll
-    for (int mm = 0; mm < FMA_BK; ++mm) {
-      float a[TM], b[TN];
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = Xs[mm][ty + i * TY];
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Ds[mm][tx + j * TX];
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  float bsum[4] = {0.f, 0.f, 0.f, 0.f};
+
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int q = 0; q < WG_STAGES - 1; ++q) {
+    if (q < slices) stage(q);
+    cp_async_commit();
   }
+  for (int q = 0; q < slices; ++q) {
+    cp_async_wait<WG_STAGES - 2>();
+    __syncthreads();  // slice q is in; slot (q - 1) % WG_STAGES is free
+    if (q + WG_STAGES - 1 < slices) stage(q + WG_STAGES - 1);
+    cp_async_commit();
+    const float* xs = smem + (q % WG_STAGES) * 2 * WG_SLICE * WG_LD;
+    const float* ds = xs + WG_SLICE * WG_LD;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tmp[i][j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < WG_SLICE; kk += 8) {
+      // rows kk + t (MMA depth t) and kk + t + 4 (depth t + 4)
+      const float* xr = xs + (kk + t) * WG_LD + wk + 4 * g;
+      const float* dr = ds + (kk + t) * WG_LD + wn + 4 * g;
+      float xa[2][8], db[2][4];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const float4 p = *reinterpret_cast<const float4*>(xr + u * 4 * WG_LD);
+        const float4 q4 = *reinterpret_cast<const float4*>(xr + u * 4 * WG_LD + 32);
+        const float4 d = *reinterpret_cast<const float4*>(dr + u * 4 * WG_LD);
+        xa[u][0] = p.x; xa[u][1] = p.y; xa[u][2] = p.z; xa[u][3] = p.w;
+        xa[u][4] = q4.x; xa[u][5] = q4.y; xa[u][6] = q4.z; xa[u][7] = q4.w;
+        db[u][0] = d.x; db[u][1] = d.y; db[u][2] = d.z; db[u][3] = d.w;
+      }
+      if (bias) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) bsum[j] += db[0][j] + db[1][j];
+      }
+      // B of MMA tile nt: b0 = (depth t, column g) = db[0][nt], b1 = db[1][nt]
+      uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) split_tf32(db[u][j], bh[j][u], bl[j][u]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        // A of MMA tile mt = i: rows g (h 0) and g + 8 (h 1) are dW rows
+        // wk + 32 (i / 2) + 4g + 2 (i % 2) + h: components 4 (i / 2) + 2 (i % 2) + h
+        const int c = 4 * (i >> 1) + 2 * (i & 1);
+        uint32_t ah[4], al[4];
+        split_tf32(xa[0][c], ah[0], al[0]);
+        split_tf32(xa[0][c + 1], ah[1], al[1]);
+        split_tf32(xa[1][c], ah[2], al[2]);
+        split_tf32(xa[1][c + 1], ah[3], al[3]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          mma_tf32(tmp[i][j], al, bh[j][0], bh[j][1]);
+          mma_tf32(tmp[i][j], ah, bl[j][0], bl[j][1]);
+          mma_tf32(tmp[i][j], ah, bh[j][0], bh[j][1]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += tmp[i][j][e];
+  }
+  cp_async_wait<0>();
 
+  // accumulator (mt i, nt j): element e is dW row wk + 32 (i / 2) + 4g +
+  // 2 (i % 2) + e / 2, column wn + 8t + 4 (e % 2) + j
   float* out = pw + (size_t)s * K * N;
+  const bool vec_out = N % 4 == 0;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int k = k0 + ty + i * TY;
-    if (k >= K) continue;
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx + j * TX;
-      if (n < N) out[(size_t)k * N + n] = acc[i][j];
+    for (int h = 0; h < 2; ++h) {
+      const int k = k0 + wk + 32 * (i >> 1) + 4 * g + 2 * (i & 1) + h;
+      if (k >= K) continue;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int n = n0 + wn + 8 * t + 4 * u;
+        float* dst = out + (size_t)k * N + n;
+        const float v[4] = {acc[i][0][2 * h + u], acc[i][1][2 * h + u],
+                            acc[i][2][2 * h + u], acc[i][3][2 * h + u]};
+        if (vec_out && n + 3 < N) {
+          *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (n + j < N) dst[j] = v[j];
+        }
+      }
     }
-  }
-  if (pb && blockIdx.y == 0) {
-    __syncthreads();
-    bias_partial<BN, FMA_THREADS>(bacc, &Xs[0][0], pb + (size_t)s * N, n0, N);
+  if (bias) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bsum[j] = quad_sum(bsum[j]);
+    if (t == 0) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0 + wn + 4 * g + j;
+        if (n < N) pb[(size_t)s * N + n] = bsum[j];
+      }
+    }
   }
 }
 
@@ -762,23 +887,33 @@ PD_API int pd_linear_rows(const void* a, const void* w, int w_bf16,
   return launch_rows_bn(A, (const float*)w, ep, g, b, eps, M, N, K, bn, round_a, s);
 }
 
+// The dW tile of a block in each mode (ops/kernels.py WGRAD_TILE holds the
+// same): 128 x 128 in float32 mode, 64 x 64 in bf16 mode.
+PD_API int pd_linear_wgrad_tile(int round_in) { return round_in ? TC_BM : WG_BK; }
+
 // X (M, K), dY (M, N) -> partials pw (S, K, N) and pb (S, N) (pb may be
-// null), S = ceil(M / rows). round_in: both operands rounded to bf16 on the
-// tensor cores (the bf16 mode); else float32 FMA.
+// null), S = ceil(M / rows). round_in: both operands rounded to bf16 (the
+// bf16 mode, WMMA); else float32 as 3xTF32 MMAs.
 PD_API int pd_linear_wgrad(const void* x, const void* dy, void* pw, void* pb,
                            int M, int K, int N, int rows, int round_in,
                            void* stream) {
-  if (rows < 1 || M < 1) return (int)cudaErrorInvalidValue;
+  if (rows < 1 || M < 1 || K < 1 || N < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int S = (M + rows - 1) / rows;
-  dim3 grid((N + 63) / 64, (K + 63) / 64, S);
   if (round_in) {
+    dim3 grid((N + TC_BN - 1) / TC_BN, (K + TC_BM - 1) / TC_BM, S);
     wgrad_bf16_tc_kernel<<<grid, TC_THREADS, 0, s>>>(
         (const float*)x, (const float*)dy, (float*)pw, (float*)pb, M, K, N, rows);
   } else {
-    wgrad_fma_kernel<<<grid, FMA_THREADS, 0, s>>>(
-        (const float*)x, (const float*)dy, (float*)pw, (float*)pb, M, K, N,
-        rows, 0);
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        wgrad_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
+    if (attr != cudaSuccess) return (int)attr;
+    const int vec_x = K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+    const int vec_d = N % 4 == 0 && reinterpret_cast<uintptr_t>(dy) % 16 == 0;
+    dim3 grid((N + WG_BN - 1) / WG_BN, (K + WG_BK - 1) / WG_BK, S);
+    wgrad_tf32_kernel<<<grid, WG_THREADS, WG_SMEM, s>>>(
+        (const float*)x, (const float*)dy, (float*)pw, (float*)pb, M, K, N, rows,
+        vec_x, vec_d);
   }
   return (int)cudaGetLastError();
 }

@@ -94,9 +94,11 @@ _SIGNATURES = {
     "pd_sg_sinkhorn": [_P] * 7 + [_I, _I, _I, _P],
     "pd_sg_matches": [_P] * 6 + [_I, _I, _F, _P],
     "pd_attention_bwd": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _F, _I, *_DROP, _P],
+    "pd_attention_bwd_smem_bytes": [_I, _I],
     "pd_layernorm_bwd": [_P] * 7 + [_I, _I, _F, _I, _P],
     "pd_layernorm_bwd_rows_per_block": [],
     "pd_linear_wgrad": [_P] * 4 + [_I] * 5 + [_P],
+    "pd_linear_wgrad_tile": [_I],
     "pd_act_dropout_bwd": [_P, _P, _P, _L, _I, *_DROP, _P],
     "pd_sum_partials": [_P, _P, _I, _L, _P],
     "pd_layerscale_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, *_DROP, _P],
@@ -520,6 +522,11 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+def _head_depth(Dh: int) -> int:
+    """The head width the attention kernels pad Dh to: 32, 64 or 128."""
+    return 32 if Dh <= 32 else 64 if Dh <= 64 else 128
+
+
 @functools.cache
 def attention_smem_bytes(N: int, Dh: int, round_in: bool) -> int:
     """Dynamic shared memory of one ``attention`` launch (csrc/attention.cu,
@@ -532,7 +539,7 @@ def attention_smem_bytes(N: int, Dh: int, round_in: bool) -> int:
     tile = 64 if round_in else 32
     kt = tile if N >= tile else _round_up(N, 16)
     stages = 2 if N > kt else 1
-    dp = 32 if Dh <= 32 else 64 if Dh <= 64 else 128
+    dp = _head_depth(Dh)
     sq, sv = dp + (16 if round_in else 8), dp + 4
     return 4 * ((0 if round_in else 16 * warps * sq) + stages * kt * (sq + sv))
 
@@ -948,16 +955,42 @@ def attention_bwd_plain(qkv, dout, nhead: int, attn_bias=None, key_bias=None,
     return torch.cat([t.transpose(1, 2).reshape(B, N, D) for t in (dq, dk, dv)], -1)
 
 
+@functools.cache
+def attention_bwd_smem_bytes(N: int, Dh: int) -> int:
+    """Dynamic shared memory of the larger of ``attention_bwd``'s two
+    launches, the dk/dv kernel's (csrc/attention_bwd.cu, smem_bytes): the
+    block's 16 rows a warp (up to 4 warps) of k and v, two stages (one when
+    a tile holds all N) of 32 streamed queries (16 for heads of 128) with
+    their dout rows and 3 statistics each; rows of the head padded to 32, 64
+    or 128 columns plus 8. The same in both modes; at most 104,832 B (Dh
+    128), under the 232,448 B a block may use."""
+    dp = _head_depth(Dh)
+    tile = 16 if dp > 64 else 32
+    warps = min(4, -(-N // 16))
+    ct = tile if N >= tile else _round_up(N, 16)
+    stages = 2 if N > ct else 1
+    sq = dp + 8
+    return 4 * (2 * 16 * warps * sq + 2 * stages * ct * sq + 3 * stages * ct)
+
+
 def attention_bwd(qkv, dout, nhead: int, attn_bias=None, key_bias=None,
                   round_in: bool = False, drop: Optional[Drop] = None):
     """Cotangent of ``attention``'s packed input: (B, N, 3D) dq | dk | dv
     from its output cotangent ``dout`` (B, N, D), with the forward's bias,
-    rounding and dropout (csrc/attention_bwd.cu)."""
+    rounding and dropout (csrc/attention_bwd.cu). On the card every product
+    runs on the tensor cores: bf16 MMAs with ``round_in``, 3xTF32 without."""
     if not _on_card(qkv, dout, attn_bias, key_bias):
         return attention_bwd_plain(qkv, dout, nhead, attn_bias, key_bias,
                                    round_in, drop)
     B, N, D, Dh, bias, kind = _attention_check(qkv, nhead, attn_bias, key_bias)
     _check(dout, "dout", (B, N, D))
+    if Dh % 8:
+        raise ValueError(f"head width {Dh} is not a multiple of 8 (the MMA depth)")
+    if qkv.data_ptr() % 16 or dout.data_ptr() % 16:
+        raise ValueError("qkv and dout must be 16-byte aligned "
+                         "(the kernels copy 16-byte chunks)")
+    if attention_bwd_smem_bytes(N, Dh) > _MAX_SMEM:
+        raise ValueError(f"attention_bwd at N {N}, Dh {Dh} exceeds one block's shared memory")
     dqkv = torch.empty_like(qkv)
     stats = torch.empty((B * nhead * N * 3,), device=qkv.device, dtype=torch.float32)
     _launch(load_library().pd_attention_bwd, _ptr(qkv), _ptr(dout), _ptr(bias),
@@ -1030,40 +1063,57 @@ def linear_wgrad_plain(x, dy, round_in: bool = False):
     return xr.t() @ dyr, dy.sum(0)
 
 
-# Row split of the weight gradient: enough (split, tile) blocks to fill the
-# card several times, each split at least this many rows.
+# Row split of the weight gradient (csrc/linear.cu, pd_linear_wgrad): one
+# block per (split, dW tile), each split at least _WGRAD_MIN_ROWS rows.
+# float32 mode: a 128 x 128 tile, one block an SM (its accumulators take
+# most of the registers), so a call takes about waves x (rows of a split +
+# a block's fixed cost, _WGRAD_BLOCK_ROWS rows' worth): the split is the
+# cheapest by that count among those with at least one block per SM (fc1
+# at 135,168 rows: 11 splits, 396 blocks, three whole waves). bf16 mode:
+# the 64 x 64 WMMA tile, several blocks an SM: about four blocks per SM.
+WGRAD_TILE = {False: 128, True: 64}
 _WGRAD_MIN_ROWS = 1024
-_WGRAD_TARGET_BLOCKS = 4 * 132
+_WGRAD_BLOCK_ROWS = 512
 
 
-def wgrad_rows(M: int, K: int, N: int) -> int:
+def wgrad_rows(M: int, K: int, N: int, round_in: bool = False) -> int:
     """Rows per split of ``linear_wgrad`` for an (M, K) x (M, N) product."""
-    tiles = -(-K // 64) * -(-N // 64)
-    splits = max(1, min(-(-M // _WGRAD_MIN_ROWS), -(-_WGRAD_TARGET_BLOCKS // tiles)))
+    tile = WGRAD_TILE[bool(round_in)]
+    tiles = -(-K // tile) * -(-N // tile)
+    s_max = -(-M // _WGRAD_MIN_ROWS)
+    if round_in:
+        splits = min(s_max, -(-4 * _SMS // tiles))
+    else:
+        lo = min(s_max, -(-_SMS // tiles))
+        splits = min(range(lo, s_max + 1), key=lambda S: (
+            -(-tiles * S // _SMS) * (-(-M // S) + _WGRAD_BLOCK_ROWS), S))
     return -(-M // splits)
 
 
 def linear_wgrad(x, dy, round_in: bool = False):
     """Weight and bias gradients of ``y = x @ W + b``: (x^T dy (K, N),
-    colsum(dy) (N,)), float32. ``round_in`` rounds both operands to bf16 and
-    runs the product on the tensor cores (the bf16 mode); the bias gradient
-    sums the unrounded dy, as the TPU kernel does."""
+    colsum(dy) (N,)), float32. On the card the product runs on the tensor
+    cores: 3xTF32 MMAs (about 2^-21 relative a product) in float32 mode;
+    with ``round_in`` both operands rounded to bf16 (the bf16 mode). The bias
+    gradient sums the unrounded dy, as the TPU kernel does."""
     if not _on_card(x, dy):
         return linear_wgrad_plain(x, dy, round_in)
     M, K = x.shape
     N = dy.shape[1]
     _check(x, "x", (M, K))
     _check(dy, "dy", (M, N))
-    rows = wgrad_rows(M, K, N)
+    rows = wgrad_rows(M, K, N, round_in)
     S = -(-M // rows)
     pw = torch.empty((S, K, N), device=x.device, dtype=torch.float32)
     pb = torch.empty((S, N), device=x.device, dtype=torch.float32)
     _launch(load_library().pd_linear_wgrad, _ptr(x), _ptr(dy), _ptr(pw), _ptr(pb),
             M, K, N, rows, int(round_in), _stream(x))
     linear_wgrad.launches += 1
+    linear_wgrad.by_shape[(M, K, N)] = linear_wgrad.by_shape.get((M, K, N), 0) + 1
     return _sum_partials(pw), _sum_partials(pb)
 
 
+linear_wgrad.by_shape = {}
 linear_wgrad.launches = 0
 
 
@@ -1106,11 +1156,12 @@ def layerscale_bwd_plain(dy, o_pre, gamma, drop: Optional[Drop] = None):
 # Rows per block of ``layerscale_bwd``: enough blocks to fill the card four
 # times, each at least this many rows.
 _LS_MIN_ROWS = 64
+_LS_TARGET_BLOCKS = 4 * _SMS
 LAYERSCALE_MAX_D = 1024  # csrc/train.cu: one thread per column of a block
 
 
 def layerscale_rows(M: int) -> int:
-    blocks = max(1, min(-(-M // _LS_MIN_ROWS), _WGRAD_TARGET_BLOCKS))
+    blocks = max(1, min(-(-M // _LS_MIN_ROWS), _LS_TARGET_BLOCKS))
     return -(-M // blocks)
 
 
@@ -1175,3 +1226,4 @@ def reset_launch_counts() -> None:
     for fn in vars(KERNELS).values():
         fn.launches = 0
     linear_rows.by_shape.clear()
+    linear_wgrad.by_shape.clear()

@@ -662,21 +662,32 @@ def test_dropout_masks_bitwise(cuda):
     assert torch.equal(out[..., 0], K.dropout_mask(da, (B, H, 1, 1), cuda).view(B, H))
 
 
-@pytest.mark.parametrize("B,N,H,Dh,bias_kind,drop", [
-    (4, 264, 6, 64, "attn", 0.0), (40, 16, 4, 128, "key", 0.1),
-    (3, 70, 2, 32, "none", 0.1), (2, 593, 6, 64, "attn", 0.0)])
-@pytest.mark.parametrize("round_in", [False, True])
-def test_attention_train(cuda, B, N, H, Dh, bias_kind, drop, round_in):
-    r = _gen(N + B)
-    qkv = _t(r.normal(size=(B, N, 3 * H * Dh)), cuda)
-    dout = _t(r.normal(size=(B, N, H * Dh)), cuda)
+def _attn_train_case(dev, B, N, H, Dh, bias_kind, seed):
+    r = _gen(seed)
+    qkv = _t(r.normal(size=(B, N, 3 * H * Dh)), dev)
+    dout = _t(r.normal(size=(B, N, H * Dh)), dev)
     kw = {}
     if bias_kind == "attn":
         seg = np.arange(N) * 3 // N
-        kw["attn_bias"] = _t(np.where(seg[:, None] == seg[None], 0.0, K.NEG), cuda)
+        kw["attn_bias"] = _t(np.where(seg[:, None] == seg[None], 0.0, K.NEG), dev)
     elif bias_kind == "key":
         kw["key_bias"] = _t(np.where(np.arange(N)[None] < r.integers(1, N + 1, (B, 1)),
-                                     0.0, K.NEG), cuda)
+                                     0.0, K.NEG), dev)
+    return qkv, dout, kw
+
+
+# N: 1, the denoiser's 16 frames, tiles with a ragged end (70), the ViT's
+# 264 tokens, DINOv2's 348 and 336px's 593; heads of 32, 64 and 128; both
+# bias kinds, with and without dropout.
+@pytest.mark.parametrize("B,N,H,Dh,bias_kind,drop", [
+    (4, 264, 6, 64, "attn", 0.0), (40, 16, 4, 128, "key", 0.1),
+    (3, 70, 2, 32, "none", 0.1), (2, 593, 6, 64, "attn", 0.0),
+    (3, 1, 2, 64, "key", 0.1), (2, 348, 6, 64, "attn", 0.1),
+    (2, 264, 2, 128, "attn", 0.1), (5, 16, 4, 64, "key", 0.1),
+    (2, 593, 2, 128, "key", 0.1), (3, 348, 1, 64, "none", 0.0)])
+@pytest.mark.parametrize("round_in", [False, True])
+def test_attention_train(cuda, B, N, H, Dh, bias_kind, drop, round_in):
+    qkv, dout, kw = _attn_train_case(cuda, B, N, H, Dh, bias_kind, N + B)
     d = K.drop_args(9, 3, "attn", drop)
     tol = TOL_BF16 if round_in else TOL_F32
     _close(K.attention(qkv, H, round_in=round_in, drop=d, **kw),
@@ -685,6 +696,45 @@ def test_attention_train(cuda, B, N, H, Dh, bias_kind, drop, round_in):
     assert torch.isfinite(out).all()
     _close(out, K.attention_bwd_plain(qkv, dout, H, round_in=round_in, drop=d, **kw), tol)
     assert torch.equal(out, K.attention_bwd(qkv, dout, H, round_in=round_in, drop=d, **kw))
+
+
+@pytest.mark.parametrize("round_in", [False, True])
+def test_attention_bwd_masked_tiles_and_rows(cuda, round_in):
+    """Float32 mode skips a tile masked for all of a warp's rows (it adds
+    exactly 0); rows 16-31, masked against every key, keep the plain
+    version's uniform p in the backward too."""
+    B, N, H, Dh = 3, 200, 2, 64
+    qkv, dout, _ = _attn_train_case(cuda, B, N, H, Dh, "none", 5)
+    seg = np.arange(N) * 3 // N
+    bias = np.where(seg[:, None] == seg[None], 0.0, K.NEG)
+    bias[16:32] = K.NEG
+    bias = _t(bias, cuda)
+    d = K.drop_args(2, 1, "attn", 0.1)
+    out = K.attention_bwd(qkv, dout, H, attn_bias=bias, round_in=round_in, drop=d)
+    _close(out, K.attention_bwd_plain(qkv, dout, H, attn_bias=bias, round_in=round_in, drop=d),
+           TOL_BF16 if round_in else TOL_F32)
+
+
+def test_attention_bwd_shared_memory_and_refusals(cuda):
+    """The wrapper's shared-memory formula is the kernel's; it refuses a
+    head width off the MMA depth and operands off a 16-byte boundary."""
+    lib = K.load_library()
+    for N in (1, 16, 17, 33, 64, 70, 264, 348, 593, 4096):
+        for Dh in (8, 32, 40, 64, 128):
+            assert K.attention_bwd_smem_bytes(N, Dh) == lib.pd_attention_bwd_smem_bytes(N, Dh)
+    assert max(K.attention_bwd_smem_bytes(N, 128) for N in (16, 593)) == 104832
+    with pytest.raises(ValueError, match="multiple of 8"):
+        K.attention_bwd(torch.randn(1, 8, 3 * 2 * 12, device=cuda),
+                        torch.randn(1, 8, 2 * 12, device=cuda), 2)
+    flat = torch.randn(8 * 3 * 64 + 1, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        K.attention_bwd(flat[1:].view(1, 8, 3 * 64), torch.randn(1, 8, 64, device=cuda), 1)
+    with pytest.raises(ValueError, match="head width"):
+        K.attention_bwd(torch.randn(1, 8, 3 * 256, device=cuda),
+                        torch.randn(1, 8, 256, device=cuda), 1)
+    with pytest.raises(ValueError, match="shape"):
+        K.attention_bwd(torch.randn(1, 8, 3 * 64, device=cuda),
+                        torch.randn(1, 7, 64, device=cuda), 1)
 
 
 @pytest.mark.parametrize("rows,D", [(5000, 384), (37, 512), (3, 64), (3000, 768), (40, 1000)])
@@ -701,18 +751,53 @@ def test_layernorm_bwd(cuda, rows, D, round_out):
         _close(out[2], ref[2], TOL_F32)
 
 
-@pytest.mark.parametrize("M,K_,N", [(77, 130, 70), (20000, 384, 1536), (46080, 512, 1024)])
+# ragged K x N (130 x 70), M off the 32-row slice and split (4,133), the
+# ViT's qkv and fc2 widths, the encoder's rows
+@pytest.mark.parametrize("M,K_,N", [(77, 130, 70), (20000, 384, 1536), (46080, 512, 1024),
+                                    (4133, 130, 70), (9001, 384, 1152), (6000, 1536, 384)])
 @pytest.mark.parametrize("round_in", [False, True])
 def test_linear_wgrad(cuda, M, K_, N, round_in):
     r = _gen(M)
     x, dy = _t(r.normal(size=(M, K_)), cuda), _t(r.normal(size=(M, N)), cuda)
     dw, db = K.linear_wgrad(x, dy, round_in)
     rw, rb = K.linear_wgrad_plain(x, dy, round_in)
-    # the tensor cores' float32 accumulation does not round each partial sum
-    # to nearest: over tens of thousands of rows it drifts ~1e-5 relative
+    # bf16 mode: the tensor cores' float32 accumulation does not round each
+    # partial sum to nearest: over tens of thousands of rows it drifts ~1e-5
+    # relative. float32 mode sums each 32-row slice apart and adds the
+    # slices rounded to nearest.
     _close(dw, rw, TOL_WGRAD_TC if round_in else TOL_F32)
     _close(db, rb, TOL_F32)
     assert torch.equal(dw, K.linear_wgrad(x, dy, round_in)[0])
+    assert torch.equal(db, K.linear_wgrad(x, dy, round_in)[1])
+
+
+@pytest.mark.parametrize("round_in", [False, True])
+def test_linear_wgrad_misaligned_operands(cuda, round_in):
+    """Rows off a 16-byte boundary take the element copies."""
+    M, K_, N = 3001, 384, 256
+    r = _gen(3)
+    fx = _t(r.normal(size=M * K_ + 1), cuda)
+    fd = _t(r.normal(size=M * N + 3), cuda)
+    x, dy = fx[1:].view(M, K_), fd[3:].view(M, N)
+    dw, db = K.linear_wgrad(x, dy, round_in)
+    rw, rb = K.linear_wgrad_plain(x, dy, round_in)
+    _close(dw, rw, TOL_WGRAD_TC if round_in else TOL_F32)
+    _close(db, rb, TOL_F32)
+
+
+def test_linear_wgrad_split_and_refusals(cuda):
+    """The Python split uses the kernel's tile; the wrapper refuses what the
+    kernel does not take."""
+    lib = K.load_library()
+    for mode in (False, True):
+        assert lib.pd_linear_wgrad_tile(int(mode)) == K.WGRAD_TILE[mode]
+    x = torch.randn(64, 32, device=cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        K.linear_wgrad(x.half(), torch.randn(64, 16, device=cuda))
+    with pytest.raises(ValueError, match="shape"):
+        K.linear_wgrad(x, torch.randn(63, 16, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        K.linear_wgrad(x, torch.randn(16, 64, device=cuda).t())
 
 
 @pytest.mark.parametrize("M,K_,N", [(77, 130, 70), (4176, 1536, 384)])

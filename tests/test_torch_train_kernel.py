@@ -271,10 +271,24 @@ class TestPlainKernelBackwards:
         np.testing.assert_allclose(dgrad.numpy(), ra.numpy(), atol=1e-5)
 
     def test_wgrad_row_split(self):
-        """The split fills the card and covers every row."""
+        """The split fills the card and covers every row: float32 mode's
+        128 x 128 tiles (36 at fc1) one block an SM, bf16 mode's 64 x 64
+        tiles (144) about four."""
         rows = K.wgrad_rows(135_168, 384, 1536)
+        assert 1024 <= rows and -(-135_168 // rows) * 36 >= 132
+        rows = K.wgrad_rows(135_168, 384, 1536, round_in=True)
         assert 1024 <= rows and -(-135_168 // rows) * 144 >= 4 * 132
         assert K.wgrad_rows(10, 64, 64) == 10
+
+    def test_layerscale_row_split(self):
+        """layerscale_bwd's blocks cover every row, no more blocks than
+        64-row ranges, four blocks an SM at DINOv2's rows."""
+        for M in (1, 63, 999, 17_400, 178_176):
+            rows = K.layerscale_rows(M)
+            blocks = -(-M // rows)
+            assert blocks * rows >= M and (blocks - 1) * rows < M
+            assert blocks <= min(4 * 132, -(-M // 64))
+        assert -(-178_176 // K.layerscale_rows(178_176)) == 4 * 132
 
 
 class TestDropoutMask:
