@@ -7,14 +7,20 @@ backbones, once on an NVIDIA card.
     python3 chip_smoke.py --profile   # also: torch.profiler over one GGS inference,
                                       # from a matches table and from the images
     python3 chip_smoke.py --parent DIR
-        # also, first: the calls a serving or training user waits for (and
-        # the train backward's attention_bwd and linear_wgrad at their
-        # largest cases), each timed in a child process with this
-        # checkout's port and with DIR's
+        # also, first: the calls a serving or training user waits for (the
+        # inferences without GGS, with GGS from a table and from the images,
+        # the matcher, a DINO, DINOv2 and ViT-B train step) and the
+        # redesigned kernels at their largest cases (attention_bwd,
+        # linear_wgrad, linear's float32 products beside torch.addmm /
+        # torch.matmul, layernorm_bwd beside F.layer_norm's backward, with
+        # its device time by kernel), each timed in a child process with
+        # this checkout's port and with DIR's
         # (the parent commit's posediffusion_tpu_torch/ and cfgs/, unpacked
         # with git archive into a gitignored directory; its kernels build
         # under DIR/build/kernels), in the order new, parent, parent, new
     python3 chip_smoke.py --attention   # the attention cases alone
+    python3 chip_smoke.py --ptxas       # registers, spills and shared memory
+                                        # of every kernel (nvcc -Xptxas -v), alone
 
 Phases (any failure exits non-zero and prints no result line):
   1. build   the CUDA kernels from posediffusion_tpu_torch/csrc (one nvcc per
@@ -51,7 +57,9 @@ Phases (any failure exits non-zero and prints no result line):
              versions at the ViT's and the denoiser's train shapes (the
              tensor-core attention_bwd and linear_wgrad in both modes, and
              bitwise against themselves: attention_bwd at 64 x 264 and
-             2,880 x 16, linear_wgrad at fc1 and qkv); both
+             2,880 x 16, linear_wgrad at fc1 and qkv, layernorm_bwd, and
+             linear's float32 dgrad of fc1 and qkv product beside
+             torch.matmul and torch.addmm); both
              train trunks forward and backward (12 blocks x 64 images, f32
              and bf16; 8 layers x 2,880 x 16 with dropout 0.1, and the
              same with GELU for ReLU as a kink-free witness); one whole
@@ -97,6 +105,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -304,6 +313,23 @@ def attention_bwd_bound(qkv, attn_bias=None, key_bias=None, round_in=False):
                  ops if round_in else 3 * ops, PEAK_BF16 if round_in else PEAK_TF32)
 
 
+def linear_work(ops, w_bf16, round_a):
+    """(operations, peak) of ``kernels.linear`` on more than 32 rows for the
+    route it takes: bf16 MMAs for a bf16 W with round_a; else TF32 MMAs, three
+    products each (3xTF32), two where the bf16 W or the rounded a is exact."""
+    if w_bf16 and round_a:
+        return ops, PEAK_BF16
+    return (3 - int(bool(w_bf16)) - int(bool(round_a))) * ops, PEAK_TF32
+
+
+def linear_bound(a, w, bias=None, residual=None, gain=None, round_a=False, trans_w=False):
+    """Least ms of ``kernels.linear``: a, W, bias, gain and the residual read
+    once, y written once; 2 M K N operations as ``linear_work`` counts them."""
+    (M, K_), N = a.shape, w.shape[0] if trans_w else w.shape[1]
+    return bound(nbytes(a, w, bias, residual, gain) + M * N * 4,
+                 *linear_work(2 * M * K_ * N, w.element_size() == 2, round_a))  # bf16 W
+
+
 def wgrad_bound(x, dy, round_in=False):
     """Least ms of ``kernels.linear_wgrad``: x and dy read once, dW and db
     written once; 2 M K N operations as bf16 MMAs with ``round_in``, else as
@@ -314,19 +340,18 @@ def wgrad_bound(x, dy, round_in=False):
                  PEAK_BF16 if round_in else PEAK_TF32)
 
 
-def trunk_bounds(tokens, N, D, F, L, act_bytes, weight_bytes, peak_products, saved=2):
-    """Least ms of a train trunk's forward (saving ``saved`` (tokens, D)
-    arrays per layer: x and x1, and with LayerScale the two pre-gain
+def trunk_bounds(tokens, N, D, F, L, act_bytes, weight_bytes, saved=2):
+    """Least ms of a float32 train trunk's forward (saving ``saved`` (tokens,
+    D) arrays per layer: x and x1, and with LayerScale the two pre-gain
     outputs) and of its backward as the port does it: the recomputed qkv and
-    first FF products and the dgrad of the four products at
-    ``peak_products``; the four weight gradients and the attention products
-    (forward q.k^T and p.V; backward dv, dp, dq, dk and the recomputed s) on
-    the tensor cores, as 3xTF32 MMAs (three TF32 products each) when the
-    products are float32."""
+    first FF products, the dgrad of the four products, the four weight
+    gradients and the attention products (forward q.k^T and p.V; backward
+    dv, dp, dq, dk and the recomputed s), all on the tensor cores as 3xTF32
+    MMAs (three TF32 products each)."""
     P, A = block_flops(tokens, N, D, F)
-    tc = 3 / PEAK_TF32 if peak_products == PEAK_F32 else 1 / peak_products
-    fwd_ops = L * (P / peak_products + 3 * A / PEAK_TF32)
-    bwd_ops = L * ((P + 2 * tokens * D * (3 * D + F)) / peak_products + P * tc + 2.5 * A * tc)
+    tc = 3 / PEAK_TF32
+    fwd_ops = L * (P + A) * tc
+    bwd_ops = L * ((P + 2 * tokens * D * (3 * D + F)) * tc + P * tc + 2.5 * A * tc)
     x = tokens * D * act_bytes
     fwd = max((2 * x + saved * L * x + weight_bytes) / HBM_BYTES_PER_S, fwd_ops) * 1e3
     bwd = max((saved * L * x + 2 * x + 2 * weight_bytes) / HBM_BYTES_PER_S, bwd_ops) * 1e3
@@ -538,6 +563,42 @@ def _nvcc_version():
     return out.stdout.strip().splitlines()[-1]
 
 
+def ptxas_report():
+    """Compile each csrc/*.cu with the library's flags and -Xptxas -v and
+    print one line per kernel: registers, spills, shared memory."""
+    import re
+
+    from posediffusion_tpu_torch.ops.kernels import _CSRC, _NVCC_FLAGS, _nvcc
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cmds = [[_nvcc(), *_NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+                 os.path.join(tmp, src.stem + ".o"), str(src)]
+                for src in sorted(_CSRC.glob("*.cu"))]
+        procs = [subprocess.Popen(c, stderr=subprocess.PIPE, text=True) for c in cmds]
+        outs = [(c[-1], p.communicate()[1], p.returncode) for c, p in zip(cmds, procs)]
+    filt = os.path.join(os.path.dirname(_nvcc()), "cu++filt")
+
+    def demangle(sym):
+        if not os.path.exists(filt):
+            return sym
+        return subprocess.run([filt, sym], capture_output=True, text=True).stdout.strip() or sym
+
+    for src, err, rc in outs:
+        if rc:
+            raise SystemExit(f"nvcc failed on {src}:\n{err}")
+        name = None
+        for line in err.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                name = demangle(m.group(1))
+                name = name[:name.rfind("(")] if name.endswith(")") else name  # no parameters
+            elif name and "Used" in line:
+                print(f"  {os.path.basename(src)} {name}: {line.split('info    :')[-1].strip()}")
+            elif name and "spill" in line:
+                print(f"  {os.path.basename(src)} {name}: {line.strip()}")
+    return 0
+
+
 def _time_ms(torch, fn, reps=N_TIMED, inner=1, warmup=2):
     """Median over ``reps`` of the CUDA-event time of ``inner`` calls, per call."""
     for _ in range(warmup):
@@ -572,6 +633,21 @@ def _kernel_device_ms(torch, fn, kernel="attention_kernel", calls=20):
     us = sum(e.self_device_time_total for e in prof.key_averages()
              if e.device_type == DeviceType.CUDA and (kernel is None or kernel in e.key))
     return us / 1e3 / calls
+
+
+def _kernel_split_ms(torch, fn, calls=20):
+    """{kernel or copy name: device ms per call of ``fn``} from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.split("(")[0][:60]: e.self_device_time_total / 1e3 / calls
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
 def rows_products(lw, x, attn, hff):
@@ -695,6 +771,50 @@ def timed_calls(root):
     del qkv, dout
     torch.cuda.empty_cache()
 
+    # the f32 products of linear at the train and match paths' largest cases,
+    # beside one torch.addmm / torch.matmul where one computes the same
+    import torch.nn.functional as F
+
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)  # noqa: E731
+    Mv, Md = VIT_IMAGES * Nv, VIT_IMAGES * 348
+    hm, res2 = rnd(Md, 4 * Dv), rnd(Md, Dv)
+    w2, b2, gain = rnd(4 * Dv, Dv) / (4 * Dv) ** 0.5, rnd(Dv), 1 + 0.1 * rnd(Dv)
+    t[f"linear f32 DINOv2 fc2 + gain + residual ({Md}x{4 * Dv} @ {4 * Dv}x{Dv})"] = _time_ms(
+        torch, lambda: K.linear(hm, w2, b2, residual=res2, gain=gain), reps=5)
+    del hm, res2
+    cat, w1, b1 = rnd(65536, 512), rnd(512, 512) / 512**0.5, rnd(512)
+    t["linear f32 SuperGlue w1 + ReLU (65536x512 @ 512x512)"] = _time_ms(
+        torch, lambda: K.linear(cat, w1, b1, act="relu"), reps=5)
+    hs, ws, bs = rnd(65536, 256), rnd(256, 768) / 16, rnd(768)
+    t["linear f32 SuperGlue qkv (65536x256 @ 256x768)"] = _time_ms(
+        torch, lambda: K.linear(hs, ws, bs), reps=5)
+    t["torch.addmm SuperGlue qkv"] = _time_ms(torch, lambda: torch.addmm(bs, hs, ws), reps=5)
+    del cat, hs
+    h, wq, bq = rnd(Mv, Dv), rnd(Dv, 3 * Dv) / Dv**0.5, rnd(3 * Dv)
+    t[f"linear f32 ViT qkv ({Mv}x{Dv} @ {Dv}x{3 * Dv})"] = _time_ms(
+        torch, lambda: K.linear(h, wq, bq), reps=5)
+    t["torch.addmm ViT qkv"] = _time_ms(torch, lambda: torch.addmm(bq, h, wq), reps=5)
+    dy, w1t = rnd(Mv, 4 * Dv), rnd(Dv, 4 * Dv) / Dv**0.5
+    t[f"linear f32 dgrad fc1 ({Mv}x{4 * Dv} @ ({Dv}x{4 * Dv})^T)"] = _time_ms(
+        torch, lambda: K.linear(dy, w1t, None, trans_w=True), reps=5)
+    t["torch.matmul dgrad fc1"] = _time_ms(torch, lambda: torch.matmul(dy, w1t.t()), reps=5)
+    del h, dy
+    # layernorm_bwd at ViT-S's and ViT-B's widths, beside F.layer_norm's
+    # backward (which reads no residual), and its device time by kernel
+    split = {}
+    for D in (Dv, 2 * Dv):
+        x, dh, res = rnd(Mv, D), rnd(Mv, D), rnd(Mv, D)
+        g = 1 + 0.1 * rnd(D)
+        call = lambda: K.layernorm_bwd(x, g, dh, 1e-6, residual=res)  # noqa: E731
+        t[f"layernorm_bwd ({Mv}x{D}, + residual)"] = _time_ms(torch, call, reps=5)
+        xs, gs = x.clone().requires_grad_(True), g.clone().requires_grad_(True)
+        y = F.layer_norm(xs, (D,), gs, torch.zeros(D, device=dev), 1e-6)
+        t[f"F.layer_norm backward ({Mv}x{D})"] = _time_ms(
+            torch, lambda: torch.autograd.grad(y, [xs, gs], dh, retain_graph=True), reps=5)
+        split[f"layernorm_bwd ({Mv}x{D}, + residual)"] = _kernel_split_ms(torch, call)
+        del x, dh, res, xs, gs, y
+    torch.cuda.empty_cache()
+
     # one DINO train step at the reference train config (512 images)
     cfg_path = os.path.join(REPO, "cfgs", "default_train.yaml")
     cfg = _train_cfg(work, "train", cfg=cfg_path)
@@ -709,6 +829,21 @@ def timed_calls(root):
         torch, lambda: train_step(tm, opt, batch, tr.batch_repeat, draws=draws), reps=3, warmup=1)
     del tm, opt, batch
     torch.cuda.empty_cache()
+    # the same with DINOv2 ViT-S/14 and DINO ViT-B/16
+    for bb, override, reps in (("DINOv2", DINOV2, 3), ("ViT-B", VITB, 2)):
+        cfg_b = _train_cfg(work, f"train_{bb}", override, cfg=cfg_path)
+        tm = PoseDiffusionModel(model_config_from_cfg(load_config(cfg_path, [override]).MODEL))
+        init_random_weights(tm, SEED)
+        tm.to(dev)
+        batch, draws, _ = _train_batch(cfg_b, dev, tm.config.timesteps)
+        tr = cfg_b.train
+        opt, _ = make_optimizer(tm, lr=tr.lr, T_0=tr.restart_num,
+                                iters_per_epoch=tr.len_train, clip_grad=tr.clip_grad)
+        t[f"{bb} train step (512 images, batch_repeat 90)"] = _time_ms(
+            torch, lambda: train_step(tm, opt, batch, tr.batch_repeat, draws=draws), reps=reps,
+            warmup=1)
+        del tm, opt, batch
+        torch.cuda.empty_cache()
 
     # the matcher: 190 pairs of the 20 frames at 1,024 keypoints
     sp_net, sg_net = X.load_matcher_weights(write_matcher_weights(
@@ -732,7 +867,23 @@ def timed_calls(root):
 
         t[f"matcher (fused_match_pairs, {len(pairs)} pairs, K {x_all.shape[1]})"] = _time_ms(
             torch, matcher, reps=3, warmup=1)
-    print(json.dumps({"timed_calls": t, "root": root}))
+        # the demo's default: GGS with matches extracted from the images
+        _, info = load_and_preprocess_images(apple, IMAGE_SIZE)
+
+        def ggs_with_extraction():
+            kp1, kp2, i12 = X.extract_match(
+                image_paths=info["paths"], image_info=info, weights=(sp_net, sg_net),
+                max_keypoints=MATCH_KEYPOINTS, match_threshold=0.0,
+                ransac_threshold_px=RANSAC_ACCEPT_ALL, device=dev)
+            cond = G.build_cond_fn(kp1, kp2, i12, n, hw, G.GGSConfig(), dev)
+            return model.sample(imgs, x0=x0, noises=noises, cond_fn=cond, cond_start_step=10)
+
+        model = PoseDiffusionModel(PoseDiffusionConfig())
+        init_random_weights(model, SEED)
+        model.to(dev)
+        t["GGS inference with extraction (images -> matches -> cameras)"] = _time_ms(
+            torch, ggs_with_extraction, reps=3, warmup=1)
+    print(json.dumps({"timed_calls": t, "device_split": split, "root": root}))
     return 0
 
 
@@ -744,6 +895,7 @@ def parent_phase(report, parent_dir, smi):
           f"commit), in child processes, order new, parent, parent, new; card: {smi}",
           flush=True)
     runs = {"new": [], "parent": []}
+    splits = {"new": [], "parent": []}
     for who in ("new", "parent", "parent", "new"):
         root = REPO if who == "new" else os.path.abspath(parent_dir)
         t0 = time.perf_counter()
@@ -754,7 +906,9 @@ def parent_phase(report, parent_dir, smi):
             report.failures.append(f"--parent: the {who} run exited {out.returncode}")
             print(out.stdout[-2000:])
             return None
-        runs[who].append(json.loads(out.stdout.strip().splitlines()[-1])["timed_calls"])
+        last = json.loads(out.stdout.strip().splitlines()[-1])
+        runs[who].append(last["timed_calls"])
+        splits[who].append(last.get("device_split", {}))
         print(f"  {who} run in {time.perf_counter() - t0:.0f} s", flush=True)
     result = {}
     for name in runs["new"][0]:
@@ -765,6 +919,10 @@ def parent_phase(report, parent_dir, smi):
         print(f"  {name}: {statistics.mean(new):.4f} ms, parent {statistics.mean(old):.4f} ms "
               f"({100 * (statistics.mean(new) / statistics.mean(old) - 1):+.2f}%); "
               f"runs {new[0]:.4f}, {old[0]:.4f}, {old[1]:.4f}, {new[1]:.4f}", flush=True)
+    for who in ("new", "parent"):
+        for call, ms in splits[who][0].items():
+            print(f"  device time of {call}, {who}: {ms}")
+    result["device_split"] = {who: splits[who][0] for who in ("new", "parent")}
     return result
 
 
@@ -1034,6 +1192,9 @@ def train_slice(report, dev, work, smi, t_start):
     errs["layernorm_bwd"] = max(_close_rel(report, f"layernorm_bwd {part} vit ({M}x{Dv})",
                                            a, b, TOL_F32)
                                 for part, a, b in zip(("dx", "dg", "db"), out_k, out_p))
+    report.require(f"layernorm_bwd vit ({M}x{Dv}) dx, dg and db repeat bitwise", all(
+        torch.equal(a, b) for a, b in zip(out_k, K.layernorm_bwd(x_ln, g_ln, dh_ln, 1e-6,
+                                                                  residual=res_ln))))
     b_ln = torch.zeros(Dv, device=dev)
     cases["layernorm_bwd"] = (
         f"layernorm_bwd vit ({M}x{Dv}, + residual)",
@@ -1049,9 +1210,14 @@ def train_slice(report, dev, work, smi, t_start):
     for mode in (False, True):
         tag = "bf16" if mode else "f32"
         w = w_fc.to(torch.bfloat16) if mode else w_fc
-        _close_rel(report, f"linear dgrad fc1 {tag} ({M}x{Df} @ ({Dv}x{Df})^T)",
-                   K.linear(dy_fc, w, None, trans_w=True, round_a=mode),
-                   K.linear_plain(dy_fc, w, None, trans_w=True, round_a=mode), TOL_F32)
+        dgrad = K.linear(dy_fc, w, None, trans_w=True, round_a=mode)
+        err = _close_rel(report, f"linear dgrad fc1 {tag} ({M}x{Df} @ ({Dv}x{Df})^T)", dgrad,
+                         K.linear_plain(dy_fc, w, None, trans_w=True, round_a=mode), TOL_F32)
+        if not mode:
+            errs["linear dgrad"] = err
+            report.require("linear dgrad fc1 f32 repeats bitwise",
+                           torch.equal(dgrad, K.linear(dy_fc, w, None, trans_w=True)))
+        del dgrad
         dw_k, db_k = K.linear_wgrad(x_fc, dy_fc, mode)
         dw_p, db_p = K.linear_wgrad_plain(x_fc, dy_fc, mode)
         errs[("linear_wgrad", mode)] = max(
@@ -1060,6 +1226,24 @@ def train_slice(report, dev, work, smi, t_start):
             _close_rel(report, f"linear_wgrad fc1 db {tag}", db_k, db_p, TOL_F32))
         report.require(f"linear_wgrad fc1 {tag} repeats bitwise",
                        torch.equal(dw_k, K.linear_wgrad(x_fc, dy_fc, mode)[0]))
+    cases["linear dgrad"] = (
+        f"linear f32 dgrad fc1 ({M}x{Df} @ ({Dv}x{Df})^T)",
+        lambda: K.linear(dy_fc, w_fc, None, trans_w=True),
+        lambda: K.linear_plain(dy_fc, w_fc, None, trans_w=True),
+        lambda: _time_ms(torch, lambda: torch.matmul(dy_fc, w_fc.t()), reps=5),
+        linear_bound(dy_fc, w_fc, trans_w=True))
+    # the ViT's qkv product, f32, beside one torch.addmm
+    w_q, b_q = rnd(Dv, 3 * Dv) / Dv**0.5, rnd(3 * Dv)
+    qkv_k = K.linear(x_fc, w_q, b_q)
+    errs["linear qkv"] = _close_rel(report, f"linear qkv f32 ({M}x{Dv} @ {Dv}x{3 * Dv})",
+                                    qkv_k, K.linear_plain(x_fc, w_q, b_q), TOL_F32)
+    report.require("linear qkv f32 repeats bitwise", torch.equal(qkv_k, K.linear(x_fc, w_q, b_q)))
+    del qkv_k
+    cases["linear qkv"] = (
+        f"linear f32 vit qkv ({M}x{Dv} @ {Dv}x{3 * Dv}, + bias)",
+        lambda: K.linear(x_fc, w_q, b_q), lambda: K.linear_plain(x_fc, w_q, b_q),
+        lambda: _time_ms(torch, lambda: torch.addmm(b_q, x_fc, w_q), reps=5),
+        linear_bound(x_fc, w_q, b_q))
     cases["linear_wgrad"] = (
         f"linear_wgrad fc1 f32 ({M}x{Dv})^T ({M}x{Df})",
         lambda: K.linear_wgrad(x_fc, dy_fc), lambda: K.linear_wgrad_plain(x_fc, dy_fc),
@@ -1200,6 +1384,7 @@ def train_slice(report, dev, work, smi, t_start):
     torch.cuda.synchronize()
     launches = K.launch_counts()
     wgrad_by_shape = dict(K.linear_wgrad.by_shape)
+    linear_by_shape = dict(K.linear.by_shape)
     _check_launches(report, "train", TRAIN_PATH, launches)
     print(f"  {result['steps']} steps, losses {[round(x, 5) for x in result['losses']]}, "
           f"step seconds (host clock) {[round(x, 3) for x in result['step_seconds']]}, "
@@ -1270,18 +1455,25 @@ def train_slice(report, dev, work, smi, t_start):
         lambda: _time_ms(torch, lambda: torch.matmul(x_fc.t(), dy_q), reps=5),
         wgrad_bound(x_fc, dy_q))
     kernels_json = []
-    for key in TRAIN_KERNELS + ("linear_wgrad qkv",):
+    # launches on the train path: the kernel's, or at the entry's shape
+    shape_launches = {
+        "linear_wgrad qkv": wgrad_by_shape.get((M, Dv, 3 * Dv), 0),
+        "linear dgrad": linear_by_shape.get((M, Df, Dv, True), 0),
+        "linear qkv": linear_by_shape.get((M, Dv, 3 * Dv, False), 0),
+    }
+    for key in TRAIN_KERNELS + ("linear_wgrad qkv", "linear dgrad", "linear qkv"):
         name, kern, plain, library, (bound_ms, bound_by) = cases[key]
         kernel = key.split()[0]
         ms = _time_ms(torch, kern, reps=5)
         plain_ms = _time_ms(torch, plain, reps=5)
         library_ms = library()
         err = max(v for k, v in errs.items() if (k if isinstance(k, str) else k[0]) == key)
-        n = launches[kernel] if key == kernel else wgrad_by_shape.get((M, Dv, 3 * Dv), 0)
+        n = launches[kernel] if key == kernel else shape_launches[key]
         print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
               f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), {n} launches")
         kernels_json.append({
-            "name": key, "route": "cuda", "source": SOURCES[kernel],
+            "name": key if kernel != "linear" else key.replace("linear", "linear f32", 1),
+            "route": "cuda", "source": SOURCES[kernel],
             "replaces": TPU_KERNELS[kernel], "launches": n, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms,
@@ -1289,9 +1481,15 @@ def train_slice(report, dev, work, smi, t_start):
         })
     # device time by the profiler: attention_bwd's two kernels, and the
     # weight gradient's kernel beside cuBLAS's on the same operands
-    for e in kernels_json:
-        kern = cases[e["name"]][1]
-        if e["name"] == "attention_bwd":
+    for e, key in zip(kernels_json, TRAIN_KERNELS + ("linear_wgrad qkv", "linear dgrad",
+                                                      "linear qkv")):
+        kern = cases[key][1]
+        if key.startswith("linear "):  # the tensor-core tile beside cuBLAS's one call
+            library = ((lambda: torch.matmul(dy_fc, w_fc.t())) if key == "linear dgrad"
+                       else (lambda: torch.addmm(b_q, x_fc, w_q)))
+            e["device_ms"] = _kernel_device_ms(torch, kern, "linear_tf32_kernel")
+            e["library_device_ms"] = _kernel_device_ms(torch, library, None)
+        elif e["name"] == "attention_bwd":
             e["device_ms"] = {k: _kernel_device_ms(torch, kern, k)
                               for k in ("attn_bwd_dq_kernel", "attn_bwd_dkv_kernel")}
         elif e["name"].startswith("linear_wgrad"):
@@ -1313,7 +1511,7 @@ def backbones_slice(report, dev, work, smi, t_start, dino_step_launches):
     train_torch.py with DINOv2 at the reference train config, the timings;
     then ViT-B: fused_vit_trunk at D 768, layernorm_bwd at 135,168 x 768 and
     one train step at 512 images. Returns (kernel JSON entries, timings,
-    TPU-kernel rows)."""
+    TPU-kernel rows, the launches of one DINOv2 and one ViT-B train step)."""
     import torch
     import torch.nn.functional as F
 
@@ -1358,12 +1556,12 @@ def backbones_slice(report, dev, work, smi, t_start, dino_step_launches):
         name = f"linear fc2 + gain + residual {tag} ({M}x{Fv} @ {Fv}x{Dv})"
         err = max(_close_rel(report, name, y, yp, TOL_BF16 if mode else TOL_F32),
                   _close_rel(report, f"{name}: pre-gain output", pre, prep, TOL_F32))
+        report.require(f"{name} repeats bitwise", torch.equal(y, K.linear(hm, w, b2, **kw)[0]))
         kw.pop("want_pre")
         cases[f"linear+gain {tag}"] = (
             name, lambda w=w, kw=kw: K.linear(hm, w, b2, **kw),
             lambda w=w, kw=kw: K.linear_plain(hm, w, b2, **kw),
-            bound(nbytes(hm, w, b2, gain, res) + M * Dv * 4, 2 * M * Fv * Dv,
-                  PEAK_BF16 if mode else PEAK_F32), err)
+            linear_bound(hm, w, b2, res, gain, mode), err)
         del y, pre, yp, prep
     dy_ls, o_ls = rnd(M, Dv), rnd(M, Dv)
     d_m2 = K.drop_args(SEED, 0, "m2", 0.1)
@@ -1458,6 +1656,7 @@ def backbones_slice(report, dev, work, smi, t_start, dino_step_launches):
     result = train_torch.run(cfg)
     torch.cuda.synchronize()
     launches = K.launch_counts()
+    linear_shapes = dict(K.linear.by_shape)
     _check_launches(report, "DINOv2 train", DINOV2_TRAIN_PATH, launches)
     print(f"  {result['steps']} steps, losses {[round(x, 5) for x in result['losses']]}, "
           f"step seconds (host clock) {[round(x, 3) for x in result['step_seconds']]}, "
@@ -1524,6 +1723,15 @@ def backbones_slice(report, dev, work, smi, t_start, dino_step_launches):
         timings[f"{name} plain"] = _time_ms(torch, plain, reps=5)
         print(f"  {name}: kernel {timings[name]:.4f} ms, plain {timings[name + ' plain']:.4f} "
               f"ms, bound {b_ms:.4f} ms ({b_by})")
+    name, kern, plain, (b_ms, b_by), err = cases["linear+gain f32"]
+    fc2_json = {
+        "name": "linear f32 dinov2 fc2", "route": "cuda", "source": SOURCES["linear"],
+        "replaces": TPU_KERNELS["linear"], "launches": linear_shapes.get((M, Fv, Dv, False), 0),
+        "max_abs_err": err, "ms": timings[name], "plain_ms": timings[f"{name} plain"],
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "device_ms": _kernel_device_ms(torch, kern, "linear_tf32_kernel"),
+        "case": f"{name} (launches: DINOv2 train path, this shape)",
+    }
     del cases, hm
     ls_ms = _time_ms(torch, lambda: K.layerscale_bwd(dy_ls, o_ls, gain, d_m2), reps=10)
     ls_plain_ms = _time_ms(torch, lambda: K.layerscale_bwd_plain(dy_ls, o_ls, gain, d_m2),
@@ -1533,7 +1741,7 @@ def backbones_slice(report, dev, work, smi, t_start, dino_step_launches):
     timings[ls_case] = ls_ms
     timings[f"{ls_case} plain"] = ls_plain_ms
     del dy_ls, o_ls, res
-    kernels_json = [{
+    kernels_json = [fc2_json, {
         "name": "attention_bwd dinov2", "route": "cuda", "source": SOURCES["attention_bwd"],
         "replaces": TPU_KERNELS["attention_bwd"], "launches": launches["attention_bwd"],
         "max_abs_err": abwd_err, "bound_ms": ab_bound[0], "bound_by": ab_bound[1], **abwd,
@@ -1549,7 +1757,7 @@ def backbones_slice(report, dev, work, smi, t_start, dino_step_launches):
           f"{ls_bound[0]:.4f} ms ({ls_bound[1]})")
     L_v = 12
     w_vit = L_v * (4 * Dv * Dv + 2 * Dv * Fv)
-    tb = trunk_bounds(M, Nv, Dv, Fv, L_v, 4, 4 * w_vit, PEAK_F32, saved=4)
+    tb = trunk_bounds(M, Nv, Dv, Fv, L_v, 4, 4 * w_vit, saved=4)
     tt = timings
     rows = [
         (9, f"_fwd_call DINOv2 {VIT_IMAGES}x{Nv}, f32, LayerScale", tt["DINOv2 vit trunk fwd"],
@@ -1589,17 +1797,32 @@ def backbones_slice(report, dev, work, smi, t_start, dino_step_launches):
     g_ln = 1 + 0.1 * rnd(Db)
     out_k = K.layernorm_bwd(x_ln, g_ln, dh_ln, 1e-6, residual=res_ln)
     out_p = K.layernorm_bwd_plain(x_ln, g_ln, dh_ln, 1e-6, residual=res_ln)
-    for part, a, b in zip(("dx", "dg", "db"), out_k, out_p):
-        _close_rel(report, f"layernorm_bwd {part} ViT-B ({Mb}x{Db})", a, b, TOL_F32)
+    lnb_err = max(_close_rel(report, f"layernorm_bwd {part} ViT-B ({Mb}x{Db})", a, b, TOL_F32)
+                  for part, a, b in zip(("dx", "dg", "db"), out_k, out_p))
+    again = K.layernorm_bwd(x_ln, g_ln, dh_ln, 1e-6, residual=res_ln)
+    report.require(f"layernorm_bwd ViT-B ({Mb}x{Db}) dx, dg and db repeat bitwise",
+                   all(torch.equal(a, b) for a, b in zip(out_k, again)))
     lnb = f"layernorm_bwd ViT-B ({Mb}x{Db}, + residual)"
-    timings[lnb] = _time_ms(torch, lambda: K.layernorm_bwd(x_ln, g_ln, dh_ln, 1e-6,
-                                                           residual=res_ln), reps=5)
+    lnb_call = lambda: K.layernorm_bwd(x_ln, g_ln, dh_ln, 1e-6, residual=res_ln)  # noqa: E731
+    timings[lnb] = _time_ms(torch, lnb_call, reps=5)
     timings[f"{lnb} plain"] = _time_ms(torch, lambda: K.layernorm_bwd_plain(
         x_ln, g_ln, dh_ln, 1e-6, residual=res_ln), reps=5)
+    b0 = torch.zeros(Db, device=dev)
+    timings[f"{lnb} F.layer_norm backward"] = _library_grad_ms(
+        torch, lambda x, g: F.layer_norm(x, (Db,), g, b0, 1e-6), [x_ln, g_ln], dh_ln)
     lnb_bound = bound(nbytes(x_ln, dh_ln, res_ln, g_ln) + nbytes(x_ln) + 2 * Db * 4, 12 * Mb * Db)
+    lnb_json = {
+        "name": "layernorm_bwd vitb", "route": "cuda", "source": SOURCES["layernorm_bwd"],
+        "replaces": TPU_KERNELS["layernorm_bwd"], "max_abs_err": lnb_err, "ms": timings[lnb],
+        "plain_ms": timings[f"{lnb} plain"], "bound_ms": lnb_bound[0],
+        "bound_by": lnb_bound[1], "library_ms": timings[f"{lnb} F.layer_norm backward"],
+        "device_ms": _kernel_device_ms(torch, lnb_call, None),
+        "case": f"{lnb} (launches: one ViT-B train step)",
+    }
     print(f"  {lnb}: kernel {timings[lnb]:.4f} ms, plain {timings[lnb + ' plain']:.4f} ms, "
-          f"bound {lnb_bound[0]:.4f} ms ({lnb_bound[1]})")
-    del out_k, out_p, x_ln, dh_ln, res_ln
+          f"F.layer_norm backward {lnb_json['library_ms']:.4f} ms, bound "
+          f"{lnb_bound[0]:.4f} ms ({lnb_bound[1]})")
+    del out_k, out_p, again, x_ln, dh_ln, res_ln
     torch.cuda.empty_cache()
     cfg_vb = _train_cfg(work, "train_vitb", VITB)
     batch, draws, _ = _train_batch(cfg_vb, dev, cfg_b.timesteps)
@@ -1607,10 +1830,15 @@ def backbones_slice(report, dev, work, smi, t_start, dino_step_launches):
     opt, _ = make_optimizer(vitb_model, lr=tb_.lr, T_0=tb_.restart_num,
                             iters_per_epoch=tb_.len_train, clip_grad=tb_.clip_grad)
     torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
     t0 = time.perf_counter()
     m = train_step(vitb_model, opt, batch, tb_.batch_repeat, draws=draws)
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
+    vitb_step = K.launch_counts()
+    lnb_json["launches"] = vitb_step["layernorm_bwd"]
+    kernels_json.append(lnb_json)
+    print(f"  launches of one ViT-B train step: {vitb_step}")
     timings["ViT-B peak memory of a train step (GB)"] = torch.cuda.max_memory_allocated() / 1e9
     report.require("ViT-B train step loss finite", np.isfinite(m["loss"]), f"({m['loss']:.5f})")
     timings["ViT-B train step kernel route (512 images, batch_repeat 90)"] = _time_ms(
@@ -1629,7 +1857,7 @@ def backbones_slice(report, dev, work, smi, t_start, dino_step_launches):
     for name, v in timings.items():
         print(f"  {name}: {v:.3f}{'' if '(GB)' in name else ' ms'}")
     print(f"  [vitb] done at {time.perf_counter() - t_start:.0f} s", flush=True)
-    return kernels_json, timings, rows
+    return kernels_json, timings, rows, {"DINOv2": step, "ViT-B": vitb_step}
 
 
 def attention_slice(report, dev, smi):
@@ -2068,7 +2296,11 @@ def main(argv) -> int:
     sg_tag = f"{Cp} pairs, K {Kp}"
     h_sg = x_sg.reshape(-1, Dp)
     qkv_sg = case(f"linear superglue qkv ({h_sg.shape[0]}x{Dp} @ {Dp}x{3 * Dp})", K.linear,
-                  K.linear_plain, (h_sg, sg_st["wqkv"][0], sg_st["bqkv"][0]), {}, False)
+                  K.linear_plain, (h_sg, sg_st["wqkv"][0], sg_st["bqkv"][0]), {}, False,
+                  "linear_sg_qkv")
+    report.require("linear superglue qkv f32 repeats bitwise", torch.equal(
+        K.linear(h_sg, sg_st["wqkv"][0], sg_st["bqkv"][0]),
+        K.linear(h_sg, sg_st["wqkv"][0], sg_st["bqkv"][0])))
     cat_sg = torch.cat([h_sg, qkv_sg[:, :Dp]], 1)
     case(f"linear superglue w1+relu ({h_sg.shape[0]}x{2 * Dp} @ {2 * Dp}x{2 * Dp})",
          K.linear, K.linear_plain, (cat_sg, sg_st["w1"][0], sg_st["b1"][0]), dict(act="relu"),
@@ -2187,13 +2419,15 @@ def main(argv) -> int:
                        f"({out['ggs_matches']} matches)")
     torch.cuda.synchronize()
     match_launches = K.launch_counts()
+    match_linear_shapes = dict(K.linear.by_shape)
     _check_launches(report, "match", MATCH_PATH, match_launches)
     print(f"  [match] done at {time.perf_counter() - t_start:.0f} s", flush=True)
 
     # ---- 5. the training slice: parity of its kernels, train_torch.py, timings
     train_json, train_timings, dino_step = train_slice(report, dev, work, smi, t_start)
     # ---- 5b. DINOv2 (LayerScale) serving and training, and ViT-B
-    bb_json, bb_timings, bb_rows = backbones_slice(report, dev, work, smi, t_start, dino_step)
+    bb_json, bb_timings, bb_rows, bb_steps = backbones_slice(report, dev, work, smi, t_start,
+                                                             dino_step)
 
     # ---- 6. timing (default mode, CUDA events after warm-up)
     print(f"[timing] medians of {N_TIMED}, card: {smi}")
@@ -2351,10 +2585,13 @@ def main(argv) -> int:
                            _time_ms(torch, lambda: plain(*args), reps=5))
             timings[f"{name} ({sg_tag})"] = sg_ms[name][0]
             timings[f"{name} plain ({sg_tag})"] = sg_ms[name][1]
-        for key in ("attention_sg", "linear_sg"):
+        for key in ("attention_sg", "linear_sg", "linear_sg_qkv"):
             name, kern, plain, args, kwargs, _ = cases[key]
             timings[name] = _time_ms(torch, lambda: kern(*args, **kwargs), reps=5)
             timings[f"{name} plain"] = _time_ms(torch, lambda: plain(*args, **kwargs), reps=5)
+        h_q, w_q, b_q = cases["linear_sg_qkv"][3]
+        timings["linear superglue qkv torch.addmm"] = _time_ms(
+            torch, lambda: torch.addmm(b_q, h_q, w_q), reps=5)
     for name, ms in timings.items():
         print(f"  {name}: {ms:.3f} ms")
 
@@ -2365,11 +2602,8 @@ def main(argv) -> int:
             x = args[0]
             return bound(2 * nbytes(x) + 2 * x.shape[1] * 4, 8 * x.numel())
         if key == "linear":
-            a, w, b = args[:3]
-            (Mm, Kk), Nn = a.shape, w.shape[1]
-            tc = w.dtype == torch.bfloat16 and kwargs.get("round_a")
-            return bound(nbytes(a, w, b) + Mm * Nn * 4, 2 * Mm * Nn * Kk,
-                         PEAK_BF16 if tc else PEAK_F32)
+            return linear_bound(*args[:3], kwargs.get("residual"), kwargs.get("gain"),
+                                kwargs.get("round_a", False), kwargs.get("trans_w", False))
         if key == "attention":
             return attention_bound(args[0], kwargs.get("attn_bias"), kwargs.get("key_bias"),
                                    kwargs.get("round_in", False))
@@ -2434,6 +2668,32 @@ def main(argv) -> int:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "case": f"one matcher chunk, {sg_tag} (launches: match path)",
         })
+    # the match path's f32 products on the tensor-core tile: SuperGlue's w1 +
+    # ReLU and its qkv, beside one torch.addmm (launches: the match path, at
+    # every row count of that (K, N))
+    with torch.no_grad():
+        for key, library in (("linear_sg", None),
+                             ("linear_sg_qkv", "linear superglue qkv torch.addmm")):
+            name, kern, plain, args, kwargs, err = cases[key]
+            a, w = args[:2]
+            call = lambda: kern(*args, **kwargs)  # noqa: E731
+            b_ms, b_by = linear_bound(*args[:3])
+            e = {
+                "name": "linear f32 superglue " + ("w1" if key == "linear_sg" else "qkv"),
+                "route": "cuda", "source": SOURCES["linear"], "replaces": TPU_KERNELS["linear"],
+                "launches": sum(v for (_, k_, n_, t_), v in match_linear_shapes.items()
+                                if (k_, n_, t_) == (a.shape[1], w.shape[1], False)),
+                "max_abs_err": err, "ms": timings[name], "plain_ms": timings[f"{name} plain"],
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": timings[library] if library else None,
+                "device_ms": _kernel_device_ms(torch, call, "linear_tf32_kernel"),
+                "case": f"{name} (launches: match path, this K and N)",
+            }
+            if library:
+                e["library_device_ms"] = _kernel_device_ms(
+                    torch, lambda: torch.addmm(args[2], a, w), None)
+            print(f"  {e['name']}: {e}")
+            kernels_json.append(e)
     d = MATCH_DENSITIES[0]
     gm = grouped[d]
     ggs_bound = bound(5 * nbytes(gm.valid) + 2 * nbytes(x_ggs),
@@ -2474,12 +2734,15 @@ def main(argv) -> int:
         sdpa_key_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=ksg[:, None, None, :]), reps=5)
     K_eff = x_all.shape[1]
-    per_pair = 18 * (2 * 2 * K_eff * 256 * (768 + 256) + 2 * 2 * K_eff * 512 * 768
-                     + 4 * 2 * K_eff * K_eff * 256) + 2 * 2 * K_eff * 256 * 256 \
-        + 2 * K_eff * K_eff * 256 + 50 * 2 * 3 * (K_eff + 1) ** 2
+    # per pair: the GNN's and the final products and its attention on the
+    # tensor cores as 3xTF32 MMAs; the coupling and Sinkhorn in float32
+    tc_ops = 18 * (2 * 2 * K_eff * 256 * (768 + 256) + 2 * 2 * K_eff * 512 * 768
+                   + 4 * 2 * K_eff * K_eff * 256) + 2 * 2 * K_eff * 256 * 256
+    f32_ops = 2 * K_eff * K_eff * 256 + 50 * 2 * 3 * (K_eff + 1) ** 2
+    per_pair_ms = (3 * tc_ops / PEAK_TF32 + f32_ops / PEAK_F32) * 1e3
     vit_tok, enc_tok = VIT_IMAGES * N, ENC_ROWS * 16
-    tb_vit = trunk_bounds(vit_tok, N, D_v, F_v, L_v, 4, 4 * w_vit, PEAK_F32)
-    tb_enc = trunk_bounds(enc_tok, 16, D_d, F_d, L_d, 4, 4 * w_den, PEAK_F32)
+    tb_vit = trunk_bounds(vit_tok, N, D_v, F_v, L_v, 4, 4 * w_vit)
+    tb_enc = trunk_bounds(enc_tok, 16, D_d, F_d, L_d, 4, 4 * w_den)
     tt = timings
     rows = [
         (1, "fused_vit_trunk 20x264, bf16", tt["vit trunk (fused_vit_trunk, bf16)"],
@@ -2500,8 +2763,7 @@ def main(argv) -> int:
          jk["ggs_phase_chunked"]["plain_ms"], jk["ggs_phase_chunked"]["bound_ms"], None),
         (8, f"fused_match_pairs {len(pairs)} pairs, K {K_eff}",
          tt[f"matcher (fused_match_pairs, {len(pairs)} pairs, K {K_eff})"],
-         tt["matcher plain (fused_match_pairs_plain)"], len(pairs) * per_pair / PEAK_F32 * 1e3,
-         None),
+         tt["matcher plain (fused_match_pairs_plain)"], len(pairs) * per_pair_ms, None),
         (9, f"_fwd_call vit {VIT_IMAGES}x{N}, f32", tt["vit trunk fwd"], tt["vit trunk fwd plain"],
          tb_vit[0], None),
         (9, f"_fwd_call encoder {ENC_ROWS}x16, dropout 0.1", tt["encoder trunk fwd"],
@@ -2514,6 +2776,11 @@ def main(argv) -> int:
          tt["encoder trunk fwd+bwd plain"] - tt["encoder trunk fwd plain"], tb_enc[1], None),
     ]
     rows = sorted(rows + bb_rows, key=lambda r: r[0])
+    # rows 9 and 10 by train step: the kernels one step launches, per backbone
+    train_steps = {"DINO": {k: v for k, v in dino_step.items() if v},
+                   **{b: {k: v for k, v in c.items() if v} for b, c in bb_steps.items()}}
+    for b, c in train_steps.items():
+        print(f"  launches of one {b} train step: {c}")
     for r in rows:
         print(f"  TPU kernel {r[0]}: {r[1]}: kernel {r[2]:.3f} ms, plain {r[3]:.3f} ms, "
               f"bound {r[4]:.4f} ms, library {r[5]}")
@@ -2555,7 +2822,8 @@ def main(argv) -> int:
     print(json.dumps({"attention_cases": attention_cases}))
     print(json.dumps({"timings_ms": timings, "card": smi,
                       "launches_per_sampler_step": per_step,
-                      "ggs_launches_per_inference": 50}))
+                      "ggs_launches_per_inference": 50,
+                      "launches_per_train_step": train_steps}))
     print(json.dumps({"kernels": kernels_json}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -2565,6 +2833,9 @@ def main(argv) -> int:
 
 
 if __name__ == "__main__":
+    if "--ptxas" in sys.argv:
+        sys.path.insert(0, REPO)
+        sys.exit(ptxas_report())
     if "--timed-calls" in sys.argv:
         sys.exit(timed_calls(sys.argv[sys.argv.index("--timed-calls") + 1]))
     sys.exit(main(sys.argv[1:]))

@@ -16,16 +16,24 @@
 // with no shared memory and no block barrier; eps and the bf16 rounding of
 // the output are arguments, so both trunks share the one kernel.
 // Backward: bound by memory too (x, dh and the residual cotangent read,
-// dx written). A warp owns a row again and recomputes mean and rstd from the
-// saved input, as _ln_bwd does from _ln_fwd; dg = sum(dh * xhat) and
-// db = sum(dh) over rows are kept per lane in registers across the block's
-// rows, merged across the block's warps in shared memory in a fixed order,
-// and written as one f32 partial per block; train.cu's pd_sum_partials adds
-// the partials in order. No atomics, so the result repeats bitwise. A lane
-// keeps COLS = ceil(D / 32) columns of its row in registers: the kernel is
-// instantiated for D <= 512 (ViT-S, the denoiser), <= 768 (ViT-B) and
-// <= 1024; the cross-warp merge reuses one (warps x COLS x 32) shared array
-// for dg, then db (32 KB at COLS 32, under the 48 KB of static shared memory).
+// dx written: 830 MB at the ViT's 135,168 x 384). A warp owns a row at a
+// time and recomputes mean and rstd from the saved input, as _ln_bwd does
+// from _ln_fwd. The grid is fixed (two blocks of 8 warps per SM of an H100,
+// LNB_BLOCKS) and each warp walks rows gridDim x 8 apart, so a call writes
+// at most 264 partials whatever the rows. A lane holds its columns of a row
+// in registers: float4 number c of lane l is columns 4 (l + 32 c) .. + 3
+// when D is 128 x NV for NV in 3, 4, 6, 8 (ViT-S, the denoiser, ViT-B, D
+// 1,024) and every pointer is 16-byte aligned; otherwise column l + 32 c,
+// c < 32, masked past D (any D <= 1,024). All of a row's loads (x, dh,
+// residual) are issued before its first reduction, and at D 384 (NV 3,
+// where the registers allow two blocks an SM) the next row's x and dh as
+// well. dg = sum(dh * xhat) and db = sum(dh) over
+// rows stay in registers across a warp's rows, are merged across the
+// block's warps in shared memory in warp order, and are written as one f32
+// partial per block, in the (blocks, 2, D) layout the summing pass reads;
+// ln_bwd_sum_kernel adds the partials in a fixed order (8 strided runs per
+// column, then the 8 runs in order). No atomics, so the result repeats
+// bitwise.
 #include "common.cuh"
 
 __global__ void __launch_bounds__(256)
@@ -68,118 +76,204 @@ PD_API int pd_layernorm(const void* x, const void* g, const void* b, void* y,
   return (int)cudaGetLastError();
 }
 
-constexpr int LNB_WARPS = 8;
-constexpr int LNB_ROWS_PER_WARP = 16;
+constexpr int LNB_WARPS = 8;             // warps of a block
+constexpr int LNB_BLOCKS = 2 * 132;      // most blocks (partials) of a call
 constexpr int LNB_MAX_D = 1024;
+constexpr int LNB_SUM_RUNS = 8;          // strided runs per column in the sum
 
-// dx = rstd (dxhat - mean(dxhat) - xhat mean(dxhat xhat)) + res, with
-// dxhat = dh g; per block: dg, db partials over its rows.
-template <int COLS>
-__global__ void __launch_bounds__(LNB_WARPS * 32)
+__host__ __device__ inline int lnb_blocks(int rows) {
+  const int b = (rows + LNB_WARPS - 1) / LNB_WARPS;
+  return b < 1 ? 1 : (b < LNB_BLOCKS ? b : LNB_BLOCKS);
+}
+
+// Element e of a lane's E = NV * VEC values of a row: column 4 (lane + 32
+// (e / 4)) + e % 4 with VEC 4, lane + 32 e with VEC 1.
+template <int VEC>
+__device__ __forceinline__ int lnb_col(int lane, int e) {
+  return VEC == 4 ? 4 * (lane + 32 * (e >> 2)) + (e & 3) : lane + 32 * e;
+}
+
+template <int NV, int VEC>
+__device__ __forceinline__ void lnb_load(const float* __restrict__ p, float (&v)[NV * VEC],
+                                         int lane, int D) {
+  if constexpr (VEC == 4) {
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      const float4 f = reinterpret_cast<const float4*>(p)[lane + 32 * c];
+      v[4 * c] = f.x;
+      v[4 * c + 1] = f.y;
+      v[4 * c + 2] = f.z;
+      v[4 * c + 3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < NV; ++e) {
+      const int d = lane + 32 * e;
+      v[e] = d < D ? p[d] : 0.f;
+    }
+  }
+}
+
+// dx = rstd (dxhat - mean(dxhat) - xhat mean(dxhat xhat)) [+ res], with
+// dxhat = dh g; per block: the dg and db partials over its rows.
+template <int NV, int VEC, bool PF>
+__global__ void __launch_bounds__(LNB_WARPS * 32, NV * VEC <= 16 ? 2 : 1)
 layernorm_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
                      const float* __restrict__ dh, const float* __restrict__ res,
-                     float* __restrict__ dx, float* __restrict__ pg,
-                     float* __restrict__ pb, int rows, int D, float eps,
-                     int round_out) {
-  __shared__ float red[LNB_WARPS][COLS * 32];
+                     float* __restrict__ dx, float* __restrict__ part, int rows, int D,
+                     float eps, int round_out) {
+  constexpr int E = NV * VEC;
+  __shared__ float red[LNB_WARPS][LNB_MAX_D];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int ncol = (D + 31) / 32;
-  float accg[COLS], accb[COLS];
+  const int stride = gridDim.x * LNB_WARPS;
+  const float inv_d = 1.f / (float)D;
+  float accg[E], accb[E], xn[E], dn[E];
 #pragma unroll
-  for (int c = 0; c < COLS; ++c) accg[c] = accb[c] = 0.f;
+  for (int e = 0; e < E; ++e) accg[e] = accb[e] = 0.f;
 
-  const int row0 = (blockIdx.x * LNB_WARPS + warp) * LNB_ROWS_PER_WARP;
-  for (int rr = 0; rr < LNB_ROWS_PER_WARP; ++rr) {
-    const int row = row0 + rr;
-    if (row >= rows) break;
-    const float* xr = x + (size_t)row * D;
-    const float* dr = dh + (size_t)row * D;
-    float xv[COLS], dv[COLS];
+  int row = blockIdx.x * LNB_WARPS + warp;
+  if (PF && row < rows) {
+    lnb_load<NV, VEC>(x + (size_t)row * D, xn, lane, D);
+    lnb_load<NV, VEC>(dh + (size_t)row * D, dn, lane, D);
+  }
+  for (; row < rows; row += stride) {
+    float xv[E], dv[E], rv[E];
+    if constexpr (PF) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        xv[e] = xn[e];
+        dv[e] = dn[e];
+      }
+      if (row + stride < rows) {  // the next row's loads, before this row's reductions
+        lnb_load<NV, VEC>(x + (size_t)(row + stride) * D, xn, lane, D);
+        lnb_load<NV, VEC>(dh + (size_t)(row + stride) * D, dn, lane, D);
+      }
+    } else {
+      lnb_load<NV, VEC>(x + (size_t)row * D, xv, lane, D);
+      lnb_load<NV, VEC>(dh + (size_t)row * D, dv, lane, D);
+    }
+    if (res) lnb_load<NV, VEC>(res + (size_t)row * D, rv, lane, D);
+
     float s = 0.f;
 #pragma unroll
-    for (int c = 0; c < COLS; ++c) {
-      const int d = lane + 32 * c;
-      xv[c] = (c < ncol && d < D) ? xr[d] : 0.f;
-      s += xv[c];
-    }
-    const float mean = warp_sum(s) / (float)D;
+    for (int e = 0; e < E; ++e) s += xv[e];  // zeros past D
+    const float mean = warp_sum(s) * inv_d;
     float v = 0.f;
 #pragma unroll
-    for (int c = 0; c < COLS; ++c) {
-      const int d = lane + 32 * c;
-      if (c < ncol && d < D) {
-        const float t = xv[c] - mean;
+    for (int e = 0; e < E; ++e) {
+      if (VEC == 4 || lnb_col<VEC>(lane, e) < D) {
+        const float t = xv[e] - mean;
         v = fmaf(t, t, v);
       }
     }
-    const float rstd = rsqrtf(warp_sum(v) / (float)D + eps);
+    const float rstd = rsqrtf(warp_sum(v) * inv_d + eps);
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
-    for (int c = 0; c < COLS; ++c) {
-      const int d = lane + 32 * c;
-      if (c < ncol && d < D) {
-        const float xh = (xv[c] - mean) * rstd;
-        const float dhv = dr[d];
-        accg[c] = fmaf(dhv, xh, accg[c]);
-        accb[c] += dhv;
-        dv[c] = dhv * g[d];
-        xv[c] = xh;
-        s1 += dv[c];
-        s2 = fmaf(dv[c], xh, s2);
-      }
+    for (int e = 0; e < E; ++e) {
+      const int d = lnb_col<VEC>(lane, e);
+      const float xh = (xv[e] - mean) * rstd;
+      const float gd = (VEC == 4 || d < D) ? g[d] : 0.f;
+      accg[e] = fmaf(dv[e], xh, accg[e]);
+      accb[e] += dv[e];
+      dv[e] *= gd;  // dxhat; zero past D
+      xv[e] = xh;
+      s1 += dv[e];
+      s2 = fmaf(dv[e], xh, s2);
     }
-    const float m1 = warp_sum(s1) / (float)D, m2 = warp_sum(s2) / (float)D;
+    const float m1 = warp_sum(s1) * inv_d, m2 = warp_sum(s2) * inv_d;
+    float o[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      o[e] = rstd * (dv[e] - m1 - xv[e] * m2);
+      if (res) o[e] += rv[e];
+      if (round_out) o[e] = round_bf16(o[e]);
+    }
     float* out = dx + (size_t)row * D;
+    if constexpr (VEC == 4) {
 #pragma unroll
-    for (int c = 0; c < COLS; ++c) {
-      const int d = lane + 32 * c;
-      if (c < ncol && d < D) {
-        float o = rstd * (dv[c] - m1 - xv[c] * m2);
-        if (res) o += res[(size_t)row * D + d];
-        out[d] = round_out ? round_bf16(o) : o;
+      for (int c = 0; c < NV; ++c)
+        reinterpret_cast<float4*>(out)[lane + 32 * c] =
+            make_float4(o[4 * c], o[4 * c + 1], o[4 * c + 2], o[4 * c + 3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const int d = lnb_col<VEC>(lane, e);
+        if (d < D) out[d] = o[e];
       }
     }
   }
-  // dg, then db: the warps' partials of column d (lane d % 32, register
-  // d / 32) added in warp order
+  // dg, then db: the warps' partials of column d added in warp order
+  float* pg = part + (size_t)blockIdx.x * 2 * D;
+#pragma unroll 1
+  for (int which = 0; which < 2; ++which) {
 #pragma unroll
-  for (int c = 0; c < COLS; ++c) red[warp][c * 32 + lane] = accg[c];
-  __syncthreads();
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float sg = 0.f;
-    for (int w = 0; w < LNB_WARPS; ++w) sg += red[w][d];
-    pg[(size_t)blockIdx.x * D + d] = sg;
-  }
-  __syncthreads();
+    for (int e = 0; e < E; ++e) {
+      const int d = lnb_col<VEC>(lane, e);
+      if (VEC == 4 || d < D) red[warp][d] = which ? accb[e] : accg[e];
+    }
+    __syncthreads();
+    for (int d = threadIdx.x; d < D; d += blockDim.x) {
+      float t = 0.f;
 #pragma unroll
-  for (int c = 0; c < COLS; ++c) red[warp][c * 32 + lane] = accb[c];
-  __syncthreads();
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float sb = 0.f;
-    for (int w = 0; w < LNB_WARPS; ++w) sb += red[w][d];
-    pb[(size_t)blockIdx.x * D + d] = sb;
+      for (int w = 0; w < LNB_WARPS; ++w) t += red[w][d];
+      pg[which * D + d] = t;
+    }
+    __syncthreads();
   }
 }
 
-// Rows a block of layernorm_bwd covers (the partials' count is
-// ceil(rows / this)).
-PD_API int pd_layernorm_bwd_rows_per_block() {
-  return LNB_WARPS * LNB_ROWS_PER_WARP;
+// out[l] = sum over b < B of part[b, l] for l < L: block (32, LNB_SUM_RUNS)
+// owns 32 columns; thread (c, r) adds rows r, r + 8, ... in order, then
+// thread (c, 0) adds the 8 runs in order.
+__global__ void __launch_bounds__(32 * LNB_SUM_RUNS)
+ln_bwd_sum_kernel(const float* __restrict__ part, float* __restrict__ out, int B, int L) {
+  __shared__ float runs[LNB_SUM_RUNS][32];
+  const int c = threadIdx.x, r = threadIdx.y;
+  const int l = blockIdx.x * 32 + c;
+  float t = 0.f;
+  if (l < L)
+    for (int b = r; b < B; b += LNB_SUM_RUNS) t += part[(size_t)b * L + l];
+  runs[r][c] = t;
+  __syncthreads();
+  if (r == 0 && l < L) {
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < LNB_SUM_RUNS; ++k) s += runs[k][c];
+    out[l] = s;
+  }
 }
 
+// Blocks (partials) of layernorm_bwd over `rows` rows; ops/kernels.py
+// layernorm_bwd_blocks holds the same.
+PD_API int pd_layernorm_bwd_blocks(int rows) { return lnb_blocks(rows); }
+
+// x, dh, res (may be null), dx (rows, D); g (D,); part (blocks, 2, D)
+// scratch; dgb (2, D): dg then db.
 PD_API int pd_layernorm_bwd(const void* x, const void* g, const void* dh,
-                            const void* res, void* dx, void* pg, void* pb,
+                            const void* res, void* dx, void* part, void* dgb,
                             int rows, int D, float eps, int round_out,
                             void* stream) {
-  if (D < 1 || D > LNB_MAX_D) return (int)cudaErrorInvalidValue;
-  const int per_block = LNB_WARPS * LNB_ROWS_PER_WARP;
-  const int blocks = (rows + per_block - 1) / per_block;
-  const int ncol = (D + 31) / 32;
-  auto* kernel = ncol <= 16   ? &layernorm_bwd_kernel<16>
-                 : ncol <= 24 ? &layernorm_bwd_kernel<24>
-                              : &layernorm_bwd_kernel<32>;
-  kernel<<<blocks, LNB_WARPS * 32, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)g, (const float*)dh, (const float*)res,
-      (float*)dx, (float*)pg, (float*)pb, rows, D, eps, round_out);
+  if (D < 1 || D > LNB_MAX_D || rows < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int blocks = lnb_blocks(rows);
+  auto al16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const bool vec = D % 128 == 0 && al16(x) && al16(g) && al16(dh) && al16(res) && al16(dx);
+  auto* kernel = &layernorm_bwd_kernel<32, 1, false>;
+  if (vec) {
+    switch (D / 128) {
+      case 3: kernel = &layernorm_bwd_kernel<3, 4, true>; break;
+      case 4: kernel = &layernorm_bwd_kernel<4, 4, false>; break;
+      case 6: kernel = &layernorm_bwd_kernel<6, 4, false>; break;
+      case 8: kernel = &layernorm_bwd_kernel<8, 4, false>; break;
+    }
+  }
+  kernel<<<blocks, LNB_WARPS * 32, 0, s>>>(
+      (const float*)x, (const float*)g, (const float*)dh, (const float*)res, (float*)dx,
+      (float*)part, rows, D, eps, round_out);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int L = 2 * D;
+  ln_bwd_sum_kernel<<<(L + 31) / 32, dim3(32, LNB_SUM_RUNS), 0, s>>>(
+      (const float*)part, (float*)dgb, blocks, L);
   return (int)cudaGetLastError();
 }

@@ -39,9 +39,14 @@
 //   * bf16 a and bf16 W: WMMA bfloat16 tensor-core tiles (64 x 64 per block,
 //     four warps of 32 x 32), f32 accumulation in the fragments, the
 //     epilogue from a shared-memory copy of the tile.
-//   * float32 a (bf16 or f32 W): 64 x 64 FMA tiles staged through shared
-//     memory, W widened to float32 as it is staged, so the products are
-//     those of the JAX kernel's f32 dot with a bf16 weight.
+//   * float32 a (bf16 or f32 W, transposed or not, round_a or not), more
+//     than 32 rows or W transposed: 3xTF32 tensor-core tiles
+//     (linear_tf32_kernel, 128 x 128 a block, a 3-stage cp.async ring),
+//     two TF32 products where one operand is exact in TF32 (a bf16 W, or a
+//     rounded a). The f32 products on the tensor cores: 495 TFLOP/s of
+//     TF32 for three products against 67 of float32 FMA. The JAX kernel's
+//     f32 dot with a bf16 weight is the same function: the widened weight
+//     is exact.
 // The weight gradient reduces over all M rows into a small (K, N) result:
 // the rows are split into S ranges, one block per (range, 64 x 64 output
 // tile) writes an f32 partial (S, K, N), and a second pass (train.cu,
@@ -49,8 +54,9 @@
 // per-batch-chunk partials (:937-940): deterministic, no atomics. In float32
 // mode its products are 3xTF32 tensor-core MMAs (wgrad_tf32_kernel, a 128 x
 // 128 tile fed by a cp.async ring), in bf16 mode WMMA bfloat16 tiles; db is
-// the column sum of dY in the same pass. The forward kernels have no wgmma,
-// TMA or multi-stage pipeline yet: correct first, fast later.
+// the column sum of dY in the same pass. No kernel here uses wgmma or TMA
+// yet: TF32 wgmma reads only K-major operands from shared memory, and the
+// forward's W (K, N) and both operands of the weight gradient are not.
 #include <cooperative_groups.h>
 #include <cuda_pipeline.h>
 #include <mma.h>
@@ -91,78 +97,334 @@ struct Epilogue {
     }
     y[idx] = v;
   }
+
+  // Columns n .. n + 3 of row m (N % 4 == 0; y, pre and res 16-byte
+  // aligned): the same steps as store, with the residual r loaded by the
+  // caller.
+  __device__ __forceinline__ void store4(float4 acc, float4 r, int m, int n, int N) const {
+    const size_t idx = (size_t)m * N + n;
+    float v[4] = {acc.x, acc.y, acc.z, acc.w};
+    const float rv[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] += bias ? bias[n + j] : 0.f;
+    if (pre) *reinterpret_cast<float4*>(pre + idx) = make_float4(v[0], v[1], v[2], v[3]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[j] = activate(v[j], act);
+      if (gain) v[j] *= gain[n + j];
+      v[j] *= drop_mul(drop, (unsigned int)(idx + j));
+      if (res) {
+        if (round_out) v[j] = round_bf16(v[j]);
+        v[j] += rv[j];
+        if (round_out) v[j] = round_bf16(v[j]);
+      }
+    }
+    *reinterpret_cast<float4*>(y + idx) = make_float4(v[0], v[1], v[2], v[3]);
+  }
 };
 
-// W element (k, n) of the product's (K, N) operand.
-template <typename WT>
-__device__ __forceinline__ float w_at(const WT* W, int k, int n, int K, int N,
-                                      int trans) {
-  return to_float(trans ? W[(size_t)n * K + k] : W[(size_t)k * N + n]);
+// ---- float32 a on the tensor cores: 3xTF32 mma.sync m16n8k8
+//
+// y = epi(a @ W), a (M, K) float32 with M > 32 (any M with trans_w); W
+// (K, N), or (N, K) read transposed, float32 or bfloat16.
+//   * Tiles: 128 x 128 of y, 8 warps of 64 (m) x 32 (n), 16 MMA tiles a
+//     warp. The grid is persistent (one block an SM, LT_THREADS threads):
+//     block b takes tiles b, b + grid, ..., n fastest (the blocks working
+//     at once share a's rows in L2). Every (tile, K slice of 64) step
+//     streams through one ring of LT_STAGES slots with cp.async, so the
+//     next tile's first slices load during a tile's epilogue. 16-byte
+//     copies where a row is 16-byte aligned, element copies otherwise;
+//     zeros past M, N and K. One barrier a slice.
+//   * Fragments by 128-bit loads: within each 16 of K, MMA depth t of step
+//     s is k = 4t + 2s and depth t + 4 is 4t + 2s + 1, so a lane reads a's
+//     four k of a row with one float4 ([m][k], rows of 80 floats: 16 mod
+//     32 banks); MMA column g of n tile j is column 4g + j of the warp's
+//     32, so a lane reads W's four columns of a depth with one float4
+//     ([k][n] rows of 128, 16-byte chunks XOR-swizzled by 2 ((k / 4) % 4))
+//     or, with trans_w, one depth run of a column ([n][k], rows of 68: 4
+//     mod 32). Every quarter-warp then hits 8 distinct 16-byte bank groups:
+//     six LDS.128 per 8 of K a warp. A bf16 W stays bf16 in shared memory
+//     (rows of 136 or 72) and is widened at the load (8-byte loads).
+//   * Precision: hi = tf32(x), lo = x - hi; a product is lo.hi + hi.lo +
+//     hi.hi, about 2^-21 relative. A bf16 W (8 mantissa bits) or a rounded
+//     a (round_a) is exact in TF32, so its lo is 0 and that MMA is skipped:
+//     two products, the same sums. The tensor core truncates each sum into
+//     its accumulator, so each 64-wide slice of K goes into a zeroed
+//     accumulator that is then added, rounded to nearest, into the running
+//     one (as in wgrad_tf32_kernel): the truncations stay relative to a
+//     slice's partial sum.
+//   * Epilogue: the tile goes from the accumulators into the ring slot just
+//     read (rows of 132 floats) and back out in rows, four columns a
+//     thread: the residual of four such runs is loaded before the first is
+//     computed, and y (and pre) are written as float4 (N % 4 == 0 and
+//     aligned outputs; else element by element). The dropout mask depends
+//     on (key, element index) only, so this tiling draws the mask of any
+//     other.
+constexpr int LT_BM = 128, LT_BN = 128, LT_BK = 64;
+constexpr int LT_STAGES = 3;  // two slices in flight while one is read
+constexpr int LT_THREADS = 256;
+constexpr int LT_LDA = LT_BK + 16;  // a [m][k], floats: 16 mod 32 banks
+constexpr int LT_LDC = LT_BN + 4;   // the output tile's shared row stride, floats
+
+// The staged W of one slice: [k][n] (ROWS = LT_BK) or, transposed, [n][k]
+// (ROWS = LT_BN), LD elements a row; SWZ: 16-byte chunks XOR-swizzled.
+template <typename WT, bool TRANS>
+struct LtW {
+  static constexpr bool F32 = sizeof(WT) == 4;
+  static constexpr int ROWS = TRANS ? LT_BN : LT_BK;
+  static constexpr int COLS = TRANS ? LT_BK : LT_BN;
+  static constexpr int LD = TRANS ? COLS + (F32 ? 4 : 8) : COLS + (F32 ? 0 : 8);
+  static constexpr bool SWZ = F32 && !TRANS;
+  static constexpr int BYTES = ROWS * LD * (int)sizeof(WT);
+};
+
+// a ring slot: a's and W's slices, or the output tile
+template <typename WT, bool TRANS>
+__host__ __device__ constexpr int lt_stage_bytes() {
+  return 4 * LT_BM * LT_LDA + LtW<WT, TRANS>::BYTES > 4 * LT_BM * LT_LDC
+             ? 4 * LT_BM * LT_LDA + LtW<WT, TRANS>::BYTES
+             : 4 * LT_BM * LT_LDC;
 }
 
-constexpr int FMA_BK = 16;
-constexpr int FMA_THREADS = 256;
+// the swizzled position of float column c in row r of a [k][n] f32 tile
+__device__ __forceinline__ int lt_swz(int r, int c) {
+  return ((c >> 2) ^ (2 * ((r >> 2) & 3))) * 4 + (c & 3);
+}
 
-template <typename WT, int BM, int BN, int TM, int TN>
-__global__ void __launch_bounds__(FMA_THREADS)
-linear_fma_kernel(const float* __restrict__ A, const WT* __restrict__ W,
-                  int trans, Epilogue ep, int M, int N, int K, int round_a) {
-  static_assert((BM / TM) * (BN / TN) == FMA_THREADS, "tile / thread mismatch");
-  constexpr int TX = BN / TN, TY = BM / TM;
-  __shared__ float As[FMA_BK][BM + 4];
-  __shared__ float Ws[FMA_BK][BN + 4];
+// four W values a lane reads at once, widened to float
+__device__ __forceinline__ void lt_ld4(const float* p, float (&v)[4]) {
+  const float4 f = *reinterpret_cast<const float4*>(p);
+  v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+}
+__device__ __forceinline__ void lt_ld4(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
+}
 
-  const int tid = threadIdx.x;
-  const int tx = tid % TX, ty = tid / TX;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+template <typename WT, bool TRANS, bool ROUND_A>
+__global__ void __launch_bounds__(LT_THREADS, 1)
+linear_tf32_kernel(const float* __restrict__ A, const WT* __restrict__ W, Epilogue ep,
+                   int M, int N, int K, int vec_a, int vec_w, int vec_out) {
+  using WS = LtW<WT, TRANS>;
+  constexpr int STAGE = lt_stage_bytes<WT, TRANS>();
+  constexpr bool W_EXACT = !WS::F32;  // bf16: lo == 0
+  extern __shared__ float4 lt_smem4[];
+  char* smem = reinterpret_cast<char*>(lt_smem4);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+  const int tiles_n = (N + LT_BN - 1) / LT_BN;
+  const int tiles = tiles_n * ((M + LT_BM - 1) / LT_BM);
+  const int slices = max(1, (K + LT_BK - 1) / LT_BK);
+  const int mine = (int)blockIdx.x < tiles ? (tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+  const int steps = mine * slices;  // (tile, slice) steps of this block
 
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  // the origin of the tile of step q
+  auto origin = [&](int q, int& m0, int& n0) {
+    const int tile = (int)blockIdx.x + (q / slices) * (int)gridDim.x;
+    m0 = (tile / tiles_n) * LT_BM;
+    n0 = (tile % tiles_n) * LT_BN;
+  };
 
-  for (int k0 = 0; k0 < K; k0 += FMA_BK) {
-    for (int i = tid; i < BM * FMA_BK; i += FMA_THREADS) {
-      const int r = i / FMA_BK, c = i % FMA_BK;
-      const int gm = m0 + r, gk = k0 + c;
-      float v = (gm < M && gk < K) ? A[(size_t)gm * K + gk] : 0.f;
-      if (round_a) v = round_bf16(v);
-      As[c][r] = v;
+  // step q into ring slot q % LT_STAGES: a, then W
+  auto stage = [&](int q) {
+    float* as = reinterpret_cast<float*>(smem + (q % LT_STAGES) * STAGE);
+    WT* ws = reinterpret_cast<WT*>(as + LT_BM * LT_LDA);
+    int m0, n0;
+    origin(q, m0, n0);
+    const int k0 = (q % slices) * LT_BK;
+    if (vec_a) {
+      for (int e = tid; e < LT_BM * (LT_BK / 4); e += LT_THREADS) {
+        const int r = e / (LT_BK / 4), c = 4 * (e % (LT_BK / 4));
+        const bool ok = m0 + r < M && k0 + c < K;  // K % 4 == 0: whole chunks
+        cp_async16(as + r * LT_LDA + c, ok ? A + (size_t)(m0 + r) * K + k0 + c : A, ok);
+      }
+    } else {
+      for (int e = tid; e < LT_BM * LT_BK; e += LT_THREADS) {
+        const int r = e / LT_BK, c = e % LT_BK;
+        const bool ok = m0 + r < M && k0 + c < K;
+        cp_async4(as + r * LT_LDA + c, ok ? A + (size_t)(m0 + r) * K + k0 + c : A, ok);
+      }
     }
-    for (int i = tid; i < FMA_BK * BN; i += FMA_THREADS) {
-      // neighbouring threads read neighbouring addresses of either layout
-      const int r = trans ? i % FMA_BK : i / BN;
-      const int c = trans ? i / FMA_BK : i % BN;
-      const int gk = k0 + r, gn = n0 + c;
-      Ws[r][c] = (gk < K && gn < N) ? w_at(W, gk, gn, K, N, trans) : 0.f;
+    // tile row r is W's row r0 + r (of rlim), column c its column c0 + c (of clim)
+    const int r0 = TRANS ? n0 : k0, c0 = TRANS ? k0 : n0;
+    const int rlim = TRANS ? N : K, clim = TRANS ? K : N;
+    constexpr int VEC = 16 / (int)sizeof(WT);
+    if (vec_w) {
+      for (int e = tid; e < WS::ROWS * (WS::COLS / VEC); e += LT_THREADS) {
+        const int r = e / (WS::COLS / VEC), c = VEC * (e % (WS::COLS / VEC));
+        const bool ok = r0 + r < rlim && c0 + c < clim;  // clim % VEC == 0
+        const WT* src = ok ? W + (size_t)(r0 + r) * clim + c0 + c : W;
+        WT* dst = ws + r * WS::LD + (WS::SWZ ? lt_swz(r, c) : c);
+        cp_async16(reinterpret_cast<float*>(dst), reinterpret_cast<const float*>(src), ok);
+      }
+    } else {
+      for (int e = tid; e < WS::ROWS * WS::COLS; e += LT_THREADS) {
+        const int r = e / WS::COLS, c = e % WS::COLS;
+        const bool ok = r0 + r < rlim && c0 + c < clim;
+        const WT* src = W + (size_t)(r0 + r) * clim + c0 + c;
+        WT* dst = ws + r * WS::LD + (WS::SWZ ? lt_swz(r, c) : c);
+        if constexpr (W_EXACT) {  // no 2-byte cp.async: a plain copy
+          *dst = ok ? *src : WT(0.f);
+        } else {
+          cp_async4(dst, ok ? src : W, ok);
+        }
+      }
     }
-    __syncthreads();
+  };
+
+  float acc[4][4][4], tmp[4][4][4];
+
 #pragma unroll
-    for (int kk = 0; kk < FMA_BK; ++kk) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[kk][ty + i * TY];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Ws[kk][tx + j * TX];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int q = 0; q < LT_STAGES - 1; ++q) {
+    if (q < steps) stage(q);
+    cp_async_commit();
   }
+  for (int q = 0; q < steps; ++q) {
+    cp_async_wait<LT_STAGES - 2>();
+    __syncthreads();  // step q is in; slot (q - 1) % LT_STAGES is free
+    if (q + LT_STAGES - 1 < steps) stage(q + LT_STAGES - 1);
+    cp_async_commit();
+    const int slice = q % slices;
+    const float* as = reinterpret_cast<const float*>(smem + (q % LT_STAGES) * STAGE);
+    const WT* ws = reinterpret_cast<const WT*>(as + LT_BM * LT_LDA);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (slice == 0) acc[i][j][e] = 0.f;
+          tmp[i][j][e] = 0.f;
+        }
+#pragma unroll
+    for (int kk = 0; kk < LT_BK; kk += 16) {
+      // W at depth kk + 4t + q, column wn + 4g + j of the warp: bv[q][j]
+      float bv[4][4];
+      if constexpr (TRANS) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float v[4];
+          lt_ld4(ws + (wn + 4 * g + j) * WS::LD + kk + 4 * t, v);
+#pragma unroll
+          for (int q4 = 0; q4 < 4; ++q4) bv[q4][j] = v[q4];
+        }
+      } else {
+#pragma unroll
+        for (int q4 = 0; q4 < 4; ++q4) {
+          const int r = kk + 4 * t + q4;
+          lt_ld4(ws + r * WS::LD + (WS::SWZ ? lt_swz(r, wn + 4 * g) : wn + 4 * g), bv[q4]);
+        }
+      }
+      // a at row wm + 16i + g + 8h, depths kk + 4t .. + 3: av[i][h]
+      float av[4][2][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float4 f = *reinterpret_cast<const float4*>(
+              as + (wm + 16 * i + g + 8 * h) * LT_LDA + kk + 4 * t);
+          av[i][h][0] = f.x; av[i][h][1] = f.y; av[i][h][2] = f.z; av[i][h][3] = f.w;
+        }
+#pragma unroll
+      for (int st = 0; st < 2; ++st) {  // MMA depth t is k 4t + 2st, t + 4 is 4t + 2st + 1
+        uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            if constexpr (W_EXACT) {
+              bh[j][u] = __float_as_uint(bv[2 * st + u][j]);
+              bl[j][u] = 0u;
+            } else {
+              split_tf32(bv[2 * st + u][j], bh[j][u], bl[j][u]);
+            }
+          }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          // a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+          const float x[4] = {av[i][0][2 * st], av[i][1][2 * st], av[i][0][2 * st + 1],
+                              av[i][1][2 * st + 1]};
+          uint32_t ah[4], al[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if constexpr (ROUND_A) {
+              ah[e] = __float_as_uint(round_bf16(x[e]));
+              al[e] = 0u;
+            } else {
+              split_tf32(x[e], ah[e], al[e]);
+            }
+          }
+          // term by term over the 4 n tiles: an accumulator's next MMA is
+          // 4 MMAs on (lo.hi, hi.lo, hi.hi: the same order for each)
+          if constexpr (!ROUND_A) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) mma_tf32(tmp[i][j], al, bh[j][0], bh[j][1]);
+          }
+          if constexpr (!W_EXACT) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) mma_tf32(tmp[i][j], ah, bl[j][0], bl[j][1]);
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma_tf32(tmp[i][j], ah, bh[j][0], bh[j][1]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += tmp[i][j][e];
+    if (slice != slices - 1) continue;
 
+    // the tile's epilogue: accumulator (m tile i, n tile j) element 2h + c
+    // is row wm + 16i + g + 8h, column wn + 8t + 4c + j
+    int m0, n0;
+    origin(q, m0, n0);
+    float* cs = reinterpret_cast<float*>(smem + (q % LT_STAGES) * STAGE);
+    __syncthreads();  // the slot's last readers are done
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty + i * TY;
-    if (m >= M) continue;
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx + j * TX;
-      if (n < N) ep.store(acc[i][j], m, n, N);
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          *reinterpret_cast<float4*>(cs + (wm + 16 * i + g + 8 * h) * LT_LDC + wn + 8 * t + 4 * c) =
+              make_float4(acc[i][0][2 * h + c], acc[i][1][2 * h + c], acc[i][2][2 * h + c],
+                          acc[i][3][2 * h + c]);
+    __syncthreads();
+    if (vec_out) {
+      constexpr int RUNS = LT_BM * LT_BN / 4, U = 4;  // float4 runs; loads in flight
+#pragma unroll 1
+      for (int e0 = tid; e0 < RUNS; e0 += U * LT_THREADS) {
+        float4 v[U], r[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int e = e0 + u * LT_THREADS, row = e / (LT_BN / 4), c = 4 * (e % (LT_BN / 4));
+          const int m = m0 + row, n = n0 + c;
+          v[u] = *reinterpret_cast<const float4*>(cs + row * LT_LDC + c);
+          r[u] = ep.res && m < M && n < N
+                     ? *reinterpret_cast<const float4*>(ep.res + (size_t)m * N + n)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int e = e0 + u * LT_THREADS, row = e / (LT_BN / 4), c = 4 * (e % (LT_BN / 4));
+          if (m0 + row < M && n0 + c < N) ep.store4(v[u], r[u], m0 + row, n0 + c, N);
+        }
+      }
+    } else {
+#pragma unroll 1
+      for (int e = tid; e < LT_BM * LT_BN; e += LT_THREADS) {
+        const int row = e / LT_BN, c = e % LT_BN;
+        if (m0 + row < M && n0 + c < N) ep.store(cs[row * LT_LDC + c], m0 + row, n0 + c, N);
+      }
     }
   }
+  cp_async_wait<0>();
 }
 
 // ---- bf16 x bf16 on the tensor cores (WMMA 16x16x16)
@@ -244,12 +506,41 @@ linear_bf16_tc_kernel(const float* __restrict__ A,
   }
 }
 
-template <typename WT>
-void launch_fma(const float* a, const WT* w, int trans, const Epilogue& ep,
-                int M, int N, int K, int round_a, cudaStream_t s) {
-  dim3 grid((N + 63) / 64, (M + 63) / 64);
-  linear_fma_kernel<WT, 64, 64, 4, 4><<<grid, FMA_THREADS, 0, s>>>(
-      a, w, trans, ep, M, N, K, round_a);
+__host__ __forceinline__ bool aligned(const void* p, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+template <typename WT, bool TRANS, bool ROUND_A>
+int launch_tf32(const float* a, const WT* w, const Epilogue& ep, int M, int N, int K,
+                cudaStream_t s) {
+  auto kern = linear_tf32_kernel<WT, TRANS, ROUND_A>;
+  constexpr int smem = LT_STAGES * lt_stage_bytes<WT, TRANS>();
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (long long)((N + LT_BN - 1) / LT_BN) * ((M + LT_BM - 1) / LT_BM);
+  if (tiles * ((K + LT_BK - 1) / LT_BK + 1) > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int vec_a = K % 4 == 0 && aligned(a, 16);
+  const int vec_w = (TRANS ? K : N) % (16 / (int)sizeof(WT)) == 0 && aligned(w, 16);
+  const int vec_out = N % 4 == 0 && aligned(ep.y, 16) && aligned(ep.pre, 16) &&
+                      aligned(ep.res, 16);
+  const int grid = (int)(tiles < sms ? tiles : sms);  // persistent: one block an SM
+  kern<<<grid, LT_THREADS, smem, s>>>(a, w, ep, M, N, K, vec_a, vec_w, vec_out);
+  return (int)cudaGetLastError();
+}
+
+// W bf16 (exact in TF32: two products) or float32 (two products with
+// round_a, three without), transposed or not
+template <typename WT, bool ROUND_A>
+int launch_tf32_t(const float* a, const WT* w, int trans, const Epilogue& ep, int M,
+                  int N, int K, cudaStream_t s) {
+  return trans ? launch_tf32<WT, true, ROUND_A>(a, w, ep, M, N, K, s)
+               : launch_tf32<WT, false, ROUND_A>(a, w, ep, M, N, K, s);
 }
 
 // ---- the few-rows route: y = epi(LN?(a) @ W) for M <= 32
@@ -848,17 +1139,19 @@ PD_API int pd_linear(const void* a, const void* w, int w_bf16, int trans_w,
   Epilogue ep{(const float*)bias, (const float*)gain, (const float*)res,
               (float*)y, (float*)pre, act, round_out,
               DropArgs{drop_key, drop_thr, drop_scale}};
+  if (M < 1 || N < 1 || K < 0) return (int)cudaErrorInvalidValue;
   if (w_bf16 && round_a) {
     dim3 grid((N + TC_BN - 1) / TC_BN, (M + TC_BM - 1) / TC_BM);
     linear_bf16_tc_kernel<<<grid, TC_THREADS, 0, s>>>(
         A, (const __nv_bfloat16*)w, trans_w, ep, M, N, K);
-  } else if (w_bf16) {
-    launch_fma<__nv_bfloat16>(A, (const __nv_bfloat16*)w, trans_w, ep, M, N,
-                              K, round_a, s);
-  } else {
-    launch_fma<float>(A, (const float*)w, trans_w, ep, M, N, K, round_a, s);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  if (w_bf16)
+    return launch_tf32_t<__nv_bfloat16, false>(A, (const __nv_bfloat16*)w, trans_w, ep, M,
+                                               N, K, s);
+  if (round_a)
+    return launch_tf32_t<float, true>(A, (const float*)w, trans_w, ep, M, N, K, s);
+  return launch_tf32_t<float, false>(A, (const float*)w, trans_w, ep, M, N, K, s);
 }
 
 // The few-rows route: a (M, K) float32 with M <= 32, W (K, N) float32 or

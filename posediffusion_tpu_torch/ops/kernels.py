@@ -7,7 +7,8 @@ of the training trunks (DINOv2's LayerScale included):
 =======================  =====================================================
 ``layernorm``            row LayerNorm, eps and bf16 output rounding as arguments
 ``linear``               ``drop(act(a @ W + b) * gain) [+ residual]``, W float32
-                         or bfloat16, read transposed for the dgrad product
+                         or bfloat16, read transposed for the dgrad product;
+                         float32 a on 3xTF32 tensor-core MMAs
 ``linear_rows``          the same for at most 32 rows (the sampler's products):
                          W streamed once over a cluster split of K, with the
                          pre-norm LayerNorm of a optionally folded in
@@ -96,7 +97,7 @@ _SIGNATURES = {
     "pd_attention_bwd": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _F, _I, *_DROP, _P],
     "pd_attention_bwd_smem_bytes": [_I, _I],
     "pd_layernorm_bwd": [_P] * 7 + [_I, _I, _F, _I, _P],
-    "pd_layernorm_bwd_rows_per_block": [],
+    "pd_layernorm_bwd_blocks": [_I],
     "pd_linear_wgrad": [_P] * 4 + [_I] * 5 + [_P],
     "pd_linear_wgrad_tile": [_I],
     "pd_act_dropout_bwd": [_P, _P, _P, _L, _I, *_DROP, _P],
@@ -386,7 +387,11 @@ def linear(a, w, bias, act: str = "none", residual=None, round_a: bool = False,
 
     On the card, up to LINEAR_ROWS_MAX rows with W not transposed take the
     few-rows route (``linear_rows``), which alone folds ``ln``; asking for
-    ``ln`` on any other route raises."""
+    ``ln`` on any other route raises. The rest run on the tensor cores: a
+    bf16 W with ``round_a`` as bf16 MMAs, everything else as 3xTF32 MMAs
+    (about 2^-21 relative a product; two TF32 products where the bf16 W or
+    the rounded a is exact in TF32). Counts its launches in
+    ``linear.launches`` and, per (M, K, N, trans_w), in ``linear.by_shape``."""
     if not _on_card(a, w, bias, residual, gain, *_ln_tensors(ln)):
         return linear_plain(a, w, bias, act, residual, round_a, trans_w, drop,
                             round_out, want_pre, gain, ln)
@@ -406,10 +411,13 @@ def linear(a, w, bias, act: str = "none", residual=None, round_a: bool = False,
             _ACT[act], *(drop.args() if drop else _NO_DROP), int(round_out),
             _stream(a))
     linear.launches += 1
+    key = (M, K, N, bool(trans_w))
+    linear.by_shape[key] = linear.by_shape.get(key, 0) + 1
     return (y, pre) if want_pre else y
 
 
 linear.launches = 0
+linear.by_shape = {}
 
 
 # csrc/linear.cu: FR_ROWS, the few-rows route's row limit; FR_CLUSTER, the
@@ -1026,14 +1034,27 @@ def layernorm_bwd_plain(x, g, dh, eps: float, residual=None,
     return dx, (dh * xhat).sum(0), dh.sum(0)
 
 
-# csrc/layernorm.cu: LNB_MAX_D, 32 columns of a row in each lane's registers
+# csrc/layernorm.cu: LNB_MAX_D, 32 columns of a row in each lane's
+# registers; the grid is at most LNB_BLOCKS blocks of LNB_WARPS warps (two
+# blocks on each of the H100's SMs), one dg / db partial each, whatever the
+# rows: a warp walks rows blocks x 8 apart.
 LAYERNORM_BWD_MAX_D = 1024
+LAYERNORM_BWD_WARPS = 8
+LAYERNORM_BWD_MAX_BLOCKS = 2 * _SMS
+
+
+def layernorm_bwd_blocks(rows: int) -> int:
+    """Blocks (and dg / db partials) of ``layernorm_bwd`` over ``rows`` rows:
+    one row a warp while that gives fewer than LAYERNORM_BWD_MAX_BLOCKS."""
+    return max(1, min(-(-rows // LAYERNORM_BWD_WARPS), LAYERNORM_BWD_MAX_BLOCKS))
 
 
 def layernorm_bwd(x, g, dh, eps: float, residual=None, round_out: bool = False):
     """Backward of ``layernorm`` on (rows, D) from its saved input x and the
     output cotangent dh: (dx [+ residual], dg, db). x-hat and rstd are
-    recomputed from x, as ``_ln_bwd`` does from ``_ln_fwd``."""
+    recomputed from x, as ``_ln_bwd`` does from ``_ln_fwd``. On the card dg
+    and db are summed from per-block partials in a fixed order (no atomics:
+    they repeat bitwise)."""
     if not _on_card(x, g, dh, residual):
         return layernorm_bwd_plain(x, g, dh, eps, residual, round_out)
     rows, D = x.shape
@@ -1043,14 +1064,12 @@ def layernorm_bwd(x, g, dh, eps: float, residual=None, round_out: bool = False):
     _check(residual, "residual", (rows, D))
     if D > LAYERNORM_BWD_MAX_D:
         raise ValueError(f"layernorm_bwd: D {D} > {LAYERNORM_BWD_MAX_D}")
-    lib = load_library()
-    blocks = -(-rows // lib.pd_layernorm_bwd_rows_per_block())
     dx = torch.empty_like(x)
-    part = torch.empty((2, blocks, D), device=x.device, dtype=torch.float32)
-    _launch(lib.pd_layernorm_bwd, _ptr(x), _ptr(g), _ptr(dh), _ptr(residual),
-            _ptr(dx), _ptr(part[0]), _ptr(part[1]), rows, D, eps, int(round_out),
-            _stream(x))
-    dgb = _sum_partials(part.transpose(0, 1).contiguous())
+    part = torch.empty((layernorm_bwd_blocks(rows), 2, D), device=x.device,
+                       dtype=torch.float32)
+    dgb = torch.empty((2, D), device=x.device, dtype=torch.float32)
+    _launch(load_library().pd_layernorm_bwd, _ptr(x), _ptr(g), _ptr(dh), _ptr(residual),
+            _ptr(dx), _ptr(part), _ptr(dgb), rows, D, eps, int(round_out), _stream(x))
     layernorm_bwd.launches += 1
     return dx, dgb[0], dgb[1]
 
@@ -1225,5 +1244,6 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in vars(KERNELS).values():
         fn.launches = 0
+    linear.by_shape.clear()
     linear_rows.by_shape.clear()
     linear_wgrad.by_shape.clear()

@@ -737,7 +737,12 @@ def test_attention_bwd_shared_memory_and_refusals(cuda):
                         torch.randn(1, 7, 64, device=cuda), 1)
 
 
-@pytest.mark.parametrize("rows,D", [(5000, 384), (37, 512), (3, 64), (3000, 768), (40, 1000)])
+# D on the float4 instances (384, 512, 768, 1,024) and the generic one (16,
+# 64, 100, 1,000); rows below a block, not a multiple of one, and above the
+# 264 x 8 warps of the grid (several rows a warp)
+@pytest.mark.parametrize("rows,D", [(5000, 384), (37, 512), (3, 64), (3000, 768), (40, 1000),
+                                    (2113, 16), (1001, 100), (20000, 384), (5, 1024),
+                                    (4321, 512), (2112, 1024)])
 @pytest.mark.parametrize("round_out", [False, True])
 def test_layernorm_bwd(cuda, rows, D, round_out):
     r = _gen(rows)
@@ -749,6 +754,109 @@ def test_layernorm_bwd(cuda, rows, D, round_out):
         _close(out[0], ref[0], TOL_BF16 if round_out else TOL_F32)
         _close(out[1], ref[1], TOL_F32)
         _close(out[2], ref[2], TOL_F32)
+
+
+@pytest.mark.parametrize("rows,D", [(135168, 384), (3001, 768), (999, 100)])
+def test_layernorm_bwd_repeats_bitwise(cuda, rows, D):
+    """dx, dg and db bit for bit across calls: per-block partials summed in
+    a fixed order, no atomics."""
+    r = _gen(rows + D)
+    x, dh, res = (_t(r.normal(size=(rows, D)), cuda) for _ in range(3))
+    g = _t(1 + 0.1 * r.normal(size=D), cuda)
+    first = K.layernorm_bwd(x, g, dh, 1e-6, residual=res)
+    for _ in range(3):
+        assert all(torch.equal(a, b) for a, b in zip(first, K.layernorm_bwd(
+            x, g, dh, 1e-6, residual=res)))
+
+
+def test_layernorm_bwd_misaligned_and_grid(cuda):
+    """Operands off a 16-byte boundary take the generic instance at D 384;
+    the C grid equals ``layernorm_bwd_blocks``."""
+    rows, D = 777, 384
+    r = _gen(3)
+    buf = [_t(r.normal(size=rows * D + 1), cuda) for _ in range(3)]
+    x, dh, res = (b[1:].view(rows, D) for b in buf)
+    g = _t(1 + 0.1 * r.normal(size=D), cuda)
+    out = K.layernorm_bwd(x, g, dh, 1e-6, residual=res)
+    ref = K.layernorm_bwd_plain(x, g, dh, 1e-6, residual=res)
+    for a, b in zip(out, ref):
+        _close(a, b, TOL_F32)
+    lib = K.load_library()
+    for n in (1, 7, 8, 9, 2111, 2112, 2113, 46080, 135168, 178176):
+        assert lib.pd_layernorm_bwd_blocks(n) == K.layernorm_bwd_blocks(n)
+
+
+# The tensor-core tile of linear for float32 a (csrc/linear.cu,
+# linear_tf32_kernel): W float32 or bfloat16, transposed or not, round_a,
+# every epilogue; ragged M (33, and off the 128-row tile), K % 4 != 0 and
+# odd N (element copies, no float2 stores), and few rows with trans_w
+TF32_SHAPES = [(33, 384, 1152), (300, 130, 77), (1000, 1536, 384), (129, 64, 129),
+               (20, 384, 1536), (4224, 512, 512)]
+TF32_OPERANDS = [(torch.float32, False, False), (torch.float32, False, True),
+                 (torch.bfloat16, False, False), (torch.bfloat16, False, True),
+                 (torch.float32, True, False), (torch.float32, True, True)]
+
+
+def _tf32_case(M, K_, N, wdtype, trans, dev, seed=0):
+    r = _gen(seed + M + K_ + N)
+    a = _t(r.normal(size=(M, K_)), dev)
+    w = _t(r.normal(size=(N, K_) if trans else (K_, N)) / np.sqrt(K_), dev, wdtype)
+    b, gain = _t(r.normal(size=N), dev), _t(1 + 0.1 * r.normal(size=N), dev)
+    res = _t(r.normal(size=(M, N)), dev)
+    return a, w, b, gain, res
+
+
+@pytest.mark.parametrize("M,K_,N", TF32_SHAPES)
+@pytest.mark.parametrize("wdtype,round_a,trans", TF32_OPERANDS)
+def test_linear_tf32_epilogues(cuda, M, K_, N, wdtype, round_a, trans):
+    a, w, b, gain, res = _tf32_case(M, K_, N, wdtype, trans, cuda)
+    d = K.drop_args(11, 3, "m1", 0.1)
+    epilogues = [
+        dict(), dict(bias=b, act="relu"),
+        dict(bias=b, act="gelu", gain=gain, drop=d, want_pre=True),
+        dict(bias=b, residual=res, round_out=True, drop=d),
+        dict(bias=b, residual=res, gain=gain, want_pre=True),
+    ]
+    for ep in epilogues:
+        bias = ep.pop("bias", None)
+        kw = dict(ep, round_a=round_a, trans_w=trans)
+        K.reset_launch_counts()
+        out = K.linear(a, w, bias, **kw)
+        rows = M <= K.LINEAR_ROWS_MAX and not trans  # the few-rows route
+        assert K.launch_counts()["linear"] == int(not rows)
+        assert K.launch_counts()["linear_rows"] == int(rows)
+        ref = K.linear_plain(a, w, bias, **kw)
+        if kw.get("want_pre"):
+            _close(out[1], ref[1], TOL_F32)
+            out, ref = out[0], ref[0]
+        _close(out, ref, TOL_BF16 if kw.get("round_out") else TOL_F32)
+
+
+@pytest.mark.parametrize("M,K_,N", [(4224, 1536, 384), (300, 130, 77)])
+@pytest.mark.parametrize("wdtype,round_a,trans", TF32_OPERANDS)
+def test_linear_tf32_repeats_bitwise(cuda, M, K_, N, wdtype, round_a, trans):
+    a, w, b, gain, res = _tf32_case(M, K_, N, wdtype, trans, cuda, 1)
+    kw = dict(residual=res, gain=gain, round_a=round_a, trans_w=trans, act="gelu")
+    y = K.linear(a, w, b, **kw)
+    for _ in range(3):
+        assert torch.equal(y, K.linear(a, w, b, **kw))
+
+
+def test_linear_tf32_misaligned_operands(cuda):
+    """a, W and the residual off a 16-byte (and the residual off an 8-byte)
+    boundary: element copies and element stores, the same result."""
+    M, K_, N = 517, 384, 256
+    r = _gen(4)
+    flat = lambda n, s=1.0: _t(r.normal(size=n + 1) * s, cuda)[1:]  # noqa: E731
+    a = flat(M * K_).view(M, K_)
+    w = flat(K_ * N, K_**-0.5).view(K_, N)
+    res = flat(M * N).view(M, N)
+    b = _t(r.normal(size=N), cuda)
+    for trans in (False, True):
+        wt = w.t().contiguous().view(-1)
+        wt = torch.cat([wt[:1], wt]).contiguous()[1:].view(N, K_) if trans else w
+        _close(K.linear(a, wt, b, "relu", res, trans_w=trans),
+               K.linear_plain(a, wt, b, "relu", res, trans_w=trans), TOL_F32)
 
 
 # ragged K x N (130 x 70), M off the 32-row slice and split (4,133), the

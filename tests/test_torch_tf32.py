@@ -1,14 +1,19 @@
-"""Why the train backward's tensor-core kernels take three TF32 products, and
-the launch arithmetic they share with their Python wrappers, on the CPU.
+"""Why the tensor-core kernels take three TF32 products, and the launch
+arithmetic they share with their Python wrappers, on the CPU.
 
-``linear_wgrad`` (csrc/linear.cu, wgrad_tf32_kernel) and ``attention_bwd``
-(csrc/attention_bwd.cu) run their float32 products as 3xTF32 MMAs: each
-operand x splits into hi = tf32(x) (round to nearest at 10 mantissa bits,
-cvt.rna) and lo = x - hi, which the tensor core truncates to TF32, and a
-product is hi.hi + hi.lo + lo.hi. The emulation here (products of the TF32
-values exact in float64) shows that this lands within 1e-5 of float64 on the
-path's products, the card tests' float32 tolerance, and that one TF32
-product (hi.hi alone) does not.
+``linear`` (csrc/linear.cu, linear_tf32_kernel: the forward and dgrad
+products of float32 a), ``linear_wgrad`` (wgrad_tf32_kernel) and
+``attention_bwd`` (csrc/attention_bwd.cu) run their float32 products as
+3xTF32 MMAs: each operand x splits into hi = tf32(x) (round to nearest at 10
+mantissa bits, cvt.rna) and lo = x - hi, which the tensor core truncates to
+TF32, and a product is hi.hi + hi.lo + lo.hi. The emulation here (products
+of the TF32 values exact in float64) shows that this lands within 1e-5 of
+float64 on the path's products, the card tests' float32 tolerance, and that
+one TF32 product (hi.hi alone) does not; that a bf16 W or a bf16-rounded a
+has lo = 0, so the kernel's two products equal three bitwise; and, with the
+tensor core's truncating accumulation emulated, that a fresh accumulator per
+slice of K (64 wide in ``linear``, 32 rows in ``linear_wgrad``) is what
+keeps K 1,536 within 1e-5.
 """
 
 import numpy as np
@@ -98,6 +103,90 @@ def test_attention_products_need_three_products(product):
     one = _rel(_product(a, b, 1), ref)
     assert three <= TOL, three
     assert one > TOL, one
+
+
+# ---- linear's forward and dgrad products (csrc/linear.cu, linear_tf32_kernel)
+# (K, N) of the path's products: SuperGlue's qkv, the ViT's qkv, SuperGlue's
+# w1 (and the encoder's widths), fc2; with trans_w the same W read as (N, K),
+# the dgrad product dY W^T of a forward weight
+LINEAR_SHAPES = [(256, 768), (384, 1152), (512, 512), (1536, 384)]
+
+
+def _operands(K_, N, trans, seed):
+    r = np.random.default_rng(seed)
+    a = torch.tensor(r.normal(size=(512, K_)).astype(np.float32))
+    w = torch.tensor((r.normal(size=(N, K_) if trans else (K_, N)) / np.sqrt(K_))
+                     .astype(np.float32))
+    return a, (w.t() if trans else w)
+
+
+@pytest.mark.parametrize("K_,N", LINEAR_SHAPES)
+@pytest.mark.parametrize("trans", [False, True])
+def test_linear_products_need_three_products(K_, N, trans):
+    a, w = _operands(K_, N, trans, K_ + N + trans)
+    ref = a.double() @ w.double()
+    three = _rel(_product(a, w, 3), ref)
+    one = _rel(_product(a, w, 1), ref)
+    assert three <= TOL, three
+    assert one > TOL, one
+
+
+@pytest.mark.parametrize("exact", ["bf16 W", "rounded a"])
+@pytest.mark.parametrize("K_,N", [(384, 1152), (1536, 384)])
+def test_two_products_equal_three_for_a_bf16_operand(exact, K_, N):
+    """A bf16 value has 8 mantissa bits, so tf32 keeps it whole and its lo
+    is exactly 0: the product the kernel skips (lo.hi for a rounded a, hi.lo
+    for a bf16 W) adds exactly 0, in the kernel's order lo.hi, hi.lo, hi.hi."""
+    a, w = _operands(K_, N, False, 7)
+    if exact == "bf16 W":
+        w = K.round_bf16(w)
+    else:
+        a = K.round_bf16(a)
+    (ah, al), (bh, bl) = _split(a), _split(w)
+    assert torch.count_nonzero(bl if exact == "bf16 W" else al) == 0
+    three = (al.double() @ bh.double() + ah.double() @ bl.double()) + ah.double() @ bh.double()
+    two = (ah.double() @ bl.double() if exact == "rounded a" else al.double() @ bh.double()) \
+        + ah.double() @ bh.double()
+    assert torch.equal(three, two)
+    assert _rel(two, a.double() @ w.double()) <= TOL
+
+
+def _rz(x: torch.Tensor) -> torch.Tensor:
+    """float64 -> float32 rounded toward zero (the tensor core's accumulator)."""
+    f = x.float()
+    return torch.where(f.double().abs() > x.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _mma_chain(a: torch.Tensor, b: torch.Tensor, slice_k: int) -> torch.Tensor:
+    """a @ b as a chain of m16n8k8 3xTF32 MMAs: each MMA adds its eight exact
+    products to the accumulator and truncates the sum to float32. With
+    ``slice_k`` each slice of K goes into a fresh accumulator that is added
+    into the running sum rounded to nearest (the kernels' design); with 0
+    one accumulator runs over the whole of K."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    acc = torch.zeros(a.shape[0], b.shape[1])
+    tmp = torch.zeros_like(acc)
+    for k0 in range(0, a.shape[1], 8):
+        ks = slice(k0, k0 + 8)
+        for x, y in ((al, bh), (ah, bl), (ah, bh)):
+            tmp = _rz(tmp.double() + x[:, ks].double() @ y[ks].double())
+        if slice_k and (k0 + 8) % slice_k == 0:
+            acc, tmp = acc + tmp, torch.zeros_like(tmp)
+    return acc + tmp
+
+
+def test_a_fresh_accumulator_per_slice_holds_k_1536():
+    """fc2's product (K 1,536, N 384): 576 truncating MMAs into one
+    accumulator drift past 1e-5; a fresh accumulator per 64-wide slice
+    (linear_tf32_kernel's LT_BK) stays near float32's own rounding."""
+    r = np.random.default_rng(0)
+    a = torch.tensor(r.normal(size=(256, 1536)).astype(np.float32))
+    w = torch.tensor((r.normal(size=(1536, 384)) / np.sqrt(1536)).astype(np.float32))
+    ref = a.double() @ w.double()
+    sliced = _rel(_mma_chain(a, w, 64).double(), ref)
+    running = _rel(_mma_chain(a, w, 0).double(), ref)
+    assert sliced <= TOL / 10, sliced
+    assert running > TOL, running
 
 
 # ---- the weight gradient's row split (csrc/linear.cu, pd_linear_wgrad)
