@@ -13,11 +13,17 @@ backbones, once on an NVIDIA card.
         # redesigned kernels at their largest cases (attention_bwd,
         # linear_wgrad, linear's float32 products beside torch.addmm /
         # torch.matmul, layernorm_bwd beside F.layer_norm's backward, with
-        # its device time by kernel), each timed in a child process with
+        # its device time by kernel; the serving ViT's bf16 qkv and fc1
+        # products, the extractor, ViT-B's trunk and the LayerNorm forward
+        # at the serving and train shapes, with CUDA-graph times), each
+        # timed in a child process with
         # this checkout's port and with DIR's
         # (the parent commit's posediffusion_tpu_torch/ and cfgs/, unpacked
         # with git archive into a gitignored directory; its kernels build
         # under DIR/build/kernels), in the order new, parent, parent, new
+    python3 chip_smoke.py --parent DIR --rounds N
+        # the same, that order repeated N times (host-bound calls spread
+        # more from one process to the next than within one)
     python3 chip_smoke.py --attention   # the attention cases alone
     python3 chip_smoke.py --ptxas       # registers, spills and shared memory
                                         # of every kernel (nvcc -Xptxas -v), alone
@@ -86,8 +92,12 @@ Phases (any failure exits non-zero and prints no result line):
              version, its bound (bytes or operations over the H100's peaks)
              and a one-call PyTorch yardstick where one exists (the four
              20-row products also by device time, beside torch.matmul on a
-             float32 copy of the weight); a sampler step's device time
-             against its wall time; every
+             float32 copy of the weight; linear's bf16 route at the ViT's
+             qkv beside torch.addmm on the same bf16 operands, and at the
+             serving ViTs' twelve product shapes by CUDA graph; the
+             LayerNorm forward at the train shapes beside F.layer_norm, by
+             CUDA graph); a sampler step's device time and the ViT trunk's
+             CUDA-graph time against their wall times; every
              attention forward the port runs (SuperGlue self and cross, the
              ViT at 264 and 593 tokens, the denoiser, DINOv2, the train
              trunks) against its plain version and bitwise against itself,
@@ -228,6 +238,18 @@ DINOV2_TRAIN_PATH = TRAIN_PATH + ("layerscale_bwd",)
 # serving path's LayerNorms and products are the sampler's, all folded
 DINOV2_SERVE_PATH = ("linear_rows", "attention", "sampler_prologue", "sampler_epilogue")
 LS_PER_STEP = 24  # layerscale_bwd: 2 sites x 12 blocks (the encoder has no gains)
+# The LayerNorm forward at the train trunks' shapes (TPU kernel 9's forward):
+# (rows, D, what); the serving ViT's 5,280 x 384 bf16 case is the layernorm
+# entry of the kernels line
+LN_TRAIN_CASES = ((512 * 264, 384, "DINO ViT-S/16 train"), (512 * 348, 384, "DINOv2 train"),
+                  (512 * 264, 768, "ViT-B train"), (2880 * 16, 512, "encoder train"))
+# (rows, D) -> (path, layernorm launches at that shape), from each path's run
+LN_LAUNCHES = {}
+# the serving ViTs' products on linear's bf16 wgmma route: (M, K, N) at 224px
+# and 336px (ViT-S/16) and ViT-B/16 at 224px
+BF16_PATH_SHAPES = tuple((m, k, n) for m in (20 * 264, 20 * 593)
+                         for k, n in ((384, 1152), (384, 384), (384, 1536), (1536, 384))) + \
+    tuple((20 * 264, k, n) for k, n in ((768, 2304), (768, 768), (768, 3072), (3072, 768)))
 VIT_CHUNK = 64  # images in the ViT train-trunk parity cases
 VIT_IMAGES = 512  # a train step's images (max_images)
 ENC_ROWS = 2880  # the denoiser's rows: 32 sequences x batch_repeat 90
@@ -596,6 +618,13 @@ def ptxas_report():
                 print(f"  {os.path.basename(src)} {name}: {line.split('info    :')[-1].strip()}")
             elif name and "spill" in line:
                 print(f"  {os.path.basename(src)} {name}: {line.strip()}")
+            elif "warning" in line.lower():
+                print(f"  {os.path.basename(src)}: {line.strip()}")
+    from posediffusion_tpu_torch.ops import kernels as K
+
+    # dynamic: ptxas reports static shared memory only
+    print(f"  linear.cu linear_bf16_wgmma_kernel: dynamic shared memory "
+          f"{K.linear_bf16_smem_bytes()} B")
     return 0
 
 
@@ -614,6 +643,28 @@ def _time_ms(torch, fn, reps=N_TIMED, inner=1, warmup=2):
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def _graph_ms(torch, fn, calls=20, reps=5):
+    """Device time per call of ``fn`` without the host's launch cost:
+    ``calls`` calls captured in one CUDA graph (after two warm-up calls on
+    a side stream), the graph's replays timed by CUDA events, the median of
+    ``reps`` over ``calls``. The graph's kernels run back to back, about a
+    microsecond apart. Used where torch.profiler's kernel time under-reads
+    (PERF.md section 7)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = _time_ms(torch, graph.replay, reps=reps, warmup=1) / calls
+    del graph
+    return ms
 
 
 def _kernel_device_ms(torch, fn, kernel="attention_kernel", calls=20):
@@ -701,6 +752,7 @@ def timed_calls(root):
     from posediffusion_tpu_torch.diffusion import ggs as G
     from posediffusion_tpu_torch.matching import extract as X
     from posediffusion_tpu_torch.matching.superglue import encode_keypoints
+    from posediffusion_tpu_torch.models.feature_extractor import _embed_pack_scales
     from posediffusion_tpu_torch.models.pose_diffusion import (
         PoseDiffusionConfig,
         PoseDiffusionModel,
@@ -711,6 +763,7 @@ def timed_calls(root):
     from posediffusion_tpu_torch.ops.denoiser_kernel import layer_weights, stack_trunk_params
     from posediffusion_tpu_torch.ops.ggs_grad import pack_matches_grouped
     from posediffusion_tpu_torch.ops.sampler_kernel import fused_sample_loop
+    from posediffusion_tpu_torch.ops.vit_kernel import fused_vit_trunk, stack_vit_params
     from posediffusion_tpu_torch.training.optim import make_optimizer
     from posediffusion_tpu_torch.training.step import train_step
     from posediffusion_tpu_torch.utils.config import load_config, model_config_from_cfg
@@ -751,8 +804,46 @@ def timed_calls(root):
         for name, call in layer_product_calls(torch, K, lw, gen, dev).items():
             t[f"{name}, 20 rows (CUDA events)"] = _time_ms(torch, call, inner=10)
             t[f"{name}, 20 rows (device)"] = _kernel_device_ms(torch, call, None)
+        # the extractor (fused_vit_trunk in bf16 mode) and its bf16 products
+        # at 5,280 rows on linear's bf16 route
+        t["extractor (model.extract_features, 20 frames, 224px)"] = _time_ms(
+            torch, lambda: model.extract_features(imgs))
+        st = stack_vit_params(model.image_feature_extractor._net, torch.bfloat16)
+        hv = torch.randn((20 * 264, 384), generator=gen, device=dev)
+        for pname, wk, bk, act in (("qkv", "wqkv", "bqkv", "none"), ("fc1 + GELU", "wfc1", "bfc1",
+                                                                     "gelu")):
+            call = lambda w=st[wk][0], b=st[bk][0], act=act: K.linear(  # noqa: E731
+                hv, w, b, act=act, round_a=True)
+            name = f"linear bf16 ViT {pname} (5280x384 @ 384x{st[wk].shape[2]})"
+            t[f"{name} (CUDA events)"] = _time_ms(torch, call, inner=10)
+            t[f"{name} (device)"] = _kernel_device_ms(torch, call, None)
+            t[f"{name} (CUDA graph)"] = _graph_ms(torch, call)
     del model, den, z
     torch.cuda.empty_cache()
+    # ViT-B/16's serving trunk (D 768, 12 heads) at 224px, bf16
+    cfg_path = os.path.join(REPO, "cfgs", "default_train.yaml")
+    vb_cfg = model_config_from_cfg(load_config(cfg_path, [VITB]).MODEL)
+    vb = PoseDiffusionModel(vb_cfg)
+    init_random_weights(vb, SEED)
+    vb.to(dev)
+    with torch.no_grad():
+        vbn = vb.image_feature_extractor._net
+        tokb, biasb, _ = _embed_pack_scales(vbn, imgs[0], vb_cfg.scale_factors)
+        stb = stack_vit_params(vbn, torch.bfloat16)
+        t["ViT-B vit trunk (fused_vit_trunk, bf16, 20x264x768)"] = _time_ms(
+            torch, lambda: fused_vit_trunk(tokb, stb, 12, True, biasb))
+    del vb, vbn, tokb, stb
+    torch.cuda.empty_cache()
+    # the LayerNorm forward: the serving ViT's bf16 case and the train shapes,
+    # CUDA events and device time
+    for rows, D, what in ((20 * 264, 384, "serving ViT-S, bf16"),) + LN_TRAIN_CASES:
+        x = torch.randn((rows, D), generator=gen, device=dev)
+        g, b = 1 + 0.1 * torch.randn(D, generator=gen, device=dev), torch.zeros(D, device=dev)
+        call = lambda x=x, g=g, b=b, r=what.endswith("bf16"): K.layernorm(x, g, b, 1e-6, r)  # noqa: E731
+        t[f"layernorm {what} ({rows}x{D}) (CUDA events)"] = _time_ms(torch, call, inner=10)
+        t[f"layernorm {what} ({rows}x{D}) (device)"] = _kernel_device_ms(torch, call, "layernorm")
+        t[f"layernorm {what} ({rows}x{D}) (CUDA graph)"] = _graph_ms(torch, call, calls=10)
+        del x
 
     # the train backward's two redesigned kernels at their largest cases:
     # fc1's weight gradient and the ViT's attention backward, float32
@@ -816,7 +907,6 @@ def timed_calls(root):
     torch.cuda.empty_cache()
 
     # one DINO train step at the reference train config (512 images)
-    cfg_path = os.path.join(REPO, "cfgs", "default_train.yaml")
     cfg = _train_cfg(work, "train", cfg=cfg_path)
     tm = PoseDiffusionModel(model_config_from_cfg(load_config(cfg_path).MODEL))
     init_random_weights(tm, SEED)
@@ -887,16 +977,18 @@ def timed_calls(root):
     return 0
 
 
-def parent_phase(report, parent_dir, smi):
-    """--parent DIR: ``timed_calls`` in four child processes, this
-    checkout's port and DIR's in the order new, parent, parent, new; each
-    call's mean over the two runs of each. Returns {call: numbers}."""
+def parent_phase(report, parent_dir, smi, rounds=1):
+    """--parent DIR [--rounds N]: ``timed_calls`` in 4 N child processes,
+    this checkout's port and DIR's in the order new, parent, parent, new,
+    N times; each call's mean over the runs of each. Returns {call:
+    numbers}."""
     print(f"[parent] the same calls with this checkout and with {parent_dir} (the parent "
-          f"commit), in child processes, order new, parent, parent, new; card: {smi}",
-          flush=True)
+          f"commit), in child processes, order new, parent, parent, new, {rounds} time(s); "
+          f"card: {smi}", flush=True)
     runs = {"new": [], "parent": []}
     splits = {"new": [], "parent": []}
-    for who in ("new", "parent", "parent", "new"):
+    order = ("new", "parent", "parent", "new") * rounds
+    for who in order:
         root = REPO if who == "new" else os.path.abspath(parent_dir)
         t0 = time.perf_counter()
         out = subprocess.run([sys.executable, os.path.abspath(__file__), "--timed-calls", root],
@@ -916,9 +1008,10 @@ def parent_phase(report, parent_dir, smi):
         old = [r[name] for r in runs["parent"]]
         result[name] = {"new": statistics.mean(new), "parent": statistics.mean(old),
                         "new_runs": new, "parent_runs": old}
+        seq = {"new": iter(new), "parent": iter(old)}
         print(f"  {name}: {statistics.mean(new):.4f} ms, parent {statistics.mean(old):.4f} ms "
-              f"({100 * (statistics.mean(new) / statistics.mean(old) - 1):+.2f}%); "
-              f"runs {new[0]:.4f}, {old[0]:.4f}, {old[1]:.4f}, {new[1]:.4f}", flush=True)
+              f"({100 * (statistics.mean(new) / statistics.mean(old) - 1):+.2f}%); runs in order "
+              + ", ".join(f"{next(seq[who]):.4f}" for who in order), flush=True)
     for who in ("new", "parent"):
         for call, ms in splits[who][0].items():
             print(f"  device time of {call}, {who}: {ms}")
@@ -1028,6 +1121,123 @@ def _check_cameras(report, out, n, what):
         report.failures.append(f"{what}: cameras {shapes}, finite={finite}")
     if "ARE_deg" not in out or not np.isfinite(out["ARE_deg"]):
         report.failures.append(f"{what}: no finite ARE")
+
+
+def _note_layernorm_shapes(K, path):
+    """Keep the first path's layernorm launches at each (rows, D)."""
+    for shape, n in K.layernorm.by_shape.items():
+        LN_LAUNCHES.setdefault(shape, (path, n))
+
+
+def layernorm_entries(report, torch, F, K, dev, gen):
+    """Kernels-line entries of the LayerNorm forward at the train trunks'
+    shapes (LN_TRAIN_CASES, kernel 9's forward): the kernel against its
+    plain version and bitwise against itself, its CUDA-event, profiler and
+    CUDA-graph times beside F.layer_norm's, the plain version's and the
+    bound (x read and y written once)."""
+    entries = []
+    for rows, D, what in LN_TRAIN_CASES:
+        x = 3 * torch.randn((rows, D), generator=gen, device=dev) + 1
+        g = 1 + 0.1 * torch.randn(D, generator=gen, device=dev)
+        b = 0.1 * torch.randn(D, generator=gen, device=dev)
+        name = f"layernorm {what} ({rows}x{D})"
+        y = K.layernorm(x, g, b, 1e-6)
+        err = _close_rel(report, name, y, K.layernorm_plain(x, g, b, 1e-6), TOL_F32)
+        report.require(f"{name} repeats bitwise",
+                       all(torch.equal(y, K.layernorm(x, g, b, 1e-6)) for _ in range(2)))
+        del y
+        call = lambda: K.layernorm(x, g, b, 1e-6)  # noqa: E731
+        library = lambda: F.layer_norm(x, (D,), g, b, 1e-6)  # noqa: E731
+        b_ms, b_by = bound(2 * nbytes(x) + 2 * D * 4, 8 * x.numel())
+        path, n = LN_LAUNCHES.get((rows, D), ("no path run", 0))
+        e = {
+            "name": f"layernorm {what}", "route": "cuda", "source": SOURCES["layernorm"],
+            "replaces": TPU_KERNELS["layernorm"], "launches": n, "max_abs_err": err,
+            "ms": _time_ms(torch, call), "plain_ms": _time_ms(
+                torch, lambda: K.layernorm_plain(x, g, b, 1e-6), reps=5),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": _time_ms(torch, library),
+            "device_ms": _kernel_device_ms(torch, call, "layernorm_kernel"),
+            "library_device_ms": _kernel_device_ms(torch, library, None),
+            "graph_ms": _graph_ms(torch, call, calls=10),
+            "library_graph_ms": _graph_ms(torch, library, calls=10),
+            "case": f"{name}, f32 (launches: {path}, this shape)",
+        }
+        print(f"  {e['name']}: CUDA graph {e['graph_ms']:.4f} ms (F.layer_norm "
+              f"{e['library_graph_ms']:.4f}), profiler {e['device_ms']:.4f} ms (F.layer_norm "
+              f"{e['library_device_ms']:.4f}), events {e['ms']:.4f} ms (F.layer_norm "
+              f"{e['library_ms']:.4f}), plain {e['plain_ms']:.4f}, bound {b_ms:.4f} ms "
+              f"({b_by}), {n} launches")
+        entries.append(e)
+        del x
+    return entries
+
+
+def bf16_linear_entries(report, torch, K, cases, launches_by_shape):
+    """The serving ViT's bf16 qkv (5,280 x 384 -> 1,152) on linear's wgmma
+    route as a kernels-line entry: CUDA-event, profiler and CUDA-graph times
+    beside one torch.addmm on the same bf16 operands (float32 output where
+    this PyTorch takes out_dtype, else bf16 output, named in the entry), the
+    bound, and the route bitwise against itself; then the route timed (CUDA
+    graph) at each of the serving ViTs' product shapes (BF16_PATH_SHAPES)
+    beside the same library call and the bound, and held bitwise against
+    itself there. Returns (entry, {shape: times})."""
+    name, kern, plain, args, kwargs, err = cases["linear_qkv"]
+    a, w, b = args[:3]
+    call = lambda: kern(*args, **kwargs)  # noqa: E731
+    a16, b16 = K.round_bf16(a).to(torch.bfloat16), b.to(torch.bfloat16)
+    library, lib_name = (lambda: torch.addmm(b, a16, w, out_dtype=torch.float32),
+                         "torch.addmm(f32 bias, bf16 a, bf16 W, out_dtype=float32)")
+    try:
+        library()
+    except (TypeError, RuntimeError) as exc:  # a PyTorch without out_dtype
+        print(f"  {lib_name}: not taken here ({type(exc).__name__})")
+        library, lib_name = (lambda: torch.addmm(b16, a16, w),
+                             "torch.addmm(bf16 bias, bf16 a, bf16 W), bf16 output")
+    y = call()
+    report.require(f"{name} repeats bitwise", all(torch.equal(y, call()) for _ in range(3)))
+    b_ms, b_by = linear_bound(a, w, b, round_a=True)
+    (M, K_), N = a.shape, w.shape[1]
+    e = {
+        "name": "linear bf16 vit qkv", "route": "cuda", "source": SOURCES["linear"],
+        "replaces": TPU_KERNELS["linear"], "launches": launches_by_shape.get((M, K_, N, False), 0),
+        "max_abs_err": err, "ms": _time_ms(torch, call, inner=10),
+        "plain_ms": _time_ms(torch, lambda: plain(*args, **kwargs), inner=10),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": _time_ms(torch, library, inner=10),
+        "library": lib_name,
+        "device_ms": _kernel_device_ms(torch, call, "linear_bf16"),
+        "library_device_ms": _kernel_device_ms(torch, library, None),
+        "graph_ms": _graph_ms(torch, call), "library_graph_ms": _graph_ms(torch, library),
+        "case": f"{name} (launches: no-GGS path, this shape)",
+    }
+    print(f"  {e['name']}: CUDA graph {e['graph_ms']:.4f} ms ({lib_name} "
+          f"{e['library_graph_ms']:.4f}), profiler {e['device_ms']:.4f} ms (library "
+          f"{e['library_device_ms']:.4f}), events {e['ms']:.4f} ms (library "
+          f"{e['library_ms']:.4f}), plain {e['plain_ms']:.4f}, bound {b_ms:.4f} ms ({b_by}), "
+          f"{e['launches']} launches")
+    shapes = {}
+    gen = torch.Generator(device=a.device).manual_seed(SEED)
+    for M, K_, N in BF16_PATH_SHAPES:
+        x = torch.randn((M, K_), generator=gen, device=a.device)
+        wt = (torch.randn((K_, N), generator=gen, device=a.device) / K_**0.5).to(torch.bfloat16)
+        bt = torch.randn(N, generator=gen, device=a.device)
+        x16, bt16 = K.round_bf16(x).to(torch.bfloat16), bt.to(torch.bfloat16)
+        for act in ("none", "gelu") if N == 4 * K_ else ("none",):
+            call = lambda: K.linear(x, wt, bt, act=act, round_a=True)  # noqa: E731
+            y = call()
+            report.require(f"bf16 tile at {M} x {K_} -> {N} ({act}) repeats bitwise",
+                           all(torch.equal(y, call()) for _ in range(2)))
+            row = {"graph_ms": _graph_ms(torch, call),
+                   "bound_ms": linear_bound(x, wt, bt, round_a=True)[0]}
+            if act == "none":  # the library has no fused GELU
+                lib = ((lambda: torch.addmm(bt, x16, wt, out_dtype=torch.float32))
+                       if "out_dtype" in lib_name else (lambda: torch.addmm(bt16, x16, wt)))
+                row["library_graph_ms"] = _graph_ms(torch, lib)
+            shapes[f"{M}x{K_}->{N} {act}"] = row
+            print(f"  bf16 tile at {M} x {K_} -> {N} ({act}): CUDA graph {row['graph_ms']:.4f} ms"
+                  + (f", {lib_name} {row['library_graph_ms']:.4f}" if act == "none" else "")
+                  + f", bound {row['bound_ms']:.4f} ms")
+        del x, wt
+    return e, shapes
 
 
 def _close_rel(report, name, out, ref, tol):
@@ -1383,6 +1593,7 @@ def train_slice(report, dev, work, smi, t_start):
     result = train_torch.run(cfg)
     torch.cuda.synchronize()
     launches = K.launch_counts()
+    _note_layernorm_shapes(K, "train path")
     wgrad_by_shape = dict(K.linear_wgrad.by_shape)
     linear_by_shape = dict(K.linear.by_shape)
     _check_launches(report, "train", TRAIN_PATH, launches)
@@ -1656,6 +1867,7 @@ def backbones_slice(report, dev, work, smi, t_start, dino_step_launches):
     result = train_torch.run(cfg)
     torch.cuda.synchronize()
     launches = K.launch_counts()
+    _note_layernorm_shapes(K, "DINOv2 train path")
     linear_shapes = dict(K.linear.by_shape)
     _check_launches(report, "DINOv2 train", DINOV2_TRAIN_PATH, launches)
     print(f"  {result['steps']} steps, losses {[round(x, 5) for x in result['losses']]}, "
@@ -1836,6 +2048,7 @@ def backbones_slice(report, dev, work, smi, t_start, dino_step_launches):
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
     vitb_step = K.launch_counts()
+    _note_layernorm_shapes(K, "one ViT-B train step")
     lnb_json["launches"] = vitb_step["layernorm_bwd"]
     kernels_json.append(lnb_json)
     print(f"  launches of one ViT-B train step: {vitb_step}")
@@ -2034,7 +2247,8 @@ def main(argv) -> int:
     print(f"[build] {K.library_path().name} in {time.perf_counter() - t0:.1f} s")
     parent_calls = None
     if "--parent" in argv:
-        parent_calls = parent_phase(report, argv[argv.index("--parent") + 1], smi)
+        rounds = int(argv[argv.index("--rounds") + 1]) if "--rounds" in argv else 1
+        parent_calls = parent_phase(report, argv[argv.index("--parent") + 1], smi, rounds)
     if "--attention" in argv:  # the attention cases alone
         attn = attention_slice(report, dev, smi)
         print(json.dumps({"attention_cases": attn, "card": smi}))
@@ -2087,7 +2301,8 @@ def main(argv) -> int:
             h = case(f"layernorm vit {mode} ({B * N}x{D})", K.layernorm, K.layernorm_plain,
                      (x2, g1, b1, 1e-6, act), {}, act, tag("layernorm"))
             qkv = case(f"linear vit qkv {mode} ({B * N}x{D} @ {D}x{3 * D})", K.linear,
-                       K.linear_plain, (h, wqkv, bqkv), dict(round_a=act), False)
+                       K.linear_plain, (h, wqkv, bqkv), dict(round_a=act), False,
+                       tag("linear_qkv"))
             a = case(f"attention vit {mode} ({B}x{N}, 6 heads)", K.attention,
                      K.attention_plain, (qkv.view(B, N, -1), 6),
                      dict(attn_bias=bias, round_in=act), act, tag("attention"))
@@ -2364,6 +2579,8 @@ def main(argv) -> int:
     torch.cuda.synchronize()
     launches = K.launch_counts()
     _check_launches(report, "no-GGS", NO_GGS_PATH, launches)
+    main_linear_shapes = dict(K.linear.by_shape)
+    _note_layernorm_shapes(K, "no-GGS path")
     rows_by_shape = dict(K.linear_rows.by_shape)
     print(f"  linear_rows launches by (M, K, N): {rows_by_shape}")
     _check_cameras(report, out_plain, n_frames, "no-GGS")
@@ -2460,6 +2677,14 @@ def main(argv) -> int:
             "vit trunk 336px plain (fused_vit_trunk_plain, bf16)": _time_ms(
                 torch, lambda: fused_vit_trunk_plain(tokens336, stb, 6, True, bias336)),
         }
+        # the trunk's device time without the host's launch cost (84
+        # launches), and so the share of its wall time the card is idle
+        for px, tok, bb in ((224, tokens, bias), (336, tokens336, bias336)):
+            dev_ms = _graph_ms(torch, lambda: fused_vit_trunk(tok, stb, 6, True, bb), calls=2)
+            wall = timings[f"vit trunk{'' if px == 224 else ' 336px'} (fused_vit_trunk, bf16)"]
+            timings[f"vit trunk {px}px CUDA graph (device)"] = dev_ms
+            print(f"  fused_vit_trunk {px}px: {dev_ms:.3f} ms on the card (CUDA graph) of "
+                  f"{wall:.3f} ms wall ({100 * (1 - dev_ms / wall):.1f}% idle)")
         hd = torch.randn((n_frames, 512), generator=gen, device=dev)
         zb = torch.zeros(n_frames, device=dev)
         timings["fused_trunk (8 layers, 20 rows, bf16)"] = _time_ms(
@@ -2649,9 +2874,24 @@ def main(argv) -> int:
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": library_ms, "case": name,
             })
+            if key in ("layernorm", "linear"):  # and without the host's launch cost
+                kname = {"layernorm": "layernorm_kernel", "linear": "linear_bf16"}
+                e = kernels_json[-1]
+                e["device_ms"] = _kernel_device_ms(
+                    torch, lambda: kernel(*args_k, **kwargs), kname[key])
+                e["graph_ms"] = _graph_ms(torch, lambda: kernel(*args_k, **kwargs))
+                if lib is not None:
+                    e["library_device_ms"] = _kernel_device_ms(torch, lib, None)
+                    e["library_graph_ms"] = _graph_ms(torch, lib)
+                print(f"  {name}: CUDA graph {e['graph_ms']:.4f} ms (library "
+                      f"{e.get('library_graph_ms')}), profiler {e['device_ms']:.4f} ms, library "
+                      f"{e.get('library_device_ms')}")
         rows_json, ln_rows20 = rows_entries(torch, F, cases, rows_by_shape)
         kernels_json[TRUNK_KERNELS.index("layernorm")]["rows20"] = ln_rows20
         kernels_json += rows_json
+        qkv_json, bf16_shapes = bf16_linear_entries(report, torch, K, cases, main_linear_shapes)
+        kernels_json.append(qkv_json)
+        timings["bf16 tile at the serving shapes (CUDA graph ms)"] = bf16_shapes
     Ks1 = Kp + 1
     sg_bounds = {
         "superglue_coupling": bound(nbytes(m_sg, sg_f0, sg_f1) + Cp * Ks1 * (Ks1 + 2) * 4,
@@ -2709,6 +2949,8 @@ def main(argv) -> int:
             "case": f"200-iteration phase, 20 frames, {d}/pair (launches: GGS path)",
         })
     kernels_json += train_json + bb_json
+    with torch.no_grad():
+        kernels_json += layernorm_entries(report, torch, F, K, dev, gen)
     attention_cases = attention_slice(report, dev, smi)
     timings.update(train_timings)
     timings.update(bb_timings)

@@ -10,11 +10,26 @@
 //                                              _bwd_call, with the residual
 //                                              cotangent added (:353, :488)
 //
-// Bound: memory. A row is 384 to 768 floats, read three times (mean,
-// variance, output) and written once; the second and third reads hit L1.
-// Design: a warp owns a row, so the two reductions are register shuffles
-// with no shared memory and no block barrier; eps and the bf16 rounding of
-// the output are arguments, so both trunks share the one kernel.
+// Bound: memory: x read once and y written once, 2 x 4 bytes an element
+// (415 MB, 0.124 ms at HBM rate, at the ViT's train shape 135,168 x 384).
+// Forward: a warp owns a row, so the two reductions are register shuffles
+// with no shared memory and no block barrier. A lane holds its columns of
+// the row in registers: float4 number c of lane l is columns 4 (l + 32 c)
+// .. + 3 when D is 128 x NV for NV in 3, 4, 6, 8 (ViT-S, the denoiser,
+// ViT-B, D 1,024) and x, g, b and y are 16-byte aligned; otherwise column l
+// + 32 c, c < 32, masked past D (any D <= 1,024). So x is read once (the
+// mean, the centred variance and the output come from the registers), g
+// and b once a warp as float4s (at each row from L1 in the masked
+// instance, whose 32 values a lane leave no registers for them), and the
+// next row's loads are issued before this row's reductions. y goes out
+// with streaming float4 stores (st.global.cs). The grid holds as many
+// blocks of 8 warps as fit on the card at once, each warp walking rows
+// gridDim x 8 apart. A row wider than 1,024 (no configuration of the port
+// has one) takes a strided instance instead: lane l's columns l, l + 32,
+// ..., read three times through L1, a warp a row. Two-pass numerics
+// as the TPU kernels' _layer_norm: the mean, then the centred variance,
+// rsqrt(var + eps), * g + b; eps and the bf16 rounding of the output are
+// arguments, so both trunks share the one kernel.
 // Backward: bound by memory too (x, dh and the residual cotangent read,
 // dx written: 830 MB at the ViT's 135,168 x 384). A warp owns a row at a
 // time and recomputes mean and rstd from the saved input, as _ln_bwd does
@@ -35,46 +50,6 @@
 // column, then the 8 runs in order). No atomics, so the result repeats
 // bitwise.
 #include "common.cuh"
-
-__global__ void __launch_bounds__(256)
-layernorm_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                 const float* __restrict__ b, float* __restrict__ y, int rows,
-                 int D, float eps, int round_out) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const float* xr = x + (size_t)row * D;
-  float* yr = y + (size_t)row * D;
-
-  float s = 0.f;
-  for (int d = lane; d < D; d += 32) s += xr[d];
-  const float mean = warp_sum(s) / (float)D;
-
-  float v = 0.f;
-  for (int d = lane; d < D; d += 32) {
-    const float t = xr[d] - mean;
-    v = fmaf(t, t, v);
-  }
-  const float var = warp_sum(v) / (float)D;
-  const float r = rsqrtf(var + eps);
-
-  for (int d = lane; d < D; d += 32) {
-    float o = (xr[d] - mean) * r * g[d] + b[d];
-    if (round_out) o = round_bf16(o);
-    yr[d] = o;
-  }
-}
-
-PD_API int pd_layernorm(const void* x, const void* g, const void* b, void* y,
-                        int rows, int D, float eps, int round_out,
-                        void* stream) {
-  const int threads = 256;
-  const int blocks = (rows * 32 + threads - 1) / threads;
-  layernorm_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)g, (const float*)b, (float*)y, rows, D,
-      eps, round_out);
-  return (int)cudaGetLastError();
-}
 
 constexpr int LNB_WARPS = 8;             // warps of a block
 constexpr int LNB_BLOCKS = 2 * 132;      // most blocks (partials) of a call
@@ -112,6 +87,147 @@ __device__ __forceinline__ void lnb_load(const float* __restrict__ p, float (&v)
       v[e] = d < D ? p[d] : 0.f;
     }
   }
+}
+
+__host__ __forceinline__ bool al16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+constexpr int LN_WARPS = 8;  // warps of a forward block
+
+// y = (x - mean) rsqrt(var + eps) g + b [rounded to bf16], row by row
+template <int NV, int VEC>
+__global__ void __launch_bounds__(LN_WARPS * 32)
+layernorm_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                 const float* __restrict__ b, float* __restrict__ y, int rows, int D,
+                 float eps, int round_out) {
+  constexpr int E = NV * VEC;
+  const int lane = threadIdx.x & 31;
+  const int stride = gridDim.x * LN_WARPS;
+  int row = blockIdx.x * LN_WARPS + (threadIdx.x >> 5);
+  if (row >= rows) return;  // whole warps
+  // g and b: in registers with the float4 instances; the masked one (32
+  // values a lane) reads them at each row from L1 instead
+  constexpr int EG = VEC == 4 ? E : 1;
+  float gv[EG], bv[EG], xn[E];
+  if constexpr (VEC == 4) {
+    lnb_load<NV, VEC>(g, gv, lane, D);
+    lnb_load<NV, VEC>(b, bv, lane, D);
+  }
+  lnb_load<NV, VEC>(x + (size_t)row * D, xn, lane, D);
+  for (; row < rows; row += stride) {
+    float xv[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) xv[e] = xn[e];
+    if (row + stride < rows)  // the next row's loads, before this row's reductions
+      lnb_load<NV, VEC>(x + (size_t)(row + stride) * D, xn, lane, D);
+    float s = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) s += xv[e];  // zeros past D
+    const float mean = warp_sum(s) / (float)D;
+    float v = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      if (VEC == 4 || lnb_col<VEC>(lane, e) < D) {
+        const float t = xv[e] - mean;
+        v = fmaf(t, t, v);
+      }
+    }
+    const float r = rsqrtf(warp_sum(v) / (float)D + eps);
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      if constexpr (VEC == 4) {
+        xv[e] = (xv[e] - mean) * r * gv[e] + bv[e];
+      } else {
+        const int d = lnb_col<VEC>(lane, e);
+        xv[e] = d < D ? (xv[e] - mean) * r * g[d] + b[d] : 0.f;
+      }
+      if (round_out) xv[e] = round_bf16(xv[e]);
+    }
+    float* out = y + (size_t)row * D;
+    if constexpr (VEC == 4) {
+#pragma unroll
+      for (int c = 0; c < NV; ++c)
+        __stcs(reinterpret_cast<float4*>(out) + lane + 32 * c,
+               make_float4(xv[4 * c], xv[4 * c + 1], xv[4 * c + 2], xv[4 * c + 3]));
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const int d = lnb_col<VEC>(lane, e);
+        if (d < D) __stcs(out + d, xv[e]);
+      }
+    }
+  }
+}
+
+// rows wider than a warp's registers hold (D > LNB_MAX_D): the columns of a
+// row looped through L1 in each of the three passes
+__global__ void __launch_bounds__(LN_WARPS * 32)
+layernorm_strided_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                         const float* __restrict__ b, float* __restrict__ y, int rows, int D,
+                         float eps, int round_out) {
+  const int row = blockIdx.x * LN_WARPS + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const float* xr = x + (size_t)row * D;
+  float* yr = y + (size_t)row * D;
+  float s = 0.f;
+  for (int d = lane; d < D; d += 32) s += xr[d];
+  const float mean = warp_sum(s) / (float)D;
+  float v = 0.f;
+  for (int d = lane; d < D; d += 32) {
+    const float t = xr[d] - mean;
+    v = fmaf(t, t, v);
+  }
+  const float r = rsqrtf(warp_sum(v) / (float)D + eps);
+  for (int d = lane; d < D; d += 32) {
+    float o = (xr[d] - mean) * r * g[d] + b[d];
+    if (round_out) o = round_bf16(o);
+    __stcs(yr + d, o);
+  }
+}
+
+template <int NV, int VEC>
+int launch_layernorm(const float* x, const float* g, const float* b, float* y, int rows,
+                     int D, float eps, int round_out, cudaStream_t s) {
+  auto kern = layernorm_kernel<NV, VEC>;
+  static int resident = 0;  // blocks of this instance the card holds at once
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, LN_WARPS * 32, 0);
+    if (err != cudaSuccess) return (int)err;
+    resident = (per_sm > 0 ? per_sm : 1) * sms;
+  }
+  const int need = (rows + LN_WARPS - 1) / LN_WARPS;
+  kern<<<need < resident ? need : resident, LN_WARPS * 32, 0, s>>>(x, g, b, y, rows, D, eps,
+                                                                    round_out);
+  return (int)cudaGetLastError();
+}
+
+// x, y (rows, D); g, b (D,)
+PD_API int pd_layernorm(const void* x, const void* g, const void* b, void* y,
+                        int rows, int D, float eps, int round_out,
+                        void* stream) {
+  if (rows < 1 || D < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const float *X = (const float*)x, *G = (const float*)g, *B = (const float*)b;
+  float* Y = (float*)y;
+  if (D > LNB_MAX_D) {
+    layernorm_strided_kernel<<<(rows + LN_WARPS - 1) / LN_WARPS, LN_WARPS * 32, 0, s>>>(
+        X, G, B, Y, rows, D, eps, round_out);
+    return (int)cudaGetLastError();
+  }
+  const bool vec = D % 128 == 0 && al16(x) && al16(g) && al16(b) && al16(y);
+  switch (vec ? D / 128 : 0) {
+    case 3: return launch_layernorm<3, 4>(X, G, B, Y, rows, D, eps, round_out, s);
+    case 4: return launch_layernorm<4, 4>(X, G, B, Y, rows, D, eps, round_out, s);
+    case 6: return launch_layernorm<6, 4>(X, G, B, Y, rows, D, eps, round_out, s);
+    case 8: return launch_layernorm<8, 4>(X, G, B, Y, rows, D, eps, round_out, s);
+  }
+  return launch_layernorm<32, 1>(X, G, B, Y, rows, D, eps, round_out, s);
 }
 
 // dx = rstd (dxhat - mean(dxhat) - xhat mean(dxhat xhat)) [+ res], with
@@ -256,7 +372,6 @@ PD_API int pd_layernorm_bwd(const void* x, const void* g, const void* dh,
   if (D < 1 || D > LNB_MAX_D || rows < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int blocks = lnb_blocks(rows);
-  auto al16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   const bool vec = D % 128 == 0 && al16(x) && al16(g) && al16(dh) && al16(res) && al16(dx);
   auto* kernel = &layernorm_bwd_kernel<32, 1, false>;
   if (vec) {

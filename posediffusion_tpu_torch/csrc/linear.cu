@@ -27,41 +27,50 @@
 // + residual, round to bf16 when the residual stream is bf16 (round_out)].
 //
 // Bound: compute. The ViT's train products (M = 512 images x 264 tokens =
-// 135,168 rows, K and N 384 to 1,536) are 40-160 GFLOP each; the sampler's
-// (M = 20 rows) are bound by reading the weights once (0.16-0.47 us at
-// HBM rate) and, in practice, by latency.
+// 135,168 rows, K and N 384 to 1,536) are 40-160 GFLOP each; the serving
+// ViT's (M = 20 frames x 264 tokens = 5,280 rows) 1.6-6.2 GFLOP; the
+// sampler's (M = 20 rows) are bound by reading the weights once (0.16-0.47
+// us at HBM rate) and, in practice, by latency.
 // Design: three forward kernels.
 //   * M <= 32 and W not transposed (the denoiser's 20-row products, TPU
 //     kernels 2 and 3): the few-rows route, linear_rows_kernel below. It
 //     streams each weight element once with 16-byte copies, splits K over a
 //     cluster of 8 blocks and N over enough column tiles to fill the card,
 //     and can fold the pre-norm LayerNorm of a into its staging.
-//   * bf16 a and bf16 W: WMMA bfloat16 tensor-core tiles (64 x 64 per block,
-//     four warps of 32 x 32), f32 accumulation in the fragments, the
-//     epilogue from a shared-memory copy of the tile.
-//   * float32 a (bf16 or f32 W, transposed or not, round_a or not), more
-//     than 32 rows or W transposed: 3xTF32 tensor-core tiles
-//     (linear_tf32_kernel, 128 x 128 a block, a 3-stage cp.async ring),
-//     two TF32 products where one operand is exact in TF32 (a bf16 W, or a
-//     rounded a). The f32 products on the tensor cores: 495 TFLOP/s of
-//     TF32 for three products against 67 of float32 FMA. The JAX kernel's
-//     f32 dot with a bf16 weight is the same function: the widened weight
-//     is exact.
+//   * bf16 W with round_a (the bf16 serving ViT, TPU kernel 1, and the bf16
+//     train mode's forward and dgrad products): bf16 wgmma with A from
+//     registers (linear_bf16_wgmma_kernel, 128 x 128 tiles on a
+//     persistent grid, a producer warp feeding a TMA ring through mbarriers,
+//     two consumer warpgroups that round a to bf16 as they load it).
+//   * float32 a (bf16 or f32 W, transposed or not, round_a or not, but not
+//     bf16 W with round_a), more than 32 rows or W transposed: 3xTF32
+//     tensor-core tiles (linear_tf32_kernel, 128 x 128 a block, a 3-stage
+//     cp.async ring), two TF32 products where one operand is exact in TF32
+//     (a bf16 W, or a rounded a). The f32 products on the tensor cores: 495
+//     TFLOP/s of TF32 for three products against 67 of float32 FMA. The JAX
+//     kernel's f32 dot with a bf16 weight is the same function: the widened
+//     weight is exact.
 // The weight gradient reduces over all M rows into a small (K, N) result:
-// the rows are split into S ranges, one block per (range, 64 x 64 output
-// tile) writes an f32 partial (S, K, N), and a second pass (train.cu,
+// the rows are split into S ranges, one block per (range, output tile)
+// writes an f32 partial (S, K, N), and a second pass (train.cu,
 // pd_sum_partials) sums the S partials in order. That is the TPU kernel's
 // per-batch-chunk partials (:937-940): deterministic, no atomics. In float32
 // mode its products are 3xTF32 tensor-core MMAs (wgrad_tf32_kernel, a 128 x
-// 128 tile fed by a cp.async ring), in bf16 mode WMMA bfloat16 tiles; db is
-// the column sum of dY in the same pass. No kernel here uses wgmma or TMA
-// yet: TF32 wgmma reads only K-major operands from shared memory, and the
-// forward's W (K, N) and both operands of the weight gradient are not.
+// 128 tile fed by a cp.async ring), in bf16 mode WMMA bfloat16 tiles of 64
+// x 64 (wgrad_bf16_tc_kernel); db is the column sum of dY in the same pass.
+// The TF32 kernels use mma.sync, not wgmma: TF32 wgmma reads only K-major
+// operands from shared memory, and the forward's W (K, N) and both operands
+// of the weight gradient are not. bf16 wgmma takes an MN-major B, so the
+// bf16 route reads W (K, N) as it lies.
 #include <cooperative_groups.h>
+#include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_pipeline.h>
 #include <mma.h>
 
 #include <cstdint>
+#include <map>
+#include <mutex>
+#include <tuple>
 
 #include "common.cuh"
 
@@ -427,87 +436,372 @@ linear_tf32_kernel(const float* __restrict__ A, const WT* __restrict__ W, Epilog
   cp_async_wait<0>();
 }
 
-// ---- bf16 x bf16 on the tensor cores (WMMA 16x16x16)
-constexpr int TC_BM = 64, TC_BN = 64, TC_BK = 32, TC_THREADS = 128;
-constexpr int TC_LDA = TC_BK + 8;   // bf16 elements; rows stay 32-byte aligned
-constexpr int TC_LDW = TC_BN + 8;
-constexpr int TC_LDC = TC_BN + 4;   // float elements
+// ---- bf16 W with round_a on wgmma (sm_90a)
+//
+// y = epi(round_bf16(a) @ W), a (M, K) float32 with M > 32 (any M with
+// trans_w); W bf16 (K, N), or (N, K) read transposed: the TPU kernels'
+// cast(...) of a and their preferred_element_type=f32 dots.
+//   * Tiles: 128 x 128 of y (ops/kernels.py tabulates the tiles and waves
+//     at the serving ViTs' shapes). The grid is persistent (one block an
+//     SM): block b takes tiles b, b + grid, ..., n fastest. A tile's 64-wide K slice moves 48
+//     KB from L2 (a in float32, two thirds of it) for 1 M MACs: at the
+//     ViT's widths that, not the MMAs, bounds the kernel.
+//   * Roles: warpgroups 0 and 1 consume, each owning 64 rows of the tile;
+//     warp 8 (warpgroup 2) produces. Every (tile, 64-wide K slice) step goes
+//     through a ring of Bw::STAGES slots guarded by mbarriers (full: the
+//     slot's loads have landed; empty: the 8 consumer warps are done with
+//     it), so the producer loads the next tile's first slices while the
+//     consumers run a tile's epilogue. setmaxnreg moves registers from the
+//     producer's warpgroup (40 a thread) to the consumers' (232).
+//   * Loads: TMA (cp.async.bulk.tensor; the tensor maps are encoded on the
+//     host through the CUDA driver API's entry point, no -lcuda: a's at each
+//     call, W's once per (address, shape) and kept) with the 128-byte swizzle: a as two
+//     128-row x 32-float boxes a slice, W as 64 x 64 boxes (the forward: 64
+//     columns of N by 64 rows of K, N contiguous) or one 128 x 64 box
+//     (trans_w: 128 rows of N by 64 of K, K contiguous); zeros past M, N and
+//     K. Where a row is not 16-byte aligned (K % 4, N % 8 (K % 8 with
+//     trans_w) or a base off 16 bytes) the producer warp writes the same
+//     swizzled layout with element loads instead.
+//   * Products: wgmma.mma_async m64n128k16, bf16 x bf16 -> f32, A from
+//     registers: a consumer thread reads its fragment's float pairs of a
+//     from the slot (two wavefronts a warp-wide 8-byte load, the least) and
+//     rounds them with cvt.rn.bf16x2.f32 into the A registers, round_a's
+//     rounding site, so a is never written back as bf16. B comes from the
+//     slot through a matrix descriptor: the forward's W is MN-major (the
+//     transpose bit set; LBO the stride of 64-column blocks, SBO of 8-row
+//     groups of K), the dgrad's K-major (SBO the stride of 8-row groups of
+//     N). One kernel template serves both.
+//   * Precision: a bf16 x bf16 product is exact in float32, and the tensor
+//     core truncates each sum into its accumulator, so each 64-wide K slice
+//     (four k16 MMAs) goes into a fresh accumulator that is then added,
+//     rounded to nearest, into the running one, as in linear_tf32_kernel. A
+//     fixed order: the result repeats bitwise.
+//   * Epilogue: each consumer warpgroup writes its 64 rows of the tile into
+//     its own shared buffer (rows of 128 + 4 floats; not a ring slot, so
+//     the loads go on) and walks them in float4 runs through Epilogue::store4,
+//     element by element where N % 4 or alignment forbid: one copy of the
+//     epilogue's math.
+constexpr int BW_BK = 64;                      // K of a slot: one 128-byte row of bf16
+constexpr int BW_BN = 128;                     // columns of a tile (m64n128k16)
+constexpr int BW_THREADS = 384;                // warpgroups 0, 1 consume; 2 produces
+constexpr int BW_MAX_SMEM = 232448;            // bytes of shared memory a block may use
 
-__global__ void __launch_bounds__(TC_THREADS)
-linear_bf16_tc_kernel(const float* __restrict__ A,
-                      const __nv_bfloat16* __restrict__ W, int trans,
-                      Epilogue ep, int M, int N, int K) {
-  using namespace nvcuda;
-  __shared__ __align__(32) __nv_bfloat16 As[TC_BM * TC_LDA];
-  __shared__ __align__(32) __nv_bfloat16 Ws[TC_BK * TC_LDW];
-  __shared__ __align__(32) float Cs[TC_BM * TC_LDC];
+// the tile's shared memory: 1,024 bytes of alignment slack, STAGES ring
+// slots (a's BM x 64 float32 slice in two 32-float halves, W's 64 x 128
+// bf16 one; multiples of 1,024 bytes), the two warpgroups' epilogue buffers
+// (64 rows of 128 + 4 floats each), then the full and empty barriers
+// (ops/kernels.py linear_bf16_smem_bytes holds the same)
+struct Bw {
+  static constexpr int BM = 128;  // rows of a tile: two warpgroups of 64
+  static constexpr int A_HALF = BM * 128;
+  static constexpr int A_BYTES = 2 * A_HALF;
+  static constexpr int STAGE = A_BYTES + BW_BK * BW_BN * 2;
+  static constexpr int LDC = BW_BN + 4;  // an epilogue row, floats
+  static constexpr int EPI = BM * LDC * 4;
+  static constexpr int STAGES = 3;  // as many as fit beside the epilogue buffers
+  static constexpr int SMEM = 1024 + STAGES * STAGE + EPI + 2 * STAGES * 8;
+};
 
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;  // 2 x 2 warps of 32 x 32
-  const int m0 = blockIdx.y * TC_BM, n0 = blockIdx.x * TC_BN;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(c[i][j], 0.f);
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// a TMA box at coordinates (c0 innermost, c1) into shared memory
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
 
-  for (int k0 = 0; k0 < K; k0 += TC_BK) {
-    for (int i = tid; i < TC_BM * TC_BK; i += TC_THREADS) {
-      const int r = i / TC_BK, cc = i % TC_BK;
-      const int gm = m0 + r, gk = k0 + cc;
-      const float v = (gm < M && gk < K) ? A[(size_t)gm * K + gk] : 0.f;
-      As[r * TC_LDA + cc] = __float2bfloat16_rn(v);
-    }
-    for (int i = tid; i < TC_BK * TC_BN; i += TC_THREADS) {
-      const int r = trans ? i % TC_BK : i / TC_BN;
-      const int cc = trans ? i / TC_BK : i % TC_BN;
-      const int gk = k0 + r, gn = n0 + cc;
-      Ws[r * TC_LDW + cc] =
-          (gk < K && gn < N)
-              ? (trans ? W[(size_t)gn * K + gk] : W[(size_t)gk * N + gn])
-              : __float2bfloat16_rn(0.f);
-    }
-    __syncthreads();
+// byte b of 128-byte row r of a tile under the 128-byte swizzle (TMA's
+// CU_TENSOR_MAP_SWIZZLE_128B): 16-byte chunk c of row r at chunk c ^ (r % 8)
+__device__ __forceinline__ int bw_swz(int r, int b) {
+  return r * 128 + ((((b >> 4) ^ r) & 7) << 4) + (b & 15);
+}
+
+// a wgmma shared-memory matrix descriptor with the 128-byte swizzle (PTX
+// ISA: address, LBO and SBO in 16-byte units, layout type 1 at bit 62)
+__device__ __forceinline__ uint64_t bw_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// keeps the compiler from moving accumulator accesses across a wgmma wait
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
 #pragma unroll
-    for (int kk = 0; kk < TC_BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], As + (wm * 32 + i * 16) * TC_LDA + kk,
-                               TC_LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], Ws + kk * TC_LDW + wn * 32 + j * 16,
-                               TC_LDW);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(c[i][j], a[i], b[j], c[i][j]);
-    }
-    __syncthreads();
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define BW_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define BW_D16(i) BW_D4(i), BW_D4(i + 4), BW_D4(i + 8), BW_D4(i + 12)
+
+// d (+)= a @ B, m64n128k16: a the thread's four bf16x2 A registers, B by its
+// descriptor, TB the transpose bit of B (1: MN-major), acc 0 zeroes d first
+template <int TB>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64], const uint32_t (&a)[4],
+                                           uint64_t desc, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : BW_D16(0), BW_D16(16), BW_D16(32), BW_D16(48)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc), "n"(TB));
+}
+#undef BW_D16
+#undef BW_D4
+
+// the producer's path without TMA: a's and W's slices of step (m0, n0, k0)
+// into the layouts TMA writes, by element loads (zeros past M, N and K)
+template <int BM, bool TRANS>
+__device__ __forceinline__ void bw_stage_elements(unsigned char* sa, unsigned char* sb,
+                                                  const float* A, const __nv_bfloat16* W,
+                                                  int m0, int n0, int k0, int M, int N, int K,
+                                                  int lane) {
+  for (int e = lane; e < BM * BW_BK; e += 32) {
+    const int r = e / BW_BK, c = e % BW_BK;
+    const bool ok = m0 + r < M && k0 + c < K;
+    *reinterpret_cast<float*>(sa + (c >> 5) * BM * 128 + bw_swz(r, 4 * (c & 31))) =
+        ok ? A[(size_t)(m0 + r) * K + k0 + c] : 0.f;
   }
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+  for (int e = lane; e < BW_BK * BW_BN; e += 32) {
+    if constexpr (TRANS) {  // row n of the slot, element k
+      const int n = e / BW_BK, k = e % BW_BK;
+      const bool ok = n0 + n < N && k0 + k < K;
+      *reinterpret_cast<__nv_bfloat16*>(sb + bw_swz(n, 2 * k)) =
+          ok ? W[(size_t)(n0 + n) * K + k0 + k] : zero;
+    } else {  // 64-column block n / 64, row k, element n % 64
+      const int k = e / BW_BN, n = e % BW_BN;
+      const bool ok = k0 + k < K && n0 + n < N;
+      *reinterpret_cast<__nv_bfloat16*>(sb + (n >> 6) * 8192 + bw_swz(k, 2 * (n & 63))) =
+          ok ? W[(size_t)(k0 + k) * N + n0 + n] : zero;
+    }
+  }
+}
 
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * TC_LDC + wn * 32 + j * 16,
-                              c[i][j], TC_LDC, wmma::mem_row_major);
+template <bool TRANS>
+__global__ void __launch_bounds__(BW_THREADS, 1)
+linear_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
+                         const __grid_constant__ CUtensorMap tm_w, const float* __restrict__ A,
+                         const __nv_bfloat16* __restrict__ W, Epilogue ep, int M, int N, int K,
+                         int use_tma, int vec_out) {
+  using S = Bw;
+  extern __shared__ __align__(1024) unsigned char bw_smem[];
+  unsigned char* smem = bw_smem + ((1024 - (smem_u32(bw_smem) & 1023)) & 1023);
+  float* epi = reinterpret_cast<float*>(smem + S::STAGES * S::STAGE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::STAGES * S::STAGE + S::EPI);
+  uint64_t* empty = full + S::STAGES;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tiles_n = (N + BW_BN - 1) / BW_BN;
+  const int tiles = tiles_n * ((M + S::BM - 1) / S::BM);
+  const int slices = max(1, (K + BW_BK - 1) / BW_BK);
+  const int mine = (int)blockIdx.x < tiles ? (tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+  const int steps = mine * slices;  // (tile, slice) steps of this block
+
+  // the origin of the block's tile i
+  auto origin = [&](int i, int& m0, int& n0) {
+    const int tile = (int)blockIdx.x + i * (int)gridDim.x;
+    m0 = (tile / tiles_n) * S::BM;
+    n0 = (tile % tiles_n) * BW_BN;
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < S::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
   __syncthreads();
 
-  for (int i = tid; i < TC_BM * TC_BN; i += TC_THREADS) {
-    const int r = i / TC_BN, cc = i % TC_BN;
-    const int m = m0 + r, n = n0 + cc;
-    if (m < M && n < N) ep.store(Cs[r * TC_LDC + cc], m, n, N);
+  if (warp >= 8) {  // the producer warpgroup: warp 8 loads, 9-11 leave
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == 8) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int q = 0; q < steps; ++q) {
+        mbar_wait(&empty[stage], phase ^ 1);  // the first pass finds every slot free
+        int m0, n0;
+        origin(q / slices, m0, n0);
+        const int k0 = (q % slices) * BW_BK;
+        unsigned char* sa = smem + stage * S::STAGE;
+        unsigned char* sb = sa + S::A_BYTES;
+        if (use_tma) {
+          if (lane == 0) {
+            mbar_expect_tx(&full[stage], S::STAGE);
+            tma_load_2d(sa, &tm_a, k0, m0, &full[stage]);
+            tma_load_2d(sa + S::A_HALF, &tm_a, k0 + 32, m0, &full[stage]);
+            if constexpr (TRANS) {
+              tma_load_2d(sb, &tm_w, k0, n0, &full[stage]);
+            } else {
+#pragma unroll
+              for (int cb = 0; cb < BW_BN / 64; ++cb)
+                tma_load_2d(sb + cb * 8192, &tm_w, n0 + 64 * cb, k0, &full[stage]);
+            }
+          }
+        } else {
+          bw_stage_elements<S::BM, TRANS>(sa, sb, A, W, m0, n0, k0, M, N, K, lane);
+          // generic-proxy stores, read by wgmma through the async proxy
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&full[stage]);
+        }
+        if (++stage == S::STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {  // the consumer warpgroups
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+    const int r0 = wg * 64 + (warp & 3) * 16 + g;  // A rows r0, r0 + 8; r0 % 8 == g
+    float* ce = epi + wg * 64 * S::LDC;            // this warpgroup's epilogue rows
+    float acc[BW_BN / 2], part[BW_BN / 2];
+    for (int i = 0; i < mine; ++i) {  // both warpgroups on each of the block's tiles
+      for (int slice = 0; slice < slices; ++slice) {
+        const int q = i * slices + slice, stage = q % S::STAGES;
+        mbar_wait(&full[stage], (q / S::STAGES) & 1);
+        const unsigned char* sa = smem + stage * S::STAGE;
+        const uint32_t sb = smem_u32(sa + S::A_BYTES);
+        // A of k16 step kk: (r0, c..c+1), (r0 + 8, c..), (r0, c+8..), (r0 + 8,
+        // c+8..) with c = 16 kk + 2t, rounded to bf16 pairs (low half: c)
+        uint32_t af[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const unsigned char* half = sa + (kk >> 1) * S::A_HALF;
+          const int b = 64 * (kk & 1) + 8 * t;  // byte of column c in the half's row
+          const float2 x0 = *reinterpret_cast<const float2*>(half + bw_swz(r0, b));
+          const float2 x1 = *reinterpret_cast<const float2*>(half + bw_swz(r0 + 8, b));
+          const float2 x2 = *reinterpret_cast<const float2*>(half + bw_swz(r0, b + 32));
+          const float2 x3 = *reinterpret_cast<const float2*>(half + bw_swz(r0 + 8, b + 32));
+          af[kk][0] = pack_bf16(x0.x, x0.y);
+          af[kk][1] = pack_bf16(x1.x, x1.y);
+          af[kk][2] = pack_bf16(x2.x, x2.y);
+          af[kk][3] = pack_bf16(x3.x, x3.y);
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          // k16 step kk: 32 bytes into each K-major row, or 16 rows of K
+          const uint64_t desc = TRANS ? bw_desc(sb + 32 * kk, 16, 1024)
+                                      : bw_desc(sb + 2048 * kk, 8192, 1024);
+          wgmma_bf16<TRANS ? 0 : 1>(part, af[kk], desc, kk);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        reg_fence(part);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[stage]);
+#pragma unroll
+        for (int j = 0; j < BW_BN / 2; ++j) acc[j] = slice == 0 ? part[j] : acc[j] + part[j];
+      }
+
+      // the tile's epilogue: accumulator 4j + 2h + c is row r0 + 8h, column
+      // 8j + 2t + c of the tile
+      int m0, n0;
+      origin(i, m0, n0);
+      const int wr = (warp & 3) * 16 + g;  // the row in this warpgroup's buffer
+      asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");  // the last tile's runs are read
+#pragma unroll
+      for (int j = 0; j < BW_BN / 8; ++j) {
+        *reinterpret_cast<float2*>(ce + wr * S::LDC + 8 * j + 2 * t) =
+            make_float2(acc[4 * j], acc[4 * j + 1]);
+        *reinterpret_cast<float2*>(ce + (wr + 8) * S::LDC + 8 * j + 2 * t) =
+            make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+      }
+      asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+      const int lt = tid & 127, mw = m0 + wg * 64;
+      if (vec_out) {
+        constexpr int RUNS = 64 * BW_BN / 4, U = 4;  // float4 runs; loads in flight
+#pragma unroll 1
+        for (int e0 = lt; e0 < RUNS; e0 += U * 128) {
+          float4 v[U], r[U];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const int e = e0 + u * 128, row = e / (BW_BN / 4), c = 4 * (e % (BW_BN / 4));
+            const int m = mw + row, n = n0 + c;
+            v[u] = *reinterpret_cast<const float4*>(ce + row * S::LDC + c);
+            r[u] = ep.res && m < M && n < N
+                       ? *reinterpret_cast<const float4*>(ep.res + (size_t)m * N + n)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const int e = e0 + u * 128, row = e / (BW_BN / 4), c = 4 * (e % (BW_BN / 4));
+            if (mw + row < M && n0 + c < N) ep.store4(v[u], r[u], mw + row, n0 + c, N);
+          }
+        }
+      } else {
+#pragma unroll 1
+        for (int e = lt; e < 64 * BW_BN; e += 128) {
+          const int row = e / BW_BN, c = e % BW_BN;
+          if (mw + row < M && n0 + c < N) ep.store(ce[row * S::LDC + c], mw + row, n0 + c, N);
+        }
+      }
+    }
   }
 }
 
 __host__ __forceinline__ bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// the current device's SM count, read once a device
+cudaError_t sm_count(int* sms) {
+  static int cached[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (cached[dev] == 0) {
+    err = cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  *sms = cached[dev];
+  return cudaSuccess;
 }
 
 template <typename WT, bool TRANS, bool ROUND_A>
@@ -518,10 +812,8 @@ int launch_tf32(const float* a, const WT* w, const Epilogue& ep, int M, int N, i
   static const cudaError_t attr =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return (int)attr;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return (int)err;
   const long long tiles = (long long)((N + LT_BN - 1) / LT_BN) * ((M + LT_BM - 1) / LT_BM);
   if (tiles * ((K + LT_BK - 1) / LT_BK + 1) > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
@@ -541,6 +833,111 @@ int launch_tf32_t(const float* a, const WT* w, int trans, const Epilogue& ep, in
                   int N, int K, cudaStream_t s) {
   return trans ? launch_tf32<WT, true, ROUND_A>(a, w, ep, M, N, K, s)
                : launch_tf32<WT, false, ROUND_A>(a, w, ep, M, N, K, s);
+}
+
+// cuTensorMapEncodeTiled of the CUDA driver API, found through the runtime
+// (no -lcuda at link time)
+using TmapEncode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+TmapEncode tmap_encoder() {
+  static const TmapEncode fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<TmapEncode>(p)
+                                                                 : nullptr;
+  }();
+  return fn;
+}
+
+// a row-major (rows, cols) tensor of esize-byte elements in boxes of
+// box_rows x box_cols, 128-byte swizzle, zeros out of bounds
+bool tmap_2d(CUtensorMap* map, const void* base, CUtensorMapDataType type, int esize,
+             uint64_t rows, uint64_t cols, uint32_t box_rows, uint32_t box_cols) {
+  const TmapEncode enc = tmap_encoder();
+  if (!enc) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * esize};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return enc(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// W's map, encoded once per (address, shape, box) and kept: the map holds
+// these and not the data, so a kept one is exact for any weight at that
+// address. At most 4,096 are kept (the serving ViT-B's and a train step's
+// weights are a few hundred); past that the table starts again.
+bool weight_tmap(CUtensorMap* map, const __nv_bfloat16* w, uint64_t rows, uint64_t cols,
+                 uint32_t box_rows, uint32_t box_cols) {
+  using Key = std::tuple<const void*, uint64_t, uint64_t, uint32_t, uint32_t>;
+  static std::mutex mu;
+  static std::map<Key, CUtensorMap> kept;
+  const Key key{w, rows, cols, box_rows, box_cols};
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = kept.find(key);
+  if (it != kept.end()) {
+    *map = it->second;
+    return true;
+  }
+  if (!tmap_2d(map, w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, rows, cols, box_rows, box_cols))
+    return false;
+  if (kept.size() >= 4096) kept.clear();
+  kept.emplace(key, *map);
+  return true;
+}
+
+template <bool TRANS>
+int launch_bf16(const float* a, const __nv_bfloat16* w, const Epilogue& ep, int M, int N, int K,
+                cudaStream_t s) {
+  using S = Bw;
+  static_assert(S::SMEM <= BW_MAX_SMEM, "the ring does not fit");
+  auto kern = linear_bf16_wgmma_kernel<TRANS>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  // setmaxnreg only moves registers within the block's allocation: the
+  // consumers' 232 a thread need the producer's 128 above 40, i.e. a launch
+  // at 168 (65,536 / 384); with fewer the consumers would wait forever
+  static const int regs = [&] {
+    cudaFuncAttributes fa{};
+    return cudaFuncGetAttributes(&fa, kern) == cudaSuccess ? fa.numRegs : 0;
+  }();
+  if (regs * BW_THREADS < 232 * 256 + 40 * 128) return (int)cudaErrorInvalidConfiguration;
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (long long)((N + BW_BN - 1) / BW_BN) * ((M + S::BM - 1) / S::BM);
+  if (tiles * ((K + BW_BK - 1) / BW_BK + 1) > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  CUtensorMap tm_a{}, tm_w{};
+  const int use_tma = K > 0 && K % 4 == 0 && aligned(a, 16) && (TRANS ? K : N) % 8 == 0 &&
+                      aligned(w, 16);
+  if (use_tma) {
+    const bool ok =
+        tmap_2d(&tm_a, a, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, M, K, S::BM, 32) &&
+        (TRANS ? weight_tmap(&tm_w, w, N, K, BW_BN, BW_BK) : weight_tmap(&tm_w, w, K, N, BW_BK, 64));
+    if (!ok) return (int)cudaErrorInvalidValue;
+  }
+  const int vec_out = N % 4 == 0 && aligned(ep.y, 16) && aligned(ep.pre, 16) &&
+                      aligned(ep.res, 16);
+  const int grid = (int)(tiles < sms ? tiles : sms);  // persistent: one block an SM
+  kern<<<grid, BW_THREADS, S::SMEM, s>>>(tm_a, tm_w, a, w, ep, M, N, K, use_tma, vec_out);
+  return (int)cudaGetLastError();
+}
+
+int launch_bf16_t(const float* a, const __nv_bfloat16* w, int trans, const Epilogue& ep, int M,
+                  int N, int K, cudaStream_t s) {
+  return trans ? launch_bf16<true>(a, w, ep, M, N, K, s)
+               : launch_bf16<false>(a, w, ep, M, N, K, s);
 }
 
 // ---- the few-rows route: y = epi(LN?(a) @ W) for M <= 32
@@ -1049,6 +1446,10 @@ wgrad_tf32_kernel(const float* __restrict__ X, const float* __restrict__ dY,
   }
 }
 
+// ---- bf16 mode: WMMA bfloat16 tiles (16x16x16), 64 x 64 of dW a block
+constexpr int TC_BM = 64, TC_BN = 64, TC_BK = 32, TC_THREADS = 128;
+constexpr int TC_LDC = TC_BN + 4;  // float elements
+
 __global__ void __launch_bounds__(TC_THREADS)
 wgrad_bf16_tc_kernel(const float* __restrict__ X, const float* __restrict__ dY,
                      float* __restrict__ pw, float* __restrict__ pb, int M,
@@ -1140,12 +1541,8 @@ PD_API int pd_linear(const void* a, const void* w, int w_bf16, int trans_w,
               (float*)y, (float*)pre, act, round_out,
               DropArgs{drop_key, drop_thr, drop_scale}};
   if (M < 1 || N < 1 || K < 0) return (int)cudaErrorInvalidValue;
-  if (w_bf16 && round_a) {
-    dim3 grid((N + TC_BN - 1) / TC_BN, (M + TC_BM - 1) / TC_BM);
-    linear_bf16_tc_kernel<<<grid, TC_THREADS, 0, s>>>(
-        A, (const __nv_bfloat16*)w, trans_w, ep, M, N, K);
-    return (int)cudaGetLastError();
-  }
+  if (w_bf16 && round_a)
+    return launch_bf16_t(A, (const __nv_bfloat16*)w, trans_w, ep, M, N, K, s);
   if (w_bf16)
     return launch_tf32_t<__nv_bfloat16, false>(A, (const __nv_bfloat16*)w, trans_w, ep, M,
                                                N, K, s);
@@ -1179,6 +1576,10 @@ PD_API int pd_linear_rows(const void* a, const void* w, int w_bf16,
                           round_a, s);
   return launch_rows_bn(A, (const float*)w, ep, g, b, eps, M, N, K, bn, round_a, s);
 }
+
+// Shared memory of the bf16 wgmma tile (ops/kernels.py linear_bf16_smem_bytes
+// holds the same).
+PD_API int pd_linear_bf16_smem_bytes() { return Bw::SMEM; }
 
 // The dW tile of a block in each mode (ops/kernels.py WGRAD_TILE holds the
 // same): 128 x 128 in float32 mode, 64 x 64 in bf16 mode.

@@ -8,7 +8,8 @@ of the training trunks (DINOv2's LayerScale included):
 ``layernorm``            row LayerNorm, eps and bf16 output rounding as arguments
 ``linear``               ``drop(act(a @ W + b) * gain) [+ residual]``, W float32
                          or bfloat16, read transposed for the dgrad product;
-                         float32 a on 3xTF32 tensor-core MMAs
+                         float32 a on 3xTF32 tensor-core MMAs, a bf16 W with
+                         ``round_a`` on bf16 ``wgmma`` fed by TMA
 ``linear_rows``          the same for at most 32 rows (the sampler's products):
                          W streamed once over a cluster split of K, with the
                          pre-norm LayerNorm of a optionally folded in
@@ -82,6 +83,7 @@ _DROP = [_U, _I, _F]  # a dropout site: key, threshold, scale (DropArgs)
 _SIGNATURES = {
     "pd_layernorm": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
     "pd_linear": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, *_DROP, _I, _P],
+    "pd_linear_bf16_smem_bytes": [],
     "pd_linear_rows": [_P, _P, _I] + [_P] * 7 + [_F] + [_I] * 6 + [*_DROP, _I, _P],
     "pd_attention": [_P, _P, _I, _P, _I, _I, _I, _I, _F, _I, *_DROP, _P],
     "pd_attention_smem_bytes": [_I, _I, _I],
@@ -305,7 +307,9 @@ def layernorm_plain(x, g, b, eps: float, round_out: bool = False):
 
 
 def layernorm(x, g, b, eps: float, round_out: bool = False):
-    """LayerNorm over the last axis of a float32 (rows, D) tensor."""
+    """LayerNorm over the last axis of a float32 (rows, D) tensor. Counts its
+    launches in ``layernorm.launches`` and, per (rows, D), in
+    ``layernorm.by_shape``."""
     if not _on_card(x, g, b):
         return layernorm_plain(x, g, b, eps, round_out)
     rows, D = x.shape
@@ -316,10 +320,12 @@ def layernorm(x, g, b, eps: float, round_out: bool = False):
     _launch(load_library().pd_layernorm, _ptr(x), _ptr(g), _ptr(b), _ptr(y),
             rows, D, eps, int(round_out), _stream(x))
     layernorm.launches += 1
+    layernorm.by_shape[(rows, D)] = layernorm.by_shape.get((rows, D), 0) + 1
     return y
 
 
 layernorm.launches = 0
+layernorm.by_shape = {}
 
 
 # -------------------------------------------------------------------- linear
@@ -388,10 +394,13 @@ def linear(a, w, bias, act: str = "none", residual=None, round_a: bool = False,
     On the card, up to LINEAR_ROWS_MAX rows with W not transposed take the
     few-rows route (``linear_rows``), which alone folds ``ln``; asking for
     ``ln`` on any other route raises. The rest run on the tensor cores: a
-    bf16 W with ``round_a`` as bf16 MMAs, everything else as 3xTF32 MMAs
-    (about 2^-21 relative a product; two TF32 products where the bf16 W or
-    the rounded a is exact in TF32). Counts its launches in
-    ``linear.launches`` and, per (M, K, N, trans_w), in ``linear.by_shape``."""
+    bf16 W with ``round_a`` on bf16 ``wgmma`` (csrc/linear.cu
+    linear_bf16_wgmma_kernel: TMA-fed, a rounded to bf16 as it is loaded,
+    128 x 128 tiles), everything else as 3xTF32 ``mma.sync``
+    MMAs (linear_tf32_kernel: about 2^-21 relative a product; two TF32
+    products where the bf16 W or the rounded a is exact in TF32). Counts its
+    launches in ``linear.launches`` and, per (M, K, N, trans_w), in
+    ``linear.by_shape``."""
     if not _on_card(a, w, bias, residual, gain, *_ln_tensors(ln)):
         return linear_plain(a, w, bias, act, residual, round_a, trans_w, drop,
                             round_out, want_pre, gain, ln)
@@ -405,11 +414,10 @@ def linear(a, w, bias, act: str = "none", residual=None, round_a: bool = False,
     M, K, N = _linear_check(a, w, bias, residual, gain, trans_w)
     y = torch.empty((M, N), device=a.device, dtype=torch.float32)
     pre = torch.empty_like(y) if want_pre else None
-    _launch(load_library().pd_linear, _ptr(a), _ptr(w),
-            int(w.dtype == torch.bfloat16), int(trans_w), _ptr(bias), _ptr(gain),
-            _ptr(residual), _ptr(y), _ptr(pre), M, N, K, int(round_a),
-            _ACT[act], *(drop.args() if drop else _NO_DROP), int(round_out),
-            _stream(a))
+    bf16 = w.dtype == torch.bfloat16
+    _launch(load_library().pd_linear, _ptr(a), _ptr(w), int(bf16), int(trans_w), _ptr(bias),
+            _ptr(gain), _ptr(residual), _ptr(y), _ptr(pre), M, N, K, int(round_a),
+            _ACT[act], *(drop.args() if drop else _NO_DROP), int(round_out), _stream(a))
     linear.launches += 1
     key = (M, K, N, bool(trans_w))
     linear.by_shape[key] = linear.by_shape.get(key, 0) + 1
@@ -418,6 +426,46 @@ def linear(a, w, bias, act: str = "none", residual=None, round_a: bool = False,
 
 linear.launches = 0
 linear.by_shape = {}
+
+
+# csrc/linear.cu linear_bf16_wgmma_kernel: tiles of LINEAR_BF16_ROWS rows
+# (two consumer warpgroups of 64) by LINEAR_BF16_COLS columns, one
+# persistent block an SM; a ring slot holds a 64-wide K slice of a (float32)
+# and of W (bf16). At the serving ViTs' products (20 frames):
+#
+#   M             K -> N                  tiles   waves on 132 SMs
+#   5,280 (224px) 384 -> 1,152            378     3
+#   5,280         384 -> 384              126     1 (6 SMs idle)
+#   5,280         384 -> 1,536            504     4
+#   5,280         1,536 -> 384            126     1 (6 SMs idle)
+#   11,860 (336)  384 -> 1,152            837     7
+#   11,860        384 -> 384              279     3
+#   11,860        384 -> 1,536            1,116   9
+#   11,860        1,536 -> 384            279     3
+#   5,280 ViT-B   768 -> 2,304            756     6
+#   5,280 ViT-B   768 -> 768              252     2
+#   5,280 ViT-B   768 -> 3,072            1,008   8
+#   5,280 ViT-B   3,072 -> 768            252     2
+#
+# A 64-wide tile adds waves at every one of these shapes (two of 252 tiles
+# against one of 126 at 224px's N 384; 5 to 17 where 128 takes 3 to 9) and
+# reads a's float32 slice, two thirds of a slot's bytes, twice as often, so
+# there is one width.
+LINEAR_BF16_ROWS = 128
+LINEAR_BF16_COLS = 128
+LINEAR_BF16_K = 64
+LINEAR_BF16_STAGES = 3
+
+
+def linear_bf16_smem_bytes() -> int:
+    """Shared memory of the bf16 wgmma tile (csrc/linear.cu Bw::SMEM,
+    pd_linear_bf16_smem_bytes): 1,024 bytes of alignment slack, three ring
+    slots (a's 128 x 64 float32 slice and W's 64 x 128 bf16 one each), the
+    two epilogue buffers (128 rows of 128 + 4 floats) and a full and an
+    empty barrier per slot."""
+    stage = LINEAR_BF16_ROWS * LINEAR_BF16_K * 4 + LINEAR_BF16_K * LINEAR_BF16_COLS * 2
+    epi = LINEAR_BF16_ROWS * (LINEAR_BF16_COLS + 4) * 4
+    return 1024 + LINEAR_BF16_STAGES * stage + epi + 2 * LINEAR_BF16_STAGES * 8
 
 
 # csrc/linear.cu: FR_ROWS, the few-rows route's row limit; FR_CLUSTER, the
@@ -1244,6 +1292,7 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in vars(KERNELS).values():
         fn.launches = 0
+    layernorm.by_shape.clear()
     linear.by_shape.clear()
     linear_rows.by_shape.clear()
     linear_wgrad.by_shape.clear()

@@ -991,3 +991,147 @@ def test_train_trunks_match_plain(cuda, flavor, act_bf16):
     tol = 2.0**-5 if act_bf16 else 1e-4
     for out, ref in zip(run(False), run(True)):
         _close(out, ref, tol)
+
+
+# ------------------------------------- the bf16 wgmma tile of linear and the
+# LayerNorm forward (csrc/linear.cu linear_bf16_wgmma_kernel, csrc/layernorm.cu
+# layernorm_kernel)
+# The serving ViT's products at 224px (5,280 rows) and 336px (11,860), K 384,
+# 768, 1,536 and 3,072 (ViT-S and ViT-B); a float32, W bf16, round_a
+BF16_PATH = [(384, 1152), (384, 1536), (1536, 384), (768, 2304), (3072, 768)]
+
+
+@pytest.mark.parametrize("M", [5280, 11860])
+@pytest.mark.parametrize("K_,N", BF16_PATH)
+def test_linear_bf16_path_shapes(cuda, M, K_, N):
+    a, w, b, _, res = _tf32_case(M, K_, N, torch.bfloat16, False, cuda)
+    for kw in (dict(act="gelu"), dict(residual=res)):
+        K.reset_launch_counts()
+        out = K.linear(a, w, b, round_a=True, **kw)
+        assert K.launch_counts()["linear"] == 1
+        _close(out, K.linear_plain(a, w, b, round_a=True, **kw), TOL_F32)
+
+
+# ragged: M 33 and 1,000 (off the 128-row tile), N off the tile and off 8,
+# K off 16 (and 20 < 32: TMA boxes wholly past K), TMA and element staging
+# (K % 4, N % 8 for W (K, N), K % 8 for W (N, K))
+BF16_RAGGED = [(33, 384, 1152), (1000, 130, 70), (1000, 100, 200), (300, 20, 136),
+               (129, 136, 72), (4224, 1536, 384), (200, 384, 4096)]
+
+
+@pytest.mark.parametrize("M,K_,N", BF16_RAGGED)
+@pytest.mark.parametrize("trans", [False, True])
+def test_linear_bf16_epilogues(cuda, M, K_, N, trans):
+    a, w, b, gain, res = _tf32_case(M, K_, N, torch.bfloat16, trans, cuda)
+    d = K.drop_args(11, 3, "m1", 0.1)
+    epilogues = [
+        dict(), dict(bias=b, act="relu"),
+        dict(bias=b, act="gelu", gain=gain, drop=d, want_pre=True),
+        dict(bias=b, residual=res, round_out=True, drop=d),
+        dict(bias=b, residual=res, gain=gain, want_pre=True),
+    ]
+    for ep in epilogues:
+        bias = ep.pop("bias", None)
+        kw = dict(ep, round_a=True, trans_w=trans)
+        K.reset_launch_counts()
+        out = K.linear(a, w, bias, **kw)
+        assert K.launch_counts()["linear"] == 1
+        ref = K.linear_plain(a, w, bias, **kw)
+        if kw.get("want_pre"):
+            _close(out[1], ref[1], TOL_F32)
+            out, ref = out[0], ref[0]
+        _close(out, ref, TOL_BF16 if kw.get("round_out") else TOL_F32)
+
+
+@pytest.mark.parametrize("M,K_,N", [(5280, 1536, 384), (11860, 384, 1152), (300, 130, 77)])
+@pytest.mark.parametrize("trans", [False, True])
+def test_linear_bf16_repeats_bitwise(cuda, M, K_, N, trans):
+    a, w, b, gain, res = _tf32_case(M, K_, N, torch.bfloat16, trans, cuda, 1)
+    kw = dict(residual=res, gain=gain, round_a=True, trans_w=trans, act="gelu")
+    y = K.linear(a, w, b, **kw)
+    for _ in range(3):
+        assert torch.equal(y, K.linear(a, w, b, **kw))
+
+
+def test_linear_bf16_offset_views(cuda):
+    """a as a row-offset view (16-byte aligned: TMA from an offset base) and
+    off a 16-byte boundary (element staging), W and the residual too: the
+    same result as the plain version."""
+    M, K_, N = 517, 384, 256
+    r = _gen(5)
+    flat = lambda n, s=1.0: _t(r.normal(size=n + 1) * s, cuda)[1:]  # noqa: E731
+    rows = _t(r.normal(size=(M + 3, K_)), cuda)[3:]  # 3 rows in: 4,608 bytes
+    a_off = flat(M * K_).view(M, K_)
+    w = _t(r.normal(size=(K_, N)) / np.sqrt(K_), cuda, torch.bfloat16)
+    w_off = torch.cat([w.view(-1)[:1], w.view(-1)]).contiguous()[1:].view(K_, N)
+    res = flat(M * N).view(M, N)
+    b = _t(r.normal(size=N), cuda)
+    for a in (rows, a_off):
+        for ww in (w, w_off):
+            for trans in (False, True):
+                wt = ww.t().contiguous() if trans else ww
+                if trans and ww is w_off:
+                    wt = torch.cat([wt.view(-1)[:1], wt.view(-1)]).contiguous()[1:].view(N, K_)
+                _close(K.linear(a, wt, b, "relu", res, round_a=True, trans_w=trans),
+                       K.linear_plain(a, wt, b, "relu", res, round_a=True, trans_w=trans),
+                       TOL_F32)
+
+
+def test_bf16_tensor_core_accumulation_truncates(cuda):
+    """Why the tile adds each 64-wide K slice into a fresh accumulator: the
+    tensor core's float32 accumulation of bf16 products truncates. Row 0 is
+    1 + 0.75 ulp(1) (a at k 0 and k 16, W ones): rounded to nearest 1 +
+    2^-23, truncated 1; row 1 the same negated. Both in one slice, so the
+    kernel's own round-to-nearest adds play no part."""
+    a = torch.zeros(64, 32, device=cuda)
+    a[0, 0], a[0, 16] = 1.0, 1.5 * 2.0**-24
+    a[1] = -a[0]
+    w = torch.ones(32, 8, device=cuda, dtype=torch.bfloat16)
+    y = K.linear(a, w, None, round_a=True)
+    assert y[0, 0].item() == 1.0 and y[1, 0].item() == -1.0, (y[0, 0].item(), y[1, 0].item())
+    assert K.linear_plain(a, w, None, round_a=True)[0, 0].item() == 1.0 + 2.0**-23
+
+
+def test_linear_bf16_shared_memory(cuda):
+    assert K.load_library().pd_linear_bf16_smem_bytes() == K.linear_bf16_smem_bytes()
+
+
+def test_linear_bf16_weight_maps_follow_the_weight(cuda):
+    """W's tensor map is kept per (address, shape): new values at the same
+    address, another shape over the same storage and a transposed read of
+    it each give the plain result."""
+    M, K_, N = 300, 256, 384
+    a, w, b, _, _ = _tf32_case(M, K_, N, torch.bfloat16, False, cuda)
+    for _ in range(2):
+        _close(K.linear(a, w, b, round_a=True), K.linear_plain(a, w, b, round_a=True), TOL_F32)
+        w.copy_(torch.randn_like(w, dtype=torch.float32).to(torch.bfloat16) / 16)
+    w2 = w.view(-1)[:K_ * 256].view(K_, 256)
+    _close(K.linear(a, w2, None, round_a=True), K.linear_plain(a, w2, None, round_a=True),
+           TOL_F32)
+    wt = w.view(-1)[:384 * K_].view(384, K_)
+    _close(K.linear(a, wt, None, round_a=True, trans_w=True),
+           K.linear_plain(a, wt, None, round_a=True, trans_w=True), TOL_F32)
+
+
+@pytest.mark.parametrize("D", [64, 100, 384, 512, 768, 1024, 1056, 1536])
+@pytest.mark.parametrize("rows", [1, 7, 5280, 135168])
+@pytest.mark.parametrize("round_out", [False, True])
+def test_layernorm_forward_widths(cuda, D, rows, round_out):
+    """Aligned (float4 instances at D 384, 512, 768, 1,024; the masked one
+    at 64 and 100; the strided one past 1,024) and offset by one float (the
+    masked instance, or the strided one past 1,024)."""
+    r = _gen(D + rows)
+    x = _t(r.normal(size=rows * D + 1) * 3 + 1, cuda)
+    g, b = _t(1 + 0.1 * r.normal(size=D), cuda), _t(0.1 * r.normal(size=D), cuda)
+    for xx in (x[:-1].view(rows, D), x[1:].view(rows, D)):
+        _close(K.layernorm(xx, g, b, 1e-6, round_out), K.layernorm_plain(xx, g, b, 1e-6, round_out),
+               TOL_BF16 if round_out else TOL_F32)
+
+
+@pytest.mark.parametrize("rows,D", [(135168, 384), (5280, 768), (1000, 100)])
+def test_layernorm_forward_repeats_bitwise(cuda, rows, D):
+    r = _gen(rows)
+    x = _t(r.normal(size=(rows, D)), cuda)
+    g, b = _t(r.normal(size=D), cuda), _t(r.normal(size=D), cuda)
+    y = K.layernorm(x, g, b, 1e-6, True)
+    assert all(torch.equal(y, K.layernorm(x, g, b, 1e-6, True)) for _ in range(3))
