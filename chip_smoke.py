@@ -12,7 +12,9 @@ backbones, once on an NVIDIA card.
         # the matcher, a DINO, DINOv2 and ViT-B train step) and the
         # redesigned kernels at their largest cases (attention_bwd,
         # linear_wgrad, linear's float32 products beside torch.addmm /
-        # torch.matmul, layernorm_bwd beside F.layer_norm's backward, with
+        # torch.matmul, both GGS kernels' 200-iteration phases at 20 frames,
+        # 100 and 1,024 matches a pair, layernorm_bwd beside F.layer_norm's
+        # backward, with
         # its device time by kernel; the serving ViT's bf16 qkv and fc1
         # products, the extractor, ViT-B's trunk and the LayerNorm forward
         # at the serving and train shapes, with CUDA-graph times), each
@@ -37,8 +39,11 @@ Phases (any failure exits non-zero and prints no result line):
              four 20-row products on the few-rows route of linear (with and
              without the folded LayerNorm, and bitwise against themselves);
              the denoiser trunk of the GGS steps; the GGS phases at 100 and 1,024
-             matches per pair, a whole 5-phase cond_fn and the 10-step
-             conditioned tail; f32 and default (bf16) mode; SuperGlue at 32
+             matches per pair, then both GGS kernels at 6, 20 and 50 frames
+             (100 and 1,024 a pair, the five phases' flags; equal bitwise,
+             repeated launches bitwise, the cluster each took printed), a
+             whole 5-phase cond_fn and the 10-step conditioned tail; f32 and
+             default (bf16) mode; SuperGlue at 32
              pairs of 1,024 keypoints (products, key-mask attention self and
              cross, coupling, Sinkhorn, matches, the whole matcher);
   3. main    demo_torch's flow on samples/apple (20 frames, 224px, seeded
@@ -49,8 +54,9 @@ Phases (any failure exits non-zero and prints no result line):
   4. ggs     demo_torch's flow with GGS on, from synthetic matches projected
              through samples/apple's ground-truth cameras: 20 frames at 100
              and at 1,024 matches per pair, and the first 6 frames at 100;
-             finite cameras, every kernel of the GGS path launched, and one
-             phase from the ground truth plus noise lowers the Sampson error;
+             finite cameras, every kernel of the GGS path launched, 50 GGS
+             phases an inference, and one phase from the ground truth plus
+             noise lowers the Sampson error;
   4b. match  demo_torch's flow with GGS on and matches extracted from the
              full-resolution images (SuperPoint, SuperGlue on the kernels,
              RANSAC; random MagicLeap weights written to a matcher directory):
@@ -126,6 +132,7 @@ N_TIMED = 10
 IMAGE_SIZE = 224
 MATCH_DENSITIES = (100, 1024)  # matches per pair: SuperGlue-like, 4096 keypoints
 SUBSET_FRAMES = 6  # a short sequence: its table takes the one-block GGS kernel
+DEMO_INFERENCES = 2  # demo_torch.run samples twice (the first call, then steady)
 
 # max |kernel - plain| / max(1, max |plain|), per precision of the case
 TOL_F32 = 1e-4  # float32 sums in another order
@@ -149,6 +156,11 @@ CHAOS_FACTOR = 10.0
 # sampson < sampson_max cut turn an ulp into a flipped match), with floors.
 TOL_GGS_30 = 5e-5
 TOL_GGS_CHUNKED = 1e-5
+# (frames, matches a pair) of the GGS kernels' parity grid, each at the five
+# phases' update flags; and the frame counts at 100/pair (128 padded) whose
+# 200-iteration phases time the route between the two kernels
+GGS_GRID = ((6, 100), (6, 1024), (20, 100), (20, 1024), (50, 100), (50, 1024))
+GGS_ROUTE_FRAMES = (3, 4, 5, 6, 8, 10, 20)
 TOL_GGS_CONDFN = 1e-4
 TOL_GGS_TAIL = 1e-3
 GGS_PHASE = dict(lr=1e-2, momentum=0.9, alpha=1e-4, min_matches=10.0)
@@ -221,7 +233,9 @@ GGS_PATH = NO_GGS_PATH + ("ggs_phase", "ggs_phase_chunked")
 SUPERGLUE_KERNELS = ("superglue_coupling", "superglue_sinkhorn", "superglue_matches")
 MATCH_PATH = GGS_PATH + SUPERGLUE_KERNELS
 TRAIN_KERNELS = ("attention_bwd", "layernorm_bwd", "linear_wgrad", "act_dropout_bwd")
-TRAIN_PATH = TRUNK_KERNELS + TRAIN_KERNELS  # the sampler kernels: the in-training eval
+# the in-training eval samples its batch of sequences through
+# denoiser_train_apply, as the JAX package does: no sampler kernels
+TRAIN_PATH = ("layernorm", "linear", "attention") + TRAIN_KERNELS
 # The train path: train_torch.py at cfgs/default_train.yaml (512 images a step,
 # 32 sequences x 16 frames at 224px, batch_repeat 90, dropout 0.1) on a
 # Co3D-format tree of samples/apple.
@@ -427,6 +441,86 @@ def write_matches(path, folder, per_pair, seed, frames=None):
     kp1, kp2, i12 = synthetic_matches(folder, per_pair, seed, frames=frames)
     np.savez(path, kp1=kp1, kp2=kp2, i12=i12)
     return path
+
+
+def ggs_scene(torch, n, per_pair, seed, dev):
+    """(x (n, 9), GroupedMatches) of a seeded scene longer than samples/apple
+    can give: n cameras at ~4 units around the origin, looking at it,
+    ``per_pair`` points near it projected into every pair, the encodings
+    perturbed by 0.05."""
+    from posediffusion_tpu_torch.geometry.cameras import PerspectiveCameras, cameras_to_opencv
+    from posediffusion_tpu_torch.geometry.pose_codec import camera_to_pose_encoding
+    from posediffusion_tpu_torch.ops.ggs_grad import pack_matches_grouped
+
+    r = np.random.default_rng(seed)
+    Rs, Ts = [], []
+    for c in r.normal(size=(n, 3)) * 0.8 + np.array([0, 0, -4.0]):
+        z = -c / np.linalg.norm(c)
+        x = np.cross([0, 1.0, 0], z)
+        x /= np.linalg.norm(x)
+        R = np.stack([x, np.cross(z, x), z], 1)
+        Rs.append(R)
+        Ts.append(-c @ R)
+    cam = PerspectiveCameras.create(R=np.stack(Rs), T=np.stack(Ts),
+                                    focal_length=np.full((n, 2), 2.0))
+    R_cv, t_cv, Kp = (a.numpy().astype(np.float64)
+                      for a in cameras_to_opencv(cam, (IMAGE_SIZE,) * 2))
+    X = r.normal(size=(per_pair, 3)) * 0.3
+    uv = np.einsum("nij,nmj->nmi", Kp, np.einsum("nij,mj->nmi", R_cv, X) + t_cv[:, None])
+    uv = uv[..., :2] / uv[..., 2:]
+    a_, b_ = np.triu_indices(n, k=1)
+    kp1 = uv[a_].reshape(-1, 2).astype(np.float32)
+    kp2 = uv[b_].reshape(-1, 2).astype(np.float32)
+    i12 = np.repeat(np.stack([a_, b_], 1), per_pair, axis=0)
+    gm = pack_matches_grouped(kp1, kp2, i12, n, device=dev)
+    enc = camera_to_pose_encoding(cam).to(dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (enc + 0.05 * torch.randn(enc.shape, generator=g, device=dev)).contiguous(), gm
+
+
+def ggs_grid(report, torch, dev):
+    """The GGS kernels at GGS_GRID's sizes and the five phases' flags, 30
+    iterations, against the plain phase (the one-block kernel where one
+    block holds its pairs), the two kernels bitwise equal, repeated launches
+    bitwise equal, the launched cluster printed. Returns each kernel's
+    largest error."""
+    from posediffusion_tpu_torch.diffusion.ggs import PHASES
+    from posediffusion_tpu_torch.ops import ggs_kernel as GK
+    from posediffusion_tpu_torch.ops import kernels as K
+
+    worst = {"ggs_phase": 0.0, "ggs_phase_chunked": 0.0}
+    hw = (IMAGE_SIZE, IMAGE_SIZE)
+    kw = dict(iters=30, **GGS_PHASE)
+    for n, d in GGS_GRID:
+        x, gm = ggs_scene(torch, n, d, SEED + n + d, dev)
+        P, Q = gm.valid.shape
+        one_block = K.ggs_smem_bytes(n, P, P, Q) <= K._MAX_SMEM
+        for i, flags in enumerate(PHASES):
+            tag = f"{n} frames, {d}/pair, phase {i} {flags}, 30 iterations"
+            ref = GK.ggs_phase_fused_plain(x, gm, hw, *flags, 10.0, **kw)
+            chk = GK.ggs_phase_fused_chunked(x, gm, hw, *flags, 10.0, **kw)
+            err = (chk - ref).abs().max().item()
+            worst["ggs_phase_chunked"] = max(worst["ggs_phase_chunked"], err)
+            report.check(f"ggs_phase_chunked {tag}", err, TOL_GGS_30)
+            if one_block:
+                res = GK.ggs_phase_fused(x, gm, hw, *flags, 10.0, **kw)
+                err = (res - ref).abs().max().item()
+                worst["ggs_phase"] = max(worst["ggs_phase"], err)
+                report.check(f"ggs_phase {tag}", err, TOL_GGS_30)
+                report.require(f"ggs_phase_chunked equals ggs_phase bitwise ({tag})",
+                               torch.equal(chk, res))
+        again = GK.ggs_phase_fused_chunked(x, gm, hw, *PHASES[-1], 10.0, **kw)
+        report.require(f"ggs_phase_chunked repeats bitwise ({n} frames, {d}/pair)",
+                       torch.equal(again, chk))
+        chunk = GK.default_chunk_pairs(gm)
+        cluster = K.ggs_phase_chunked.cluster
+        where = ("shared" if K.ggs_table_resident(n, chunk, chunk * cluster, Q)
+                 else "global")
+        print(f"  ggs_phase_chunked {n} frames x {d}/pair ({P} pairs x {Q}): a cluster of "
+              f"{cluster} blocks (the card schedules {K.ggs_cluster_size(n, P, Q)}), {chunk} "
+              f"pairs a block, table in {where} memory; ggs_phase "
+              f"{'runs' if one_block else 'does not fit one block'}")
+    return worst
 
 
 def subset_folder(src, dst, frames):
@@ -701,6 +795,154 @@ def _kernel_split_ms(torch, fn, calls=20):
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
+# csrc/superglue.cu's kernels one by one: (their wrapper, launches per
+# wrapper call, line in superglue.cu). The match path runs Sinkhorn for
+# matching/extract.py's default 50 iterations.
+SG_SINKHORN_ITERS = 50
+SG_KERNELS = {
+    "sg_scores_kernel": ("superglue_coupling", 1, 53),
+    "sg_marginals_kernel": ("superglue_coupling", 1, 113),
+    "sg_sinkhorn_rows_kernel": ("superglue_sinkhorn", SG_SINKHORN_ITERS, 162),
+    "sg_sinkhorn_cols_kernel": ("superglue_sinkhorn", SG_SINKHORN_ITERS, 179),
+    "sg_assign_kernel": ("superglue_sinkhorn", 1, 205),
+    "sg_colarg_kernel": ("superglue_matches", 1, 220),
+    "sg_rowmatch_kernel": ("superglue_matches", 1, 253),
+}
+
+
+def _device_ms_by_name(torch, fn, names, calls=5):
+    """{name: device ms per call of ``fn``} summed over the kernels whose
+    profiler key contains the name (one torch.profiler window)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            for name in names:
+                if name in e.key:
+                    out[name] += e.self_device_time_total / 1e3 / calls
+    return out
+
+
+def sg_split(C, Kk, D):
+    """--sg-split C K D (a child process of the main run, where torch.profiler
+    under-reads): the device ms per wrapper call of each csrc/superglue.cu
+    kernel on seeded inputs of one matcher chunk's shapes (masks keeping 60%
+    to 100% of the keypoints, as the main run's), printed as the last line."""
+    sys.path.insert(0, REPO)
+    import torch
+
+    from posediffusion_tpu_torch.ops import kernels as K
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    m = torch.randn((C, 2, Kk, D), generator=g, device=dev)
+    keep = lambda: (torch.arange(Kk, device=dev)[None] < torch.randint(  # noqa: E731
+        int(0.6 * Kk), Kk + 1, (C, 1), generator=g, device=dev)).float()
+    f0, f1, b = keep(), keep(), torch.ones(1, device=dev)
+    cpl = K.superglue_coupling(m, f0, f1, b)
+    Z = K.superglue_sinkhorn(*cpl, SG_SINKHORN_ITERS)
+    calls = {
+        "superglue_coupling": lambda: K.superglue_coupling(m, f0, f1, b),
+        "superglue_sinkhorn": lambda: K.superglue_sinkhorn(*cpl, SG_SINKHORN_ITERS),
+        "superglue_matches": lambda: K.superglue_matches(Z, f0, f1, 0.0),
+    }
+    out = {}
+    for wrapper, fn in calls.items():
+        out.update(_device_ms_by_name(
+            torch, fn, [k for k, (w, _, _) in SG_KERNELS.items() if w == wrapper]))
+    print(json.dumps(out))
+    return 0
+
+
+def superglue_kernel_entries(torch, K, m, f0, f1, bin_score, cpl, Z, launches, errs, tag):
+    """One kernels-line entry per csrc/superglue.cu kernel on one matcher
+    chunk: its device time per launch (torch.profiler in a child process,
+    ``sg_split``), the plain PyTorch lines of the same step (the wrappers'
+    plain versions, step by step), its bound, and for the scores one
+    torch.baddbmm of the same product (timed only). Launches: the match
+    path's wrapper count times the kernel's launches per call; the error is
+    its wrapper's."""
+    C, _, Kk, D = m.shape
+    K1 = Kk + 1
+    cp, log_mu, log_nu, norm = cpl
+    u, v = torch.zeros_like(log_mu), torch.zeros_like(log_nu)
+    v0, v1 = f0 > 0.5, f1 > 0.5
+    live = v0[:, :, None] & v1[:, None, :]
+    ma, mb = m[:, 0], m[:, 1]
+    scores = torch.empty((C, Kk, Kk), device=m.device)
+    child = subprocess.run([sys.executable, os.path.abspath(__file__), "--sg-split", str(C),
+                            str(Kk), str(D)], capture_output=True, text=True, timeout=300)
+    if child.returncode:
+        raise RuntimeError(f"--sg-split exited {child.returncode}: {child.stderr[-2000:]}")
+    dev_ms = json.loads(child.stdout.strip().splitlines()[-1])
+
+    def marginals():
+        out = torch.empty((C, K1, K1), device=m.device)
+        out[:, :Kk, Kk] = torch.where(v0, bin_score, K.SG_NEG)
+        out[:, Kk, :Kk] = torch.where(v1, bin_score, K.SG_NEG)
+        ms_, ns_ = v0.sum(1).float(), v1.sum(1).float()
+        nrm = -torch.log(ms_ + ns_)
+        return (torch.cat([torch.where(v0, nrm[:, None], K.SG_NEG),
+                           (torch.log(ns_) + nrm)[:, None]], 1),
+                torch.cat([torch.where(v1, nrm[:, None], K.SG_NEG),
+                           (torch.log(ms_) + nrm)[:, None]], 1))
+
+    def rowmatch(colarg):
+        z = torch.where(live, Z[:, :Kk, :Kk], K.SG_DEAD)
+        rowmax, idx0 = z.amax(2), z.argmax(2)
+        mutual = (colarg.gather(1, idx0) == torch.arange(Kk, device=m.device)) & live.gather(
+            2, idx0[..., None])[..., 0]
+        return torch.where(mutual, idx0, -1), torch.where(mutual, torch.exp(rowmax), 0.0)
+
+    colarg = torch.where(live, Z[:, :Kk, :Kk], K.SG_DEAD).argmax(1)
+    plain = {
+        "sg_scores_kernel": lambda: torch.where(live, (ma @ mb.transpose(1, 2)) / D**0.5, K.SG_NEG),
+        "sg_marginals_kernel": marginals,
+        "sg_sinkhorn_rows_kernel": lambda: log_mu - torch.logsumexp(cp + v[:, None, :], dim=2),
+        "sg_sinkhorn_cols_kernel": lambda: log_nu - torch.logsumexp(cp + u[:, :, None], dim=1),
+        "sg_assign_kernel": lambda: cp + u[:, :, None] + v[:, None, :] - norm[:, None, None],
+        "sg_colarg_kernel": lambda: torch.where(live, Z[:, :Kk, :Kk], K.SG_DEAD).argmax(1),
+        "sg_rowmatch_kernel": lambda: rowmatch(colarg),
+    }
+    cells, vec = C * K1 * K1 * 4, C * K1 * 4
+    bounds = {
+        "sg_scores_kernel": bound(nbytes(m, f0, f1) + C * Kk * Kk * 4, 2 * C * Kk * Kk * D),
+        "sg_marginals_kernel": bound(nbytes(f0, f1, bin_score) + 4 * vec + C * 4, 2 * C * Kk),
+        "sg_sinkhorn_rows_kernel": bound(cells + 3 * vec, 3 * C * K1 * K1),
+        "sg_sinkhorn_cols_kernel": bound(cells + 3 * vec, 3 * C * K1 * K1),
+        "sg_assign_kernel": bound(2 * cells + 2 * vec + C * 4, 3 * C * K1 * K1),
+        "sg_colarg_kernel": bound(C * Kk * Kk * 4 + nbytes(f0, f1) + C * Kk * 4, C * Kk * Kk),
+        "sg_rowmatch_kernel": bound(C * Kk * Kk * 4 + nbytes(f0, f1) + 3 * C * Kk * 4,
+                                    C * Kk * Kk),
+    }
+    library = _time_ms(torch, lambda: torch.baddbmm(scores, ma, mb.transpose(1, 2), beta=0.0,
+                                                    alpha=D**-0.5), reps=5)
+    entries = []
+    for name, (wrapper, per_call, line) in SG_KERNELS.items():
+        e = {
+            "name": name, "route": "cuda",
+            "source": f"posediffusion_tpu_torch/csrc/superglue.cu:{line}",
+            "replaces": TPU_KERNELS[wrapper], "launches": launches[wrapper] * per_call,
+            "max_abs_err": errs[wrapper], "ms": dev_ms[name] / per_call,
+            "plain_ms": _time_ms(torch, plain[name], reps=5),
+            "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+            "library_ms": library if name == "sg_scores_kernel" else None,
+            "case": f"one launch in {wrapper} on one matcher chunk, {tag}; ms: the "
+                    f"profiler's device time in a child process (launches: match path)",
+        }
+        print(f"  {name}: {e}")
+        entries.append(e)
+    return entries
+
+
 def rows_products(lw, x, attn, hff):
     """The four products of one denoiser layer (weights ``lw`` in
     encoder_layer_math's order) as the sampler runs them at 20 rows: (name,
@@ -750,6 +992,8 @@ def timed_calls(root):
         raise SystemExit(f"the port came from {found}, not from {root}")
     from posediffusion_tpu_torch.data.images import load_and_preprocess_images
     from posediffusion_tpu_torch.diffusion import ggs as G
+    from posediffusion_tpu_torch.geometry.cameras import PerspectiveCameras
+    from posediffusion_tpu_torch.geometry.pose_codec import camera_to_pose_encoding
     from posediffusion_tpu_torch.matching import extract as X
     from posediffusion_tpu_torch.matching.superglue import encode_keypoints
     from posediffusion_tpu_torch.models.feature_extractor import _embed_pack_scales
@@ -761,7 +1005,7 @@ def timed_calls(root):
     from posediffusion_tpu_torch.ops import kernels as K
     from posediffusion_tpu_torch.ops import superglue_kernel as SGK
     from posediffusion_tpu_torch.ops.denoiser_kernel import layer_weights, stack_trunk_params
-    from posediffusion_tpu_torch.ops.ggs_grad import pack_matches_grouped
+    from posediffusion_tpu_torch.ops.ggs_grad import ggs_tables, pack_matches_grouped
     from posediffusion_tpu_torch.ops.sampler_kernel import fused_sample_loop
     from posediffusion_tpu_torch.ops.vit_kernel import fused_vit_trunk, stack_vit_params
     from posediffusion_tpu_torch.training.optim import make_optimizer
@@ -797,6 +1041,23 @@ def timed_calls(root):
         t["GGS inference, 100/pair"] = _time_ms(
             torch, lambda: model.sample(imgs, x0=x0, noises=noises, cond_fn=cond,
                                         cond_start_step=10), reps=5)
+        # both GGS kernels, one 200-iteration phase at 20 frames, as the
+        # tree routes and chunks it (plan_ggs)
+        gt = np.load(os.path.join(apple, "gt_cameras.npz"))
+        x_g = (camera_to_pose_encoding(PerspectiveCameras.create(
+            R=gt["gtR"], T=gt["gtT"], focal_length=gt["gtFL"], device=dev))
+            + 0.05 * torch.randn((n, 9), generator=gen, device=dev)).contiguous()
+        kw = dict(iters=200, **GGS_PHASE)
+        for d in MATCH_DENSITIES:
+            gmd = gm if d == 100 else pack_matches_grouped(
+                *synthetic_matches(apple, d, SEED + d), n, device=dev)
+            plan, tab1 = G.plan_ggs(gmd), ggs_tables(gmd)
+            t[f"ggs_phase_chunked 200 iterations, 20 frames, {d}/pair"] = _time_ms(
+                torch, lambda: K.ggs_phase_chunked(x_g, plan.tables, hw, True, True, True,
+                                                   10.0, chunk=plan.chunk, **kw), reps=5)
+            t[f"ggs_phase 200 iterations, 20 frames, {d}/pair"] = _time_ms(
+                torch, lambda: K.ggs_phase(x_g, tab1, hw, True, True, True, 10.0, **kw),
+                reps=5)
         z = model.extract_features(imgs)
         t["sampler (fused_sample_loop, 100 steps)"] = _time_ms(
             torch, lambda: fused_sample_loop(den, model.schedule, z, x0=x0, noises=noises))
@@ -2207,7 +2468,11 @@ def main(argv) -> int:
         fused_trunk_plain,
         stack_trunk_params,
     )
-    from posediffusion_tpu_torch.ops.ggs_grad import ggs_tables, pack_matches_grouped
+    from posediffusion_tpu_torch.ops.ggs_grad import (
+        ggs_tables,
+        loss_and_grad_core,
+        pack_matches_grouped,
+    )
     from posediffusion_tpu_torch.ops.ggs_kernel import (
         default_chunk_pairs,
         ggs_phase_fused,
@@ -2430,6 +2695,10 @@ def main(argv) -> int:
             out = fn(x_ggs, starved, hw, True, True, True, 10.0, iters=10, **GGS_PHASE)
             report.require(f"{name} early stop leaves x bit-identical ({d}/pair)",
                            torch.equal(out, x_ggs))
+    print("[ggs-grid] the GGS kernels at 6, 20 and 50 frames, 100 and 1,024 matches a pair, "
+          "the five phases", flush=True)
+    for key, err in ggs_grid(report, torch, dev).items():
+        ggs_cases[(key, "grid")] = err
 
     # one whole 5-phase cond_fn (700 iterations) and the 10-step conditioned tail
     cfg_full = G.GGSConfig()
@@ -2595,11 +2864,21 @@ def main(argv) -> int:
     K.reset_launch_counts()
     fused_trunk.launches = 0
     ggs_outs = []
+    ggs_per_inference = {}  # GGS kernel launches of one inference (a run makes two)
     for (folder, d, fr), path in zip(runs, files):
+        before = K.launch_counts()
         out = demo_torch.run(demo_cfg(work, folder, "GGS.enable=True",
                                       f"GGS.matches_file={path}"), "cuda")
-        _check_cameras(report, out, fr or n_frames, f"GGS {d}/pair, {fr or n_frames} frames")
+        after = K.launch_counts()
+        what = f"{fr or n_frames} frames, {d}/pair"
+        ggs_per_inference[what] = {k: (after[k] - before[k]) // DEMO_INFERENCES
+                                   for k in ("ggs_phase", "ggs_phase_chunked")}
+        _check_cameras(report, out, fr or n_frames, f"GGS {what}")
         ggs_outs.append(out)
+    print(f"  GGS kernel launches per inference: {ggs_per_inference}")
+    for what, c in ggs_per_inference.items():
+        report.require(f"one GGS inference ({what}) launches 50 GGS phases",
+                       c["ggs_phase"] + c["ggs_phase_chunked"] == 50, f"({c})")
     torch.cuda.synchronize()
     ggs_launches = K.launch_counts()
     _check_launches(report, "GGS", GGS_PATH, ggs_launches)
@@ -2718,12 +2997,12 @@ def main(argv) -> int:
                 torch, lambda: K.attention_plain(qkv_t, 6, attn_bias=bb, round_in=True),
                 inner=10)
     ggs_ms = {}
+    kw = dict(iters=200, **GGS_PHASE)
     for d in MATCH_DENSITIES:
         gm = grouped[d]
-        chunk = default_chunk_pairs(gm.valid.shape[0])
+        chunk = default_chunk_pairs(gm)
         tab_r = ggs_tables(gm)
         tab_c = ggs_tables(G.pad_grouped_pairs(gm, chunk))
-        kw = dict(iters=200, **GGS_PHASE)
         for name, call, plain in (
             ("ggs_phase",
              lambda: K.ggs_phase(x_ggs, tab_r, hw, True, True, True, 10.0, **kw),
@@ -2739,6 +3018,43 @@ def main(argv) -> int:
             ggs_ms[(name, d)] = (ms, plain_ms)
             timings[f"{name} 200 iterations {d}/pair"] = ms
             timings[f"{name} plain 200 iterations {d}/pair"] = plain_ms
+            print(f"  {name} 20 frames, {d}/pair: {ms:.4f} ms per 200 iterations, "
+                  f"{1e3 * ms / 200:.3f} us an iteration (plain {plain_ms:.2f} ms)")
+        b_d = bound(5 * nbytes(gm.valid) + 2 * nbytes(x_ggs),
+                    200 * gm.valid.sum().item() * GGS_FLOP_PER_MATCH)
+        timings[f"GGS phase bound, 200 iterations, 20 frames, {d}/pair ({b_d[1]})"] = b_d[0]
+        # the timed phase ran all 200 iterations: no sticky stop at its end
+        _, count, _ = loss_and_grad_core(
+            call(), tab_c.kp1x, tab_c.kp1y, tab_c.kp2x, tab_c.kp2y, tab_c.valid,
+            tab_c.B1, tab_c.B2, hw, True, True, True, 10.0)
+        report.require(f"the timed GGS phase ({d}/pair) never stopped",
+                       count.item() / n_frames >= GGS_PHASE["min_matches"],
+                       f"({count.item():.0f} matches at its end)")
+    # the route between the kernels (diffusion/ggs.py RESIDENT_MAX_ELEMENTS):
+    # both at 100/pair (128 padded) over GGS_ROUTE_FRAMES frames
+    for n_r in GGS_ROUTE_FRAMES:
+        x_r, gm_r = ggs_scene(torch, n_r, 100, SEED + n_r, dev)
+        P_r, Q_r = gm_r.valid.shape
+        ch_r = default_chunk_pairs(gm_r)
+        t1_r = ggs_tables(gm_r)
+        tc_r = ggs_tables(G.pad_grouped_pairs(gm_r, ch_r))
+        one = _time_ms(torch, lambda: K.ggs_phase(x_r, t1_r, hw, True, True, True, 10.0,
+                                                   **kw), reps=5)
+        clu = _time_ms(torch, lambda: K.ggs_phase_chunked(x_r, tc_r, hw, True, True, True,
+                                                           10.0, chunk=ch_r, **kw), reps=5)
+        timings[f"GGS route, {n_r} frames x {Q_r} ({P_r * Q_r} entries): ggs_phase"] = one
+        if n_r == SUBSET_FRAMES:  # the one-block kernel's case on the GGS path
+            ggs_ms[("ggs_phase", "route")] = (one, _time_ms(
+                torch, lambda: K.ggs_phase_plain(x_r, t1_r, hw, True, True, True, 10.0, **kw),
+                reps=3, warmup=1))
+            ggs_route_bound = bound(5 * nbytes(gm_r.valid) + 2 * nbytes(x_r),
+                                    200 * gm_r.valid.sum().item() * GGS_FLOP_PER_MATCH)
+        timings[f"GGS route, {n_r} frames x {Q_r} ({P_r * Q_r} entries): ggs_phase_chunked "
+                f"(cluster {K.ggs_phase_chunked.cluster})"] = clu
+        print(f"  GGS route {n_r} frames x {Q_r} ({P_r * Q_r} entries), 200 iterations: "
+              f"ggs_phase {one:.4f} ms, ggs_phase_chunked {clu:.4f} ms (cluster "
+              f"{K.ggs_phase_chunked.cluster}); diffusion/ggs.py routes it to "
+              f"{'ggs_phase' if G.fused_fits(gm_r) else 'ggs_phase_chunked'}")
 
     # match extraction, stage by stage, at the match path's shapes (20 frames,
     # 1,024 keypoints, 190 pairs)
@@ -2908,6 +3224,8 @@ def main(argv) -> int:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "case": f"one matcher chunk, {sg_tag} (launches: match path)",
         })
+    kernels_json += superglue_kernel_entries(torch, K, m_sg, sg_f0, sg_f1, sg_st["bin"], cp_p,
+                                             Zp, match_launches, sg_err, sg_tag)
     # the match path's f32 products on the tensor-core tile: SuperGlue's w1 +
     # ReLU and its qkv, beside one torch.addmm (launches: the match path, at
     # every row count of that (K, N))
@@ -2938,15 +3256,21 @@ def main(argv) -> int:
     gm = grouped[d]
     ggs_bound = bound(5 * nbytes(gm.valid) + 2 * nbytes(x_ggs),
                       200 * gm.valid.sum().item() * GGS_FLOP_PER_MATCH)
-    for key in ("ggs_phase", "ggs_phase_chunked"):
-        ms, plain_ms = ggs_ms[(key, d)]
+    # each kernel at the case the GGS path routes to it: the one-block kernel
+    # at SUBSET_FRAMES frames, the cluster kernel at 20
+    for key, case, b_ms, where in (
+            ("ggs_phase", ("ggs_phase", "route"), ggs_route_bound,
+             f"{SUBSET_FRAMES} frames, 100/pair"),
+            ("ggs_phase_chunked", ("ggs_phase_chunked", d), ggs_bound, f"20 frames, {d}/pair")):
+        ms, plain_ms = ggs_ms[case]
         kernels_json.append({
             "name": key, "route": "cuda", "source": SOURCES[key],
             "replaces": TPU_KERNELS[key], "launches": ggs_launches[key],
-            "max_abs_err": max(ggs_cases[(key, dd)] for dd in MATCH_DENSITIES),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": ggs_bound[0],
-            "bound_by": ggs_bound[1], "library_ms": None,
-            "case": f"200-iteration phase, 20 frames, {d}/pair (launches: GGS path)",
+            "max_abs_err": max(ggs_cases[(key, dd)] for dd in (*MATCH_DENSITIES, "grid")),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms[0],
+            "bound_by": b_ms[1], "library_ms": None,
+            "case": f"200-iteration phase, {where} (launches: GGS path, {DEMO_INFERENCES} "
+                    f"inferences a run)",
         })
     kernels_json += train_json + bb_json
     with torch.no_grad():
@@ -3064,7 +3388,7 @@ def main(argv) -> int:
     print(json.dumps({"attention_cases": attention_cases}))
     print(json.dumps({"timings_ms": timings, "card": smi,
                       "launches_per_sampler_step": per_step,
-                      "ggs_launches_per_inference": 50,
+                      "ggs_launches_per_inference": ggs_per_inference,
                       "launches_per_train_step": train_steps}))
     print(json.dumps({"kernels": kernels_json}))
     print(smi)
@@ -3080,4 +3404,7 @@ if __name__ == "__main__":
         sys.exit(ptxas_report())
     if "--timed-calls" in sys.argv:
         sys.exit(timed_calls(sys.argv[sys.argv.index("--timed-calls") + 1]))
+    if "--sg-split" in sys.argv:
+        i = sys.argv.index("--sg-split")
+        sys.exit(sg_split(*map(int, sys.argv[i + 1:i + 4])))
     sys.exit(main(sys.argv[1:]))

@@ -10,41 +10,61 @@
 //                                        summed)
 // whose iteration is ops/ggs_grad.py loss_and_grad_core. The plain version
 // is posediffusion_tpu_torch/ops/ggs_grad.loss_and_grad_core in a Python
-// loop (ops/ggs_kernel.py ggs_phase_plain / ggs_phase_chunked_plain).
+// loop (ops/kernels.py ggs_phase_plain / ggs_phase_chunked_plain).
 //
 // Bound: latency. A phase is 100 or 200 strictly sequential iterations; one
 // iteration at 20 frames is 190 pairs x 128 (or 1,024) padded matches, i.e.
-// 24,320 (194,560) Sampson residuals and their adjoints, ~100 FLOP each, over
-// a 486 KB (3.9 MB) table that stays in the 50 MB L2 across iterations. The
-// table never fits one block's 227 KB of shared memory, so it is read from
-// global memory (L2) every iteration; everything else of the iteration
-// lives in shared memory. Design, per iteration, stage by stage:
-//   1. per frame: quaternion -> R, OpenCV flip, focal exp; then the clamped
-//      mean focal length and K^-1's a, b, c, d (one warp, fixed order);
-//   2. per pair: G = R2 R1^T, t12, Et, E, U = K^-T E, F (thread per pair);
-//      the intermediates the backward reuses stay in shared memory;
-//   3. per match: Sampson, keep, count and the nine unnormalised dF sums of
-//      each pair (a warp owns a pair, its lanes stride the matches, shuffles
-//      reduce);
-//   4. per pair: the backward to dR1, dR2, dt1, dt2 and the K^-1 partials;
-//   5. per frame: gather over its pairs in a fixed order (the pair lists
-//      come from the wrapper; no atomics), then the flip, quaternion and
-//      focal adjoints and the update-flag masks;
-//   6. divide by the global count, adaptive clip, momentum, sticky stop.
-// Everything is float32 without fast-math: JAX pins these products to
-// Precision.HIGHEST, and the momentum loop amplifies error.
+// 24,320 (194,560) Sampson residuals and their adjoints, ~120 FLOP each. An
+// iteration's time is its chain of dependent instructions, exchanges and
+// barriers, so the design keeps that chain short.
 //
-// ggs_phase runs one block of 32 warps, which walk all pairs. Stages 3 and
-// 4 are per pair, so ggs_phase_chunked spreads them: its cooperative grid
-// gives each block a chunk of pairs (4 warps, 4 pairs by default, 48 blocks
-// at 20 frames), and each block writes its pairs' backward rows (stage 4's
-// output and the match count, 29 floats a pair; the unnormalised sums) to a
-// global buffer double-buffered by iteration parity. After grid.sync() every
-// block reads all rows, sums them per frame in the same fixed order and
-// applies the same update to its own copy of x, so the copies stay
-// identical and one barrier per iteration is enough; block 0 writes the
-// result. A pair's sums are reduced in the same order in both kernels (one
-// warp, lanes striding the matches), so the two give the same x.
+// Both entry points launch ggs_cluster_kernel as ONE thread-block cluster
+// (cudaLaunchKernelEx): pd_ggs_phase as a cluster of one block that owns all
+// pairs, pd_ggs_phase_chunked as a cluster of C blocks (16 where the card
+// schedules it, else 8; the wrapper asks pd_ggs_max_active_clusters), block
+// r owning pairs [r Pb, (r + 1) Pb) of the padded P = C Pb, a warp a pair
+// (at most 12 warps; more pairs loop). Every block keeps its own copy of x
+// (N x 9), the momentum and the frames' poses, and applies the same update
+// to them, so the copies stay identical; block 0 writes the result.
+//
+// At launch each block loads its pairs' slice of the five (P, Q) planes
+// (kp1x, kp1y, kp2x, kp2y, valid) into shared memory once, when it fits
+// beside the rest (ggs_resident: 20 frames at 128 padded matches is 30 KB a
+// block over 16 blocks); otherwise the same code reads the slice from
+// global memory (L2) through the same pointers (1,024 matches a pair).
+//
+// One iteration: ONE cluster barrier and TWO block barriers on its path,
+// and the two halves of a second cluster barrier around them:
+//   -- cluster wait (the previous iteration's arrive: every block has read
+//      the rows that this one overwrites; all blocks arrived ~1 us ago);
+//   1. pair stage, a warp per pair: the pair's two frames' poses (kept per
+//      frame) and the tied focal length (the clamped mean over all N
+//      frames, lanes in the same order and the same shuffles in every
+//      warp), the forward to F = Kinv^T E Kinv; the lanes take the matches
+//      four at a time (their IEEE divisions in flight together) for the
+//      Sampson residuals, the nine unnormalised dF sums and the count
+//      (butterfly shuffles); then, in every lane, the backward to dR1, dR2,
+//      dt1, dt2 and the four K^-1 partials: the pair's row, which lanes
+//      2 r and 2 r + 1 store into block r's shared memory through DSMEM
+//      (map_shared_rank; 24 floats as float4s, the other 5 by column);
+//   -- cluster barrier (every pair's row is in every block);
+//   2. gather stage, all in the block's own shared memory: every warp sums
+//      the count and the K^-1 partials over all P pairs (lanes striding the
+//      pairs, then butterflies: the same in every warp); a half-warp a
+//      frame, lanes 0-11 sum the frame's 12 rotation and translation
+//      adjoints over its entries in fent order, then the flip, quaternion
+//      and focal adjoints, the division by the count and the frame's shares
+//      of the clip's two norms;
+//   -- cluster arrive (this block has read the rows), block barrier;
+//   3. update, a warp per frame: the norms from the frames' shares (frame
+//      order, the same in every warp), the sticky stop, the adaptive clip,
+//      the momentum step and the frame's new pose;
+//   -- block barrier. A stopped phase leaves the loop (x no longer moves).
+// No atomics: every sum runs in a fixed order that does not depend on the
+// cluster size, so the two entry points give the same x bitwise, and
+// repeated runs agree bitwise. Everything is float32 without fast-math:
+// JAX pins these products to Precision.HIGHEST, and the momentum loop
+// amplifies error.
 #include "common.cuh"
 
 #include <cooperative_groups.h>
@@ -55,15 +75,14 @@ namespace {
 constexpr float kLogFlBias = 1.8f;
 constexpr float kMinFl = 0.1f;
 constexpr float kMaxFl = 20.0f;
-constexpr int kPF = 36;    // per-pair forward values kept for the backward
-constexpr int kPB = 29;    // per-pair backward values
-constexpr int kPart = 10;  // nine dF sums and the count, per pair
-constexpr int kSc = 16;    // per-iteration scalars
-constexpr int kResidentThreads = 1024;
-constexpr int kChunkThreads = 128;
-// scalar slots
-enum { SC_FX, SC_FY, SC_A, SC_B, SC_C, SC_D, SC_COUNT, SC_STOP, SC_DA, SC_DB,
-       SC_DC, SC_DD, SC_XNORM2, SC_GNORM2 };
+constexpr int kRow = 24;  // a pair's dR1, dR2, dt1, dt2: six float4s
+constexpr int kTail = 5;  // and its K^-1 partials va..vd and count, stored by column
+constexpr int kPart = 10; // nine dF sums and the count, per pair
+constexpr int kMaxWarps = 12;  // 168 registers a thread
+constexpr int kMaxThreads = 32 * kMaxWarps;
+constexpr int kMaxCluster = 16;
+constexpr int kMB = 4;  // matches a lane takes at once (their divisions in flight)
+constexpr size_t kMaxSmem = 232448;  // bytes of shared memory a block may use
 }  // namespace
 
 struct GGSArgs {
@@ -78,34 +97,53 @@ struct GGSArgs {
   float lr, momentum, alpha, min_matches;
 };
 
-struct Smem {
-  float *x, *buf, *g, *Rcv, *tcv, *efl, *sc, *pf, *part, *pb;
-  int *pi1, *pi2, *fptr, *fent;  // copies of the pair tables
+// The five planes of a block's slice of the table, row pl of pair p0 + pl:
+// in shared memory when resident, else in global memory.
+struct Table {
+  const float *kp1x, *kp1y, *kp2x, *kp2y, *valid;
 };
 
-// Shared memory of a block that computes Pc pairs' forward and reads all
-// P pairs' backward rows.
-__host__ __device__ inline size_t ggs_smem_floats(int N, int Pc, int P) {
-  return (size_t)N * (9 * 3 + 9 + 3 + 2) + kSc + (size_t)Pc * (kPF + kPart) +
-         (size_t)P * kPB + (size_t)4 * P + N + 1;
+struct Smem {
+  float *x, *buf, *g, *pose, *part, *stop, *rows, *tail, *tab;
+  int *pi1, *pi2, *fptr, *fent;  // the block's pairs' frames; the frame lists
+};
+
+// Launch arithmetic of a block that owns Pb of the P pairs (mirrored by
+// ops/kernels.py ggs_smem_bytes).
+__host__ __device__ inline int ggs_warps(int Pb) { return Pb < kMaxWarps ? Pb : kMaxWarps; }
+
+__host__ __device__ inline size_t ggs_base_floats(int N, int Pb, int P) {
+  const size_t n = (size_t)P * (kRow + kTail) + (size_t)41 * N + 1 + (size_t)2 * Pb +
+                   (N + 1) + (size_t)2 * P;
+  return (n + 3) & ~(size_t)3;  // the table starts on 16 bytes
 }
 
-__device__ inline Smem carve(float* base, int N, int Pc, int P) {
+__host__ __device__ inline size_t ggs_table_floats(int Pb, int Q) { return (size_t)5 * Pb * Q; }
+
+__host__ __device__ inline bool ggs_resident(int N, int Pb, int P, int Q) {
+  return 4 * (ggs_base_floats(N, Pb, P) + ggs_table_floats(Pb, Q)) <= kMaxSmem;
+}
+
+__host__ __device__ inline size_t ggs_smem_bytes(int N, int Pb, int P, int Q) {
+  return 4 * (ggs_base_floats(N, Pb, P) +
+              (ggs_resident(N, Pb, P, Q) ? ggs_table_floats(Pb, Q) : 0));
+}
+
+__device__ inline Smem carve(float* base, int N, int Pb, int P) {
   Smem S;
-  S.x = base;
+  S.rows = base;  // all P pairs' rows, written by their owners, 16-byte aligned
+  S.tail = S.rows + P * kRow;  // kTail x P
+  S.x = S.tail + P * kTail;
   S.buf = S.x + N * 9;
-  S.g = S.buf + N * 9;
-  S.Rcv = S.g + N * 9;
-  S.tcv = S.Rcv + N * 9;
-  S.efl = S.tcv + N * 3;
-  S.sc = S.efl + N * 2;
-  S.pf = S.sc + kSc;
-  S.part = S.pf + Pc * kPF;
-  S.pb = S.part + Pc * kPart;  // P rows, indexed by the global pair
-  S.pi1 = (int*)(S.pb + (size_t)P * kPB);
-  S.pi2 = S.pi1 + P;
-  S.fent = S.pi2 + P;
-  S.fptr = S.fent + 2 * P;
+  S.g = S.buf + N * 9;     // the normalised gradient
+  S.pose = S.g + N * 9;    // per frame R_cv (9) and t_cv (3) of the current x
+  S.part = S.pose + N * 12;  // per frame: its share of |x masked|^2 and |g|^2
+  S.stop = S.part + N * 2;
+  S.pi1 = (int*)(S.stop + 1);
+  S.pi2 = S.pi1 + Pb;
+  S.fptr = S.pi2 + Pb;
+  S.fent = S.fptr + N + 1;
+  S.tab = base + ggs_base_floats(N, Pb, P);
   return S;
 }
 
@@ -125,63 +163,93 @@ __device__ __forceinline__ void quat_M(float qw, float qx, float qy, float qz,
   M[8] = -(qx * qx + qy * qy);
 }
 
-// Stages 1-4 for pairs [p0, p0 + Pc): their backward rows into
-// S.pb + p * kPB (unnormalised: dR1, dR2, dt1, dt2, K^-1 partials, count).
-__device__ void pair_gradients(const GGSArgs& A, const Smem& S, int p0, int Pc) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, W = nt >> 5;
-  const int N = A.N, Q = A.Q;
-
-  // ---- 1. per frame
-  for (int n = tid; n < N; n += nt) {
-    const float* xn = S.x + n * 9;
-    const float qw = xn[3], qx = xn[4], qy = xn[5], qz = xn[6];
-    const float s = 2.f / (qw * qw + qx * qx + qy * qy + qz * qz);
-    float M[9];
-    quat_M(qw, qx, qy, qz, M);
+// Frame n's OpenCV rotation R_cv (row-major) and translation t_cv.
+__device__ __forceinline__ void frame_pose(const float* x, int n, float* R, float* t) {
+  const float* xn = x + n * 9;
+  const float qw = xn[3], qx = xn[4], qy = xn[5], qz = xn[6];
+  const float s = 2.f / (qw * qw + qx * qx + qy * qy + qz * qz);
+  float M[9];
+  quat_M(qw, qx, qy, qz, M);
 #pragma unroll
-    for (int i = 0; i < 3; ++i)
+  for (int i = 0; i < 3; ++i)
 #pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const float R_ji = (i == j ? 1.f : 0.f) + s * M[3 * j + i];
-        S.Rcv[n * 9 + 3 * i + j] = flip_of(i) * R_ji;
-      }
-    S.tcv[n * 3 + 0] = -xn[0];
-    S.tcv[n * 3 + 1] = -xn[1];
-    S.tcv[n * 3 + 2] = xn[2];
-    S.efl[n * 2 + 0] = expf(xn[7] + kLogFlBias);
-    S.efl[n * 2 + 1] = expf(xn[8] + kLogFlBias);
-  }
-  __syncthreads();
-  if (warp == 0) {
-    float f0 = 0.f, f1 = 0.f;
-    for (int n = lane; n < N; n += 32) {
-      f0 += fminf(fmaxf(S.efl[n * 2 + 0], kMinFl), kMaxFl);
-      f1 += fminf(fmaxf(S.efl[n * 2 + 1], kMinFl), kMaxFl);
+    for (int j = 0; j < 3; ++j) {
+      const float R_ji = (i == j ? 1.f : 0.f) + s * M[3 * j + i];
+      R[3 * i + j] = flip_of(i) * R_ji;
     }
-    f0 = warp_sum(f0);
-    f1 = warp_sum(f1);
-    if (lane == 0) {
-      const float s_img = fminf(A.h, A.w) / 2.f;
-      const float fx = f0 / (float)N * s_img, fy = f1 / (float)N * s_img;
-      S.sc[SC_FX] = fx;
-      S.sc[SC_FY] = fy;
-      S.sc[SC_A] = 1.f / fx;
-      S.sc[SC_B] = 1.f / fy;
-      S.sc[SC_C] = -(A.w / 2.f) / fx;
-      S.sc[SC_D] = -(A.h / 2.f) / fy;
-    }
-  }
-  __syncthreads();
-  const float a = S.sc[SC_A], b = S.sc[SC_B], c = S.sc[SC_C], d = S.sc[SC_D];
+  t[0] = -xn[0];
+  t[1] = -xn[1];
+  t[2] = xn[2];
+}
 
-  // ---- 2. per pair: forward
-  for (int pl = tid; pl < Pc; pl += nt) {
-    const int p = p0 + pl;
-    const float* r1 = S.Rcv + S.pi1[p] * 9;
-    const float* r2 = S.Rcv + S.pi2[p] * 9;
-    const float* t1 = S.tcv + S.pi1[p] * 3;
-    const float* t2 = S.tcv + S.pi2[p] * 3;
+// Frame n's pose into S.pose from S.x: R_cv then t_cv.
+__device__ __forceinline__ void store_pose(const Smem& S, int n) {
+  float R[9], t[3];
+  frame_pose(S.x, n, R, t);
+#pragma unroll
+  for (int k = 0; k < 9; ++k) S.pose[n * 12 + k] = R[k];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) S.pose[n * 12 + 9 + k] = t[k];
+}
+
+__device__ __forceinline__ float frame_focal(const float* x, int n, int k) {
+  return expf(x[n * 9 + 7 + k] + kLogFlBias);
+}
+
+// The tied focal lengths fx, fy: the clamped mean over the N frames, lanes
+// striding the frames and one butterfly, the same in every warp.
+__device__ __forceinline__ void mean_focal(const GGSArgs& A, const float* x,
+                                           float& fx, float& fy) {
+  const int lane = threadIdx.x & 31;
+  float f0 = 0.f, f1 = 0.f;
+  for (int n = lane; n < A.N; n += 32) {
+    f0 += fminf(fmaxf(frame_focal(x, n, 0), kMinFl), kMaxFl);
+    f1 += fminf(fmaxf(frame_focal(x, n, 1), kMinFl), kMaxFl);
+  }
+  f0 = warp_sum(f0);
+  f1 = warp_sum(f1);
+  const float s_img = fminf(A.h, A.w) / 2.f;
+  fx = f0 / (float)A.N * s_img;
+  fy = f1 / (float)A.N * s_img;
+}
+
+// The two halves of a cluster barrier: arrive (release: this thread's
+// earlier reads and writes of shared memory are done), then wait (acquire)
+// before touching what the others were using.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// 1. The block's pairs, a warp each: their rows (unnormalised: dR1, dR2,
+// dt1, dt2, the K^-1 partials va..vd, the count) into pair p's place in
+// every block of the cluster. fx, fy: the tied focal lengths of this x, for
+// the gather.
+__device__ void pair_stage(const GGSArgs& A, const Smem& S, cg::cluster_group& cluster,
+                           const Table tb, int p0, int Pb, float& fx, float& fy) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, W = blockDim.x >> 5;
+  const int Q = A.Q, C = (int)cluster.num_blocks();
+  mean_focal(A, S.x, fx, fy);
+  const float a = 1.f / fx, b = 1.f / fy;
+  const float c = -(A.w / 2.f) / fx, d = -(A.h / 2.f) / fy;
+
+  for (int pl = warp; pl < Pb; pl += W) {
+    float r1[9], r2[9], t1[3], t2[3];
+    const float* f1 = S.pose + S.pi1[pl] * 12;
+    const float* f2 = S.pose + S.pi2[pl] * 12;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      r1[k] = f1[k];
+      r2[k] = f2[k];
+    }
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      t1[k] = f1[9 + k];
+      t2[k] = f2[9 + k];
+    }
+    // ---- forward: G = R2 R1^T, t12, Et, E, U = K^-T E, F
     float G[9], t12[3], Et[3], E[9], U[9], Fm[9];
 #pragma unroll
     for (int i = 0; i < 3; ++i)
@@ -213,102 +281,79 @@ __device__ void pair_gradients(const GGSArgs& A, const Smem& S, int p0, int Pc) 
       Fm[3 * i + 1] = b * U[3 * i + 1];
       Fm[3 * i + 2] = c * U[3 * i] + d * U[3 * i + 1] + U[3 * i + 2];
     }
-    float* f = S.pf + pl * kPF;
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int j = 0; j < 3; ++j) f[3 * i + j] = Fm[3 * j + i];  // Fu = Fm^T
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      f[9 + 2 * i] = U[3 * i];
-      f[10 + 2 * i] = U[3 * i + 1];
-    }
-#pragma unroll
-    for (int k = 0; k < 6; ++k) f[15 + k] = E[k];  // rows 0 and 1
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      f[21 + k] = Et[k];
-      f[33 + k] = t12[k];
-    }
-#pragma unroll
-    for (int k = 0; k < 9; ++k) f[24 + k] = G[k];
-  }
-  __syncthreads();
+    // Fu = Fm^T: kp1^T Fu kp2 = 0
+    const float F00 = Fm[0], F01 = Fm[3], F02 = Fm[6], F10 = Fm[1], F11 = Fm[4],
+                F12 = Fm[7], F20 = Fm[2], F21 = Fm[5], F22 = Fm[8];
 
-  // ---- 3. per match
-  {
-    for (int pl = warp; pl < Pc; pl += W) {
-      const float* F = S.pf + pl * kPF;
-      const float F00 = F[0], F01 = F[1], F02 = F[2], F10 = F[3], F11 = F[4],
-                  F12 = F[5], F20 = F[6], F21 = F[7], F22 = F[8];
-      float acc[kPart];
+    // ---- per match: lanes stride the matches, kMB at a time so that their
+    // divisions are in flight together; butterflies reduce
+    float acc[kPart];
 #pragma unroll
-      for (int k = 0; k < kPart; ++k) acc[k] = 0.f;
-      const size_t row = (size_t)(p0 + pl) * Q;
-#pragma unroll 4
-      for (int q = lane; q < Q; q += 32) {
-        const float k1x = A.kp1x[row + q], k1y = A.kp1y[row + q];
-        const float k2x = A.kp2x[row + q], k2y = A.kp2y[row + q];
-        const float v = A.valid[row + q];
-        const float l0 = k1x * F00 + k1y * F10 + F20;  // kp1^T F
-        const float l1 = k1x * F01 + k1y * F11 + F21;
-        const float l2 = k1x * F02 + k1y * F12 + F22;
-        const float r0 = F00 * k2x + F01 * k2y + F02;  // F kp2
-        const float r1 = F10 * k2x + F11 * k2y + F12;
-        const float ev = l0 * k2x + l1 * k2y + l2;
-        const float top = ev * ev;
-        const float bot_raw = l0 * l0 + l1 * l1 + r0 * r0 + r1 * r1;
-        const float bot = fmaxf(bot_raw, 1e-12f);
-        const float samp = top / bot;
-        const float keep = samp < A.sampson_max ? v : 0.f;
-        const float dtop = keep / bot;
-        const float dbot = bot_raw > 1e-12f ? -keep * top / (bot * bot) : 0.f;
-        const float dev = 2.f * ev * dtop;
-        const float dl0 = dev * k2x + 2.f * l0 * dbot;
-        const float dl1 = dev * k2y + 2.f * l1 * dbot;
+    for (int k = 0; k < kPart; ++k) acc[k] = 0.f;
+    const size_t row = (size_t)pl * Q;
+    const float *p1x = tb.kp1x + row, *p1y = tb.kp1y + row, *p2x = tb.kp2x + row,
+                *p2y = tb.kp2y + row, *pv = tb.valid + row;
+    for (int q0 = lane; q0 < Q; q0 += 32 * kMB) {
+      float k1x[kMB], k1y[kMB], k2x[kMB], k2y[kMB], v[kMB];
+      float l0[kMB], l1[kMB], l2[kMB], r0[kMB], r1_[kMB], ev[kMB], top[kMB], bot_raw[kMB],
+          bot[kMB], keep[kMB], dtop[kMB], dbot[kMB];
+#pragma unroll
+      for (int j = 0; j < kMB; ++j) {
+        const int q = q0 + 32 * j;
+        const bool in = q < Q;
+        k1x[j] = in ? p1x[q] : 0.f;
+        k1y[j] = in ? p1y[q] : 0.f;
+        k2x[j] = in ? p2x[q] : 0.f;
+        k2y[j] = in ? p2y[q] : 0.f;
+        v[j] = in ? pv[q] : 0.f;
+        l0[j] = k1x[j] * F00 + k1y[j] * F10 + F20;  // kp1^T F
+        l1[j] = k1x[j] * F01 + k1y[j] * F11 + F21;
+        l2[j] = k1x[j] * F02 + k1y[j] * F12 + F22;
+        r0[j] = F00 * k2x[j] + F01 * k2y[j] + F02;  // F kp2
+        r1_[j] = F10 * k2x[j] + F11 * k2y[j] + F12;
+        ev[j] = l0[j] * k2x[j] + l1[j] * k2y[j] + l2[j];
+        top[j] = ev[j] * ev[j];
+        bot_raw[j] = l0[j] * l0[j] + l1[j] * l1[j] + r0[j] * r0[j] + r1_[j] * r1_[j];
+        bot[j] = fmaxf(bot_raw[j], 1e-12f);
+      }
+#pragma unroll
+      for (int j = 0; j < kMB; ++j) keep[j] = top[j] / bot[j] < A.sampson_max ? v[j] : 0.f;
+#pragma unroll
+      for (int j = 0; j < kMB; ++j) dtop[j] = keep[j] / bot[j];
+#pragma unroll
+      for (int j = 0; j < kMB; ++j)
+        dbot[j] = bot_raw[j] > 1e-12f ? -keep[j] * top[j] / (bot[j] * bot[j]) : 0.f;
+#pragma unroll
+      for (int j = 0; j < kMB; ++j) {
+        if (q0 + 32 * j >= Q) break;
+        const float dev = 2.f * ev[j] * dtop[j];
+        const float dl0 = dev * k2x[j] + 2.f * l0[j] * dbot[j];
+        const float dl1 = dev * k2y[j] + 2.f * l1[j] * dbot[j];
         const float dl2 = dev;
-        const float dr0 = 2.f * r0 * dbot, dr1 = 2.f * r1 * dbot;
-        acc[0] += k1x * dl0 + dr0 * k2x;
-        acc[1] += k1x * dl1 + dr0 * k2y;
-        acc[2] += k1x * dl2 + dr0;
-        acc[3] += k1y * dl0 + dr1 * k2x;
-        acc[4] += k1y * dl1 + dr1 * k2y;
-        acc[5] += k1y * dl2 + dr1;
+        const float dr0 = 2.f * r0[j] * dbot[j], dr1 = 2.f * r1_[j] * dbot[j];
+        acc[0] += k1x[j] * dl0 + dr0 * k2x[j];
+        acc[1] += k1x[j] * dl1 + dr0 * k2y[j];
+        acc[2] += k1x[j] * dl2 + dr0;
+        acc[3] += k1y[j] * dl0 + dr1 * k2x[j];
+        acc[4] += k1y[j] * dl1 + dr1 * k2y[j];
+        acc[5] += k1y[j] * dl2 + dr1;
         acc[6] += dl0;
         acc[7] += dl1;
         acc[8] += dl2;
-        acc[9] += keep;
-      }
-#pragma unroll
-      for (int k = 0; k < kPart; ++k) acc[k] = warp_sum(acc[k]);
-      if (lane == 0) {
-#pragma unroll
-        for (int k = 0; k < kPart; ++k) S.part[pl * kPart + k] = acc[k];
+        acc[9] += keep[j];
       }
     }
-  }
-  __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kPart; ++k) acc[k] = warp_sum(acc[k]);
+    const float* dFu = acc;  // dFu[3 i + j]; dFm[i][j] = dFu[j][i]
 
-  // ---- 4. per pair: backward
-  for (int pl = tid; pl < Pc; pl += nt) {
-    const float* dFu = S.part + pl * kPart;
-    const float cnt = dFu[9];
-    const float* f = S.pf + pl * kPF;
-    const float* Et = f + 21;
-    const float* G = f + 24;
-    const float* t12 = f + 33;
-    const int p = p0 + pl;
-    const float* r1 = S.Rcv + S.pi1[p] * 9;
-    const float* r2 = S.Rcv + S.pi2[p] * 9;
-    const float* t1 = S.tcv + S.pi1[p] * 3;
-
-    // dFm[i][j] = dFu[j][i]; backward F = U Kinv, then U = Kinv^T E
+    // ---- backward F = U Kinv, then U = Kinv^T E (every lane, lane 0 stores)
     float dU[9], dE[9];
     float va = 0.f, vb = 0.f, vc = 0.f, vd = 0.f;
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
       const float m0 = dFu[i], m1 = dFu[3 + i], m2 = dFu[6 + i];
-      const float Ui0 = f[9 + 2 * i], Ui1 = f[10 + 2 * i];
+      const float Ui0 = U[3 * i], Ui1 = U[3 * i + 1];
       dU[3 * i + 0] = a * m0 + c * m2;
       dU[3 * i + 1] = b * m1 + d * m2;
       dU[3 * i + 2] = m2;
@@ -319,7 +364,7 @@ __device__ void pair_gradients(const GGSArgs& A, const Smem& S, int p0, int Pc) 
     }
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
-      const float E0j = f[15 + j], E1j = f[18 + j];
+      const float E0j = E[j], E1j = E[3 + j];
       dE[j] = a * dU[j] + c * dU[6 + j];
       dE[3 + j] = b * dU[3 + j] + d * dU[6 + j];
       dE[6 + j] = dU[6 + j];
@@ -371,75 +416,95 @@ __device__ void pair_gradients(const GGSArgs& A, const Smem& S, int p0, int Pc) 
           dR2[3 * i + k] += dG[3 * i + j] * r1[3 * j + k];
           dR1[3 * j + k] += dG[3 * i + j] * r2[3 * i + k];
         }
-    float* o = S.pb + (size_t)p * kPB;
+    // the row into every block of the cluster: lane 2 r + h writes floats
+    // [12 h, 12 h + 12) of block r's copy as three float4s, and two (h = 0)
+    // or three of the tail's five values
+    const float o[kRow] = {dR1[0], dR1[1], dR1[2], dR1[3], dR1[4], dR1[5], dR1[6], dR1[7],
+                           dR1[8], dR2[0], dR2[1], dR2[2], dR2[3], dR2[4], dR2[5], dR2[6],
+                           dR2[7], dR2[8], dt1[0], dt1[1], dt1[2], dt12[0], dt12[1],
+                           dt12[2]};  // dt2 = dt12
+    if ((lane >> 1) < C) {
+      const bool h = lane & 1;
+      const int p = p0 + pl;
+      float* blk = cluster.map_shared_rank(S.rows, lane >> 1);
+      float4* dst = reinterpret_cast<float4*>(blk + (size_t)p * kRow) + 3 * h;
 #pragma unroll
-    for (int k = 0; k < 9; ++k) {
-      o[k] = dR1[k];
-      o[9 + k] = dR2[k];
+      for (int i = 0; i < 3; ++i)
+        dst[i] = h ? make_float4(o[12 + 4 * i], o[13 + 4 * i], o[14 + 4 * i], o[15 + 4 * i])
+                   : make_float4(o[4 * i], o[1 + 4 * i], o[2 + 4 * i], o[3 + 4 * i]);
+      float* tail = blk + (size_t)A.P * kRow + p;
+      if (h) {
+        tail[2 * A.P] = vc;
+        tail[3 * A.P] = vd;
+        tail[4 * A.P] = acc[9];
+      } else {
+        tail[0] = va;
+        tail[A.P] = vb;
+      }
     }
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      o[18 + k] = dt1[k];
-      o[21 + k] = dt12[k];  // dt2 = dt12
-    }
-    o[24] = va;
-    o[25] = vb;
-    o[26] = vc;
-    o[27] = vd;
-    o[28] = cnt;
   }
-  __syncthreads();
 }
 
-// Stage 5 from the backward rows of all A.P pairs in S.pb: the summed
-// unnormalised gradient into S.g (N x 9) and the count into S.sc[SC_COUNT].
-__device__ void frame_gradients(const GGSArgs& A, const Smem& S) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5;
+// 2. From all P rows of this iteration in the block's own shared memory,
+// every warp: the count and the K^-1 partials over the pairs (lanes striding
+// the pairs, then butterflies: the same in every warp); then, a half-warp a
+// frame, the frame's gradient: lanes 0-11 sum its 12 rotation and
+// translation adjoints over its entries in fent order, the flip, quaternion
+// and focal adjoints follow, divided by the count; into S.g with the frame's
+// shares of the clip's two norms (its nine terms in order) in S.part.
+// Returns the count.
+__device__ float gather_stage(const GGSArgs& A, const Smem& S, float fx, float fy) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, W = blockDim.x >> 5;
   const int N = A.N;
-  if (warp == 0) {
-    float v[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int p = lane; p < A.P; p += 32) {
-      const float* o = S.pb + (size_t)p * kPB;
+  float v[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int p = lane; p < A.P; p += 32) {
 #pragma unroll
-      for (int k = 0; k < 5; ++k) v[k] += o[24 + k];
-    }
-#pragma unroll
-    for (int k = 0; k < 5; ++k) v[k] = warp_sum(v[k]);
-    if (lane == 0) {
-      S.sc[SC_DA] = v[0];
-      S.sc[SC_DB] = v[1];
-      S.sc[SC_DC] = v[2];
-      S.sc[SC_DD] = v[3];
-      S.sc[SC_COUNT] = v[4];
-    }
+    for (int k = 0; k < kTail; ++k) v[k] += S.tail[k * A.P + p];
   }
-  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < 5; ++k) v[k] = warp_sum(v[k]);
+  const float count = v[4], den = fmaxf(count, 1.f);
+  const float cx = A.w / 2.f, cy = A.h / 2.f, s_img = fminf(A.h, A.w) / 2.f;
+  const float dfx = -v[0] / (fx * fx) + v[2] * cx / (fx * fx);
+  const float dfy = -v[1] / (fy * fy) + v[3] * cy / (fy * fy);
+  const float df[2] = {dfx * s_img / (float)N, dfy * s_img / (float)N};
 
-  // ---- 5. per frame: gather, then the flip, quaternion and focal adjoints
-  for (int n = tid; n < N; n += nt) {
-    float dRcv[9], dtcv[3];
+  // a half-warp a frame: frames 2 w + h, 2 w + h + 2 W, ... on half h of warp w
+  const int half = lane >> 4, hl = lane & 15;
+  for (int n0 = 2 * warp; n0 < N; n0 += 2 * W) {
+    const bool active = n0 + half < N;
+    const int n = active ? n0 + half : n0;
+    // lane k < 9 of the half: dRcv[k] (role r reads o[9 r + k]); 9 <= k < 12:
+    // dtcv[k - 9] (o[18 + 3 r + k - 9])
+    float s = 0.f;
+    if (hl < 12) {
+      const int k = hl < 9 ? hl : 9 + hl, kr = hl < 9 ? 9 : 3;
+      const int e1 = S.fptr[n + 1];
+      for (int eb = S.fptr[n]; eb < e1; eb += 8) {  // eight loads in flight, then the adds
+        float t[8];
 #pragma unroll
-    for (int k = 0; k < 9; ++k) dRcv[k] = 0.f;
-    dtcv[0] = dtcv[1] = dtcv[2] = 0.f;
-    for (int e = S.fptr[n]; e < S.fptr[n + 1]; ++e) {
-      const int ent = S.fent[e], role = ent & 1;
-      const float* o = S.pb + (size_t)(ent >> 1) * kPB;
+        for (int j = 0; j < 8; ++j) {
+          const int ent = eb + j < e1 ? S.fent[eb + j] : 0;
+          t[j] = S.rows[(ent >> 1) * kRow + k + (ent & 1) * kr];
+        }
 #pragma unroll
-      for (int k = 0; k < 9; ++k) dRcv[k] += o[role * 9 + k];
-#pragma unroll
-      for (int k = 0; k < 3; ++k) dtcv[k] += o[18 + role * 3 + k];
+        for (int j = 0; j < 8; ++j)
+          if (eb + j < e1) s += t[j];
+      }
     }
-    float* gn = S.g + n * 9;
+    float dRcv[9], dtcv[3], g[9];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) dRcv[k] = __shfl_sync(0xffffffffu, s, k, 16);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) dtcv[k] = __shfl_sync(0xffffffffu, s, 9 + k, 16);
     const float* xn = S.x + n * 9;
-    gn[0] = A.upd_T ? -dtcv[0] : 0.f;
-    gn[1] = A.upd_T ? -dtcv[1] : 0.f;
-    gn[2] = A.upd_T ? dtcv[2] : 0.f;
-
+    g[0] = A.upd_T ? -dtcv[0] : 0.f;
+    g[1] = A.upd_T ? -dtcv[1] : 0.f;
+    g[2] = A.upd_T ? dtcv[2] : 0.f;
     if (A.upd_R) {
       const float qw = xn[3], qx = xn[4], qy = xn[5], qz = xn[6];
       const float n2 = qw * qw + qx * qx + qy * qy + qz * qz;
-      const float s = 2.f / n2;
+      const float sq = 2.f / n2;
       float M[9], dR[9], dM[9];
       quat_M(qw, qx, qy, qz, M);
 #pragma unroll
@@ -450,7 +515,7 @@ __device__ void frame_gradients(const GGSArgs& A, const Smem& S) {
 #pragma unroll
       for (int k = 0; k < 9; ++k) {
         ds += dR[k] * M[k];
-        dM[k] = s * dR[k];
+        dM[k] = sq * dR[k];
       }
       const float dn2 = ds * (-2.f / (n2 * n2));
       float dqw = 2.f * qw * dn2, dqx = 2.f * qx * dn2;
@@ -463,123 +528,121 @@ __device__ void frame_gradients(const GGSArgs& A, const Smem& S) {
              2.f * qz * dM[4] + qy * dM[5] + qx * dM[6] + qy * dM[7];
       dqw += -qz * dM[1] + qy * dM[2] + qz * dM[3] - qx * dM[5] - qy * dM[6] +
              qx * dM[7];
-      gn[3] = dqw;
-      gn[4] = dqx;
-      gn[5] = dqy;
-      gn[6] = dqz;
+      g[3] = dqw;
+      g[4] = dqx;
+      g[5] = dqy;
+      g[6] = dqz;
     } else {
-      gn[3] = gn[4] = gn[5] = gn[6] = 0.f;
+      g[3] = g[4] = g[5] = g[6] = 0.f;
     }
-
-    if (A.upd_FL) {
-      const float fx = S.sc[SC_FX], fy = S.sc[SC_FY];
-      const float cx = A.w / 2.f, cy = A.h / 2.f, s_img = fminf(A.h, A.w) / 2.f;
-      const float dfx = -S.sc[SC_DA] / (fx * fx) + S.sc[SC_DC] * cx / (fx * fx);
-      const float dfy = -S.sc[SC_DB] / (fy * fy) + S.sc[SC_DD] * cy / (fy * fy);
-      const float df[2] = {dfx * s_img / (float)N, dfy * s_img / (float)N};
 #pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        const float e = S.efl[n * 2 + k];
-        const float inside = (e >= kMinFl && e <= kMaxFl) ? 1.f : 0.f;
-        gn[7 + k] = df[k] * inside * e;
-      }
-    } else {
-      gn[7] = gn[8] = 0.f;
+    for (int k = 0; k < 2; ++k) {
+      const float ef = frame_focal(S.x, n, k);
+      const float inside = (ef >= kMinFl && ef <= kMaxFl) ? 1.f : 0.f;
+      g[7 + k] = A.upd_FL ? df[k] * inside * ef : 0.f;
+    }
+    float sx = 0.f, sg = 0.f;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      g[k] = g[k] / den;
+      const float xm = fabsf(g[k]) > 0.f ? xn[k] : 0.f;
+      sx += xm * xm;
+      sg += g[k] * g[k];
+    }
+    if (hl == 0 && active) {
+#pragma unroll
+      for (int k = 0; k < 9; ++k) S.g[n * 9 + k] = g[k];
+      S.part[2 * n] = sx;
+      S.part[2 * n + 1] = sg;
     }
   }
-  __syncthreads();
+  return count;
 }
 
-// Divide by the count, clip, momentum, sticky stop; S.sc[SC_COUNT] holds
-// the global count and S.g the summed unnormalised gradient.
-__device__ void apply_update(const GGSArgs& A, const Smem& S) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int E = A.N * 9;
-  const float count = S.sc[SC_COUNT];
-  const float den = fmaxf(count, 1.f);
-  if (warp == 0) {
-    float sx = 0.f, sg = 0.f;
-    for (int e = lane; e < E; e += 32) {
-      const float g = S.g[e] / den;
-      const float xm = fabsf(g) > 0.f ? S.x[e] : 0.f;
-      sx += xm * xm;
-      sg += g * g;
-    }
-    sx = warp_sum(sx);
-    sg = warp_sum(sg);
-    if (lane == 0) {
-      const bool stop_now = A.min_matches > 0.f && count / (float)A.N < A.min_matches;
-      S.sc[SC_STOP] = (S.sc[SC_STOP] > 0.5f || stop_now) ? 1.f : 0.f;
-      S.sc[SC_XNORM2] = sx;
-      S.sc[SC_GNORM2] = sg;
-    }
+// 3. Every warp: the clip's norms from the frames' shares (lanes striding
+// the frames, then butterflies: the same in every warp), the sticky stop,
+// then momentum and step for the warp's own frames, and their new poses.
+__device__ void update_stage(const GGSArgs& A, const Smem& S, float count, bool stopped) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, W = blockDim.x >> 5;
+  const int N = A.N;
+  float sx = 0.f, sg = 0.f;
+  for (int n = lane; n < N; n += 32) {
+    sx += S.part[2 * n];
+    sg += S.part[2 * n + 1];
   }
-  __syncthreads();
-  if (S.sc[SC_STOP] < 0.5f) {
-    const float max_norm = A.alpha * sqrtf(S.sc[SC_XNORM2]) / A.lr;
-    const float clip = fminf(1.f, max_norm / (sqrtf(S.sc[SC_GNORM2]) + 1e-6f));
-    for (int e = tid; e < E; e += blockDim.x) {
-      const float g = S.g[e] / den * clip;
-      const float bn = A.momentum * S.buf[e] + g;
+  sx = warp_sum(sx);
+  sg = warp_sum(sg);
+  const bool stop = stopped || (A.min_matches > 0.f && count / (float)N < A.min_matches);
+  if (threadIdx.x == 0) S.stop[0] = stop ? 1.f : 0.f;
+  if (stop) return;
+  const float max_norm = A.alpha * sqrtf(sx) / A.lr;
+  const float clip = fminf(1.f, max_norm / (sqrtf(sg) + 1e-6f));
+  for (int n = warp; n < N; n += W) {
+    if (lane < 9) {
+      const int e = n * 9 + lane;
+      const float bn = A.momentum * S.buf[e] + S.g[e] * clip;
       S.x[e] = S.x[e] - A.lr * bn;
       S.buf[e] = bn;
     }
+    __syncwarp();
+    if (lane == 0) store_pose(S, n);
   }
-  __syncthreads();
 }
 
-__device__ void init_state(const GGSArgs& A, const Smem& S, const float* x_in) {
-  for (int e = threadIdx.x; e < A.N * 9; e += blockDim.x) {
+// A cluster of P / Pb blocks (one for pd_ggs_phase), 32 ggs_warps(Pb)
+// threads each.
+__global__ void __launch_bounds__(kMaxThreads)
+ggs_cluster_kernel(GGSArgs A, const float* __restrict__ x_in, float* __restrict__ x_out,
+                   int Pb) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int N = A.N, Q = A.Q;
+  const Smem S = carve(smem, N, Pb, A.P);
+  const int p0 = rank * Pb;
+
+  for (int e = tid; e < N * 9; e += nt) {
     S.x[e] = x_in[e];
     S.buf[e] = 0.f;
   }
-  for (int p = threadIdx.x; p < A.P; p += blockDim.x) {
-    S.pi1[p] = A.pi1[p];
-    S.pi2[p] = A.pi2[p];
-    S.fent[2 * p] = A.fent[2 * p];
-    S.fent[2 * p + 1] = A.fent[2 * p + 1];
+  for (int pl = tid; pl < Pb; pl += nt) {
+    S.pi1[pl] = A.pi1[p0 + pl];
+    S.pi2[pl] = A.pi2[p0 + pl];
   }
-  for (int n = threadIdx.x; n <= A.N; n += blockDim.x) S.fptr[n] = A.fptr[n];
-  if (threadIdx.x == 0) S.sc[SC_STOP] = 0.f;
+  for (int n = tid; n <= N; n += nt) S.fptr[n] = A.fptr[n];
+  for (int e = tid; e < 2 * A.P; e += nt) S.fent[e] = A.fent[e];
+  if (tid == 0) S.stop[0] = 0.f;
+  const size_t slice = (size_t)Pb * Q, off = (size_t)p0 * Q;
+  Table tb = {A.kp1x + off, A.kp1y + off, A.kp2x + off, A.kp2y + off, A.valid + off};
+  if (ggs_resident(N, Pb, A.P, Q)) {
+    const float* src[5] = {tb.kp1x, tb.kp1y, tb.kp2x, tb.kp2y, tb.valid};
+#pragma unroll
+    for (int k = 0; k < 5; ++k)
+      for (size_t i = tid; i < slice; i += nt) S.tab[k * slice + i] = src[k][i];
+    tb = Table{S.tab, S.tab + slice, S.tab + 2 * slice, S.tab + 3 * slice,
+               S.tab + 4 * slice};
+  }
   __syncthreads();
-}
+  for (int n = tid; n < N; n += nt) store_pose(S, n);
+  cluster.sync();  // every block has started and holds its tables and poses
 
-__global__ void __launch_bounds__(kResidentThreads)
-ggs_phase_kernel(GGSArgs A, const float* __restrict__ x_in, float* __restrict__ x_out) {
-  extern __shared__ float smem[];
-  const Smem S = carve(smem, A.N, A.P, A.P);
-  init_state(A, S, x_in);
   for (int it = 0; it < A.iters; ++it) {
-    pair_gradients(A, S, 0, A.P);
-    frame_gradients(A, S);
-    apply_update(A, S);
-  }
-  for (int e = threadIdx.x; e < A.N * 9; e += blockDim.x) x_out[e] = S.x[e];
-}
-
-// rows: 2 x P x kPB floats of global scratch (iteration parity x pair).
-__global__ void __launch_bounds__(kChunkThreads)
-ggs_phase_chunked_kernel(GGSArgs A, const float* __restrict__ x_in,
-                         float* __restrict__ x_out, int chunk, float* rows) {
-  extern __shared__ float smem[];
-  cg::grid_group grid = cg::this_grid();
-  const Smem S = carve(smem, A.N, chunk, A.P);
-  const int p0 = blockIdx.x * chunk;
-  init_state(A, S, x_in);
-  for (int it = 0; it < A.iters; ++it) {
-    pair_gradients(A, S, p0, chunk);
-    float* buf = rows + (size_t)(it & 1) * A.P * kPB;
-    for (int e = threadIdx.x; e < chunk * kPB; e += blockDim.x)
-      __stcg(buf + (size_t)p0 * kPB + e, S.pb[(size_t)p0 * kPB + e]);
-    grid.sync();
-#pragma unroll 8
-    for (int e = threadIdx.x; e < A.P * kPB; e += blockDim.x) S.pb[e] = __ldcg(buf + e);
+    float fx, fy;
+    if (it > 0) cluster_wait();  // every block has read the previous rows
+    pair_stage(A, S, cluster, tb, p0, Pb, fx, fy);
+    cluster.sync();  // every pair's row is in every block
+    const bool stopped = S.stop[0] > 0.5f;
+    const float count = gather_stage(A, S, fx, fy);
+    cluster_arrive();  // this block has read the rows (the next writes wait)
     __syncthreads();
-    frame_gradients(A, S);
-    apply_update(A, S);
+    update_stage(A, S, count, stopped);
+    __syncthreads();
+    if (S.stop[0] > 0.5f) break;  // x and the momentum stay as they are
   }
-  if (blockIdx.x == 0)
-    for (int e = threadIdx.x; e < A.N * 9; e += blockDim.x) x_out[e] = S.x[e];
+  if (rank == 0)
+    for (int e = tid; e < N * 9; e += nt) x_out[e] = S.x[e];
+  if (A.iters > 0) cluster_wait();  // pairs the last arrive
 }
 
 static GGSArgs make_args(const void* kp1x, const void* kp1y, const void* kp2x,
@@ -627,40 +690,78 @@ static GGSArgs make_args(const void* kp1x, const void* kp1y, const void* kp2x,
             w, upd_R, upd_T, upd_FL, sampson_max, iters, lr, momentum, alpha, \
             min_matches)
 
-// Bytes of dynamic shared memory of one block over Pc pairs (the wrapper
-// checks them against the card's limit with the same formula).
-static size_t ggs_smem_bytes(int N, int Pc, int P) {
-  return sizeof(float) * ggs_smem_floats(N, Pc, P);
-}
-
-PD_API int pd_ggs_phase(GGS_PARAMS, void* stream) {
-  const GGSArgs A = GGS_MAKE_ARGS;
-  const size_t smem = ggs_smem_bytes(N, P, P);
+// The launch of a cluster of C blocks over Pb pairs each (P = C Pb): the
+// kernel's attributes set, the configuration and its cluster attribute
+// filled. Returns cudaErrorInvalidValue for a shape the kernel refuses.
+static cudaError_t ggs_config(int N, int Pb, int P, int Q, int C, cudaStream_t stream,
+                              cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  if (N < 2 || Pb < 1 || Q < 1 || C < 1 || C > kMaxCluster || P != C * Pb)
+    return cudaErrorInvalidValue;
+  const size_t smem = ggs_smem_bytes(N, Pb, P, Q);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      ggs_phase_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      ggs_cluster_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(ggs_cluster_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(C);
+  cfg->blockDim = dim3(32 * ggs_warps(Pb));
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+static int ggs_launch(const GGSArgs& A, const void* x_in, void* x_out, int Pb,
+                      void* stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t err = ggs_config(A.N, Pb, A.P, A.Q, A.P / Pb, (cudaStream_t)stream,
+                               &cfg, attr);
   if (err != cudaSuccess) return (int)err;
-  ggs_phase_kernel<<<1, kResidentThreads, smem, (cudaStream_t)stream>>>(
-      A, (const float*)x_in, (float*)x_out);
+  err = cudaLaunchKernelEx(&cfg, ggs_cluster_kernel, A, (const float*)x_in,
+                           (float*)x_out, Pb);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// P must be a multiple of chunk; rows holds 2 x P x 29 floats of scratch. The launch is refused (cudaErrorCooperativeLaunchTooLarge)
-// when the P / chunk blocks cannot all be resident at once.
-PD_API int pd_ggs_phase_chunked(GGS_PARAMS, int chunk, void* rows, void* stream) {
-  GGSArgs A = GGS_MAKE_ARGS;
+// Kernel 6: one block owns all P pairs (a cluster of one).
+PD_API int pd_ggs_phase(GGS_PARAMS, void* stream) {
+  return ggs_launch(GGS_MAKE_ARGS, x_in, x_out, P, stream);
+}
+
+// Kernel 7: a cluster of P / chunk blocks, chunk pairs each; P must be a
+// multiple of chunk and the cluster at most 16 blocks.
+PD_API int pd_ggs_phase_chunked(GGS_PARAMS, int chunk, void* stream) {
   if (chunk < 1 || P % chunk != 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = ggs_smem_bytes(N, chunk, P);
-  cudaError_t err = cudaFuncSetAttribute(ggs_phase_chunked_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const float* xi = (const float*)x_in;
-  float* xo = (float*)x_out;
-  float* rw = (float*)rows;
-  void* args[] = {&A, &xi, &xo, &chunk, &rw};
-  err = cudaLaunchCooperativeKernel((const void*)ggs_phase_chunked_kernel,
-                                    dim3(P / chunk), dim3(kChunkThreads), args,
-                                    smem, (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return ggs_launch(GGS_MAKE_ARGS, x_in, x_out, chunk, stream);
+}
+
+// Bytes of dynamic shared memory of a block over Pb of P pairs (the table
+// slice included when it is resident).
+PD_API int pd_ggs_smem_bytes(int N, int Pb, int P, int Q) {
+  return (int)ggs_smem_bytes(N, Pb, P, Q);
+}
+
+// How many clusters of C blocks over Pb pairs each the card can hold at
+// once (0: such a cluster cannot be scheduled), or minus a CUDA error.
+PD_API int pd_ggs_max_active_clusters(int N, int Pb, int Q, int C) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t err = ggs_config(N, Pb, C * Pb, Q, C, 0, &cfg, attr);
+  if (err != cudaSuccess) return -(int)err;
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, ggs_cluster_kernel, &cfg);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // a refused size is an answer, not a sticky error
+    return -(int)err;
+  }
+  return n;
 }

@@ -14,7 +14,7 @@ Two routes, picked by device as in the JAX package (``build_cond_fn``):
 * CUDA: the pair-grouped layout and one kernel launch per phase
   (``geometry_guided_sampling_fused``): the one-block kernel while the
   table has at most ``RESIDENT_MAX_ELEMENTS`` entries, else the chunked
-  cooperative kernel.
+  kernel over a thread-block cluster.
 """
 
 from __future__ import annotations
@@ -195,13 +195,15 @@ def geometry_guided_sampling(model_mean, t, matches: MatchesData, image_hw,
     return x
 
 
-# Up to this many table entries the one-block kernel is faster; above it the
-# chunked kernel, whose blocks each own 4 pairs, wins despite its grid-wide
-# barrier per iteration. Measured on an H100 (700 W), 200-iteration phase,
-# one-block vs chunked: 6 frames x 128 padded matches (1,920 entries) 2.11
-# vs 2.54 ms; 10 x 128 (5,760) 2.74 vs 2.59 ms; 20 frames at 100 and 1,024
-# matches per pair 6.40 vs 3.83 and 27.64 vs 8.18 ms.
-RESIDENT_MAX_ELEMENTS = 4096  # P * Q
+# Up to this many table entries (P * Q) the one-block kernel; above it the
+# cluster kernel, whose blocks each own a slice of the pairs. Measured by
+# chip_smoke.py's route timings on an NVIDIA H100 80GB HBM3 (700 W power
+# limit), one 200-iteration phase at 100 matches a pair (128 padded),
+# one-block vs cluster: 3 frames (384 entries) 1.006 vs 1.280 ms, 4 (768)
+# 1.141 vs 1.370, 5 (1,280) 1.305 vs 1.547, 6 (1,920) 1.686 vs 1.672 (a
+# tie, kept on one block: it leaves 14 more SMs free), 8 (3,584) 2.173 vs
+# 1.428, 10 (5,760) 2.923 vs 1.452, 20 (24,320) 9.406 vs 1.929 ms.
+RESIDENT_MAX_ELEMENTS = 2048  # P * Q
 
 
 def fused_fits(grouped) -> bool:
@@ -221,7 +223,7 @@ class GGSPlan:
 def plan_ggs(grouped: GroupedMatches) -> GGSPlan:
     if fused_fits(grouped):
         return GGSPlan(True, 0, ggs_tables(grouped))
-    chunk = default_chunk_pairs(grouped.valid.shape[0])
+    chunk = default_chunk_pairs(grouped)
     return GGSPlan(False, chunk, ggs_tables(pad_grouped_pairs(grouped, chunk)))
 
 

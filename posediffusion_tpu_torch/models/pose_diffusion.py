@@ -10,12 +10,13 @@ strict ``load_state_dict``. Backbones: ``dino_vits16`` (the default),
 
 ``sample`` runs ``extract_features_fused`` (DINO: ViT trunk on the kernels;
 DINOv2, and DINO at ``compute_dtype=bfloat16``: ``extract_features_blocks``,
-its attention on the kernels), then
+its attention on the kernels), then, for one sequence,
 ``fused_sample_loop`` for the unconditioned steps [n_cond, T) (all of them
 without GGS), then, with a ``cond_fn``, the conditioned tail t < n_cond in
 ``p_sample_loop`` with ``denoiser_apply_fused`` (trunk on the kernels) and
-the GGS ``cond_fn`` (its phases on the GGS kernels). Which code runs each
-kernel is decided by the images' device alone.
+the GGS ``cond_fn`` (its phases on the GGS kernels); a batch runs
+``p_sample_loop`` over ``denoiser_train_apply`` (the JAX package's batched
+route). Which code runs each kernel is decided by the images' device alone.
 
 ``loss`` is the training loss (``posediffusion_tpu``'s ``loss``, :260-385):
 ``extract_features_train`` (TPU kernel 9/10's ViT flavour, with LayerScale
@@ -28,6 +29,7 @@ come from a ``torch.Generator``.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Callable, Optional, Tuple
 
@@ -236,11 +238,25 @@ class PoseDiffusionModel(nn.Module):
         step order (t = T-1 first); else they come from ``generator``. With
         ``cond_fn`` (GGS), the steps t < ``cond_start_step`` condition the
         posterior mean with it and take no noise (their draws are unused);
-        they run one sequence (B == 1)."""
+        they run one sequence (B == 1).
+
+        The denoiser's route follows the JAX package's (its ``sample``,
+        :436-493): one sequence runs the whole-loop sampler on
+        ``weight_dtype`` stacks and its GGS tail ``denoiser_apply_fused``; a
+        batch (B > 1) runs every step through ``denoiser_train_apply`` on
+        float32 weights. At ``denoiser_dtype=bfloat16`` the batch, and the
+        GGS tail, take that route on bf16-rounded weights with bf16
+        activations and residual stream."""
         z = self.extract_features(images)
         den = self.diffuser.model
         T = self.config.timesteps
         n_cond = min(max(cond_start_step, 0), T) if cond_fn is not None else 0
+        bf16 = self.config.denoiser_dtype == "bfloat16"
+        if z.shape[0] > 1:
+            return p_sample_loop(
+                self.schedule, self._train_route_fn(z, mask, bf16),
+                (*z.shape[:2], den.target_dim), z.device, generator=generator, x0=x0,
+                noises=noises, cond_fn=cond_fn, cond_start_step=cond_start_step)
         x = fused_sample_loop(
             den, self.schedule, z, mask=mask, n_cond=n_cond,
             weight_dtype=self.weight_dtype, x0=x0,
@@ -249,13 +265,30 @@ class PoseDiffusionModel(nn.Module):
         )
         if n_cond == 0:
             return x
-        stacks = stack_trunk_params(den._trunk, self.weight_dtype)
+        if bf16:
+            tail_fn = self._train_route_fn(z, mask, True)
+        else:
+            stacks = stack_trunk_params(den._trunk, self.weight_dtype)
+            tail_fn = lambda xt, t: denoiser_apply_fused(den, xt, t, z, mask, stacks)
         return p_sample_loop(
-            self.schedule,
-            lambda xt, t: denoiser_apply_fused(den, xt, t, z, mask, stacks),
-            x.shape, x.device, noises=torch.zeros((n_cond, *x.shape), device=x.device),
+            self.schedule, tail_fn, x.shape, x.device,
+            noises=torch.zeros((n_cond, *x.shape), device=x.device),
             x_init=x, from_t=n_cond, cond_fn=cond_fn, cond_start_step=cond_start_step,
         )
+
+    def _train_route_fn(self, z: torch.Tensor, mask: Optional[torch.Tensor],
+                        bf16: bool):
+        """model_fn over ``denoiser_train_apply`` with dropout off. ``bf16``:
+        the weights rounded to bf16 (the JAX package casts them, and its
+        float32 operands promote them back), the trunk's product operands
+        and residual stream rounded to bf16."""
+        den = self.diffuser.model
+        if bf16:
+            den = copy.deepcopy(den)
+            for p in den.parameters():
+                p.copy_(p.to(torch.bfloat16).to(p.dtype))
+        return lambda xt, t: denoiser_train_apply(den, xt, t, z, mask, act_bf16=bf16,
+                                                  residual_bf16=bf16)
 
 
 @torch.no_grad()

@@ -4,9 +4,10 @@
 ``ggs_phase_fused`` runs a phase (100 or 200 iterations of Sampson loss and
 closed-form gradient, adaptive clip, torch-SGD momentum, sticky stop when the
 contributing matches per frame fall below ``min_matches``) as one launch of
-``csrc/ggs.cu``'s one-block kernel; ``ggs_phase_fused_chunked`` as one
-cooperative launch whose blocks each own a chunk of pairs and sum their
-unnormalised gradients every iteration. On CPU tensors both take their plain
+``csrc/ggs.cu``'s kernel as one block; ``ggs_phase_fused_chunked`` as one
+launch of a thread-block cluster whose blocks each own a chunk of pairs and
+exchange their pairs' unnormalised gradients through distributed shared
+memory every iteration. On CPU tensors both take their plain
 versions beside them (``ops/kernels.py``: a Python loop over
 ``ops/ggs_grad.loss_and_grad_core`` with the same clip, momentum and stop).
 """
@@ -22,15 +23,23 @@ from posediffusion_tpu_torch.ops.ggs_grad import (
     ggs_tables,
     pad_grouped_pairs,
 )
-from posediffusion_tpu_torch.ops.kernels import KERNELS, PLAIN
+from posediffusion_tpu_torch.ops.kernels import (
+    GGS_CLUSTERS,
+    KERNELS,
+    PLAIN,
+    ggs_cluster_size,
+)
 
-# Pairs per block of the chunked kernel: one per warp of its 4, so 190 pairs
-# (20 frames) run as 48 blocks, all resident at once on 132 SMs.
-CHUNK_PAIRS = 4
 
-
-def default_chunk_pairs(n_pairs: int) -> int:
-    return min(CHUNK_PAIRS, n_pairs)
+def default_chunk_pairs(gm: GroupedMatches) -> int:
+    """Pairs a block of the chunked kernel owns: the P pairs split over the
+    largest cluster the card schedules (``kernels.ggs_cluster_size``), over
+    ``GGS_CLUSTERS[0]`` = 16 blocks off the card. 20 frames: 190 pairs, 12 a
+    block, a warp each."""
+    P, Q = gm.valid.shape
+    cluster = (ggs_cluster_size(gm.B1.shape[1], P, Q) if gm.valid.is_cuda
+               else GGS_CLUSTERS[0])
+    return -(-P // cluster)
 
 
 def _phase(ops, x, gm, image_hw, update_R, update_T, update_FL, sampson_max,
@@ -42,7 +51,7 @@ def _phase(ops, x, gm, image_hw, update_R, update_T, update_FL, sampson_max,
 
 def _chunked(ops, x, gm, image_hw, update_R, update_T, update_FL, sampson_max,
              iters, lr, momentum, alpha, min_matches, chunk_pairs):
-    chunk = chunk_pairs or default_chunk_pairs(gm.valid.shape[0])
+    chunk = chunk_pairs or default_chunk_pairs(gm)
     return ops.ggs_phase_chunked(
         x.contiguous(), ggs_tables(pad_grouped_pairs(gm, chunk)), image_hw,
         update_R, update_T, update_FL, sampson_max, iters, lr, momentum, alpha,

@@ -18,7 +18,8 @@ of the training trunks (DINOv2's LayerScale included):
 ``sampler_prologue``     layer-0 fold-in of the fused sampler
 ``sampler_epilogue``     head MLP + posterior update of the fused sampler
 ``ggs_phase``            one whole GGS SGD phase, one block
-``ggs_phase_chunked``    the same, pair chunks over a cooperative grid
+``ggs_phase_chunked``    the same over a thread-block cluster, the pairs
+                         split between its blocks
 ``superglue_coupling``   SuperGlue pair scores into the dustbin coupling
 ``superglue_sinkhorn``   log-domain Sinkhorn over the coupling -> log assignment
 ``superglue_matches``    mutual-max matches above a threshold
@@ -92,7 +93,9 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P,
     ],
     "pd_ggs_phase": [_P] * 11 + [_I] * 8 + [_F, _I, _F, _F, _F, _F, _P],
-    "pd_ggs_phase_chunked": [_P] * 11 + [_I] * 8 + [_F, _I, _F, _F, _F, _F, _I, _P, _P],
+    "pd_ggs_phase_chunked": [_P] * 11 + [_I] * 8 + [_F, _I, _F, _F, _F, _F, _I, _P],
+    "pd_ggs_smem_bytes": [_I] * 4,
+    "pd_ggs_max_active_clusters": [_I] * 4,
     "pd_sg_coupling": [_P] * 8 + [_I, _I, _I, _F, _P],
     "pd_sg_sinkhorn": [_P] * 7 + [_I, _I, _I, _P],
     "pd_sg_matches": [_P] * 6 + [_I, _I, _F, _P],
@@ -804,24 +807,67 @@ def _ggs_args(x, out, t, N, P, Q, image_hw, update_R, update_T, update_FL,
             float(momentum), float(alpha), float(min_matches))
 
 
-def ggs_smem_bytes(N: int, pairs: int, total_pairs: int) -> int:
-    """Dynamic shared memory of a GGS block that computes ``pairs`` pairs and
-    reads all ``total_pairs`` pairs' backward rows (csrc/ggs.cu,
-    ggs_smem_floats, with the int pair tables): 63,468 B resident at 20
-    frames, 29,508 B chunked."""
-    return 4 * (41 * N + 16 + 46 * pairs + 29 * total_pairs + 4 * total_pairs + N + 1)
+GGS_MAX_WARPS = 12  # a warp per pair of the block, at most 12 (csrc/ggs.cu)
+GGS_CLUSTERS = (16, 8)  # cluster sizes of ggs_phase_chunked, first that schedules
+
+
+def ggs_warps(pairs: int) -> int:
+    """Warps of a GGS block that owns ``pairs`` pairs."""
+    return min(pairs, GGS_MAX_WARPS)
+
+
+def ggs_table_resident(N: int, pairs: int, total_pairs: int, Q: int) -> bool:
+    """Whether a GGS block's slice of the table (five planes of ``pairs`` x
+    ``Q`` floats) fits in its shared memory beside the rest
+    (csrc/ggs.cu, ggs_resident)."""
+    return 4 * (_ggs_base_floats(N, pairs, total_pairs) + 5 * pairs * Q) <= _MAX_SMEM
+
+
+def _ggs_base_floats(N: int, pairs: int, total_pairs: int) -> int:
+    # every pair's row (24 floats, and 5 more stored by column), x, momentum,
+    # gradient (N x 9 each), poses (N x 12), the norms' shares (N x 2), the
+    # stop flag, the block's pair frames, fptr and fent (int32), rounded up
+    # to 16 bytes (csrc/ggs.cu, ggs_base_floats)
+    n = 29 * total_pairs + 41 * N + 1 + 2 * pairs + N + 1 + 2 * total_pairs
+    return _round_up(n, 4)
+
+
+def ggs_smem_bytes(N: int, pairs: int, total_pairs: int, Q: int) -> int:
+    """Dynamic shared memory of a GGS block that owns ``pairs`` of the
+    ``total_pairs`` pairs of Q padded matches (csrc/ggs.cu, ggs_smem_bytes):
+    the table slice included when resident. 20 frames at 12 pairs a block:
+    27,280 B, plus the slice's 30,720 at 128 matches; at 1,024 the slice
+    stays in global memory."""
+    table = 5 * pairs * Q if ggs_table_resident(N, pairs, total_pairs, Q) else 0
+    return 4 * (_ggs_base_floats(N, pairs, total_pairs) + table)
+
+
+@functools.cache
+def ggs_cluster_size(N: int, P: int, Q: int) -> int:
+    """The cluster ``ggs_phase_chunked`` takes for P pairs of N frames on
+    this card: the first of ``GGS_CLUSTERS`` that the card schedules
+    (cudaOccupancyMaxActiveClusters), or raise."""
+    lib = load_library()
+    for c in GGS_CLUSTERS:
+        pairs = -(-P // c)
+        if ggs_smem_bytes(N, pairs, c * pairs, Q) > _MAX_SMEM:
+            continue
+        if lib.pd_ggs_max_active_clusters(N, pairs, Q, c) > 0:
+            return c
+    raise RuntimeError(f"no GGS cluster of {GGS_CLUSTERS} blocks over {P} pairs of "
+                       f"{N} frames ({Q} matches a pair) can be scheduled on this card")
 
 
 def ggs_phase(x, t: GGSTables, image_hw, update_R: bool, update_T: bool,
               update_FL: bool, sampson_max: float, iters: int, lr: float,
               momentum: float, alpha: float, min_matches: float):
     """All ``iters`` iterations of one GGS phase in ONE launch of one block
-    (csrc/ggs.cu, ggs_phase_kernel): x (N, 9) -> the updated x."""
+    (csrc/ggs.cu, a cluster of one): x (N, 9) -> the updated x."""
     if not _on_card(x, t.valid):
         return ggs_phase_plain(x, t, image_hw, update_R, update_T, update_FL,
                                sampson_max, iters, lr, momentum, alpha, min_matches)
     N, P, Q = _ggs_check(x, t)
-    if ggs_smem_bytes(N, P, P) > _MAX_SMEM:
+    if ggs_smem_bytes(N, P, P, Q) > _MAX_SMEM:
         raise ValueError(f"{P} pairs of {N} frames exceed one block's shared "
                          "memory: use ggs_phase_chunked")
     out = torch.empty_like(x)
@@ -840,28 +886,31 @@ def ggs_phase_chunked(x, t: GGSTables, image_hw, update_R: bool, update_T: bool,
                       update_FL: bool, sampson_max: float, iters: int, lr: float,
                       momentum: float, alpha: float, min_matches: float,
                       chunk: int):
-    """The same phase with the pairs split into chunks of ``chunk``, one block
-    each, in ONE cooperative launch (csrc/ggs.cu, ggs_phase_chunked_kernel).
-    The pair count must be a multiple of ``chunk`` (pad_grouped_pairs)."""
+    """The same phase in ONE launch of a thread-block cluster of P / ``chunk``
+    blocks (at most 16), ``chunk`` pairs each (csrc/ggs.cu). The pair count
+    must be a multiple of ``chunk`` (pad_grouped_pairs);
+    ``ggs_phase_chunked.cluster`` holds the last launch's cluster size."""
     if not _on_card(x, t.valid):
         return ggs_phase_chunked_plain(x, t, image_hw, update_R, update_T,
                                        update_FL, sampson_max, iters, lr,
                                        momentum, alpha, min_matches, chunk)
     N, P, Q = _ggs_check(x, t)
-    if chunk < 1 or P % chunk:
-        raise ValueError(f"{P} pairs do not split into chunks of {chunk}")
-    if ggs_smem_bytes(N, chunk, P) > _MAX_SMEM:
-        raise ValueError(f"{P} pairs of {N} frames exceed one block's shared memory")
+    if chunk < 1 or P % chunk or P // chunk > GGS_CLUSTERS[0]:
+        raise ValueError(f"{P} pairs do not split into at most {GGS_CLUSTERS[0]} "
+                         f"blocks of {chunk}")
+    if ggs_smem_bytes(N, chunk, P, Q) > _MAX_SMEM:
+        raise ValueError(f"{chunk} pairs of {N} frames exceed one block's shared memory")
     out = torch.empty_like(x)
-    rows = torch.empty(2 * P * 29, device=x.device, dtype=torch.float32)
     _launch(load_library().pd_ggs_phase_chunked,
             *_ggs_args(x, out, t, N, P, Q, image_hw, update_R, update_T,
                        update_FL, sampson_max, iters, lr, momentum, alpha,
-                       min_matches), chunk, _ptr(rows), _stream(x))
+                       min_matches), chunk, _stream(x))
     ggs_phase_chunked.launches += 1
+    ggs_phase_chunked.cluster = P // chunk
     return out
 
 
+ggs_phase_chunked.cluster = 0
 ggs_phase_chunked.launches = 0
 
 

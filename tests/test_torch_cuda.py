@@ -15,10 +15,10 @@ of thousands of rows, 1e-4 (their float32 accumulation does not round each
 partial sum to nearest); the train trunks, 1e-4 (f32, two layers forward
 and backward) and 2^-5 (bf16 operands and residuals); dropout masks
 bitwise. The GGS phases (30 momentum iterations) are held to 5e-5
-absolute, the JAX GGS kernel test's bound; chunked against resident to
-1e-5. SuperGlue: chip_smoke.py's bounds (coupling 1e-4 relative, Z 1e-4,
-matches identical on the same Z, the whole matcher identical except at
-near-ties of Z).
+absolute, the JAX GGS kernel test's bound; the one-block and cluster
+kernels sum in one order and agree bitwise. SuperGlue: chip_smoke.py's
+bounds (coupling 1e-4 relative, Z 1e-4, matches identical on the same Z,
+the whole matcher identical except at near-ties of Z).
 """
 
 import contextlib
@@ -438,24 +438,79 @@ def _ggs_case(dev, n=6, n_points=100, q_pad=None, seed=0):
 PHASE = dict(lr=1e-2, momentum=0.9, alpha=1e-4, min_matches=10.0)
 
 
-@pytest.mark.parametrize("n,n_points", [(6, 40), (20, 100), (20, 1024)])
-@pytest.mark.parametrize("flags", [(True, True, True), (False, False, True),
-                                   (True, False, False), (False, True, False)])
-def test_ggs_phases(cuda, n, n_points, flags):
+def _phase_flags():
+    from posediffusion_tpu_torch.diffusion.ggs import PHASES
+
+    return PHASES
+
+
+def _cluster8(gm):
+    """Pairs a block owns in a cluster of 8 (the fallback size)."""
+    return -(-gm.valid.shape[0] // 8)
+
+
+# The GGS phases at 6, 20 and 50 frames, 100 and 1,024 matches a pair, with
+# the five phases' update flags: both kernels (the one-block kernel where a
+# block holds it) against the plain phase, the chunked kernel at its default
+# cluster and at a cluster of 8; the kernels sum in one order, so they agree
+# bitwise.
+@pytest.mark.parametrize("n,n_points", [(6, 40), (6, 100), (6, 1024), (20, 100),
+                                        (20, 1024), (50, 100), (50, 1024)])
+@pytest.mark.parametrize("phase", range(5))
+def test_ggs_phases(cuda, n, n_points, phase):
     from posediffusion_tpu_torch.ops import ggs_kernel as G
 
+    flags = _phase_flags()[phase]
     x, gm = _ggs_case(cuda, n, n_points)
     kw = dict(iters=30, **PHASE)
     ref = G.ggs_phase_fused_plain(x, gm, (224, 224), *flags, 10.0, **kw)
-    res = G.ggs_phase_fused(x, gm, (224, 224), *flags, 10.0, **kw)
-    chk = G.ggs_phase_fused_chunked(x, gm, (224, 224), *flags, 10.0, **kw)
-    chk4 = G.ggs_phase_fused_chunked(x, gm, (224, 224), *flags, 10.0, chunk_pairs=4, **kw)
+    outs = [G.ggs_phase_fused_chunked(x, gm, (224, 224), *flags, 10.0, **kw),
+            G.ggs_phase_fused_chunked(x, gm, (224, 224), *flags, 10.0,
+                                      chunk_pairs=_cluster8(gm), **kw)]
+    P, Q = gm.valid.shape
+    if K.ggs_smem_bytes(n, P, P, Q) <= K._MAX_SMEM:
+        outs.append(G.ggs_phase_fused(x, gm, (224, 224), *flags, 10.0, **kw))
     torch.cuda.synchronize()
-    assert torch.isfinite(res).all() and not torch.equal(res, x)
-    for out in (res, chk, chk4):
+    assert torch.isfinite(outs[0]).all() and not torch.equal(outs[0], x)
+    for out in outs:
         assert (out - ref).abs().max().item() <= 5e-5
-    assert (chk - res).abs().max().item() <= 1e-5
-    assert (chk4 - res).abs().max().item() <= 1e-5
+        assert torch.equal(out, outs[0])
+
+
+@pytest.mark.parametrize("n,n_points", [(6, 100), (20, 100), (20, 1024), (50, 100)])
+def test_ggs_repeats_bitwise_and_cluster(cuda, n, n_points, capsys):
+    """Repeated launches agree bitwise; the launched cluster is the one the
+    card schedules (16 where it can, else 8), and is printed."""
+    from posediffusion_tpu_torch.ops import ggs_kernel as G
+
+    x, gm = _ggs_case(cuda, n, n_points)
+    kw = dict(iters=200, **PHASE)
+    runs = [G.ggs_phase_fused_chunked(x, gm, (224, 224), True, True, True, 10.0, **kw)
+            for _ in range(3)]
+    P, Q = gm.valid.shape
+    cluster = K.ggs_cluster_size(n, P, Q)
+    chunk = G.default_chunk_pairs(gm)
+    assert cluster in K.GGS_CLUSTERS
+    assert K.ggs_phase_chunked.cluster == -(-P // chunk) <= cluster
+    blocks = K.ggs_phase_chunked.cluster
+    where = "resident" if K.ggs_table_resident(n, chunk, chunk * blocks, Q) else "in global memory"
+    with capsys.disabled():
+        print(f"\n  ggs_phase_chunked {n} frames x {n_points}/pair: cluster {blocks} of "
+              f"{chunk} pairs a block, table {where}")
+    for out in runs[1:]:
+        assert torch.equal(out, runs[0])
+
+
+def test_ggs_shared_memory_formula(cuda):
+    """The wrapper's launch arithmetic is the kernel's (csrc/ggs.cu)."""
+    lib = K.load_library()
+    for N in (6, 20, 50):
+        P = N * (N - 1) // 2
+        for Q in (128, 1024):
+            for c in (1, 8, 16):
+                pb = -(-P // c)
+                assert lib.pd_ggs_smem_bytes(N, pb, c * pb, Q) == K.ggs_smem_bytes(
+                    N, pb, c * pb, Q)
 
 
 def test_ggs_early_stop_is_exact(cuda):
@@ -467,7 +522,7 @@ def test_ggs_early_stop_is_exact(cuda):
     valid[1:] = 0.0
     gm = gm._replace(valid=valid)
     for fn, kw in ((G.ggs_phase_fused, {}), (G.ggs_phase_fused_chunked, {}),
-                   (G.ggs_phase_fused_chunked, dict(chunk_pairs=4))):
+                   (G.ggs_phase_fused_chunked, dict(chunk_pairs=_cluster8(gm)))):
         out = fn(x, gm, (224, 224), True, True, True, 10.0, iters=10, **PHASE, **kw)
         assert torch.equal(out, x)
 
@@ -482,6 +537,44 @@ def test_ggs_launch_counts_and_plain_route(cuda):
     G.ggs_phase_fused_plain(x, gm, (224, 224), True, True, True, 10.0, iters=5, **PHASE)
     counts = K.launch_counts()
     assert counts["ggs_phase"] == 1 and counts["ggs_phase_chunked"] == 1
+    x20, gm20 = _ggs_case(cuda, 20, 10)
+    with pytest.raises(ValueError):  # 190 pairs, 4 a block: 48 blocks, over 16
+        G.ggs_phase_fused_chunked(x20, gm20, (224, 224), True, True, True, 10.0, iters=5,
+                                  chunk_pairs=4, **PHASE)
+
+
+def test_batched_sample_routes(cuda):
+    """B = 3 masked sequences sample through denoiser_train_apply on float32
+    weights (on bf16-rounded ones with bf16 activations at
+    denoiser_dtype=bfloat16): the train trunk's kernels against its plain
+    route on the card, from the same features and draws, the float32
+    products of 12 rows on linear's few-rows route. Four steps: with random
+    weights the chain grows a 1e-7 difference to ~1e-2 over ten."""
+    from posediffusion_tpu_torch.models.pose_diffusion import (
+        PoseDiffusionConfig,
+        PoseDiffusionModel,
+        init_random_weights,
+    )
+    from posediffusion_tpu_torch.ops import vit_train_kernel as V
+
+    tiny = dict(z_dim=64, vit_depth=2, vit_heads=2, d_model=64, nhead=2,
+                num_encoder_layers=2, dim_feedforward=128, timesteps=4)
+    r = _gen(3)
+    images = _t(r.uniform(size=(3, 4, 3, 96, 96)), cuda)
+    mask = torch.tensor([[1, 1, 1, 1], [1, 1, 1, 0], [1, 0, 1, 0]], dtype=torch.bool,
+                        device=cuda)
+    x0, noises = _t(r.normal(size=(3, 4, 9)), cuda), _t(r.normal(size=(4, 3, 4, 9)), cuda)
+    for dd, tol in (("float32", 1e-4), ("bfloat16", 2e-2)):
+        model = PoseDiffusionModel(PoseDiffusionConfig(**tiny, denoiser_dtype=dd))
+        init_random_weights(model, 0)
+        model.to(cuda)
+        K.reset_launch_counts()
+        out = model.sample(images, x0=x0, noises=noises, mask=mask)
+        assert K.launch_counts()["linear_rows"] > 0
+        assert K.launch_counts()["sampler_prologue"] == 0
+        with V.plain_route():
+            ref = model.sample(images, x0=x0, noises=noises, mask=mask)
+        _close(out, ref, tol)
 
 
 @pytest.mark.parametrize("mask_last", [0, 3])

@@ -3,7 +3,8 @@
 * ``PoseDiffusionModel.sample`` (the fused structure, kernels' plain
   versions) against the JAX ``model.sample`` (Flax extractor + lax.scan
   sampler on the CPU) with the same weights and the JAX noise replayed, for
-  one sequence and for a batch of three with frame masks;
+  one sequence and for a batch of three with frame masks (at the f32 mode,
+  at the default config, and on the bf16 denoiser route);
 * ``demo_torch`` on samples/apple at a cut depth (GGS without a matches
   file falls back to sampling without GGS);
 * the port and demo_torch import no JAX;
@@ -22,6 +23,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from posediffusion_tpu.diffusion.gaussian import p_sample_loop as jax_p_sample_loop
+from posediffusion_tpu.models.denoiser import (
+    denoiser_train_apply as jax_denoiser_train_apply,
+)
 from posediffusion_tpu.models.pose_diffusion import (
     PoseDiffusionConfig as JConfig,
     PoseDiffusionModel as JModel,
@@ -113,6 +118,77 @@ class TestSample:
                            mask=torch.tensor(mask)).numpy()
         assert out.shape == (B, N_FRAMES, 9) and np.isfinite(out).all()
         np.testing.assert_allclose(out, ref, atol=1.5e-5)
+
+    @staticmethod
+    def _batched_case(rng, **config):
+        """The B = 3 masked case of the test above at ``config``: the JAX
+        model, its params, the port's model loaded with them, the inputs,
+        the replayed draws and the port's features of the images."""
+        jm = JModel(JConfig(**TINY, **config))
+        params = {
+            "extractor": random_params(jm.extractor, rng, jnp.zeros((1, 3, IMG, IMG))),
+            "denoiser": random_params(
+                jm.denoiser, rng, jnp.zeros((1, 2, 9)), jnp.zeros((1,), jnp.int32),
+                jnp.zeros((1, 2, 64)), kernel_std=0.02,
+            ),
+        }
+        B = 3
+        images = rng.uniform(size=(B, N_FRAMES, 3, IMG, IMG)).astype(np.float32)
+        mask = np.array([[1, 1, 1, 1], [1, 1, 1, 0], [1, 0, 1, 0]], bool)
+        key = jax.random.PRNGKey(5)
+        model = PoseDiffusionModel(PoseDiffusionConfig(**TINY, **config))
+        model.load_state_dict(state_dict_from_jax(params, model.schedule), strict=True)
+        x0, noises = replay_p_sample_loop(key, (B, N_FRAMES, 9), TINY["timesteps"])
+        z = jnp.asarray(model.extract_features(torch.tensor(images)).numpy())
+        out = model.sample(torch.tensor(images), x0=x0, noises=noises,
+                           mask=torch.tensor(mask)).numpy()
+        assert out.shape == (B, N_FRAMES, 9) and np.isfinite(out).all()
+        return jm, params, images, mask, key, z, out
+
+    def test_batched_masked_default_config_matches_jax_sample(self, rng):
+        """The same B = 3 masked case at the default config (bf16
+        ``weight_dtype``, float32 ``denoiser_dtype``): a batch samples on
+        float32 denoiser weights, as the JAX ``model.sample`` does, held to
+        the same 1.5e-5. The default ViT trunk runs bf16 stacks (the JAX
+        package's TPU route) where the JAX CPU route runs Flax in float32,
+        so JAX samples from the port's features: this holds the denoiser's
+        route alone."""
+        jm, params, images, mask, key, z, out = self._batched_case(rng)
+        jm.extract_features = lambda p, im, **kw: z
+        ref = np.asarray(jax.jit(lambda p, im, k, m: jm.sample(p, im, k, mask=m)[0])(
+            params, images, key, mask))
+        np.testing.assert_allclose(out, ref, atol=1.5e-5)
+
+    def test_batched_masked_bf16_denoiser_matches_jax_route(self, rng):
+        """``denoiser_dtype=bfloat16`` at B = 3: the JAX package's batched
+        bf16 route (``model.sample``, :436-443 and :471-490): weights cast
+        to bf16, ``denoiser_train_apply`` with bf16 activations and residual
+        stream, here in interpret mode over the same draws and features.
+        bf16 roundings at sums taken in another order flip single ulps that
+        the 10 steps carry, so the bound is the JAX tests' bf16 one,
+        0.05 x scale (tests/test_denoiser_kernel.py::test_bf16_weights_close);
+        the float32 route's output must lie outside 1e-4 of it."""
+        jm, params, images, mask, key, z, out = self._batched_case(
+            rng, denoiser_dtype="bfloat16")
+        cast = jax.tree.map(lambda a: a.astype(jnp.bfloat16)
+                            if a.dtype == jnp.float32 else a, params["denoiser"])
+
+        def model_fn(x, t):
+            return jax_denoiser_train_apply(
+                cast, x, t, z, mask=jnp.asarray(mask), nhead=TINY["nhead"],
+                num_encoder_layers=TINY["num_encoder_layers"], act_bf16=True,
+                residual_dtype=jnp.bfloat16, interpret=True)
+
+        ref = np.asarray(jax_p_sample_loop(jm.schedule, model_fn, out.shape, key)[0])
+        scale = max(1.0, float(np.abs(ref).max()))
+        np.testing.assert_allclose(out, ref, atol=0.05 * scale)
+
+        f32 = PoseDiffusionModel(PoseDiffusionConfig(**TINY))
+        f32.load_state_dict(state_dict_from_jax(params, f32.schedule), strict=True)
+        x0, noises = replay_p_sample_loop(key, out.shape, TINY["timesteps"])
+        out32 = f32.sample(torch.tensor(images), x0=x0, noises=noises,
+                           mask=torch.tensor(mask)).numpy()
+        assert np.abs(out32 - out).max() > 1e-4
 
 
 def _demo_cfg(tmp_path, *extra):
