@@ -10,7 +10,9 @@ backbones, once on an NVIDIA card.
         # also, first: the calls a serving or training user waits for (the
         # inferences without GGS, with GGS from a table and from the images,
         # the matcher, a DINO, DINOv2 and ViT-B train step) and the
-        # redesigned kernels at their largest cases (attention_bwd,
+        # redesigned kernels at their largest cases (SuperGlue's scores at
+        # one matcher chunk, act_dropout_bwd at the ViT's fc1 beside
+        # aten.gelu_backward, attention_bwd,
         # linear_wgrad, linear's float32 products beside torch.addmm /
         # torch.matmul, both GGS kernels' 200-iteration phases at 20 frames,
         # 100 and 1,024 matches a pair, layernorm_bwd beside F.layer_norm's
@@ -69,7 +71,10 @@ Phases (any failure exits non-zero and prints no result line):
              versions at the ViT's and the denoiser's train shapes (the
              tensor-core attention_bwd and linear_wgrad in both modes, and
              bitwise against themselves: attention_bwd at 64 x 264 and
-             2,880 x 16, linear_wgrad at fc1 and qkv, layernorm_bwd, and
+             2,880 x 16, linear_wgrad at fc1 and qkv (and bf16 mode's
+             wgrad_bf16_tc_kernel at fc1, timed beside torch.matmul),
+             act_dropout_bwd at fc1 (GELU), the encoder's ReLU with its
+             mff mask and its mask-only m2 site, layernorm_bwd, and
              linear's float32 dgrad of fc1 and qkv product beside
              torch.matmul and torch.addmm); both
              train trunks forward and backward (12 blocks x 64 images, f32
@@ -796,18 +801,31 @@ def _kernel_split_ms(torch, fn, calls=20):
 
 
 # csrc/superglue.cu's kernels one by one: (their wrapper, launches per
-# wrapper call, line in superglue.cu). The match path runs Sinkhorn for
-# matching/extract.py's default 50 iterations.
+# wrapper call). The match path runs Sinkhorn for matching/extract.py's
+# default 50 iterations.
 SG_SINKHORN_ITERS = 50
+SG_SOURCE = "posediffusion_tpu_torch/csrc/superglue.cu"
 SG_KERNELS = {
-    "sg_scores_kernel": ("superglue_coupling", 1, 53),
-    "sg_marginals_kernel": ("superglue_coupling", 1, 113),
-    "sg_sinkhorn_rows_kernel": ("superglue_sinkhorn", SG_SINKHORN_ITERS, 162),
-    "sg_sinkhorn_cols_kernel": ("superglue_sinkhorn", SG_SINKHORN_ITERS, 179),
-    "sg_assign_kernel": ("superglue_sinkhorn", 1, 205),
-    "sg_colarg_kernel": ("superglue_matches", 1, 220),
-    "sg_rowmatch_kernel": ("superglue_matches", 1, 253),
+    "sg_marginals_kernel": ("superglue_coupling", 1),
+    "sg_tiles_kernel": ("superglue_coupling", 1),
+    "sg_scores_kernel": ("superglue_coupling", 1),
+    "sg_sinkhorn_rows_kernel": ("superglue_sinkhorn", SG_SINKHORN_ITERS),
+    "sg_sinkhorn_cols_kernel": ("superglue_sinkhorn", SG_SINKHORN_ITERS),
+    "sg_assign_kernel": ("superglue_sinkhorn", 1),
+    "sg_colarg_kernel": ("superglue_matches", 1),
+    "sg_rowmatch_kernel": ("superglue_matches", 1),
 }
+
+
+def kernel_line(source, name):
+    """The line of ``source`` (a path in the repository) where the CUDA
+    kernel ``name`` is defined: its ``__global__`` line."""
+    with open(os.path.join(REPO, source)) as f:
+        lines = f.read().splitlines()
+    for i, line in enumerate(lines):
+        if line.startswith(f"{name}("):
+            return i if i and lines[i - 1].startswith("__global__") else i + 1
+    raise ValueError(f"no kernel {name} in {source}")
 
 
 def _device_ms_by_name(torch, fn, names, calls=5):
@@ -857,7 +875,7 @@ def sg_split(C, Kk, D):
     out = {}
     for wrapper, fn in calls.items():
         out.update(_device_ms_by_name(
-            torch, fn, [k for k, (w, _, _) in SG_KERNELS.items() if w == wrapper]))
+            torch, fn, [k for k, (w, _) in SG_KERNELS.items() if w == wrapper]))
     print(json.dumps(out))
     return 0
 
@@ -867,9 +885,11 @@ def superglue_kernel_entries(torch, K, m, f0, f1, bin_score, cpl, Z, launches, e
     chunk: its device time per launch (torch.profiler in a child process,
     ``sg_split``), the plain PyTorch lines of the same step (the wrappers'
     plain versions, step by step), its bound, and for the scores one
-    torch.baddbmm of the same product (timed only). Launches: the match
-    path's wrapper count times the kernel's launches per call; the error is
-    its wrapper's."""
+    torch.baddbmm of the same product (timed only). The scores' bound counts
+    the route they take: three TF32 products (3xTF32) of 2 D operations per
+    live cell (both keypoints valid; the kernel skips tiles of masked ones).
+    Launches: the match path's wrapper count times the kernel's launches per
+    call; the error is its wrapper's."""
     C, _, Kk, D = m.shape
     K1 = Kk + 1
     cp, log_mu, log_nu, norm = cpl
@@ -902,10 +922,21 @@ def superglue_kernel_entries(torch, K, m, f0, f1, bin_score, cpl, Z, launches, e
             2, idx0[..., None])[..., 0]
         return torch.where(mutual, idx0, -1), torch.where(mutual, torch.exp(rowmax), 0.0)
 
+    def tile_list():  # the scores' tiles, the live ones first
+        n = -(-Kk // K.SG_TILE)
+        pad = torch.zeros((C, n * K.SG_TILE), dtype=torch.bool, device=m.device)
+        rows, cols = pad.clone(), pad
+        rows[:, :Kk], cols[:, :Kk] = v0, v1
+        tl = (rows.view(C, n, -1).any(2)[:, :, None] & cols.view(C, n, -1).any(2)[:, None, :])
+        idx = torch.arange(tl.numel(), device=m.device)
+        tl = tl.reshape(-1)
+        return torch.cat([idx[tl], idx[~tl].flip(0), tl.sum()[None]])
+
     colarg = torch.where(live, Z[:, :Kk, :Kk], K.SG_DEAD).argmax(1)
     plain = {
         "sg_scores_kernel": lambda: torch.where(live, (ma @ mb.transpose(1, 2)) / D**0.5, K.SG_NEG),
         "sg_marginals_kernel": marginals,
+        "sg_tiles_kernel": tile_list,
         "sg_sinkhorn_rows_kernel": lambda: log_mu - torch.logsumexp(cp + v[:, None, :], dim=2),
         "sg_sinkhorn_cols_kernel": lambda: log_nu - torch.logsumexp(cp + u[:, :, None], dim=1),
         "sg_assign_kernel": lambda: cp + u[:, :, None] + v[:, None, :] - norm[:, None, None],
@@ -913,9 +944,13 @@ def superglue_kernel_entries(torch, K, m, f0, f1, bin_score, cpl, Z, launches, e
         "sg_rowmatch_kernel": lambda: rowmatch(colarg),
     }
     cells, vec = C * K1 * K1 * 4, C * K1 * 4
+    n_t = -(-Kk // K.SG_TILE)
     bounds = {
-        "sg_scores_kernel": bound(nbytes(m, f0, f1) + C * Kk * Kk * 4, 2 * C * Kk * Kk * D),
-        "sg_marginals_kernel": bound(nbytes(f0, f1, bin_score) + 4 * vec + C * 4, 2 * C * Kk),
+        "sg_tiles_kernel": bound(2 * C * n_t * 4 + (C * n_t * n_t + 1) * 4, C * n_t * n_t),
+        "sg_scores_kernel": bound(nbytes(m, f0, f1) + C * Kk * Kk * 4,
+                                  3 * 2 * int(live.sum()) * D, PEAK_TF32),
+        "sg_marginals_kernel": bound(nbytes(f0, f1, bin_score) + 4 * vec + C * 4
+                                     + 2 * C * n_t * 4, 2 * C * Kk),
         "sg_sinkhorn_rows_kernel": bound(cells + 3 * vec, 3 * C * K1 * K1),
         "sg_sinkhorn_cols_kernel": bound(cells + 3 * vec, 3 * C * K1 * K1),
         "sg_assign_kernel": bound(2 * cells + 2 * vec + C * 4, 3 * C * K1 * K1),
@@ -926,10 +961,10 @@ def superglue_kernel_entries(torch, K, m, f0, f1, bin_score, cpl, Z, launches, e
     library = _time_ms(torch, lambda: torch.baddbmm(scores, ma, mb.transpose(1, 2), beta=0.0,
                                                     alpha=D**-0.5), reps=5)
     entries = []
-    for name, (wrapper, per_call, line) in SG_KERNELS.items():
+    for name, (wrapper, per_call) in SG_KERNELS.items():
         e = {
             "name": name, "route": "cuda",
-            "source": f"posediffusion_tpu_torch/csrc/superglue.cu:{line}",
+            "source": f"{SG_SOURCE}:{kernel_line(SG_SOURCE, name)}",
             "replaces": TPU_KERNELS[wrapper], "launches": launches[wrapper] * per_call,
             "max_abs_err": errs[wrapper], "ms": dev_ms[name] / per_call,
             "plain_ms": _time_ms(torch, plain[name], reps=5),
@@ -1121,6 +1156,29 @@ def timed_calls(root):
     t[f"attention_bwd vit f32 ({VIT_CHUNK}x{Nv}, 6 heads, packing bias)"] = _time_ms(
         torch, lambda: K.attention_bwd(qkv, dout, 6, attn_bias=vbias), reps=5)
     del qkv, dout
+    torch.cuda.empty_cache()
+    # the SuperGlue scores at one matcher chunk (masks keeping 60-100% of
+    # the keypoints), and act_dropout_bwd at the ViT's fc1 beside
+    # aten.gelu_backward
+    Cs, Ks = SG_PAIRS, MATCH_KEYPOINTS
+    m_s = torch.randn((Cs, 2, Ks, 256), generator=gen, device=dev)
+    keep = lambda: (torch.arange(Ks, device=dev)[None] < torch.randint(  # noqa: E731
+        int(0.6 * Ks), Ks + 1, (Cs, 1), generator=gen, device=dev)).float()
+    f0s, f1s, b_s = keep(), keep(), torch.ones(1, device=dev)
+    call = lambda: K.superglue_coupling(m_s, f0s, f1s, b_s)  # noqa: E731
+    t[f"superglue_coupling ({Cs} pairs, K {Ks}, D 256)"] = _time_ms(torch, call, reps=5, inner=5)
+    t[f"sg_scores_kernel ({Cs} pairs, K {Ks}, D 256) (device)"] = _kernel_device_ms(
+        torch, call, "sg_scores_kernel")
+    del m_s
+    dh_a, a_a = (torch.randn((M, 4 * Dv), generator=gen, device=dev) for _ in range(2))
+    act = lambda: K.act_dropout_bwd(dh_a, a_a, "gelu")  # noqa: E731
+    gelu = lambda: torch.ops.aten.gelu_backward(dh_a, a_a)  # noqa: E731
+    t[f"act_dropout_bwd vit fc1 gelu ({M}x{4 * Dv})"] = _time_ms(torch, act, reps=5, inner=5)
+    t[f"aten.gelu_backward ({M}x{4 * Dv})"] = _time_ms(torch, gelu, reps=5, inner=5)
+    t[f"act_dropout_bwd vit fc1 gelu ({M}x{4 * Dv}) (device)"] = _kernel_device_ms(
+        torch, act, "act_dropout_bwd_kernel")
+    t[f"aten.gelu_backward ({M}x{4 * Dv}) (device)"] = _kernel_device_ms(torch, gelu, None)
+    del dh_a, a_a
     torch.cuda.empty_cache()
 
     # the f32 products of linear at the train and match paths' largest cases,
@@ -1731,14 +1789,22 @@ def train_slice(report, dev, work, smi, t_start):
         f"act_dropout_bwd vit fc1 gelu ({M}x{Df})",
         lambda: K.act_dropout_bwd(dy_fc, a_fc, "gelu"),
         lambda: K.act_dropout_bwd_plain(dy_fc, a_fc, "gelu"),
-        lambda: _time_ms(torch, lambda: torch.ops.aten.gelu_backward(dy_fc, a_fc), reps=5),
+        lambda: _time_ms(torch, lambda: torch.ops.aten.gelu_backward(dy_fc, a_fc), reps=5,
+                         inner=10),
         bound(3 * nbytes(a_fc), 20 * M * Df))
+    # the encoder's two other sites: ReLU' with the mff mask (fc1) and the
+    # m1 / m2 masks alone (act none)
     Me, Fe = Be * Ne, 1024
-    d_mff = K.drop_args(SEED, 3, "mff", 0.1)
-    dh_e, a_e = rnd(Me, Fe), rnd(Me, Fe)
-    _close_rel(report, f"act_dropout_bwd enc relu + mff mask ({Me}x{Fe})",
-               K.act_dropout_bwd(dh_e, a_e, "relu", d_mff),
-               K.act_dropout_bwd_plain(dh_e, a_e, "relu", d_mff), TOL_F32)
+    d_mff, d_m2 = K.drop_args(SEED, 3, "mff", 0.1), K.drop_args(SEED, 3, "m2", 0.1)
+    dh_e, a_e, dm_e = rnd(Me, Fe), rnd(Me, Fe), rnd(Me, De)
+    errs[("act_dropout_bwd enc relu", 0)] = _close_rel(
+        report, f"act_dropout_bwd enc relu + mff mask ({Me}x{Fe})",
+        K.act_dropout_bwd(dh_e, a_e, "relu", d_mff),
+        K.act_dropout_bwd_plain(dh_e, a_e, "relu", d_mff), TOL_F32)
+    errs[("act_dropout_bwd enc none", 0)] = _close_rel(
+        report, f"act_dropout_bwd enc none + m2 mask ({Me}x{De})",
+        K.act_dropout_bwd(dm_e, None, "none", d_m2),
+        K.act_dropout_bwd_plain(dm_e, None, "none", d_m2), TOL_F32)
     mask = K.dropout_mask(d_mff, (Me, Fe), dev)
     ones = torch.ones(Me, Fe, device=dev)
     report.require(f"dropout mask bitwise: act_dropout_bwd ({Me}x{Fe}, site mff)",
@@ -1753,7 +1819,7 @@ def train_slice(report, dev, work, smi, t_start):
         K.dropout_mask(d_attn, (Be, He, 1, 1), dev).view(Be, He)))
     print(f"  dropout rate at site mff: {float((mask == 0).float().mean()):.5f} "
           f"of {mask.numel()} (p 0.1)")
-    del dh_e, a_e, mask, ones
+    del dh_e, a_e, dm_e, mask, ones
 
     # the two train trunks, forward and gradients, kernel route against plain
     model = PoseDiffusionModel(model_config_from_cfg(load_config("default_train").MODEL))
@@ -1857,6 +1923,7 @@ def train_slice(report, dev, work, smi, t_start):
     _note_layernorm_shapes(K, "train path")
     wgrad_by_shape = dict(K.linear_wgrad.by_shape)
     linear_by_shape = dict(K.linear.by_shape)
+    act_by_shape = dict(K.act_dropout_bwd.by_shape)
     _check_launches(report, "train", TRAIN_PATH, launches)
     print(f"  {result['steps']} steps, losses {[round(x, 5) for x in result['losses']]}, "
           f"step seconds (host clock) {[round(x, 3) for x in result['step_seconds']]}, "
@@ -1926,35 +1993,58 @@ def train_slice(report, dev, work, smi, t_start):
         lambda: K.linear_wgrad(x_fc, dy_q), lambda: K.linear_wgrad_plain(x_fc, dy_q),
         lambda: _time_ms(torch, lambda: torch.matmul(x_fc.t(), dy_q), reps=5),
         wgrad_bound(x_fc, dy_q))
+    # act_dropout_bwd's timed encoder cases, made after the step's peak memory
+    # is read: ReLU' with the mff mask (12 bytes an element) and the mask
+    # alone (act none: dh read, da written, 8 bytes an element); no one
+    # PyTorch call computes either with the hashed mask
+    dh_e, a_e, dm_e = rnd(Me, Fe), rnd(Me, Fe), rnd(Me, De)
+    cases["act_dropout_bwd enc relu"] = (
+        f"act_dropout_bwd enc relu + mff mask ({Me}x{Fe})",
+        lambda: K.act_dropout_bwd(dh_e, a_e, "relu", d_mff),
+        lambda: K.act_dropout_bwd_plain(dh_e, a_e, "relu", d_mff), lambda: None,
+        bound(3 * nbytes(a_e), 20 * Me * Fe))
+    cases["act_dropout_bwd enc none"] = (
+        f"act_dropout_bwd enc none + m2 mask ({Me}x{De})",
+        lambda: K.act_dropout_bwd(dm_e, None, "none", d_m2),
+        lambda: K.act_dropout_bwd_plain(dm_e, None, "none", d_m2), lambda: None,
+        bound(2 * nbytes(dm_e), 20 * Me * De))
     kernels_json = []
     # launches on the train path: the kernel's, or at the entry's shape
     shape_launches = {
         "linear_wgrad qkv": wgrad_by_shape.get((M, Dv, 3 * Dv), 0),
         "linear dgrad": linear_by_shape.get((M, Df, Dv, True), 0),
         "linear qkv": linear_by_shape.get((M, Dv, 3 * Dv, False), 0),
+        "act_dropout_bwd enc relu": act_by_shape.get(((Me, Fe), "relu"), 0),
+        "act_dropout_bwd enc none": act_by_shape.get(((Me, De), "none"), 0),
     }
-    for key in TRAIN_KERNELS + ("linear_wgrad qkv", "linear dgrad", "linear qkv"):
+    entry_keys = TRAIN_KERNELS + ("act_dropout_bwd enc relu", "act_dropout_bwd enc none",
+                                  "linear_wgrad qkv", "linear dgrad", "linear qkv")
+    for key in entry_keys:
         name, kern, plain, library, (bound_ms, bound_by) = cases[key]
         kernel = key.split()[0]
-        ms = _time_ms(torch, kern, reps=5)
+        # act_dropout_bwd and its yardstick over 10 calls an event pair: the
+        # wrapper's host cost (tens of us) is not the kernel's
+        ms = _time_ms(torch, kern, reps=5, inner=10 if kernel == "act_dropout_bwd" else 1)
         plain_ms = _time_ms(torch, plain, reps=5)
         library_ms = library()
         err = max(v for k, v in errs.items() if (k if isinstance(k, str) else k[0]) == key)
         n = launches[kernel] if key == kernel else shape_launches[key]
-        print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), {n} launches")
+        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+        print(f"  {name}: kernel {ms:.4f} ms ({100 * bound_ms / ms:.1f}% of its bound), plain "
+              f"{plain_ms:.4f} ms, library {lib}, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"{n} launches")
         kernels_json.append({
             "name": key if kernel != "linear" else key.replace("linear", "linear f32", 1),
             "route": "cuda", "source": SOURCES[kernel],
             "replaces": TPU_KERNELS[kernel], "launches": n, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms,
-            "case": f"{name} (launches: train path{'' if key == kernel else ', this shape'})",
+            "case": f"{name} (launches: train path{'' if key == kernel else ', this shape'}"
+                    f"{'; ms over 10 calls an event pair' if kernel == 'act_dropout_bwd' else ''})",
         })
     # device time by the profiler: attention_bwd's two kernels, and the
     # weight gradient's kernel beside cuBLAS's on the same operands
-    for e, key in zip(kernels_json, TRAIN_KERNELS + ("linear_wgrad qkv", "linear dgrad",
-                                                      "linear qkv")):
+    for e, key in zip(kernels_json, entry_keys):
         kern = cases[key][1]
         if key.startswith("linear "):  # the tensor-core tile beside cuBLAS's one call
             library = ((lambda: torch.matmul(dy_fc, w_fc.t())) if key == "linear dgrad"
@@ -1972,6 +2062,31 @@ def train_slice(report, dev, work, smi, t_start):
         if "device_ms" in e:
             print(f"  {e['name']} by device time: {e['device_ms']}, library "
                   f"{e.get('library_device_ms')}")
+    # bf16 mode's weight gradient (wgrad_bf16_tc_kernel, off the f32 train
+    # path, timed only) at fc1's shape: beside torch.matmul on the
+    # bf16-rounded operands held in float32 (the same function) and on bf16
+    # copies (the bf16 tensor cores, a bf16 result); its bound counts 2 M K N
+    # operations at the bf16 rate
+    wg = "linear_wgrad fc1 bf16 (wgrad_bf16_tc_kernel)"
+    xr, dyr = K.round_bf16(x_fc), K.round_bf16(dy_fc)
+    xb, dyb = x_fc.to(torch.bfloat16), dy_fc.to(torch.bfloat16)
+    wg_bound, wg_by = wgrad_bound(x_fc, dy_fc, round_in=True)
+    timings[wg] = _time_ms(torch, lambda: K.linear_wgrad(x_fc, dy_fc, True), reps=5)
+    timings[f"{wg} device"] = _kernel_device_ms(
+        torch, lambda: K.linear_wgrad(x_fc, dy_fc, True), "wgrad_bf16_tc_kernel")
+    timings[f"{wg} plain"] = _time_ms(torch, lambda: K.linear_wgrad_plain(x_fc, dy_fc, True),
+                                      reps=5)
+    timings[f"{wg} torch.matmul rounded f32"] = _time_ms(
+        torch, lambda: torch.matmul(xr.t(), dyr), reps=5)
+    timings[f"{wg} torch.matmul bf16"] = _time_ms(torch, lambda: torch.matmul(xb.t(), dyb),
+                                                 reps=5)
+    timings[f"{wg} bound"] = wg_bound
+    print(f"  {wg} ({M}x{Dv})^T ({M}x{Df}): {timings[wg]:.4f} ms (device "
+          f"{timings[wg + ' device']:.4f}), plain {timings[wg + ' plain']:.4f} ms, "
+          f"torch.matmul on the rounded f32 operands {timings[wg + ' torch.matmul rounded f32']:.4f}"
+          f" ms, on bf16 copies {timings[wg + ' torch.matmul bf16']:.4f} ms, bound "
+          f"{wg_bound:.4f} ms ({wg_by}), max_abs_err {errs[('linear_wgrad', True)]:.3e}")
+    del xr, dyr, xb, dyb
     timings["peak memory of a train step (GB)"] = peak_gb
     return kernels_json, timings, step_launches
 
@@ -2813,6 +2928,8 @@ def main(argv) -> int:
                  TOL_F32, max(1.0, cp_p[0][live].abs().max().item()))
     report.require("superglue_coupling masked cells equal (-1e9)",
                    torch.equal(cp_k[0][~live], cp_p[0][~live]))
+    report.require("superglue_coupling repeats bitwise", torch.equal(
+        cp_k[0], K.superglue_coupling(m_sg, sg_f0, sg_f1, sg_st["bin"])[0]))
     report.check("superglue_coupling marginals and norm",
                  max((a - b).abs().max().item() for a, b in zip(cp_k[1:], cp_p[1:])), TOL_F32)
     Zk = K.superglue_sinkhorn(*cp_p, 50)
@@ -3209,9 +3326,11 @@ def main(argv) -> int:
         kernels_json.append(qkv_json)
         timings["bf16 tile at the serving shapes (CUDA graph ms)"] = bf16_shapes
     Ks1 = Kp + 1
+    # the coupling's scores as 3xTF32 products over the live cells only
+    sg_live = int(((sg_f0 > 0.5).sum(1) * (sg_f1 > 0.5).sum(1)).sum())
     sg_bounds = {
         "superglue_coupling": bound(nbytes(m_sg, sg_f0, sg_f1) + Cp * Ks1 * (Ks1 + 2) * 4,
-                                    2 * Cp * Kp * Kp * Dp),
+                                    3 * 2 * sg_live * Dp, PEAK_TF32),
         "superglue_sinkhorn": bound(nbytes(*cp_p) + Cp * Ks1 * Ks1 * 4, 50 * 2 * 3 * Cp * Ks1**2),
         "superglue_matches": bound(nbytes(Zp, sg_f0, sg_f1) + 2 * Cp * Kp * 4, 2 * Cp * Kp**2),
     }
@@ -3300,11 +3419,12 @@ def main(argv) -> int:
         sdpa_key_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=ksg[:, None, None, :]), reps=5)
     K_eff = x_all.shape[1]
-    # per pair: the GNN's and the final products and its attention on the
-    # tensor cores as 3xTF32 MMAs; the coupling and Sinkhorn in float32
+    # per pair: the GNN's and the final products, its attention and the
+    # coupling's scores on the tensor cores as 3xTF32 MMAs; Sinkhorn in float32
     tc_ops = 18 * (2 * 2 * K_eff * 256 * (768 + 256) + 2 * 2 * K_eff * 512 * 768
-                   + 4 * 2 * K_eff * K_eff * 256) + 2 * 2 * K_eff * 256 * 256
-    f32_ops = 2 * K_eff * K_eff * 256 + 50 * 2 * 3 * (K_eff + 1) ** 2
+                   + 4 * 2 * K_eff * K_eff * 256) + 2 * 2 * K_eff * 256 * 256 \
+        + 2 * K_eff * K_eff * 256
+    f32_ops = 50 * 2 * 3 * (K_eff + 1) ** 2
     per_pair_ms = (3 * tc_ops / PEAK_TF32 + f32_ops / PEAK_F32) * 1e3
     vit_tok, enc_tok = VIT_IMAGES * N, ENC_ROWS * 16
     tb_vit = trunk_bounds(vit_tok, N, D_v, F_v, L_v, 4, 4 * w_vit)

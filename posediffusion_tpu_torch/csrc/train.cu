@@ -15,10 +15,25 @@
 //                                  cotangent do * gamma: layerscale_bwd.
 //
 // Bound: memory. act_dropout_bwd reads dh and a1 and writes da1 once
-// (135,168 x 1,536 f32 at the ViT's fc1: 2.5 GB a call); the mask is
+// (135,168 x 1,536 f32 at the ViT's fc1: 2.5 GB a call, 0.744 ms at 3.35
+// TB/s; 8 bytes an element for act none, which reads no a1); the mask is
 // recomputed from its counter hash (common.cuh) instead of being stored, as
 // the TPU kernel regenerates its masks from (seed, stream). Design: a
-// grid-stride loop, one element per thread per step, coalesced.
+// streaming pass at the bytes bound. 128-bit loads and stores with the
+// evict-first hints (__ldcs / __stcs: 2.5 GB passes through the 50 MB L2
+// once), two float4 of each input in flight a thread before any
+// arithmetic, 32-bit indices (n below 2^31: the largest site, ViT-B's fc1
+// at 512 images, is 415M elements). The grid covers n, one contiguous run
+// of 2,048 elements a block: kernel_probes.py --stream measured that layout
+// at 90-91% of the bytes bound at the ViT's fc1 on an H100, as torch.add,
+// and a grid of the resident blocks looping over n at 83-85% (1 to 8
+// float4 a thread, 128 to 512 threads a block, the hints and an L2
+// prefetch hint moved it by under 1%). The n % 4 tail goes to the last
+// block in the same launch; operands off a 16-byte boundary take a scalar
+// instance of the same kernel (one launch either way). The hash stays per
+// element index (two fmix32 an element), so the mask is the forward's and
+// kernels.dropout_mask's bit for bit. The activation is a template
+// argument: act none compiles without a1's loads.
 // sum_partials: one thread per output element adds the S partials in order
 // (deterministic; S is at most a few hundred).
 // layerscale_bwd: bound by memory too (dy and o_pre read, the cotangent
@@ -31,20 +46,82 @@
 // bitwise).
 #include "common.cuh"
 
-__global__ void act_dropout_bwd_kernel(const float* __restrict__ dh,
-                                       const float* __restrict__ a,
-                                       float* __restrict__ out, size_t n,
-                                       int act, DropArgs drop) {
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float v = dh[i] * drop_mul(drop, (unsigned int)i);
-    if (act == ACT_RELU) {
-      v = a[i] > 0.f ? v : 0.f;
-    } else if (act == ACT_GELU) {
-      v *= gelu_grad(a[i]);
+constexpr int AD_THREADS = 256;
+constexpr int AD_UNROLL = 2;  // float4 (or floats) of each input in flight a thread
+constexpr int AD_RUN = AD_THREADS * AD_UNROLL;  // float4 runs (or floats) a block
+
+// one element: dh * mask(i) * act'(a)
+template <int ACT>
+__device__ __forceinline__ float act_dropout_bwd_one(float dh, float a, unsigned int i,
+                                                     const DropArgs& drop) {
+  const float v = dh * drop_mul(drop, i);
+  if (ACT == ACT_RELU) return a > 0.f ? v : 0.f;
+  if (ACT == ACT_GELU) return v * gelu_grad(a);
+  return v;
+}
+
+// VEC: dh, a and out 16-byte aligned; block b takes float4 runs b AD_RUN
+// .. + AD_RUN - 1 of the n / 4 and the last block the n % 4 tail. Else
+// block b takes elements b AD_RUN .. + AD_RUN - 1.
+template <int ACT, bool VEC>
+__global__ void __launch_bounds__(AD_THREADS)
+act_dropout_bwd_kernel(const float* __restrict__ dh, const float* __restrict__ a,
+                       float* __restrict__ out, unsigned int n, DropArgs drop) {
+  const unsigned int first = blockIdx.x * AD_RUN + threadIdx.x;
+  if (!VEC) {
+    float d[AD_UNROLL], x[AD_UNROLL];
+#pragma unroll
+    for (int u = 0; u < AD_UNROLL; ++u) {
+      const unsigned int i = first + u * AD_THREADS;
+      d[u] = i < n ? __ldcs(dh + i) : 0.f;
+      x[u] = ACT != ACT_NONE && i < n ? __ldcs(a + i) : 0.f;
     }
-    out[i] = v;
+#pragma unroll
+    for (int u = 0; u < AD_UNROLL; ++u) {
+      const unsigned int i = first + u * AD_THREADS;
+      if (i < n) __stcs(out + i, act_dropout_bwd_one<ACT>(d[u], x[u], i, drop));
+    }
+    return;
   }
+  const unsigned int n4 = n / 4;
+  const float4* dh4 = reinterpret_cast<const float4*>(dh);
+  const float4* a4 = reinterpret_cast<const float4*>(a);
+  float4* out4 = reinterpret_cast<float4*>(out);
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 d[AD_UNROLL], x[AD_UNROLL];
+#pragma unroll
+  for (int u = 0; u < AD_UNROLL; ++u) {
+    const unsigned int v = first + u * AD_THREADS;
+    d[u] = v < n4 ? __ldcs(dh4 + v) : zero;
+    x[u] = ACT != ACT_NONE && v < n4 ? __ldcs(a4 + v) : zero;
+  }
+#pragma unroll
+  for (int u = 0; u < AD_UNROLL; ++u) {
+    const unsigned int v = first + u * AD_THREADS;
+    const unsigned int i = 4 * v;
+    if (v < n4)
+      __stcs(out4 + v, make_float4(act_dropout_bwd_one<ACT>(d[u].x, x[u].x, i, drop),
+                                   act_dropout_bwd_one<ACT>(d[u].y, x[u].y, i + 1, drop),
+                                   act_dropout_bwd_one<ACT>(d[u].z, x[u].z, i + 2, drop),
+                                   act_dropout_bwd_one<ACT>(d[u].w, x[u].w, i + 3, drop)));
+  }
+  const unsigned int i = 4 * n4 + threadIdx.x;  // the tail: at most three elements
+  if (blockIdx.x == gridDim.x - 1 && i < n)
+    out[i] = act_dropout_bwd_one<ACT>(dh[i], ACT == ACT_NONE ? 0.f : a[i], i, drop);
+}
+
+template <int ACT>
+int launch_act_dropout_bwd(const float* dh, const float* a, float* out, unsigned int n,
+                           DropArgs drop, cudaStream_t s) {
+  const auto al16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const bool vec = al16(dh) && al16(out) && (ACT == ACT_NONE || al16(a));
+  const unsigned int runs = vec ? n / 4 : n;
+  const int blocks = runs > 0 ? (int)((runs + AD_RUN - 1) / AD_RUN) : 1;
+  if (vec)
+    act_dropout_bwd_kernel<ACT, true><<<blocks, AD_THREADS, 0, s>>>(dh, a, out, n, drop);
+  else
+    act_dropout_bwd_kernel<ACT, false><<<blocks, AD_THREADS, 0, s>>>(dh, a, out, n, drop);
+  return (int)cudaGetLastError();
 }
 
 __global__ void sum_partials_kernel(const float* __restrict__ part,
@@ -85,15 +162,24 @@ static int grid_for(size_t n, int threads) {
   return (int)(blocks < 132 * 32 ? (blocks > 0 ? blocks : 1) : 132 * 32);
 }
 
-// out = dh * mask(drop, i) * act'(a); a may be null when act is none.
+// out = dh * mask(drop, i) * act'(a); a may be null when act is none;
+// n below 2^31 (the wrapper refuses more).
 PD_API int pd_act_dropout_bwd(const void* dh, const void* a, void* out,
                               long long n, int act, unsigned int drop_key,
                               int drop_thr, float drop_scale, void* stream) {
-  if (act != ACT_NONE && a == nullptr) return (int)cudaErrorInvalidValue;
-  act_dropout_bwd_kernel<<<grid_for(n, 256), 256, 0, (cudaStream_t)stream>>>(
-      (const float*)dh, (const float*)a, (float*)out, (size_t)n, act,
-      DropArgs{drop_key, drop_thr, drop_scale});
-  return (int)cudaGetLastError();
+  if (n < 0 || n >= (1LL << 31) || (act != ACT_NONE && a == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaSuccess;
+  const float *D = (const float*)dh, *A = (const float*)a;
+  float* O = (float*)out;
+  const DropArgs drop{drop_key, drop_thr, drop_scale};
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (act) {
+    case ACT_NONE: return launch_act_dropout_bwd<ACT_NONE>(D, A, O, (unsigned int)n, drop, s);
+    case ACT_RELU: return launch_act_dropout_bwd<ACT_RELU>(D, A, O, (unsigned int)n, drop, s);
+    case ACT_GELU: return launch_act_dropout_bwd<ACT_GELU>(D, A, O, (unsigned int)n, drop, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // out[l] = sum over k < S of part[k, l], in order of k.

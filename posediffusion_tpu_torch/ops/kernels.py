@@ -21,6 +21,7 @@ of the training trunks (DINOv2's LayerScale included):
 ``ggs_phase_chunked``    the same over a thread-block cluster, the pairs
                          split between its blocks
 ``superglue_coupling``   SuperGlue pair scores into the dustbin coupling
+                         (3xTF32 tensor-core tiles, masked tiles skipped)
 ``superglue_sinkhorn``   log-domain Sinkhorn over the coupling -> log assignment
 ``superglue_matches``    mutual-max matches above a threshold
 ``attention_bwd``        dQKV of ``attention`` from its output cotangent
@@ -96,7 +97,8 @@ _SIGNATURES = {
     "pd_ggs_phase_chunked": [_P] * 11 + [_I] * 8 + [_F, _I, _F, _F, _F, _F, _I, _P],
     "pd_ggs_smem_bytes": [_I] * 4,
     "pd_ggs_max_active_clusters": [_I] * 4,
-    "pd_sg_coupling": [_P] * 8 + [_I, _I, _I, _F, _P],
+    "pd_sg_coupling": [_P] * 9 + [_I, _I, _I, _F, _P],
+    "pd_sg_scores_scratch": [_I, _I],
     "pd_sg_sinkhorn": [_P] * 7 + [_I, _I, _I, _P],
     "pd_sg_matches": [_P] * 6 + [_I, _I, _F, _P],
     "pd_attention_bwd": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _F, _I, *_DROP, _P],
@@ -919,6 +921,15 @@ ggs_phase_chunked.launches = 0
 # log assignment Z are (C, K + 1, K + 1) with the dustbin at row/column K.
 SG_NEG = -1e9  # a masked coupling cell, as the JAX package's _NEG
 SG_DEAD = -3e38  # outside the live block in match extraction
+SG_TILE = 128  # keypoints a side of a scores tile (csrc/superglue.cu SC_BM, SC_BN)
+
+
+def sg_scores_scratch(C: int, K: int) -> int:
+    """int32 scratch of the scores for C pairs of K keypoints, as
+    csrc/superglue.cu pd_sg_scores_scratch counts it: the tile flags (C, 2,
+    n), the tile list (C n^2) and its live count, n = ceil(K / SG_TILE)."""
+    n = -(-K // SG_TILE)
+    return 2 * C * n + C * n * n + 1
 
 
 def superglue_coupling_plain(m, mask0, mask1, bin_score):
@@ -943,7 +954,10 @@ def superglue_coupling_plain(m, mask0, mask1, bin_score):
 
 def superglue_coupling(m, mask0, mask1, bin_score):
     """Pair scores m0 m1^T / sqrt(D), masked, with the dustbin row and column
-    and the Sinkhorn marginals. bin_score is a (1,) float32 tensor."""
+    and the Sinkhorn marginals. bin_score is a (1,) float32 tensor. On the
+    card the scores run as 3xTF32 tensor-core products (about 2^-21
+    relative a product) in tiles of SG_TILE x SG_TILE, those with no valid
+    row or no valid column skipped; masked cells are -1e9 exactly."""
     if not _on_card(m, mask0, mask1, bin_score):
         return superglue_coupling_plain(m, mask0, mask1, bin_score)
     C, two, K, D = m.shape
@@ -956,9 +970,10 @@ def superglue_coupling(m, mask0, mask1, bin_score):
     log_mu = torch.empty((C, K + 1), **f32)
     log_nu = torch.empty((C, K + 1), **f32)
     norm = torch.empty((C,), **f32)
+    scratch = torch.empty((sg_scores_scratch(C, K),), device=m.device, dtype=torch.int32)
     _launch(load_library().pd_sg_coupling, _ptr(m), _ptr(mask0), _ptr(mask1),
             _ptr(bin_score), _ptr(cpl), _ptr(log_mu), _ptr(log_nu), _ptr(norm),
-            C, K, D, float(D**0.5), _stream(m))
+            _ptr(scratch), C, K, D, float(D**0.5), _stream(m))
     superglue_coupling.launches += 1
     return cpl, log_mu, log_nu, norm
 
@@ -1245,22 +1260,35 @@ def act_dropout_bwd_plain(dh, a, act: str, drop: Optional[Drop] = None):
     return out
 
 
+ACT_DROPOUT_BWD_MAX = 1 << 31  # csrc/train.cu: 32-bit element indices
+
+
 def act_dropout_bwd(dh, a, act: str, drop: Optional[Drop] = None):
     """Cotangent of ``drop(act(a))``: dh times the mask times act'(a), one
-    elementwise pass. ``a`` (the pre-activation) may be None for act none."""
+    elementwise pass. ``a`` (the pre-activation) may be None for act none.
+    On the card a 128-bit streaming pass; operands off a 16-byte boundary
+    (a view into a larger buffer) take the kernel's scalar instance. Counts
+    its launches in ``act_dropout_bwd.launches`` and, per (shape, act), in
+    ``act_dropout_bwd.by_shape``."""
     if not _on_card(dh, a):
         return act_dropout_bwd_plain(dh, a, act, drop)
     _check(dh, "dh", tuple(dh.shape))
     if act != "none":
         _check(a, "a", tuple(dh.shape))
+    if dh.numel() >= ACT_DROPOUT_BWD_MAX:
+        raise ValueError(f"act_dropout_bwd: {dh.numel()} elements, at most "
+                         f"{ACT_DROPOUT_BWD_MAX - 1} (32-bit indices)")
     out = torch.empty_like(dh)
     _launch(load_library().pd_act_dropout_bwd, _ptr(dh),
             _ptr(a if act != "none" else None), _ptr(out), dh.numel(), _ACT[act],
             *(drop.args() if drop else _NO_DROP), _stream(dh))
     act_dropout_bwd.launches += 1
+    key = (tuple(dh.shape), act)
+    act_dropout_bwd.by_shape[key] = act_dropout_bwd.by_shape.get(key, 0) + 1
     return out
 
 
+act_dropout_bwd.by_shape = {}
 act_dropout_bwd.launches = 0
 
 
@@ -1345,3 +1373,4 @@ def reset_launch_counts() -> None:
     linear.by_shape.clear()
     linear_rows.by_shape.clear()
     linear_wgrad.by_shape.clear()
+    act_dropout_bwd.by_shape.clear()

@@ -644,6 +644,80 @@ def test_superglue_coupling_sinkhorn_matches(cuda, C, Kk, D):
         assert (mk[mask0 < 0.5] == -1).all()
 
 
+def _sg_edge_masks(dev, C, Kk):
+    """Per pair, for the scores kernel's dead-tile skip and 128 x 128 tiles:
+    set 0 fully masked; both sets fully live; prefixes ending inside a tile
+    (100 and K - 7 keypoints); prefixes ending on a tile edge (128 and 256,
+    where K has them); set 1 fully masked. C > 5 repeats the cycle."""
+    f0, f1 = np.ones((C, Kk), np.float32), np.ones((C, Kk), np.float32)
+    for c in range(C):
+        kind = c % 5
+        if kind == 0:
+            f0[c] = 0
+        elif kind == 2:
+            f0[c, min(Kk, 100):] = 0
+            f1[c, max(1, Kk - 7):] = 0
+        elif kind == 3:
+            f0[c, min(Kk, 128):] = 0
+            f1[c, min(Kk, 256):] = 0
+        elif kind == 4:
+            f1[c] = 0
+    return _t(f0, dev), _t(f1, dev)
+
+
+@pytest.mark.parametrize("Kk", [37, 130, 1000, 1024])
+@pytest.mark.parametrize("D", [64, 256])
+def test_superglue_scores_edges(cuda, Kk, D):
+    """The 3xTF32 scores at ragged K (tiles of 128 past the edge) and the
+    masks of ``_sg_edge_masks``: the live cells within 1e-4 relative of
+    plain, the masked cells -1e9 bitwise (dead tiles included), the
+    dustbin and marginals as before, and a repeat bitwise equal."""
+    C = 5
+    r = _gen(Kk + D)
+    m = _t(r.normal(size=(C, 2, Kk, D)) / np.sqrt(D) * 4, cuda)
+    f0, f1 = _sg_edge_masks(cuda, C, Kk)
+    b = torch.tensor([0.7], device=cuda)
+    out = K.superglue_coupling(m, f0, f1, b)
+    ref = K.superglue_coupling_plain(m, f0, f1, b)
+    live = _live(f0, f1)
+    _close(out[0][live], ref[0][live], 1e-4)
+    assert torch.equal(out[0][~live], ref[0][~live])
+    assert (out[0][:, :Kk, :Kk][~live[:, :Kk, :Kk]] == K.SG_NEG).all()
+    for o, p in zip(out[1:], ref[1:]):
+        assert torch.equal(torch.isinf(o), torch.isinf(p))
+        fin = torch.isfinite(p)
+        assert (o[fin] - p[fin]).abs().max().item() <= 1e-6
+    assert torch.equal(out[0], K.superglue_coupling(m, f0, f1, b)[0])
+
+
+@pytest.mark.parametrize("D", [30, 64])
+def test_superglue_scores_unaligned(cuda, D):
+    """m one float off a 16-byte boundary (a view into a larger buffer), and
+    D not a multiple of 4: the kernel stages by element copies; the same
+    checks as the aligned case."""
+    C, Kk = 3, 150
+    r = _gen(D)
+    buf = torch.empty(C * 2 * Kk * D + 1, device=cuda)
+    m = buf[1:].view(C, 2, Kk, D)
+    m.copy_(_t(r.normal(size=(C, 2, Kk, D)) / np.sqrt(D) * 4, cuda))
+    assert m.data_ptr() % 16 != 0 and m.is_contiguous()
+    f0, f1 = _sg_edge_masks(cuda, C, Kk)
+    b = torch.tensor([0.7], device=cuda)
+    out = K.superglue_coupling(m, f0, f1, b)[0]
+    ref = K.superglue_coupling_plain(m, f0, f1, b)[0]
+    live = _live(f0, f1)
+    _close(out[live], ref[live], 1e-4)
+    assert torch.equal(out[~live], ref[~live])
+    assert torch.equal(out, K.superglue_coupling(m, f0, f1, b)[0])
+
+
+def test_superglue_scores_scratch_formula(cuda):
+    """The wrapper's scratch size is the kernel's (csrc/superglue.cu)."""
+    lib = K.load_library()
+    for C, Kk in ((1, 1), (3, 37), (5, 1000), (32, 1024), (32, 4096)):
+        assert lib.pd_sg_scores_scratch(C, Kk) == K.sg_scores_scratch(C, Kk)
+
+
 def test_superglue_matches_first_index_on_ties(cuda):
     Z = torch.full((1, 4, 4), -5.0)
     Z[0, 0, 1] = Z[0, 0, 2] = -0.1
@@ -1038,6 +1112,50 @@ def test_act_dropout_bwd(cuda, act):
     dh, a = _t(r.normal(size=(999, 77)), cuda), _t(r.normal(size=(999, 77)), cuda)
     d = K.drop_args(2, 1, "mff", 0.1)
     _close(K.act_dropout_bwd(dh, a, act, d), K.act_dropout_bwd_plain(dh, a, act, d), TOL_F32)
+
+
+@pytest.mark.parametrize("n", [1, 3, 4099, 528 * 1536])
+@pytest.mark.parametrize("act", ["none", "relu", "gelu"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_act_dropout_bwd_sizes(cuda, n, act, masked):
+    """The float4 streaming pass at element counts with and without a tail
+    (n % 4 of 1, 3, 3 and 0; 528 x 1,536 is the ViT's fc1 width at 1/256 of
+    its rows), every act, with and without the mff mask; the mask bitwise
+    ``dropout_mask``."""
+    r = _gen(n)
+    dh = _t(r.normal(size=n), cuda)
+    a = None if act == "none" else _t(r.normal(size=n), cuda)
+    d = K.drop_args(3, 2, "mff", 0.1) if masked else None
+    _close(K.act_dropout_bwd(dh, a, act, d), K.act_dropout_bwd_plain(dh, a, act, d), TOL_F32)
+    if masked:
+        ones = torch.ones(n, device=cuda)
+        assert torch.equal(K.act_dropout_bwd(ones, None, "none", d), K.dropout_mask(d, (n,), cuda))
+
+
+@pytest.mark.parametrize("act", ["none", "relu", "gelu"])
+@pytest.mark.parametrize("which", ["dh", "a", "both"])
+def test_act_dropout_bwd_offset_views(cuda, act, which):
+    """Operands one float off a 16-byte boundary (views into larger
+    buffers) take the kernel's scalar instance: the same values as plain,
+    and the mask still bitwise (element i of the view is element i)."""
+    n = 4099
+    r = _gen(7)
+    bufs = {k: _t(r.normal(size=n + 1), cuda) for k in ("dh", "a")}
+    dh = bufs["dh"][1:] if which in ("dh", "both") else bufs["dh"][:n]
+    a = None if act == "none" else (bufs["a"][1:] if which in ("a", "both") else bufs["a"][:n])
+    d = K.drop_args(4, 0, "m2", 0.1)
+    out = K.act_dropout_bwd(dh, a, act, d)
+    _close(out, K.act_dropout_bwd_plain(dh, a, act, d), TOL_F32)
+    ones = torch.ones(n + 1, device=cuda)[1:]
+    assert torch.equal(K.act_dropout_bwd(ones, None, "none", d), K.dropout_mask(d, (n,), cuda))
+
+
+def test_act_dropout_bwd_refuses_64bit_sizes(cuda):
+    """The kernel indexes in 32 bits: 2^31 elements (8 GiB, never
+    written) are refused before any launch."""
+    big = torch.empty(K.ACT_DROPOUT_BWD_MAX, device=cuda)
+    with pytest.raises(ValueError, match="32-bit"):
+        K.act_dropout_bwd(big, None, "none")
 
 
 @pytest.mark.parametrize("flavor,act_bf16", [("vit", False), ("vit", True), ("encoder", False),

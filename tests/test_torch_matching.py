@@ -234,10 +234,10 @@ def fused_setup():
     return rng, params, model
 
 
-def _rand_sets(rng, n):
-    kpts = rng.uniform(4, 44, size=(n, KB, 2)).astype(np.float32)
-    scores = rng.uniform(size=(n, KB)).astype(np.float32)
-    desc = rng.normal(size=(n, KB, 256)).astype(np.float32)
+def _rand_sets(rng, n, k=KB):
+    kpts = rng.uniform(4, 44, size=(n, k, 2)).astype(np.float32)
+    scores = rng.uniform(size=(n, k)).astype(np.float32)
+    desc = rng.normal(size=(n, k, 256)).astype(np.float32)
     desc /= np.linalg.norm(desc, axis=-1, keepdims=True)
     return kpts, scores, desc
 
@@ -332,6 +332,68 @@ class TestFusedMatchPairs:
         cpl2 = K.superglue_coupling(torch.tensor(m), torch.tensor(m0).float(),
                                     torch.tensor(m1).float(), torch.tensor([0.3]))[0]
         assert torch.equal(cpl2, cpl)
+
+    @pytest.mark.parametrize("Kc", [13, 16])
+    def test_coupling_plain_edges_match_log_sinkhorn(self, rng, Kc):
+        """superglue_coupling_plain's masked scores and coupling against JAX
+        log_sinkhorn's (no iteration: its Z plus norm) at the masks the
+        scores kernel treats apart: set 0 fully masked, set 1 fully masked,
+        both fully live, and prefixes ending inside the set; K a multiple
+        of 8 and not. Live cells within 1e-5, masked cells -1e9 exactly;
+        then 15 iterations from the plain coupling within 1e-5 of JAX's on
+        the live cells (the marginals of the fully masked pairs included)."""
+        C, D = 4, 32
+        m = rng.normal(size=(C, 2, Kc, D)).astype(np.float32)
+        m0, m1 = np.ones((C, Kc), bool), np.ones((C, Kc), bool)
+        m0[0] = False
+        m1[1] = False
+        m0[3, Kc - 3:] = False
+        m1[3, 5:] = False
+        scores = np.einsum("cnd,cmd->cnm", m[:, 0], m[:, 1]) / np.float32(D**0.5)
+        args = (jnp.asarray(scores), jnp.asarray(0.3), m0, m1)
+        cpl, mu, nu, norm = K.superglue_coupling_plain(
+            torch.tensor(m), torch.tensor(m0).float(), torch.tensor(m1).float(),
+            torch.tensor([0.3]))
+        ref = np.asarray(jsg.log_sinkhorn(*args, 0)) + norm.numpy()[:, None, None]
+        live = (cpl > K.SG_NEG / 2).numpy()
+        assert not live[0, :Kc].any() and not live[1, :, :Kc].any() and live[2].all()
+        np.testing.assert_allclose(cpl.numpy()[live], ref[live], atol=1e-5)
+        np.testing.assert_array_equal(cpl.numpy()[~live], np.float32(K.SG_NEG))
+        np.testing.assert_array_equal(ref[~live], np.float32(K.SG_NEG))
+        out = K.superglue_sinkhorn_plain(cpl, mu, nu, norm, 15).numpy()
+        ref = np.asarray(jsg.log_sinkhorn(*args, 15))
+        np.testing.assert_allclose(out[live], ref[live], atol=1e-5)
+
+    def test_plain_route_matches_jax_fully_masked_pair(self, fused_setup):
+        """The Pallas kernel as the JAX tests run it (interpret=True), with
+        one pair's first set fully masked: the port's plain route
+        (superglue_coupling_plain among its steps) gives the same matches,
+        mscores within 1e-4, and no match in the masked pair. The kernel
+        takes K in multiples of 8 only, so 13 keypoints per frame come
+        padded to 16 with masked ones (the last frame keeps 9)."""
+        _, params, model = fused_setup
+        kc = KB
+        kpts, scores, desc = _rand_sets(np.random.default_rng(7), 3, kc)
+        mask = np.ones((3, kc), bool)
+        mask[:, 13:] = False
+        mask[0] = False
+        mask[2, 9:] = False
+        pairs = [(0, 1), (1, 2), (2, 1)]
+        m0 = np.stack([mask[a] for a, _ in pairs])
+        m1 = np.stack([mask[b] for _, b in pairs])
+        m1[0, :13] = True  # pair 0: set 0 fully masked, set 1's 13 live
+        hw = np.tile(HW, (3, 1)).astype(np.float32)
+        xj = np.asarray(jax.jit(jsg.encode_keypoints)(params, desc, kpts, scores, hw))
+        xp = np.stack([np.stack([xj[a], xj[b]]) for a, b in pairs])
+        ref_m, ref_s = jsgk.fused_match_pairs(xp, m0, m1, jsgk.stack_superglue_params(params),
+                                              sinkhorn_iters=20, match_threshold=0.0,
+                                              interpret=True)
+        out_m, out_s = tsgk.fused_match_pairs(
+            torch.tensor(xp), torch.tensor(m0), torch.tensor(m1),
+            tsgk.stack_superglue_params(model), sinkhorn_iters=20, match_threshold=0.0)
+        np.testing.assert_array_equal(out_m.numpy(), np.asarray(ref_m))
+        np.testing.assert_allclose(out_s.numpy(), np.asarray(ref_s), atol=1e-4)
+        assert (out_m.numpy()[0] == -1).all() and (out_m.numpy()[1:] >= 0).any()
 
     def test_matches_plain_ties_and_masks(self):
         """Mutual check with the first index on ties, as match_pair: a row

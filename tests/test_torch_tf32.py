@@ -13,8 +13,12 @@ one TF32 product (hi.hi alone) does not; that a bf16 W or a bf16-rounded a
 has lo = 0, so the kernel's two products equal three bitwise; and, with the
 tensor core's truncating accumulation emulated, that a fresh accumulator per
 slice of K (64 wide in ``linear``, 32 rows in ``linear_wgrad``) is what
-keeps K 1,536 within 1e-5.
+keeps K 1,536 within 1e-5. SuperGlue's scores (csrc/superglue.cu) take the
+same three products; the scores' scratch size mirrors the kernel's.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -253,3 +257,34 @@ def test_attention_bwd_shared_memory_at_the_path_shapes():
     assert K.attention_bwd_smem_bytes(264, 64) == 4 * (2 * 64 * 72 + 2 * 2 * 32 * 72 + 3 * 2 * 32)
     assert K.attention_bwd_smem_bytes(16, 128) == 4 * (2 * 16 * 136 + 2 * 16 * 136 + 3 * 16)
     assert K.attention_bwd_smem_bytes(593, 128) == 104832
+
+
+# ---- SuperGlue's scores (csrc/superglue.cu, sg_scores_kernel): m0 m1^T / 16
+# for one pair of 1,024 keypoints at D 256, both operands K-major
+@pytest.mark.parametrize("D", [64, 256])
+def test_superglue_scores_need_three_products(D):
+    r = np.random.default_rng(D)
+    m = torch.tensor((r.normal(size=(2, 1024, D)) / np.sqrt(D) * 4).astype(np.float32))
+    ref = m[0].double() @ m[1].double().t()
+    three = _rel(_product(m[0], m[1].t(), 3), ref)
+    one = _rel(_product(m[0], m[1].t(), 1), ref)
+    assert three <= TOL, three
+    assert one > TOL, one
+
+
+SUPERGLUE_CU = Path(K.__file__).resolve().parents[1] / "csrc" / "superglue.cu"
+
+
+def test_sg_scores_scratch_mirrors_the_kernel():
+    """kernels.sg_scores_scratch counts what csrc/superglue.cu's
+    pd_sg_scores_scratch does: the tile side is the kernel's SC_BM and SC_BN,
+    the scratch its tile flags (C, 2, n), tile list (C n^2) and live count;
+    at the match path's chunk (32 pairs of 1,024 keypoints) 2,048 tiles."""
+    src = SUPERGLUE_CU.read_text()
+    tile = re.search(r"constexpr int SC_BM = (\d+), SC_BN = (\d+)", src)
+    assert tile and int(tile.group(1)) == int(tile.group(2)) == K.SG_TILE
+    assert "return (int)(2LL * C * sc_tiles_1d(K) + sc_tiles(C, K) + 1);" in src
+    assert K.sg_scores_scratch(32, 1024) == 2 * 32 * 8 + 32 * 64 + 1
+    assert K.sg_scores_scratch(3, 37) == 3 * 2 + 3 + 1
+    assert K.sg_scores_scratch(2, 129) == 2 * 2 * 2 + 2 * 4 + 1
+    assert K.sg_scores_scratch(32, 4096) == 2 * 32 * 32 + 32 * 32 * 32 + 1

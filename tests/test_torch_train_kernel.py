@@ -270,6 +270,49 @@ class TestPlainKernelBackwards:
         np.testing.assert_allclose(db.numpy(), rb.numpy(), atol=1e-5)
         np.testing.assert_allclose(dgrad.numpy(), ra.numpy(), atol=1e-5)
 
+    @pytest.mark.parametrize("act", ["relu", "gelu"])
+    @pytest.mark.parametrize("masked", [False, True])
+    def test_act_dropout_bwd_plain_matches_mlp_residual_bwd(self, rng, act, masked):
+        """act_dropout_bwd_plain against the JAX kernel body's own lines
+        (``_mlp_residual_bwd``, posediffusion_tpu/ops/vit_train_kernel.py
+        :330-340) at an odd element count (7 tokens x F 13 = 91, so a
+        float4 pass has a tail), with and without the mff mask (the port's
+        mask handed to the body as its mask array). The body's da1 is read
+        back through the fc1 gradients it forms from it, hf^T da1 and
+        colsum(da1): within 1e-5."""
+        nt, d, f = 7, 8, 13
+        nrm = lambda *shape: rng.normal(size=shape).astype(np.float32)  # noqa: E731
+        x1, dy = nrm(1, nt, d), nrm(1, nt, d)
+        g2, b2 = 1 + 0.1 * nrm(d), 0.1 * nrm(d)
+        wfc1, bfc1 = nrm(d, f) / np.float32(np.sqrt(d)), 0.5 * nrm(f)
+        wfc2, bfc2 = nrm(f, d) / np.float32(np.sqrt(f)), 0.1 * nrm(d)
+        d_mff = K.drop_args(5, 1, "mff", 0.1) if masked else None
+        d_m2 = K.drop_args(5, 1, "m2", 0.1) if masked else None
+        masks = None
+        if masked:
+            masks = (jnp.asarray(K.dropout_mask(d_mff, (nt, f), "cpu").numpy()),
+                     jnp.asarray(K.dropout_mask(d_m2, (1, nt, d), "cpu").numpy()))
+        w = tuple(jnp.asarray(a) for a in (g2, b2, wfc1, bfc1, wfc2, bfc2))
+        _, grads = JV._mlp_residual_bwd(jnp.asarray(x1), jnp.asarray(dy), w, act_bf16=False,
+                                        eps=1e-6, activation=act, drop_masks=masks)
+
+        t = lambda a: torch.tensor(a, dtype=torch.float64)  # noqa: E731
+        xf = t(x1[0])
+        hf = (xf - xf.mean(-1, keepdim=True)) / torch.sqrt(xf.var(-1, unbiased=False,
+                                                                keepdim=True) + 1e-6)
+        hf = (hf * t(g2) + t(b2)).float()
+        a1 = hf @ torch.tensor(wfc1) + torch.tensor(bfc1)
+        do = torch.tensor(dy[0])
+        if masked:
+            do = do * K.dropout_mask(d_m2, (nt, d), "cpu")
+        dhmid = do @ torch.tensor(wfc2).t()
+        da1 = K.act_dropout_bwd_plain(dhmid, a1, act, d_mff)
+        assert da1.numel() % 2 == 1
+        np.testing.assert_allclose(np.asarray(grads["wfc1"]), (hf.t() @ da1).numpy(), atol=1e-5)
+        np.testing.assert_allclose(np.asarray(grads["bfc1"]), da1.sum(0).numpy(), atol=1e-5)
+        # CPU tensors route the wrapper to the plain version
+        assert torch.equal(K.act_dropout_bwd(dhmid, a1, act, d_mff), da1)
+
     def test_wgrad_row_split(self):
         """The split fills the card and covers every row: float32 mode's
         128 x 128 tiles (36 at fc1) one block an SM, bf16 mode's 64 x 64
