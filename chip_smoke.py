@@ -9,11 +9,13 @@ backbones, once on an NVIDIA card.
     python3 chip_smoke.py --parent DIR
         # also, first: the calls a serving or training user waits for (the
         # inferences without GGS, with GGS from a table and from the images,
-        # the matcher, a DINO, DINOv2 and ViT-B train step) and the
+        # the matcher, a DINO step in f32 and in the bf16 train mode, a
+        # DINOv2 and a ViT-B train step) and the
         # redesigned kernels at their largest cases (SuperGlue's scores at
         # one matcher chunk, act_dropout_bwd at the ViT's fc1 beside
         # aten.gelu_backward, attention_bwd,
-        # linear_wgrad, linear's float32 products beside torch.addmm /
+        # linear_wgrad at fc1 in both modes, linear's float32 products
+        # beside torch.addmm /
         # torch.matmul, both GGS kernels' 200-iteration phases at 20 frames,
         # 100 and 1,024 matches a pair, layernorm_bwd beside F.layer_norm's
         # backward, with
@@ -29,6 +31,8 @@ backbones, once on an NVIDIA card.
         # the same, that order repeated N times (host-bound calls spread
         # more from one process to the next than within one)
     python3 chip_smoke.py --attention   # the attention cases alone
+    python3 chip_smoke.py --wgrad       # bf16 mode's weight gradient and its
+                                        # train step alone
     python3 chip_smoke.py --ptxas       # registers, spills and shared memory
                                         # of every kernel (nvcc -Xptxas -v), alone
 
@@ -71,8 +75,9 @@ Phases (any failure exits non-zero and prints no result line):
              versions at the ViT's and the denoiser's train shapes (the
              tensor-core attention_bwd and linear_wgrad in both modes, and
              bitwise against themselves: attention_bwd at 64 x 264 and
-             2,880 x 16, linear_wgrad at fc1 and qkv (and bf16 mode's
-             wgrad_bf16_tc_kernel at fc1, timed beside torch.matmul),
+             2,880 x 16, linear_wgrad at fc1 and qkv, and bf16 mode's
+             wgmma kernel at fc1, qkv, fc2 and the encoder's in_proj,
+             timed beside torch.matmul),
              act_dropout_bwd at fc1 (GELU), the encoder's ReLU with its
              mff mask and its mask-only m2 site, layernorm_bwd, and
              linear's float32 dgrad of fc1 and qkv product beside
@@ -84,8 +89,10 @@ Phases (any failure exits non-zero and prints no result line):
              train_torch.py at cfgs/default_train.yaml on a Co3D-format tree
              of samples/apple (2 epochs of 3 steps of 512 images,
              batch_repeat 90, one batched eval, checkpoints): finite losses,
-             moved parameters, every kernel of the path launched; and the
-             train timings and peak memory;
+             moved parameters, every kernel of the path launched; the
+             train timings and peak memory; and one DINO step of the bf16
+             train mode (both compute_dtypes bfloat16): finite loss, moved
+             parameters, 80 linear_wgrad launches, its time and peak memory;
   5b. backbones  DINOv2 ViT-S/14 (LayerScale) and DINO ViT-B/16: linear
              with a gain and layerscale_bwd against their plain versions at
              DINOv2's 512 x 348 rows (dgamma bitwise across two runs),
@@ -272,6 +279,16 @@ BF16_PATH_SHAPES = tuple((m, k, n) for m in (20 * 264, 20 * 593)
 VIT_CHUNK = 64  # images in the ViT train-trunk parity cases
 VIT_IMAGES = 512  # a train step's images (max_images)
 ENC_ROWS = 2880  # the denoiser's rows: 32 sequences x batch_repeat 90
+# The bf16 train mode (both compute_dtypes bfloat16): every weight gradient
+# of a DINO step takes round_in, (12 ViT blocks + 8 encoder layers) x 4
+# products on csrc/wgrad.cu's kernel; its cases (name, M, K, N): the ViT's
+# fc1, qkv and fc2 at 512 images and the encoder's in_proj
+BF16_TRAIN = ("MODEL.IMAGE_FEATURE_EXTRACTOR.compute_dtype=bfloat16",
+              "MODEL.DENOISER.TRANSFORMER.compute_dtype=bfloat16")
+WGRAD_PER_STEP = 80
+WGRAD_SOURCE = "posediffusion_tpu_torch/csrc/wgrad.cu"
+WGRAD_BF16_CASES = (("fc1", VIT_IMAGES * 264, 384, 1536), ("qkv", VIT_IMAGES * 264, 384, 1152),
+                    ("fc2", VIT_IMAGES * 264, 1536, 384), ("enc in_proj", ENC_ROWS * 16, 512, 1536))
 TOL_TRAIN_F32 = 1e-3  # a train trunk, float32: sums in another order, 12 blocks x 2
 TOL_TRAIN_BF16 = 7e-2  # bf16 operands and residuals: the JAX bf16 train-kernel bound
 # The encoder's ReLU: a float32 ulp that moves a pre-activation across 0
@@ -880,6 +897,180 @@ def sg_split(C, Kk, D):
     return 0
 
 
+def device_times():
+    """--device-times (a child process of the main run, where torch.profiler
+    under-reads): device ms per call, by kernel, of bf16 mode's weight
+    gradient at WGRAD_BF16_CASES and of torch.matmul on the same rounded
+    operands, and of the sampler's prologue and epilogue at the no-GGS
+    path's inputs (seeded random weights, bf16 stacks); printed as the last
+    line, one JSON object."""
+    sys.path.insert(0, REPO)
+    import torch
+
+    from posediffusion_tpu_torch.data.images import load_and_preprocess_images
+    from posediffusion_tpu_torch.models.pose_diffusion import (
+        PoseDiffusionConfig,
+        PoseDiffusionModel,
+        init_random_weights,
+    )
+    from posediffusion_tpu_torch.ops import kernels as K
+    from posediffusion_tpu_torch.ops.sampler_kernel import prepare_sampler
+    from posediffusion_tpu_torch.utils.precision import pin_full_float32
+
+    pin_full_float32()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    out = {}
+    for name, M, Kk, N in WGRAD_BF16_CASES:
+        x = torch.randn((M, Kk), generator=gen, device=dev)
+        dy = torch.randn((M, N), generator=gen, device=dev)
+        xr, dyr = K.round_bf16(x), K.round_bf16(dy)
+        out[f"linear_wgrad bf16 {name}"] = _device_ms_by_name(
+            torch, lambda: K.linear_wgrad(x, dy, True),
+            ["wgrad_bf16_wgmma_kernel", "sum_partials_kernel"])
+        out[f"torch.matmul rounded f32 {name}"] = _kernel_device_ms(
+            torch, lambda: torch.matmul(xr.t(), dyr), None)
+        del x, dy, xr, dyr
+        torch.cuda.empty_cache()
+    model = PoseDiffusionModel(PoseDiffusionConfig())
+    init_random_weights(model, SEED)
+    model.to(dev)
+    images = torch.as_tensor(load_and_preprocess_images(
+        os.path.join(REPO, "samples", "apple"), IMAGE_SIZE)[0], device=dev)
+    n = images.shape[0]
+    with torch.no_grad():
+        z = model.extract_features(images[None])
+        x0 = torch.randn((1, n, 9), generator=gen, device=dev)
+        noises = torch.randn((model.config.timesteps, 1, n, 9), generator=gen, device=dev)
+        inp = prepare_sampler(model.diffuser.model, model.schedule, z,
+                              weight_dtype=torch.bfloat16, x0=x0, noises=noises)
+        hp = K.sampler_prologue(inp.x0, *inp.prologue, 0)
+        out.update(_device_ms_by_name(
+            torch, lambda: K.sampler_prologue(inp.x0, *inp.prologue, 0),
+            ["sampler_prologue_kernel"], calls=20))
+        out.update(_device_ms_by_name(
+            torch, lambda: K.sampler_epilogue(hp, *inp.head, inp.coef, inp.noise, inp.x0, 0,
+                                              inp.head_eps),
+            ["sampler_epilogue_kernel"], calls=20))
+    print(json.dumps(out))
+    return 0
+
+
+def run_device_times():
+    """``device_times`` in a child process; its JSON object."""
+    child = subprocess.run([sys.executable, os.path.abspath(__file__), "--device-times"],
+                           capture_output=True, text=True, timeout=600)
+    if child.returncode:
+        raise RuntimeError(f"--device-times exited {child.returncode}: {child.stderr[-2000:]}")
+    return json.loads(child.stdout.strip().splitlines()[-1])
+
+
+def wgrad_bf16_entries(report, torch, K, dev, by_shape, dev_ms):
+    """bf16 mode's weight gradient (csrc/wgrad.cu) at WGRAD_BF16_CASES: dW
+    and db against the plain version within TOL_F32 and repeated bitwise;
+    then one kernels-line entry each: CUDA-event ms, the device ms from
+    ``device_times`` (a child process), plain ms, torch.matmul on the same
+    rounded operands in float32 (the same function: library_ms; timed only)
+    and on bf16 copies (a bf16 result from half the bytes: a reference
+    point), the bound (x and dy read once, dW and db written once; 2 M K N
+    operations at the bf16 rate) and the launches at that shape in one bf16
+    DINO train step (``by_shape``)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    line = kernel_line(WGRAD_SOURCE, "wgrad_bf16_wgmma_kernel")
+    entries = []
+    for name, M, Kk, N in WGRAD_BF16_CASES:
+        x = torch.randn((M, Kk), generator=gen, device=dev)
+        dy = torch.randn((M, N), generator=gen, device=dev)
+        tag = f"linear_wgrad bf16 {name} ({M}x{Kk})^T ({M}x{N})"
+        dw, db = K.linear_wgrad(x, dy, True)
+        pw, pb = K.linear_wgrad_plain(x, dy, True)
+        err = max(_close_rel(report, f"{tag} dW", dw, pw, TOL_F32),
+                  _close_rel(report, f"{tag} db", db, pb, TOL_F32))
+        again = K.linear_wgrad(x, dy, True)
+        report.require(f"{tag}: dW and db repeat bitwise",
+                       torch.equal(dw, again[0]) and torch.equal(db, again[1]))
+        del dw, db, pw, pb, again
+        xr, dyr = K.round_bf16(x), K.round_bf16(dy)
+        xb, dyb = x.to(torch.bfloat16), dy.to(torch.bfloat16)
+        bound_ms, bound_by = wgrad_bound(x, dy, round_in=True)
+        split = dev_ms[f"linear_wgrad bf16 {name}"]
+        e = {
+            "name": f"linear_wgrad bf16 {name}", "route": "cuda",
+            "source": f"{WGRAD_SOURCE}:{line}", "replaces": TPU_KERNELS["linear_wgrad"],
+            "launches": by_shape.get((M, Kk, N), 0), "max_abs_err": err,
+            "ms": _time_ms(torch, lambda: K.linear_wgrad(x, dy, True), reps=5),
+            "plain_ms": _time_ms(torch, lambda: K.linear_wgrad_plain(x, dy, True), reps=5),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": _time_ms(torch, lambda: torch.matmul(xr.t(), dyr), reps=5),
+            "device_ms": split["wgrad_bf16_wgmma_kernel"],
+            "sum_partials_device_ms": split["sum_partials_kernel"],
+            "library_device_ms": dev_ms[f"torch.matmul rounded f32 {name}"],
+            "bf16_matmul_ms": _time_ms(torch, lambda: torch.matmul(xb.t(), dyb), reps=5),
+            "case": f"{tag} (launches: one bf16 DINO train step, this shape; library: "
+                    f"torch.matmul on the rounded operands in float32; device: child process)",
+        }
+        print(f"  {tag}: kernel {e['ms']:.4f} ms (device {e['device_ms']:.4f}, "
+              f"{100 * bound_ms / e['device_ms']:.1f}% of its bound; sum_partials "
+              f"{e['sum_partials_device_ms']:.4f}), plain {e['plain_ms']:.4f}, torch.matmul "
+              f"rounded f32 {e['library_ms']:.4f} (device {e['library_device_ms']:.4f}), bf16 "
+              f"copies {e['bf16_matmul_ms']:.4f}, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"{e['launches']} launches a bf16 step, max_abs_err {err:.3e}", flush=True)
+        entries.append(e)
+        del x, dy, xr, dyr, xb, dyb
+        torch.cuda.empty_cache()
+    return entries
+
+
+def bf16_train_step(report, torch, K, dev, work, batch, draws):
+    """The bf16 train mode's DINO step (BF16_TRAIN) on ``batch``: its loss
+    finite, the parameters moved, every train kernel launched and
+    linear_wgrad WGRAD_PER_STEP times; then its CUDA-event time and peak
+    memory. Returns (timings, launches, linear_wgrad launches by shape)."""
+    from posediffusion_tpu_torch.models.pose_diffusion import (
+        PoseDiffusionModel,
+        init_random_weights,
+    )
+    from posediffusion_tpu_torch.training.optim import make_optimizer
+    from posediffusion_tpu_torch.training.step import train_step
+    from posediffusion_tpu_torch.utils.config import model_config_from_cfg
+
+    cfg = _train_cfg(work, "train_bf16", *BF16_TRAIN)
+    t = cfg.train
+    model = PoseDiffusionModel(model_config_from_cfg(cfg.MODEL))
+    init_random_weights(model, SEED)
+    model.to(dev)
+    opt, _ = make_optimizer(model, lr=t.lr, T_0=t.restart_num, iters_per_epoch=t.len_train,
+                            clip_grad=t.clip_grad)
+    start = {k: p.detach().clone() for k, p in model.named_parameters()}
+    out = []
+    step = lambda: train_step(model, opt, batch, t.batch_repeat, draws=draws)  # noqa: E731
+    torch.cuda.synchronize()
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    launches = _step_launches(K, lambda: out.append(step()))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    by_shape = dict(K.linear_wgrad.by_shape)
+    change = max((p.detach() - start[k]).abs().max().item() for k, p in model.named_parameters())
+    report.require("bf16 train step: loss finite", bool(np.isfinite(out[0]["loss"])),
+                   f"(loss {out[0]['loss']})")
+    report.require("bf16 train step: parameters moved", change > 0, f"(largest {change:.3e})")
+    _check_launches(report, "bf16 train step", TRAIN_PATH, launches)
+    report.require(f"bf16 train step: {WGRAD_PER_STEP} linear_wgrad launches",
+                   launches["linear_wgrad"] == WGRAD_PER_STEP, f"({launches['linear_wgrad']})")
+    timings = {"DINO bf16 train step (512 images, batch_repeat 90)":
+               _time_ms(torch, step, reps=3, warmup=1),
+               "peak memory of a bf16 train step (GB)": peak_gb,
+               "memory resident before the bf16 train step (GB)": resident_gb}
+    print(f"  bf16 train step: loss {out[0]['loss']:.6f}, largest parameter change "
+          f"{change:.3e}, {timings['DINO bf16 train step (512 images, batch_repeat 90)']:.3f} "
+          f"ms, peak {peak_gb:.2f} GB ({resident_gb:.2f} resident before it), launches "
+          f"{launches}, linear_wgrad by shape {by_shape}",
+          flush=True)
+    del model, opt, start
+    torch.cuda.empty_cache()
+    return timings, launches, by_shape
+
+
 def superglue_kernel_entries(torch, K, m, f0, f1, bin_score, cpl, Z, launches, errs, tag):
     """One kernels-line entry per csrc/superglue.cu kernel on one matcher
     chunk: its device time per launch (torch.profiler in a child process,
@@ -1148,6 +1339,12 @@ def timed_calls(root):
     dy_fc = torch.randn((M, 4 * Dv), generator=gen, device=dev)
     t[f"linear_wgrad fc1 f32 ({M}x{Dv})^T ({M}x{4 * Dv})"] = _time_ms(
         torch, lambda: K.linear_wgrad(x_fc, dy_fc), reps=5)
+    # and in bf16 mode (the bf16 train mode's weight gradient), by events and
+    # by the device time of all the call's kernels
+    call = lambda: K.linear_wgrad(x_fc, dy_fc, True)  # noqa: E731
+    t[f"linear_wgrad fc1 bf16 ({M}x{Dv})^T ({M}x{4 * Dv})"] = _time_ms(torch, call, reps=5)
+    t[f"linear_wgrad fc1 bf16 ({M}x{Dv})^T ({M}x{4 * Dv}) (device)"] = _kernel_device_ms(
+        torch, call, None)
     del x_fc, dy_fc
     seg = torch.tensor([0] * 197 + [1] * 50 + [2] * 17, device=dev)
     vbias = torch.where(seg[:, None] == seg[None], 0.0, K.NEG).contiguous()
@@ -1236,6 +1433,19 @@ def timed_calls(root):
                             clip_grad=tr.clip_grad)
     t["DINO train step (512 images, batch_repeat 90)"] = _time_ms(
         torch, lambda: train_step(tm, opt, batch, tr.batch_repeat, draws=draws), reps=3, warmup=1)
+    del tm, opt
+    torch.cuda.empty_cache()
+    # the same in the bf16 train mode (both compute_dtypes bfloat16)
+    tm = PoseDiffusionModel(model_config_from_cfg(load_config(cfg_path, list(BF16_TRAIN)).MODEL))
+    init_random_weights(tm, SEED)
+    tm.to(dev)
+    opt, _ = make_optimizer(tm, lr=tr.lr, T_0=tr.restart_num, iters_per_epoch=tr.len_train,
+                            clip_grad=tr.clip_grad)
+    t["DINO bf16 train step (512 images, batch_repeat 90)"] = _time_ms(
+        torch, lambda: train_step(tm, opt, batch, tr.batch_repeat, draws=draws), reps=3, warmup=1)
+    torch.cuda.reset_peak_memory_stats()
+    train_step(tm, opt, batch, tr.batch_repeat, draws=draws)
+    t["DINO bf16 train step peak memory (GB)"] = torch.cuda.max_memory_allocated() / 1e9
     del tm, opt, batch
     torch.cuda.empty_cache()
     # the same with DINOv2 ViT-S/14 and DINO ViT-B/16
@@ -1642,11 +1852,13 @@ def _step_launches(K, step):
     return K.launch_counts()
 
 
-def train_slice(report, dev, work, smi, t_start):
+def train_slice(report, dev, work, smi, t_start, dev_ms):
     """The training slice: its kernels against their plain versions at the
     path's shapes (parity), train_torch.py at the reference train config
-    (the path), and its timings. Returns (kernel JSON entries, timings,
-    the path's launch counts)."""
+    (the path), and its timings, then one DINO step of the bf16 train mode
+    and its weight gradients (``dev_ms``: ``device_times``' result).
+    Returns (kernel JSON entries, timings, the path's launch counts, the
+    bf16 step's launch counts)."""
     import torch
     import torch.nn.functional as F
 
@@ -2062,33 +2274,17 @@ def train_slice(report, dev, work, smi, t_start):
         if "device_ms" in e:
             print(f"  {e['name']} by device time: {e['device_ms']}, library "
                   f"{e.get('library_device_ms')}")
-    # bf16 mode's weight gradient (wgrad_bf16_tc_kernel, off the f32 train
-    # path, timed only) at fc1's shape: beside torch.matmul on the
-    # bf16-rounded operands held in float32 (the same function) and on bf16
-    # copies (the bf16 tensor cores, a bf16 result); its bound counts 2 M K N
-    # operations at the bf16 rate
-    wg = "linear_wgrad fc1 bf16 (wgrad_bf16_tc_kernel)"
-    xr, dyr = K.round_bf16(x_fc), K.round_bf16(dy_fc)
-    xb, dyb = x_fc.to(torch.bfloat16), dy_fc.to(torch.bfloat16)
-    wg_bound, wg_by = wgrad_bound(x_fc, dy_fc, round_in=True)
-    timings[wg] = _time_ms(torch, lambda: K.linear_wgrad(x_fc, dy_fc, True), reps=5)
-    timings[f"{wg} device"] = _kernel_device_ms(
-        torch, lambda: K.linear_wgrad(x_fc, dy_fc, True), "wgrad_bf16_tc_kernel")
-    timings[f"{wg} plain"] = _time_ms(torch, lambda: K.linear_wgrad_plain(x_fc, dy_fc, True),
-                                      reps=5)
-    timings[f"{wg} torch.matmul rounded f32"] = _time_ms(
-        torch, lambda: torch.matmul(xr.t(), dyr), reps=5)
-    timings[f"{wg} torch.matmul bf16"] = _time_ms(torch, lambda: torch.matmul(xb.t(), dyb),
-                                                 reps=5)
-    timings[f"{wg} bound"] = wg_bound
-    print(f"  {wg} ({M}x{Dv})^T ({M}x{Df}): {timings[wg]:.4f} ms (device "
-          f"{timings[wg + ' device']:.4f}), plain {timings[wg + ' plain']:.4f} ms, "
-          f"torch.matmul on the rounded f32 operands {timings[wg + ' torch.matmul rounded f32']:.4f}"
-          f" ms, on bf16 copies {timings[wg + ' torch.matmul bf16']:.4f} ms, bound "
-          f"{wg_bound:.4f} ms ({wg_by}), max_abs_err {errs[('linear_wgrad', True)]:.3e}")
-    del xr, dyr, xb, dyb
     timings["peak memory of a train step (GB)"] = peak_gb
-    return kernels_json, timings, step_launches
+    # the bf16 train mode: one DINO step, then its weight gradients (csrc/wgrad.cu)
+    # at the step's shapes, their device times read in a child process
+    del x_fc, dy_fc, dy_q, a_fc, dh_e, a_e, dm_e
+    torch.cuda.empty_cache()
+    print(f"[train-timing] the bf16 train mode ({' '.join(BF16_TRAIN)})", flush=True)
+    bf_timings, bf_launches, bf_by_shape = bf16_train_step(report, torch, K, dev, work, batch,
+                                                           draws)
+    timings.update(bf_timings)
+    kernels_json += wgrad_bf16_entries(report, torch, K, dev, bf_by_shape, dev_ms)
+    return kernels_json, timings, step_launches, bf_launches
 
 def backbones_slice(report, dev, work, smi, t_start, dino_step_launches):
     """DINOv2 ViT-S/14 (TPU kernels 9 and 10 with LayerScale) and DINO
@@ -2629,6 +2825,18 @@ def main(argv) -> int:
     if "--parent" in argv:
         rounds = int(argv[argv.index("--rounds") + 1]) if "--rounds" in argv else 1
         parent_calls = parent_phase(report, argv[argv.index("--parent") + 1], smi, rounds)
+    if "--wgrad" in argv:  # bf16 mode's weight gradient and its train step alone
+        cfg = _train_cfg(work, "train")
+        batch, draws, _ = _train_batch(cfg, dev, PoseDiffusionConfig().timesteps)
+        bf_timings, bf_launches, bf_by_shape = bf16_train_step(report, torch, K, dev, work,
+                                                               batch, draws)
+        del batch, draws
+        entries = wgrad_bf16_entries(report, torch, K, dev, bf_by_shape, run_device_times())
+        print(json.dumps({"wgrad_bf16": entries, "timings_ms": bf_timings, "card": smi}))
+        if report.failures:
+            print("FAILED:\n  " + "\n  ".join(report.failures), file=sys.stderr)
+            return 1
+        return 0
     if "--attention" in argv:  # the attention cases alone
         attn = attention_slice(report, dev, smi)
         print(json.dumps({"attention_cases": attn, "card": smi}))
@@ -3037,7 +3245,11 @@ def main(argv) -> int:
     print(f"  [match] done at {time.perf_counter() - t_start:.0f} s", flush=True)
 
     # ---- 5. the training slice: parity of its kernels, train_torch.py, timings
-    train_json, train_timings, dino_step = train_slice(report, dev, work, smi, t_start)
+    # device times of bf16 mode's weight gradient and the sampler's prologue
+    # and epilogue, read in a child process (the profiler under-reads here)
+    child_ms = run_device_times()
+    train_json, train_timings, dino_step, dino_bf16_step = train_slice(report, dev, work, smi,
+                                                                       t_start, child_ms)
     # ---- 5b. DINOv2 (LayerScale) serving and training, and ViT-B
     bb_json, bb_timings, bb_rows, bb_steps = backbones_slice(report, dev, work, smi, t_start,
                                                              dino_step)
@@ -3307,6 +3519,11 @@ def main(argv) -> int:
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": library_ms, "case": name,
             })
+            if key.startswith("sampler_"):  # and its device time, from a child process
+                e = kernels_json[-1]
+                e["device_ms"] = child_ms[f"{key}_kernel"]
+                print(f"  {name}: device {e['device_ms']:.4f} ms a launch (child process), "
+                      f"{launches[key] // DEMO_INFERENCES} launches an inference")
             if key in ("layernorm", "linear"):  # and without the host's launch cost
                 kname = {"layernorm": "layernorm_kernel", "linear": "linear_bf16"}
                 e = kernels_json[-1]
@@ -3464,6 +3681,7 @@ def main(argv) -> int:
     rows = sorted(rows + bb_rows, key=lambda r: r[0])
     # rows 9 and 10 by train step: the kernels one step launches, per backbone
     train_steps = {"DINO": {k: v for k, v in dino_step.items() if v},
+                   "DINO bf16": {k: v for k, v in dino_bf16_step.items() if v},
                    **{b: {k: v for k, v in c.items() if v} for b, c in bb_steps.items()}}
     for b, c in train_steps.items():
         print(f"  launches of one {b} train step: {c}")
@@ -3524,6 +3742,8 @@ if __name__ == "__main__":
         sys.exit(ptxas_report())
     if "--timed-calls" in sys.argv:
         sys.exit(timed_calls(sys.argv[sys.argv.index("--timed-calls") + 1]))
+    if "--device-times" in sys.argv:
+        sys.exit(device_times())
     if "--sg-split" in sys.argv:
         i = sys.argv.index("--sg-split")
         sys.exit(sg_split(*map(int, sys.argv[i + 1:i + 4])))

@@ -55,17 +55,16 @@
 // writes an f32 partial (S, K, N), and a second pass (train.cu,
 // pd_sum_partials) sums the S partials in order. That is the TPU kernel's
 // per-batch-chunk partials (:937-940): deterministic, no atomics. In float32
-// mode its products are 3xTF32 tensor-core MMAs (wgrad_tf32_kernel, a 128 x
-// 128 tile fed by a cp.async ring), in bf16 mode WMMA bfloat16 tiles of 64
-// x 64 (wgrad_bf16_tc_kernel); db is the column sum of dY in the same pass.
-// The TF32 kernels use mma.sync, not wgmma: TF32 wgmma reads only K-major
-// operands from shared memory, and the forward's W (K, N) and both operands
-// of the weight gradient are not. bf16 wgmma takes an MN-major B, so the
-// bf16 route reads W (K, N) as it lies.
+// mode its products are 3xTF32 tensor-core MMAs (wgrad_tf32_kernel below, a
+// 128 x 128 tile fed by a cp.async ring), in bf16 mode bf16 wgmma
+// (wgrad_bf16_wgmma_kernel in wgrad.cu, a 128 x 128 tile fed by TMA, both
+// operands rounded into shared memory); db is the column sum of dY in the
+// same pass. The TF32 kernels use mma.sync, not wgmma: TF32 wgmma reads only
+// K-major operands from shared memory, and the forward's W (K, N) and both
+// operands of the weight gradient are not. bf16 wgmma takes MN-major
+// operands, so the bf16 routes read W (K, N), X and dY as they lie.
 #include <cooperative_groups.h>
-#include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_pipeline.h>
-#include <mma.h>
 
 #include <cstdint>
 #include <map>
@@ -73,6 +72,7 @@
 #include <tuple>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -502,73 +502,6 @@ struct Bw {
   static constexpr int SMEM = 1024 + STAGES * STAGE + EPI + 2 * STAGES * 8;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-// until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-// a TMA box at coordinates (c0 innermost, c1) into shared memory
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
-                                            uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// byte b of 128-byte row r of a tile under the 128-byte swizzle (TMA's
-// CU_TENSOR_MAP_SWIZZLE_128B): 16-byte chunk c of row r at chunk c ^ (r % 8)
-__device__ __forceinline__ int bw_swz(int r, int b) {
-  return r * 128 + ((((b >> 4) ^ r) & 7) << 4) + (b & 15);
-}
-
-// a wgmma shared-memory matrix descriptor with the 128-byte swizzle (PTX
-// ISA: address, LBO and SBO in 16-byte units, layout type 1 at bit 62)
-__device__ __forceinline__ uint64_t bw_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-// keeps the compiler from moving accumulator accesses across a wgmma wait
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 #define BW_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 #define BW_D16(i) BW_D4(i), BW_D4(i + 4), BW_D4(i + 8), BW_D4(i + 12)
@@ -785,24 +718,6 @@ linear_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
   }
 }
 
-__host__ __forceinline__ bool aligned(const void* p, size_t bytes) {
-  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
-}
-
-// the current device's SM count, read once a device
-cudaError_t sm_count(int* sms) {
-  static int cached[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= 64) return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (cached[dev] == 0) {
-    err = cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-  }
-  *sms = cached[dev];
-  return cudaSuccess;
-}
 
 template <typename WT, bool TRANS, bool ROUND_A>
 int launch_tf32(const float* a, const WT* w, const Epilogue& ep, int M, int N, int K,
@@ -835,43 +750,6 @@ int launch_tf32_t(const float* a, const WT* w, int trans, const Epilogue& ep, in
                : launch_tf32<WT, false, ROUND_A>(a, w, ep, M, N, K, s);
 }
 
-// cuTensorMapEncodeTiled of the CUDA driver API, found through the runtime
-// (no -lcuda at link time)
-using TmapEncode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-TmapEncode tmap_encoder() {
-  static const TmapEncode fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q{};
-#if CUDART_VERSION >= 12050
-    const cudaError_t e =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return e == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<TmapEncode>(p)
-                                                                 : nullptr;
-  }();
-  return fn;
-}
-
-// a row-major (rows, cols) tensor of esize-byte elements in boxes of
-// box_rows x box_cols, 128-byte swizzle, zeros out of bounds
-bool tmap_2d(CUtensorMap* map, const void* base, CUtensorMapDataType type, int esize,
-             uint64_t rows, uint64_t cols, uint32_t box_rows, uint32_t box_cols) {
-  const TmapEncode enc = tmap_encoder();
-  if (!enc) return false;
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * esize};
-  const cuuint32_t box[2] = {box_cols, box_rows};
-  const cuuint32_t unit[2] = {1, 1};
-  return enc(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 // W's map, encoded once per (address, shape, box) and kept: the map holds
 // these and not the data, so a kept one is exact for any weight at that
@@ -1239,21 +1117,7 @@ int launch_rows_bn(const float* a, const WT* w, const Epilogue& ep,
 // ---- weight gradient: partial[s] = X[rows of s]^T dY[rows of s]
 //
 // Block (n tile, k tile, split s). X is (M, K), dY (M, N); the partial
-// (S, K, N) and, from the blocks of k tile 0, the bias partial (S, N). The
-// bias sum rides the staging of dY: a thread stages the same column of
-// every tile (the block size is a multiple of the tile width), so it keeps
-// that column's running sum of the unrounded values in a register; the
-// THREADS / BN sums of a column are then added in a fixed order.
-template <int BN, int THREADS>
-__device__ void bias_partial(float bacc, float* red, float* pb, int n0, int N) {
-  red[threadIdx.x] = bacc;
-  __syncthreads();
-  if (threadIdx.x < BN && n0 + (int)threadIdx.x < N) {
-    float s = 0.f;
-    for (int j = threadIdx.x; j < THREADS; j += BN) s += red[j];
-    pb[n0 + threadIdx.x] = s;
-  }
-}
+// (S, K, N) and, from the blocks of k tile 0, the bias partial (S, N).
 
 // ---- float32 mode: 3xTF32 on the tensor cores (mma.sync m16n8k8)
 //
@@ -1446,88 +1310,12 @@ wgrad_tf32_kernel(const float* __restrict__ X, const float* __restrict__ dY,
   }
 }
 
-// ---- bf16 mode: WMMA bfloat16 tiles (16x16x16), 64 x 64 of dW a block
-constexpr int TC_BM = 64, TC_BN = 64, TC_BK = 32, TC_THREADS = 128;
-constexpr int TC_LDC = TC_BN + 4;  // float elements
-
-__global__ void __launch_bounds__(TC_THREADS)
-wgrad_bf16_tc_kernel(const float* __restrict__ X, const float* __restrict__ dY,
-                     float* __restrict__ pw, float* __restrict__ pb, int M,
-                     int K, int N, int rows) {
-  using namespace nvcuda;
-  constexpr int LDX = TC_BM + 8, LDD = TC_BN + 8;  // bf16 elements
-  __shared__ __align__(32) __nv_bfloat16 Xs[TC_BK * LDX];  // [m][k]
-  __shared__ __align__(32) __nv_bfloat16 Ds[TC_BK * LDD];  // [m][n]
-  __shared__ __align__(32) float Cs[TC_BM * TC_LDC];
-
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int n0 = blockIdx.x * TC_BN, k0 = blockIdx.y * TC_BM, s = blockIdx.z;
-  const int r0 = s * rows, r1 = min(M, r0 + rows);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(c[i][j], 0.f);
-
-  float bacc = 0.f;  // column tid % TC_BN of dY, unrounded, this thread's rows
-  for (int m0 = r0; m0 < r1; m0 += TC_BK) {
-    for (int i = tid; i < TC_BK * TC_BM; i += TC_THREADS) {
-      const int mm = i / TC_BM, cc = i % TC_BM;
-      const int gm = m0 + mm, gk = k0 + cc;
-      Xs[mm * LDX + cc] = __float2bfloat16_rn(
-          (gm < r1 && gk < K) ? X[(size_t)gm * K + gk] : 0.f);
-    }
-    for (int i = tid; i < TC_BK * TC_BN; i += TC_THREADS) {
-      const int mm = i / TC_BN, cc = i % TC_BN;
-      const int gm = m0 + mm, gn = n0 + cc;
-      const float v = (gm < r1 && gn < N) ? dY[(size_t)gm * N + gn] : 0.f;
-      bacc += v;
-      Ds[mm * LDD + cc] = __float2bfloat16_rn(v);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < TC_BK; kk += 16) {
-      // A = X^T: element (k, m) at Xs[m * LDX + k], a column-major tile
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::col_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], Xs + kk * LDX + wm * 32 + i * 16, LDX);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], Ds + kk * LDD + wn * 32 + j * 16, LDD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(c[i][j], a[i], b[j], c[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * TC_LDC + wn * 32 + j * 16,
-                              c[i][j], TC_LDC, wmma::mem_row_major);
-  __syncthreads();
-  float* out = pw + (size_t)s * K * N;
-  for (int i = tid; i < TC_BM * TC_BN; i += TC_THREADS) {
-    const int r = i / TC_BN, cc = i % TC_BN;
-    const int k = k0 + r, n = n0 + cc;
-    if (k < K && n < N) out[(size_t)k * N + n] = Cs[r * TC_LDC + cc];
-  }
-  if (pb && blockIdx.y == 0) {
-    __syncthreads();
-    bias_partial<TC_BN, TC_THREADS>(bacc, Cs, pb + (size_t)s * N, n0, N);
-  }
-}
-
 }  // namespace
+
+// bf16 mode's weight gradient (wgrad.cu)
+int wgrad_bf16_tile();
+int launch_wgrad_bf16(const float* x, const float* dy, float* pw, float* pb, int M, int K,
+                      int N, int rows, cudaStream_t s);
 
 PD_API int pd_linear(const void* a, const void* w, int w_bf16, int trans_w,
                      const void* bias, const void* gain, const void* res,
@@ -1581,33 +1369,30 @@ PD_API int pd_linear_rows(const void* a, const void* w, int w_bf16,
 // holds the same).
 PD_API int pd_linear_bf16_smem_bytes() { return Bw::SMEM; }
 
-// The dW tile of a block in each mode (ops/kernels.py WGRAD_TILE holds the
-// same): 128 x 128 in float32 mode, 64 x 64 in bf16 mode.
-PD_API int pd_linear_wgrad_tile(int round_in) { return round_in ? TC_BM : WG_BK; }
+// The dW tile of a block (ops/kernels.py WGRAD_TILE holds the same): 128 x
+// 128 in both modes.
+PD_API int pd_linear_wgrad_tile(int round_in) { return round_in ? wgrad_bf16_tile() : WG_BK; }
 
 // X (M, K), dY (M, N) -> partials pw (S, K, N) and pb (S, N) (pb may be
 // null), S = ceil(M / rows). round_in: both operands rounded to bf16 (the
-// bf16 mode, WMMA); else float32 as 3xTF32 MMAs.
+// bf16 mode, wgmma in wgrad.cu); else float32 as 3xTF32 MMAs.
 PD_API int pd_linear_wgrad(const void* x, const void* dy, void* pw, void* pb,
                            int M, int K, int N, int rows, int round_in,
                            void* stream) {
   if (rows < 1 || M < 1 || K < 1 || N < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (round_in)
+    return launch_wgrad_bf16((const float*)x, (const float*)dy, (float*)pw, (float*)pb, M, K,
+                             N, rows, s);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      wgrad_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
+  if (attr != cudaSuccess) return (int)attr;
   const int S = (M + rows - 1) / rows;
-  if (round_in) {
-    dim3 grid((N + TC_BN - 1) / TC_BN, (K + TC_BM - 1) / TC_BM, S);
-    wgrad_bf16_tc_kernel<<<grid, TC_THREADS, 0, s>>>(
-        (const float*)x, (const float*)dy, (float*)pw, (float*)pb, M, K, N, rows);
-  } else {
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        wgrad_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
-    if (attr != cudaSuccess) return (int)attr;
-    const int vec_x = K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-    const int vec_d = N % 4 == 0 && reinterpret_cast<uintptr_t>(dy) % 16 == 0;
-    dim3 grid((N + WG_BN - 1) / WG_BN, (K + WG_BK - 1) / WG_BK, S);
-    wgrad_tf32_kernel<<<grid, WG_THREADS, WG_SMEM, s>>>(
-        (const float*)x, (const float*)dy, (float*)pw, (float*)pb, M, K, N, rows,
-        vec_x, vec_d);
-  }
+  const int vec_x = K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int vec_d = N % 4 == 0 && reinterpret_cast<uintptr_t>(dy) % 16 == 0;
+  dim3 grid((N + WG_BN - 1) / WG_BN, (K + WG_BK - 1) / WG_BK, S);
+  wgrad_tf32_kernel<<<grid, WG_THREADS, WG_SMEM, s>>>(
+      (const float*)x, (const float*)dy, (float*)pw, (float*)pb, M, K, N, rows,
+      vec_x, vec_d);
   return (int)cudaGetLastError();
 }

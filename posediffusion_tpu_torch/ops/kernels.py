@@ -1194,15 +1194,15 @@ def linear_wgrad_plain(x, dy, round_in: bool = False):
     return xr.t() @ dyr, dy.sum(0)
 
 
-# Row split of the weight gradient (csrc/linear.cu, pd_linear_wgrad): one
-# block per (split, dW tile), each split at least _WGRAD_MIN_ROWS rows.
-# float32 mode: a 128 x 128 tile, one block an SM (its accumulators take
-# most of the registers), so a call takes about waves x (rows of a split +
-# a block's fixed cost, _WGRAD_BLOCK_ROWS rows' worth): the split is the
-# cheapest by that count among those with at least one block per SM (fc1
-# at 135,168 rows: 11 splits, 396 blocks, three whole waves). bf16 mode:
-# the 64 x 64 WMMA tile, several blocks an SM: about four blocks per SM.
-WGRAD_TILE = {False: 128, True: 64}
+# Row split of the weight gradient (csrc/linear.cu pd_linear_wgrad; bf16
+# mode csrc/wgrad.cu): one block per (split, dW tile), each split at least
+# _WGRAD_MIN_ROWS rows. Both modes take a 128 x 128 tile, one block an SM
+# (float32 mode's accumulators take most of the registers, bf16 mode's ring
+# most of the shared memory), so a call takes about waves x (rows of a split
+# + a block's fixed cost, _WGRAD_BLOCK_ROWS rows' worth): the split is the
+# cheapest by that count among those with at least one block per SM (fc1 at
+# 135,168 rows: 11 splits, 396 blocks, three whole waves).
+WGRAD_TILE = {False: 128, True: 128}
 _WGRAD_MIN_ROWS = 1024
 _WGRAD_BLOCK_ROWS = 512
 
@@ -1212,12 +1212,9 @@ def wgrad_rows(M: int, K: int, N: int, round_in: bool = False) -> int:
     tile = WGRAD_TILE[bool(round_in)]
     tiles = -(-K // tile) * -(-N // tile)
     s_max = -(-M // _WGRAD_MIN_ROWS)
-    if round_in:
-        splits = min(s_max, -(-4 * _SMS // tiles))
-    else:
-        lo = min(s_max, -(-_SMS // tiles))
-        splits = min(range(lo, s_max + 1), key=lambda S: (
-            -(-tiles * S // _SMS) * (-(-M // S) + _WGRAD_BLOCK_ROWS), S))
+    lo = min(s_max, -(-_SMS // tiles))
+    splits = min(range(lo, s_max + 1), key=lambda S: (
+        -(-tiles * S // _SMS) * (-(-M // S) + _WGRAD_BLOCK_ROWS), S))
     return -(-M // splits)
 
 
@@ -1225,7 +1222,8 @@ def linear_wgrad(x, dy, round_in: bool = False):
     """Weight and bias gradients of ``y = x @ W + b``: (x^T dy (K, N),
     colsum(dy) (N,)), float32. On the card the product runs on the tensor
     cores: 3xTF32 MMAs (about 2^-21 relative a product) in float32 mode;
-    with ``round_in`` both operands rounded to bf16 (the bf16 mode). The bias
+    with ``round_in`` both operands rounded to bf16 (the bf16 mode) on bf16
+    ``wgmma``, every product exact and each 64 rows summed apart. The bias
     gradient sums the unrounded dy, as the TPU kernel does."""
     if not _on_card(x, dy):
         return linear_wgrad_plain(x, dy, round_in)

@@ -1036,10 +1036,9 @@ def test_linear_wgrad(cuda, M, K_, N, round_in):
     x, dy = _t(r.normal(size=(M, K_)), cuda), _t(r.normal(size=(M, N)), cuda)
     dw, db = K.linear_wgrad(x, dy, round_in)
     rw, rb = K.linear_wgrad_plain(x, dy, round_in)
-    # bf16 mode: the tensor cores' float32 accumulation does not round each
-    # partial sum to nearest: over tens of thousands of rows it drifts ~1e-5
-    # relative. float32 mode sums each 32-row slice apart and adds the
-    # slices rounded to nearest.
+    # the tensor cores' float32 accumulation does not round each partial sum
+    # to nearest: bf16 mode sums each 64 rows apart, float32 mode each 32,
+    # and adds them into the running sum rounded to nearest.
     _close(dw, rw, TOL_WGRAD_TC if round_in else TOL_F32)
     _close(db, rb, TOL_F32)
     assert torch.equal(dw, K.linear_wgrad(x, dy, round_in)[0])
@@ -1058,6 +1057,48 @@ def test_linear_wgrad_misaligned_operands(cuda, round_in):
     rw, rb = K.linear_wgrad_plain(x, dy, round_in)
     _close(dw, rw, TOL_WGRAD_TC if round_in else TOL_F32)
     _close(db, rb, TOL_F32)
+
+
+# the bf16 train path's widths (ViT-S qkv and fc2, the encoder's in_proj and
+# linear2, ViT-B's fc1) at 20,000 rows
+@pytest.mark.parametrize("K_,N", [(384, 1152), (1536, 384), (512, 1536), (1024, 512),
+                                  (768, 3072)])
+def test_linear_wgrad_bf16_path_widths(cuda, K_, N):
+    M = 20000
+    r = _gen(K_ + N)
+    x, dy = _t(r.normal(size=(M, K_)), cuda), _t(r.normal(size=(M, N)), cuda)
+    dw, db = K.linear_wgrad(x, dy, True)
+    rw, rb = K.linear_wgrad_plain(x, dy, True)
+    _close(dw, rw, TOL_F32)
+    _close(db, rb, TOL_F32)
+    again = K.linear_wgrad(x, dy, True)
+    assert torch.equal(dw, again[0]) and torch.equal(db, again[1])
+
+
+# rows under, at and over a 32-row slice and a 64-row group; ragged K x N
+# (element loads) and aligned (TMA)
+@pytest.mark.parametrize("M", [1, 63, 65])
+@pytest.mark.parametrize("K_,N", [(130, 70), (384, 256)])
+def test_linear_wgrad_bf16_few_rows(cuda, M, K_, N):
+    r = _gen(M + K_)
+    x, dy = _t(r.normal(size=(M, K_)), cuda), _t(r.normal(size=(M, N)), cuda)
+    before = K.linear_wgrad.launches
+    dw, db = K.linear_wgrad(x, dy, True)
+    assert K.linear_wgrad.launches == before + 1
+    rw, rb = K.linear_wgrad_plain(x, dy, True)
+    _close(dw, rw, TOL_F32)
+    _close(db, rb, TOL_F32)
+    assert torch.equal(dw, K.linear_wgrad(x, dy, True)[0])
+
+
+def test_linear_wgrad_bf16_zero_cotangent(cuda):
+    """An all-zero dY gives exact zeros (no stale slot or buffer leaks in)."""
+    r = _gen(5)
+    x = _t(r.normal(size=(9001, 384)), cuda)
+    # leaves nonzero partials in the allocator's cache for the next call's torch.empty
+    K.linear_wgrad(x, _t(r.normal(size=(9001, 1536)), cuda), True)
+    dw, db = K.linear_wgrad(x, torch.zeros(9001, 1536, device=cuda), True)
+    assert not dw.any() and not db.any()
 
 
 def test_linear_wgrad_split_and_refusals(cuda):

@@ -227,15 +227,15 @@ def test_wgrad_split_fills_the_card(M, K_, N):
                                     (3001, 384, 256)])
 @pytest.mark.parametrize("round_in", [False, True])
 def test_wgrad_split_small_and_bf16(M, K_, N, round_in):
-    """Few rows: as many splits as 1,024-row ranges allow; bf16 mode's 64 x
-    64 tile asks about four blocks an SM. Every row in exactly one split."""
+    """Few rows: as many splits as 1,024-row ranges allow; bf16 mode's wgmma
+    tile is float32 mode's 128 x 128, one block an SM, so both modes split
+    alike. Every row in exactly one split."""
     rows = K.wgrad_rows(M, K_, N, round_in)
     splits = -(-M // rows)
     assert splits * rows >= M and (splits - 1) * rows < M
     assert splits <= max(1, -(-M // 1024))
-    if round_in:
-        tiles = -(-K_ // 64) * -(-N // 64)
-        assert splits == max(1, min(-(-M // 1024), -(-4 * 132 // tiles)))
+    assert K.WGRAD_TILE[round_in] == 128
+    assert rows == K.wgrad_rows(M, K_, N, not round_in)
 
 
 # ---- attention_bwd's shared memory (csrc/attention_bwd.cu, smem_bytes)

@@ -314,13 +314,12 @@ class TestPlainKernelBackwards:
         assert torch.equal(K.act_dropout_bwd(dhmid, a1, act, d_mff), da1)
 
     def test_wgrad_row_split(self):
-        """The split fills the card and covers every row: float32 mode's
-        128 x 128 tiles (36 at fc1) one block an SM, bf16 mode's 64 x 64
-        tiles (144) about four."""
+        """The split fills the card and covers every row: both modes' 128 x
+        128 tiles (36 at fc1), one block an SM, three whole waves."""
         rows = K.wgrad_rows(135_168, 384, 1536)
         assert 1024 <= rows and -(-135_168 // rows) * 36 >= 132
         rows = K.wgrad_rows(135_168, 384, 1536, round_in=True)
-        assert 1024 <= rows and -(-135_168 // rows) * 144 >= 4 * 132
+        assert 1024 <= rows and -(-135_168 // rows) * 36 == 3 * 132
         assert K.wgrad_rows(10, 64, 64) == 10
 
     def test_layerscale_row_split(self):
