@@ -42,6 +42,8 @@ Phases (any failure exits non-zero and prints no result line):
   2. parity  each kernel against its plain PyTorch version at the paths'
              shapes: ViT-S/16 over 20 frames x 264 packed tokens (224px) and
              x 593 (336px); the sampler's 20 frames, 8 layers, 100 steps, its
+             three fold-in entries (prologue, epilogue, step boundary) at 20
+             and 3 rows, steps 0 and R - 2, four launches bitwise equal, its
              four 20-row products on the few-rows route of linear (with and
              without the folded LayerNorm, and bitwise against themselves);
              the denoiser trunk of the GGS steps; the GGS phases at 100 and 1,024
@@ -54,9 +56,10 @@ Phases (any failure exits non-zero and prints no result line):
              cross, coupling, Sinkhorn, matches, the whole matcher);
   3. main    demo_torch's flow on samples/apple (20 frames, 224px, seeded
              random weights, GGS off): finite cameras and ARE, and every
-             kernel of that path launched during it; a sampler step is 42
-             launches and neither the sampler nor the GGS tail launches
-             layernorm;
+             kernel of that path launched during it; a sampler step is 41
+             launches (1 + 5 L: the layers and one boundary launch), an
+             inference 1 prologue, 99 boundaries and 1 epilogue, and
+             neither the sampler nor the GGS tail launches layernorm;
   4. ggs     demo_torch's flow with GGS on, from synthetic matches projected
              through samples/apple's ground-truth cameras: 20 frames at 100
              and at 1,024 matches per pair, and the first 6 frames at 100;
@@ -114,7 +117,8 @@ Phases (any failure exits non-zero and prints no result line):
              qkv beside torch.addmm on the same bf16 operands, and at the
              serving ViTs' twelve product shapes by CUDA graph; the
              LayerNorm forward at the train shapes beside F.layer_norm, by
-             CUDA graph); a sampler step's device time and the ViT trunk's
+             CUDA graph); a sampler step's device time (also from a child
+             process, with its fold-ins' share) and the ViT trunk's
              CUDA-graph time against their wall times; every
              attention forward the port runs (SuperGlue self and cross, the
              ViT at 264 and 593 tokens, the denoiser, DINOv2, the train
@@ -205,6 +209,8 @@ TPU_KERNELS = {
     "superglue_matches": f"{SUPERGLUE_SITE}, final step :262-275 (mutual-max matches)",
     "sampler_prologue": "posediffusion_tpu/ops/sampler_kernel.py:61 (_sampler_kernel, l == 0)",
     "sampler_epilogue": "posediffusion_tpu/ops/sampler_kernel.py:61 (_sampler_kernel, l == L-1)",
+    "sampler_boundary": ("posediffusion_tpu/ops/sampler_kernel.py:61 (_sampler_kernel: step t's "
+                         "l == L-1 :115-128, then step t+1's l == 0 :91-101)"),
     "ggs_phase": "posediffusion_tpu/ops/ggs_kernel.py:97 (ggs_phase_fused)",
     "ggs_phase_chunked": "posediffusion_tpu/ops/ggs_kernel.py:223 (ggs_phase_fused_chunked)",
     "attention_bwd": f"{TRAIN_SITE}:866 (_bwd_call -> :905), _attn_residual_bwd :356, "
@@ -225,6 +231,7 @@ SOURCES = {
     "attention": "posediffusion_tpu_torch/csrc/attention.cu",
     "sampler_prologue": "posediffusion_tpu_torch/csrc/sampler.cu",
     "sampler_epilogue": "posediffusion_tpu_torch/csrc/sampler.cu",
+    "sampler_boundary": "posediffusion_tpu_torch/csrc/sampler.cu",
     "ggs_phase": "posediffusion_tpu_torch/csrc/ggs.cu",
     "ggs_phase_chunked": "posediffusion_tpu_torch/csrc/ggs.cu",
     "superglue_coupling": "posediffusion_tpu_torch/csrc/superglue.cu",
@@ -239,7 +246,9 @@ SOURCES = {
 # The kernels around the sampler's products; the sampler's products take the
 # few-rows route (linear_rows) up to 32 rows: the serving paths' 20 frames,
 # not the in-training eval's batched sequences.
-TRUNK_KERNELS = ("layernorm", "linear", "attention", "sampler_prologue", "sampler_epilogue")
+TRUNK_KERNELS = ("layernorm", "linear", "attention", "sampler_prologue", "sampler_epilogue",
+                 "sampler_boundary")
+SAMPLER_ENTRIES = ("sampler_prologue", "sampler_epilogue", "sampler_boundary")
 NO_GGS_PATH = TRUNK_KERNELS + ("linear_rows",)
 GGS_PATH = NO_GGS_PATH + ("ggs_phase", "ggs_phase_chunked")
 SUPERGLUE_KERNELS = ("superglue_coupling", "superglue_sinkhorn", "superglue_matches")
@@ -262,7 +271,7 @@ VITB = "MODEL.IMAGE_FEATURE_EXTRACTOR.modelname=dino_vitb16"
 DINOV2_TRAIN_PATH = TRAIN_PATH + ("layerscale_bwd",)
 # DINOv2 serves through its module blocks (attention on the kernel), so its
 # serving path's LayerNorms and products are the sampler's, all folded
-DINOV2_SERVE_PATH = ("linear_rows", "attention", "sampler_prologue", "sampler_epilogue")
+DINOV2_SERVE_PATH = ("linear_rows", "attention") + SAMPLER_ENTRIES
 LS_PER_STEP = 24  # layerscale_bwd: 2 sites x 12 blocks (the encoder has no gains)
 # The LayerNorm forward at the train trunks' shapes (TPU kernel 9's forward):
 # (rows, D, what); the serving ViT's 5,280 x 384 bf16 case is the layernorm
@@ -901,9 +910,9 @@ def device_times():
     """--device-times (a child process of the main run, where torch.profiler
     under-reads): device ms per call, by kernel, of bf16 mode's weight
     gradient at WGRAD_BF16_CASES and of torch.matmul on the same rounded
-    operands, and of the sampler's prologue and epilogue at the no-GGS
-    path's inputs (seeded random weights, bf16 stacks); printed as the last
-    line, one JSON object."""
+    operands, and of csrc/sampler.cu's three entries (prologue, epilogue,
+    step boundary) at the no-GGS path's inputs (seeded random weights, bf16
+    stacks); printed as the last line, one JSON object."""
     sys.path.insert(0, REPO)
     import torch
 
@@ -944,14 +953,18 @@ def device_times():
         noises = torch.randn((model.config.timesteps, 1, n, 9), generator=gen, device=dev)
         inp = prepare_sampler(model.diffuser.model, model.schedule, z,
                               weight_dtype=torch.bfloat16, x0=x0, noises=noises)
-        hp = K.sampler_prologue(inp.x0, *inp.prologue, 0)
-        out.update(_device_ms_by_name(
-            torch, lambda: K.sampler_prologue(inp.x0, *inp.prologue, 0),
-            ["sampler_prologue_kernel"], calls=20))
-        out.update(_device_ms_by_name(
-            torch, lambda: K.sampler_epilogue(hp, *inp.head, inp.coef, inp.noise, inp.x0, 0,
-                                              inp.head_eps),
-            ["sampler_epilogue_kernel"], calls=20))
+        for key, call in sampler_entry_calls(K, inp).items():
+            out[key] = _kernel_device_ms(torch, call, "sampler_step_kernel", calls=20)
+        # a whole sampler's device time a step, and its fold-ins' share
+        from posediffusion_tpu_torch.ops.sampler_kernel import fused_sample_loop
+
+        T = model.config.timesteps
+        run = lambda: fused_sample_loop(model.diffuser.model, model.schedule, z,  # noqa: E731
+                                        x0=x0, noises=noises)
+        out["sampler step device (child process)"] = _kernel_device_ms(
+            torch, run, None, calls=3) / T
+        out["sampler_step_kernel a step inside the sampler (child process)"] = _kernel_device_ms(
+            torch, run, "sampler_step_kernel", calls=3) / T
     print(json.dumps(out))
     return 0
 
@@ -1169,6 +1182,89 @@ def superglue_kernel_entries(torch, K, m, f0, f1, bin_score, cpl, Z, launches, e
     return entries
 
 
+def sampler_entry_args(K, inp, step=0, rows=None):
+    """The arguments of csrc/sampler.cu's three entries at ``step`` on the
+    sampler's inputs ``inp`` (prepare_sampler; its first ``rows`` rows when
+    given), h the plain prologue's output, each with its own copy of the
+    state x: {wrapper name: args}."""
+    n = inp.x0.shape[0] if rows is None else rows
+    x = inp.x0[:n].contiguous()
+    wsin, wcos, wx, zf, tc = inp.prologue
+    prologue = (wsin, wcos, wx, zf[:n].contiguous(), tc)
+    head = (K.sampler_prologue_plain(x, *prologue, step), *inp.head, inp.coef,
+            inp.noise[:, :n].contiguous())
+    return {
+        "sampler_prologue": (x.clone(), *prologue, step),
+        "sampler_epilogue": (*head, x.clone(), step, inp.head_eps),
+        "sampler_boundary": (*head, x.clone(), step, *prologue, inp.head_eps),
+    }
+
+
+def sampler_bound(key, args):
+    """(least ms, what bounds it) of one sampler entry on ``args``
+    (sampler_entry_args): each weight and input read once (tc's and the
+    noise's rows of the step), h and x written once, x read once also in a
+    boundary launch (its prologue takes the new x on chip); the products'
+    FMAs at the float32 rate."""
+    head = None if key == "sampler_prologue" else args[:9]
+    x = args[0] if head is None else args[9]
+    prologue = args[1:6] if head is None else args[11:16] if key == "sampler_boundary" else None
+    rows, TD = x.shape
+    moved, flops = nbytes(x) * (1 if head is None else 2), 0
+    if head is not None:
+        h, w0, b0, gh, bh, w1, b1 = head[:7]
+        moved += nbytes(h, w0, b0, gh, bh, w1, b1) + rows * TD * 4
+        flops += 2 * rows * (h.shape[1] * w0.shape[1] + w0.shape[1] * TD)
+    if prologue is not None:
+        wsin, wcos, wx, zf, tc = prologue
+        D = wsin.shape[1]
+        moved += nbytes(wsin, wcos, wx, zf) + D * 4 + rows * D * 4
+        flops += 2 * rows * (2 * wsin.shape[0] + TD) * D
+    return bound(moved, flops)
+
+
+def sampler_entry_calls(K, inp):
+    """{wrapper name: a call} of the three entries at step 0 (each call
+    updates its own copy of x in place)."""
+    return {key: (lambda f=getattr(K, key), a=args: f(*a))
+            for key, args in sampler_entry_args(K, inp).items()}
+
+
+def sampler_parity(report, torch, K, inp, mode, rows):
+    """The three entries of csrc/sampler.cu against their plain versions at
+    ``rows`` rows, steps 0 and R - 2: the output and the state x within
+    TOL_F32, four launches bitwise equal. The boundary's next h is held to
+    the plain prologue on the state the kernel wrote (the harmonic embedding
+    multiplies a last-ulp difference of the state by up to 2^9). {wrapper
+    name: (case name, args at step 0, max error)}."""
+    out = {}
+    for step in (0, inp.coef.shape[0] - 2):
+        for key, args in sampler_entry_args(K, inp, step, rows).items():
+            xi = 0 if key == "sampler_prologue" else 9  # where x sits in the arguments
+            name = f"{key} {mode} ({rows} rows, step {step})"
+
+            def run(fn):
+                a = list(args)
+                a[xi] = a[xi].clone()
+                return fn(*a), a[xi]
+
+            runs = [run(getattr(K, key)) for _ in range(4)]
+            ref, x_ref = run(getattr(K, f"{key}_plain"))
+            if key == "sampler_boundary":
+                ref = K.sampler_prologue_plain(runs[0][1], *args[11:16], step + 1)
+            torch.cuda.synchronize()
+            err = max((runs[0][0] - ref).abs().max().item(),
+                      (runs[0][1] - x_ref).abs().max().item())
+            report.check(name, err, TOL_F32, max(1.0, ref.abs().max().item(),
+                                                 x_ref.abs().max().item()))
+            report.require(f"{name}: four launches bitwise equal",
+                           all(torch.equal(o, runs[0][0]) and torch.equal(x, runs[0][1])
+                               for o, x in runs[1:]))
+            if step == 0:
+                out[key] = (name, args, err)
+    return out
+
+
 def rows_products(lw, x, attn, hff):
     """The four products of one denoiser layer (weights ``lw`` in
     encoder_layer_math's order) as the sampler runs them at 20 rows: (name,
@@ -1287,6 +1383,14 @@ def timed_calls(root):
         z = model.extract_features(imgs)
         t["sampler (fused_sample_loop, 100 steps)"] = _time_ms(
             torch, lambda: fused_sample_loop(den, model.schedule, z, x0=x0, noises=noises))
+        # a step's device time, and of it the fold-ins' (the parent's
+        # prologue and epilogue kernels, this tree's one cluster kernel)
+        T = model.config.timesteps
+        run = lambda: fused_sample_loop(den, model.schedule, z, x0=x0,  # noqa: E731
+                                        noises=noises)
+        t["sampler step (device, profiler)"] = _kernel_device_ms(torch, run, None, calls=3) / T
+        t["sampler fold-ins a step (device, profiler)"] = _kernel_device_ms(
+            torch, run, "sampler_", calls=3) / T
         lw = layer_weights(stack_trunk_params(den._trunk))[0]
         for name, call in layer_product_calls(torch, K, lw, gen, dev).items():
             t[f"{name}, 20 rows (CUDA events)"] = _time_ms(torch, call, inner=10)
@@ -2927,10 +3031,15 @@ def main(argv) -> int:
             z = model.extract_features(images[None])
             inp = prepare_sampler(den, model.schedule, z, weight_dtype=wdt, x0=x0,
                                   noises=noises)
-            xs = inp.x0
-            hp = case(f"sampler_prologue {mode} ({xs.shape[0]} rows)", K.sampler_prologue,
-                      K.sampler_prologue_plain, (xs, *inp.prologue, 0), {}, False,
-                      tag("sampler_prologue"))
+            # csrc/sampler.cu's three entries at the path's 20 rows and a
+            # short sequence's 3 (the kernels line takes bf16 mode's 20 rows)
+            for n_rows in (n_frames, 3):
+                for key, (name, args, err) in sampler_parity(report, torch, K, inp, mode,
+                                                             n_rows).items():
+                    if mode == "bf16" and n_rows == n_frames:
+                        cases[key] = (name, getattr(K, key), getattr(K, f"{key}_plain"),
+                                      args, {}, err)
+            hp = K.sampler_prologue_plain(inp.x0, *inp.prologue, 0)
             lw = inp.layers[0]
             rows = hp.shape[0]
             hl = case(f"layernorm den {mode} ({rows}x512)", K.layernorm, K.layernorm_plain,
@@ -2958,9 +3067,6 @@ def main(argv) -> int:
                     case(f"linear_rows {pname} {mode} on a normalised input",
                          K.linear, K.linear_plain,
                          (h_ln, *args[1:]), {k: v for k, v in kw.items() if k != "ln"}, False)
-            case(f"sampler_epilogue {mode}", K.sampler_epilogue, K.sampler_epilogue_plain,
-                 (hp, *inp.head, inp.coef, inp.noise, xs, 0, inp.head_eps), {}, False,
-                 tag("sampler_epilogue"))
 
             stk = stack_trunk_params(den._trunk, wdt)
             trunk_bias = torch.zeros(n_frames, device=dev)
@@ -3062,7 +3168,8 @@ def main(argv) -> int:
                      f"under a {CHAOS_PERTURBATION:.1e} perturbation: {spread:.2e})",
                      err, max(TOL_GGS_TAIL, CHAOS_FACTOR * spread))
         # the sampler and the tail's trunk passes launch no layernorm: both
-        # LayerNorms of a layer ride its products (2 + 5 L launches a step)
+        # LayerNorms of a layer ride its products (1 + 5 L launches a step:
+        # the layers and one boundary launch, and step 0's prologue)
         L = model.config.num_encoder_layers
         T = model.config.timesteps
         counts = {}
@@ -3076,9 +3183,14 @@ def main(argv) -> int:
             print(f"  launches of {what}: {counts[what]}")
             report.require(f"{what} launches no layernorm and runs linear_rows",
                            counts[what]["layernorm"] == 0 and counts[what]["linear_rows"] > 0)
-        per_step = sum(counts["the sampler"].values()) / T
-        report.require(f"a sampler step is 2 + 5 L = {2 + 5 * L} launches", per_step == 2 + 5 * L,
-                       f"({per_step:g})")
+        total = sum(counts["the sampler"].values())
+        per_step = (total - 1) / T
+        report.require(f"a sampler step is 1 + 5 L = {1 + 5 * L} launches (and step 0's "
+                       "prologue)", total == T * (1 + 5 * L) + 1, f"({total} in {T} steps)")
+        entries = {k: counts["the sampler"][k] for k in SAMPLER_ENTRIES}
+        report.require(f"the sampler launches 1 prologue, {T - 1} boundaries and 1 epilogue",
+                       entries == {"sampler_prologue": 1, "sampler_boundary": T - 1,
+                                   "sampler_epilogue": 1}, f"({entries})")
     torch.cuda.synchronize()
 
     # SuperGlue at the matcher's shapes: 32 pairs of 1,024 keypoints, f32,
@@ -3173,6 +3285,11 @@ def main(argv) -> int:
     torch.cuda.synchronize()
     launches = K.launch_counts()
     _check_launches(report, "no-GGS", NO_GGS_PATH, launches)
+    T = model.config.timesteps
+    per_inference = {k: launches[k] / DEMO_INFERENCES for k in SAMPLER_ENTRIES}
+    report.require(f"an inference launches 1 prologue, {T - 1} step boundaries and 1 epilogue",
+                   per_inference == {"sampler_prologue": 1, "sampler_boundary": T - 1,
+                                     "sampler_epilogue": 1}, f"({per_inference})")
     main_linear_shapes = dict(K.linear.by_shape)
     _note_layernorm_shapes(K, "no-GGS path")
     rows_by_shape = dict(K.linear_rows.by_shape)
@@ -3316,7 +3433,13 @@ def main(argv) -> int:
             "linear_rows_kernel", calls=3) / (4 * L * T)
         print(f"  a sampler step: device {1e3 * step_dev:.2f} us of {1e3 * step_wall:.2f} us "
               f"wall ({100 * (1 - step_dev / step_wall):.1f}% of the step the card is idle, "
-              f"{2 + 5 * L} launches)")
+              f"{1 + 5 * L} launches)")
+        step_key = "sampler step device (child process)"
+        fold_key = "sampler_step_kernel a step inside the sampler (child process)"
+        timings[step_key], timings[fold_key] = child_ms[step_key], child_ms[fold_key]
+        print(f"  a sampler step in a child process: device {1e3 * child_ms[step_key]:.2f} us "
+              f"of {1e3 * step_wall:.2f} us wall, of it {1e3 * child_ms[fold_key]:.2f} us in "
+              "the step's boundary launch")
         for tok, bb, px in ((tokens, bias, 224), (tokens336, bias336, 336)):
             Bt, Nt, _ = tok.shape
             qkv_t = torch.randn((Bt, Nt, 3 * D), generator=gen, device=dev)
@@ -3477,15 +3600,7 @@ def main(argv) -> int:
         if key == "attention":
             return attention_bound(args[0], kwargs.get("attn_bias"), kwargs.get("key_bias"),
                                    kwargs.get("round_in", False))
-        if key == "sampler_prologue":
-            x, wsin, wcos, wx, zf, tc = args[:6]
-            rows, Dd = x.shape[0], wsin.shape[1]
-            return bound(nbytes(x, wsin, wcos, wx, zf) + 2 * tc.shape[1] * 4 + rows * Dd * 4,
-                         2 * rows * (2 * wsin.shape[0] + wx.shape[0]) * Dd)
-        h, w0, b0, gh, bh, w1, b1 = args[:7]  # sampler_epilogue
-        rows, Dd = h.shape
-        return bound(nbytes(h, w0, b0, gh, bh, w1, b1) + 3 * rows * w1.shape[1] * 4,
-                     2 * rows * (Dd * w0.shape[1] + w0.shape[1] * w1.shape[1]))
+        return sampler_bound(key, args)  # the sampler's three entries
 
     def case_library(key, args, kwargs):
         if key == "layernorm":
@@ -3519,11 +3634,12 @@ def main(argv) -> int:
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": library_ms, "case": name,
             })
-            if key.startswith("sampler_"):  # and its device time, from a child process
+            if key in SAMPLER_ENTRIES:  # and its device time, from a child process
                 e = kernels_json[-1]
-                e["device_ms"] = child_ms[f"{key}_kernel"]
+                e["device_ms"] = child_ms[key]
+                e["launches_per_inference"] = launches[key] // DEMO_INFERENCES
                 print(f"  {name}: device {e['device_ms']:.4f} ms a launch (child process), "
-                      f"{launches[key] // DEMO_INFERENCES} launches an inference")
+                      f"{e['launches_per_inference']} launches an inference")
             if key in ("layernorm", "linear"):  # and without the host's launch cost
                 kname = {"layernorm": "layernorm_kernel", "linear": "linear_bf16"}
                 e = kernels_json[-1]

@@ -1,6 +1,6 @@
 """The hand-written Hopper kernels, their plain PyTorch versions, and routing.
 
-Sixteen kernels (sources in ``posediffusion_tpu_torch/csrc``) carry the TPU
+Seventeen wrappers (sources in ``posediffusion_tpu_torch/csrc``) carry the TPU
 kernels of the inference paths with and without GGS, of match extraction and
 of the training trunks (DINOv2's LayerScale included):
 
@@ -15,8 +15,11 @@ of the training trunks (DINOv2's LayerScale included):
                          pre-norm LayerNorm of a optionally folded in
 ``attention``            softmax attention over a packed (B, N, 3D) QKV buffer,
                          optional dropout of the normalised p
-``sampler_prologue``     layer-0 fold-in of the fused sampler
+``sampler_prologue``     layer-0 fold-in of the fused sampler (step 0)
 ``sampler_epilogue``     head MLP + posterior update of the fused sampler
+                         (the last step)
+``sampler_boundary``     the two in one launch between two steps (one
+                         thread-block cluster kernel serves all three)
 ``ggs_phase``            one whole GGS SGD phase, one block
 ``ggs_phase_chunked``    the same over a thread-block cluster, the pairs
                          split between its blocks
@@ -89,10 +92,9 @@ _SIGNATURES = {
     "pd_linear_rows": [_P, _P, _I] + [_P] * 7 + [_F] + [_I] * 6 + [*_DROP, _I, _P],
     "pd_attention": [_P, _P, _I, _P, _I, _I, _I, _I, _F, _I, *_DROP, _P],
     "pd_attention_smem_bytes": [_I, _I, _I],
-    "pd_sampler_prologue": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "pd_sampler_epilogue": [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P,
-    ],
+    "pd_sampler_step": [_P] * 16 + [_I] * 7 + [_F, _I, _P],
+    "pd_sampler_smem_bytes": [_I] * 5,
+    "pd_sampler_max_active_clusters": [_I] * 5,
     "pd_ggs_phase": [_P] * 11 + [_I] * 8 + [_F, _I, _F, _F, _F, _F, _P],
     "pd_ggs_phase_chunked": [_P] * 11 + [_I] * 8 + [_F, _I, _F, _F, _F, _F, _I, _P],
     "pd_ggs_smem_bytes": [_I] * 4,
@@ -657,21 +659,50 @@ attention.launches = 0
 
 
 # ---------------------------------------------------------- sampler fold-ins
+# (csrc/sampler.cu): one cluster kernel, three entries. The prologue starts
+# step 0, a boundary launch ends step r and starts step r + 1, the epilogue
+# ends the last step.
+SAMPLER_CLUSTERS = (16, 8)  # cluster sizes of sampler_step_kernel, first that schedules
+SAMPLER_TILE_ROWS = 32  # rows of a tile (csrc/sampler.cu SR)
+SAMPLER_SPLIT = 6  # ranges of the prologue's product (KPP)
+_SAMPLER_MODES = {"prologue": 0, "epilogue": 1, "boundary": 2}
+
+
+def sampler_smem_bytes(cluster: int, D: int, HID: int, TD: int, NH: int) -> int:
+    """Dynamic shared memory of a sampler block in a cluster of ``cluster``
+    (csrc/sampler.cu, SAMPLER_REGIONS, each region rounded up to 128 bytes)."""
+    SR, KPP = SAMPLER_TILE_ROWS, SAMPLER_SPLIT
+    KS, HH = D // cluster, TD * NH
+    PW = 2 * HH + TD
+    regions = (KS * HID, HH * KS, HH * KS, TD * KS, SR * KS, PW * SR, max(SR * HID, KPP * SR * KS),
+               SR * (HID + 16), SR * KS, KS, SR * TD, SR * TD,
+               3 * HID + HID * 12 + TD, 8)  # W1's rows padded to 12 floats
+    return 4 * sum(_round_up(n, 32) for n in regions)
+
+
+@functools.cache
+def sampler_cluster_size(D: int, HID: int, TD: int, NH: int) -> int:
+    """The cluster the sampler kernel takes at these widths (HID 0 for the
+    prologue, NH 0 for the epilogue) on this card: the first of
+    ``SAMPLER_CLUSTERS`` that the card schedules
+    (cudaOccupancyMaxActiveClusters), or raise."""
+    lib = load_library()
+    for c in SAMPLER_CLUSTERS:
+        if D % (4 * c) or HID % (4 * c) or sampler_smem_bytes(c, D, HID, TD, NH) > _MAX_SMEM:
+            continue
+        if lib.pd_sampler_max_active_clusters(c, D, HID, TD, NH) > 0:
+            return c
+    raise ValueError(f"no sampler cluster of {SAMPLER_CLUSTERS} blocks takes D {D}, HID {HID}, "
+                     f"T {TD}, F {NH} on this card (D and HID in multiples of 4 x the cluster)")
+
+
 def _harmonic_args(x, n_harmonics: int):
     """(rows, T) -> (rows, T * F) with column d*F + f = x[d] * 2^f."""
     freqs = 2.0 ** torch.arange(n_harmonics, dtype=x.dtype, device=x.device)
     return (x[:, :, None] * freqs).reshape(x.shape[0], -1)
 
 
-def sampler_prologue_plain(x, wsin, wcos, wx, zf, tc, step: int):
-    S = _harmonic_args(x, wsin.shape[0] // x.shape[1])
-    return torch.sin(S) @ wsin + torch.cos(S) @ wcos + x @ wx + zf + tc[step]
-
-
-def sampler_prologue(x, wsin, wcos, wx, zf, tc, step: int):
-    """Layer-0 input of reverse step ``step``: (rows, T) state -> (rows, D)."""
-    if not _on_card(x, wsin, wcos, wx, zf, tc):
-        return sampler_prologue_plain(x, wsin, wcos, wx, zf, tc, step)
+def _prologue_dims(x, wsin, wcos, wx, zf, tc, step: int):
     rows, TD = x.shape
     HH, D = wsin.shape
     R = tc.shape[0]
@@ -683,10 +714,61 @@ def sampler_prologue(x, wsin, wcos, wx, zf, tc, step: int):
     _check(wx, "wx", (TD, D))
     _check(zf, "zf", (rows, D))
     _check(tc, "tc", (R, D))
+    return rows, D, TD, HH // TD
+
+
+def _epilogue_dims(h, w0, b0, gh, bh, w1, b1, coef, noise, x, step: int):
+    rows, D = h.shape
+    HID = w0.shape[1]
+    TD = w1.shape[1]
+    R = coef.shape[0]
+    if not 0 <= step < R:
+        raise ValueError(f"step {step} outside [0, {R})")
+    _check(h, "h", (rows, D))
+    _check(w0, "w0", (D, HID))
+    _check(b0, "b0", (HID,))
+    _check(gh, "gh", (HID,))
+    _check(bh, "bh", (HID,))
+    _check(w1, "w1", (HID, TD))
+    _check(b1, "b1", (TD,))
+    _check(coef, "coef", (R, 2))
+    _check(noise, "noise", (R, rows, TD))
+    _check(x, "x", (rows, TD))
+    return rows, D, HID, TD
+
+
+def _sampler_step(mode: str, rows, D, HID, TD, NH, step, eps, x, h_out=None,
+                  head=(None,) * 9, prologue=(None,) * 5):
+    """One launch of sampler_step_kernel; ``head`` is (h, w0, b0, gh, bh, w1,
+    b1, coef, noise), ``prologue`` (wsin, wcos, wx, zf, tc). The kernel
+    copies its slices with bulk copies: every operand but x, b1, coef and
+    the noise must start on a 16-byte boundary."""
+    if NH > 24 or TD != 9 or HID > 128:
+        raise ValueError(f"the sampler kernel takes T 9, F <= 24 and HID <= 128, not T {TD}, "
+                         f"F {NH} and HID {HID}")
+    for name, t in zip(("h", "w0", "b0", "gh", "bh", "w1", "wsin", "wcos", "wx", "zf", "tc"),
+                       (*head[:6], *prologue)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for the sampler kernel")
+    cluster = sampler_cluster_size(D, HID, TD, NH)
+    _launch(load_library().pd_sampler_step, *[_ptr(t) for t in head],
+            *[_ptr(t) for t in prologue], _ptr(x), _ptr(h_out), rows, D, HID, TD, NH,
+            step, _SAMPLER_MODES[mode], eps, cluster, _stream(x))
+
+
+def sampler_prologue_plain(x, wsin, wcos, wx, zf, tc, step: int):
+    S = _harmonic_args(x, wsin.shape[0] // x.shape[1])
+    return torch.sin(S) @ wsin + torch.cos(S) @ wcos + x @ wx + zf + tc[step]
+
+
+def sampler_prologue(x, wsin, wcos, wx, zf, tc, step: int):
+    """Layer-0 input of reverse step ``step``: (rows, T) state -> (rows, D)."""
+    if not _on_card(x, wsin, wcos, wx, zf, tc):
+        return sampler_prologue_plain(x, wsin, wcos, wx, zf, tc, step)
+    rows, D, TD, NH = _prologue_dims(x, wsin, wcos, wx, zf, tc, step)
     h = torch.empty((rows, D), device=x.device, dtype=torch.float32)
-    _launch(load_library().pd_sampler_prologue, _ptr(x), _ptr(wsin),
-            _ptr(wcos), _ptr(wx), _ptr(zf), _ptr(tc), _ptr(h), rows, D, TD,
-            HH // TD, step, _stream(x))
+    _sampler_step("prologue", rows, D, 0, TD, NH, step, 0.0, x, h,  # no head: HID 0
+                  prologue=(wsin, wcos, wx, zf, tc))
     sampler_prologue.launches += 1
     return h
 
@@ -706,33 +788,52 @@ def sampler_epilogue(h, w0, b0, gh, bh, w1, b1, coef, noise, x, step: int,
                      eps: float = 1e-5):
     """Head MLP on the trunk output h, then the posterior update of the
     (rows, T) state x IN PLACE: x <- cx x - ce eps + noise[step]."""
-    if not _on_card(h, w0, b0, gh, bh, w1, b1, coef, noise, x):
-        return sampler_epilogue_plain(h, w0, b0, gh, bh, w1, b1, coef, noise,
-                                      x, step, eps)
-    rows, D = h.shape
-    HID = w0.shape[1]
-    TD = w1.shape[1]
-    R = coef.shape[0]
-    if not 0 <= step < R:
-        raise ValueError(f"step {step} outside [0, {R})")
-    _check(h, "h", (rows, D))
-    _check(w0, "w0", (D, HID))
-    _check(b0, "b0", (HID,))
-    _check(gh, "gh", (HID,))
-    _check(bh, "bh", (HID,))
-    _check(w1, "w1", (HID, TD))
-    _check(b1, "b1", (TD,))
-    _check(coef, "coef", (R, 2))
-    _check(noise, "noise", (R, rows, TD))
-    _check(x, "x", (rows, TD))
-    _launch(load_library().pd_sampler_epilogue, _ptr(h), _ptr(w0), _ptr(b0),
-            _ptr(gh), _ptr(bh), _ptr(w1), _ptr(b1), _ptr(coef), _ptr(noise),
-            _ptr(x), rows, D, HID, TD, step, eps, _stream(h))
+    head = (h, w0, b0, gh, bh, w1, b1, coef, noise)
+    if not _on_card(*head, x):
+        return sampler_epilogue_plain(*head, x, step, eps)
+    rows, D, HID, TD = _epilogue_dims(*head, x, step)
+    _sampler_step("epilogue", rows, D, HID, TD, 0, step, eps, x, head=head)  # no features
     sampler_epilogue.launches += 1
     return x
 
 
 sampler_epilogue.launches = 0
+
+
+def _boundary_step(coef, tc, step: int):
+    if not 0 <= step < step + 1 < min(coef.shape[0], tc.shape[0]):
+        raise ValueError(f"no step {step + 1} after step {step} of {coef.shape[0]}")
+
+
+def sampler_boundary_plain(h, w0, b0, gh, bh, w1, b1, coef, noise, x, step: int,
+                           wsin, wcos, wx, zf, tc, eps: float = 1e-5):
+    _boundary_step(coef, tc, step)
+    sampler_epilogue_plain(h, w0, b0, gh, bh, w1, b1, coef, noise, x, step, eps)
+    return sampler_prologue_plain(x, wsin, wcos, wx, zf, tc, step + 1)
+
+
+def sampler_boundary(h, w0, b0, gh, bh, w1, b1, coef, noise, x, step: int,
+                     wsin, wcos, wx, zf, tc, eps: float = 1e-5):
+    """The epilogue of step ``step`` (x updated IN PLACE), then the prologue
+    of step ``step + 1`` on the new x, in ONE launch: returns the next
+    step's layer-0 input (rows, D)."""
+    head = (h, w0, b0, gh, bh, w1, b1, coef, noise)
+    prologue = (wsin, wcos, wx, zf, tc)
+    if not _on_card(*head, x, *prologue):
+        return sampler_boundary_plain(*head, x, step, *prologue, eps)
+    _boundary_step(coef, tc, step)
+    rows, D, HID, TD = _epilogue_dims(*head, x, step)
+    _, _, _, NH = _prologue_dims(x, *prologue, step + 1)
+    if wsin.shape[1] != D:
+        raise ValueError(f"the prologue's width {wsin.shape[1]} is not h's {D}")
+    h_next = torch.empty((rows, D), device=x.device, dtype=torch.float32)
+    _sampler_step("boundary", rows, D, HID, TD, NH, step, eps, x, h_next, head=head,
+                  prologue=prologue)
+    sampler_boundary.launches += 1
+    return h_next
+
+
+sampler_boundary.launches = 0
 
 
 # ---------------------------------------------------------------- GGS phases
@@ -1338,6 +1439,7 @@ layerscale_bwd.launches = 0
 KERNELS = SimpleNamespace(
     layernorm=layernorm, linear=linear, linear_rows=linear_rows, attention=attention,
     sampler_prologue=sampler_prologue, sampler_epilogue=sampler_epilogue,
+    sampler_boundary=sampler_boundary,
     ggs_phase=ggs_phase, ggs_phase_chunked=ggs_phase_chunked,
     superglue_coupling=superglue_coupling, superglue_sinkhorn=superglue_sinkhorn,
     superglue_matches=superglue_matches,
@@ -1350,6 +1452,7 @@ PLAIN = SimpleNamespace(
     attention=attention_plain,
     sampler_prologue=sampler_prologue_plain,
     sampler_epilogue=sampler_epilogue_plain,
+    sampler_boundary=sampler_boundary_plain,
     ggs_phase=ggs_phase_plain, ggs_phase_chunked=ggs_phase_chunked_plain,
     superglue_coupling=superglue_coupling_plain,
     superglue_sinkhorn=superglue_sinkhorn_plain,

@@ -1,14 +1,17 @@
 """All DDPM reverse steps of the denoiser on the kernels, as
 ``posediffusion_tpu.ops.sampler_kernel.fused_sample_loop``.
 
-The TPU kernel runs a (steps x layers) sequential grid in one Pallas launch.
-Here a host loop launches, for each step, ``sampler_prologue`` (the
+The TPU kernel runs a (steps x layers) sequential grid in one Pallas launch,
+step r's head and step r+1's first projection as consecutive grid
+iterations. Here a host loop launches ``sampler_prologue`` once (the
 harmonic embedding and the 702 -> 512 projection with the first weight
-split by input rows: sin(xE) W_sin + cos(xE) W_cos + x W_x + zf + tc),
-then ``encoder_layer_math`` for each of the L layers, then
-``sampler_epilogue`` (head MLP and the posterior update in place). That is
-2 + 5 L launches per step (42 at L = 8; the LayerNorms ride the products at
-up to 32 rows, 2 + 7 L above) and nothing else: the noise, the
+split by input rows: sin(xE) W_sin + cos(xE) W_cos + x W_x + zf + tc), then
+for each step ``encoder_layer_math`` for each of the L layers and
+``sampler_boundary`` (head MLP and the posterior update in place, then the
+next step's prologue, in one launch), ``sampler_epilogue`` at the last step.
+That is 1 + 5 L launches per step (41 at L = 8; the LayerNorms ride the
+products at up to 32 rows, 1 + 7 L above), one more in all, and nothing
+else: the noise, the
 per-step scalars cx = c1 a + c2 and ce = c1 b, sigma (0 at t = 0), the
 time-embedding projection tc, the feature projection zf and the weight
 stacks are computed once before the loop, as the JAX wrapper computes them
@@ -128,16 +131,23 @@ def prepare_sampler(
 
 @torch.no_grad()
 def run_sampler(inp: SamplerInputs, ops=KERNELS) -> torch.Tensor:
-    """The host loop: per step, prologue, the trunk layers, epilogue.
+    """The host loop: the prologue of step 0; per step the trunk layers,
+    then the boundary into the next step (the epilogue at the last).
     ``ops`` is ``kernels.KERNELS`` or ``kernels.PLAIN``."""
     B, N, TD = inp.shape
     x = inp.x0.clone()
+    if inp.steps == 0:
+        return x.view(B, N, TD)
+    h = ops.sampler_prologue(x, *inp.prologue, 0)
     for r in range(inp.steps):
-        h = ops.sampler_prologue(x, *inp.prologue, r)
         for w in inp.layers:
             h = encoder_layer_math(h, *w, nhead=inp.nhead, seq_len=N, eps=1e-5,
                                    act="relu", key_bias=inp.key_bias, ops=ops)
-        ops.sampler_epilogue(h, *inp.head, inp.coef, inp.noise, x, r, inp.head_eps)
+        if r + 1 < inp.steps:
+            h = ops.sampler_boundary(h, *inp.head, inp.coef, inp.noise, x, r,
+                                     *inp.prologue, inp.head_eps)
+        else:
+            ops.sampler_epilogue(h, *inp.head, inp.coef, inp.noise, x, r, inp.head_eps)
     return x.view(B, N, TD)
 
 

@@ -313,16 +313,71 @@ def _sampler_inputs(dev, rows=20, D=512, TD=9, NH=10, R=4, HID=128):
     )
 
 
-@pytest.mark.parametrize("rows", [20, 3])
-def test_sampler_prologue_and_epilogue(cuda, rows):
+def _sampler_call(entry, fn, s, step, x):
+    """One call of a sampler entry (kernel or plain) on a copy ``x`` of the
+    state: its output (the epilogue's is x itself)."""
+    head = (s["h"], *s["head"], s["coef"], s["noise"])
+    prologue = (s["wsin"], s["wcos"], s["wx"], s["zf"], s["tc"])
+    if entry == "prologue":
+        return fn(x, *prologue, step)
+    if entry == "epilogue":
+        return fn(*head, x, step)
+    return fn(*head, x, step, *prologue)
+
+
+@pytest.mark.parametrize("entry", ["prologue", "epilogue", "boundary"])
+@pytest.mark.parametrize("rows", [20, 3, 33, 64])
+def test_sampler_step_entries(cuda, entry, rows, capsys):
+    """csrc/sampler.cu's three entries against their plain versions at the
+    first step and the last that has a next one, at the demo's 20 rows, a
+    short sequence's 3 and past one tile of 32; four launches agree bitwise
+    (output and state) and each counts once. The boundary's next h is held
+    to the plain prologue on the state the kernel wrote: the harmonic
+    embedding multiplies the state's last-ulp difference from the plain
+    epilogue by up to 2^9 (about 1e-5 of h at these weights)."""
     s = _sampler_inputs(cuda, rows=rows)
-    for step in (0, 3):
-        args = (s["x"], s["wsin"], s["wcos"], s["wx"], s["zf"], s["tc"], step)
-        _close(K.sampler_prologue(*args), K.sampler_prologue_plain(*args), TOL_F32)
-        xk, xp = s["x"].clone(), s["x"].clone()
-        K.sampler_epilogue(s["h"], *s["head"], s["coef"], s["noise"], xk, step)
-        K.sampler_epilogue_plain(s["h"], *s["head"], s["coef"], s["noise"], xp, step)
-        _close(xk, xp, TOL_F32)
+    kern, plain = getattr(K, f"sampler_{entry}"), getattr(K, f"sampler_{entry}_plain")
+    for step in (0, s["tc"].shape[0] - 2):
+        before = K.launch_counts()[f"sampler_{entry}"]
+        xs = [s["x"].clone() for _ in range(4)]
+        outs = [_sampler_call(entry, kern, s, step, x) for x in xs]
+        x_ref = s["x"].clone()
+        ref = _sampler_call(entry, plain, s, step, x_ref)
+        if entry == "boundary":
+            ref = K.sampler_prologue_plain(xs[0], s["wsin"], s["wcos"], s["wx"], s["zf"],
+                                           s["tc"], step + 1)
+        torch.cuda.synchronize()
+        assert K.launch_counts()[f"sampler_{entry}"] == before + 4
+        _close(outs[0], ref, TOL_F32)
+        _close(xs[0], x_ref, TOL_F32)
+        assert all(torch.equal(o, outs[0]) and torch.equal(x, xs[0])
+                   for o, x in zip(outs[1:], xs[1:]))
+    with capsys.disabled():
+        print(f"\n  sampler_{entry}, {rows} rows: one cluster of "
+              f"{K.sampler_cluster_size(512, 128, 9, 10)} blocks")
+
+
+def test_sampler_shared_memory_and_refusals(cuda):
+    """The wrapper's launch arithmetic is the kernel's, and both clusters
+    schedule at the model's widths; a boundary after the last step, widths
+    off the cluster's split and operands off a 16-byte boundary raise."""
+    lib = K.load_library()
+    for c in K.SAMPLER_CLUSTERS:
+        for D, HID, TD, NH in ((512, 128, 9, 10), (512, 0, 9, 10), (512, 128, 9, 0),
+                               (256, 64, 7, 6)):
+            assert lib.pd_sampler_smem_bytes(c, D, HID, TD, NH) == K.sampler_smem_bytes(
+                c, D, HID, TD, NH)
+        assert lib.pd_sampler_max_active_clusters(c, 512, 128, 9, 10) > 0
+    s = _sampler_inputs(cuda)
+    with pytest.raises(ValueError, match="no step"):
+        _sampler_call("boundary", K.sampler_boundary, s, s["tc"].shape[0] - 1, s["x"].clone())
+    n = _sampler_inputs(cuda, D=520)
+    with pytest.raises(ValueError, match="no sampler cluster"):
+        _sampler_call("prologue", K.sampler_prologue, n, 0, n["x"].clone())
+    buf = torch.empty(s["zf"].numel() + 1, device=cuda)
+    shifted = dict(s, zf=buf[1:].view(s["zf"].shape))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        _sampler_call("boundary", K.sampler_boundary, shifted, 1, s["x"].clone())
 
 
 def test_wrappers_check_their_inputs(cuda):
@@ -572,6 +627,7 @@ def test_batched_sample_routes(cuda):
         out = model.sample(images, x0=x0, noises=noises, mask=mask)
         assert K.launch_counts()["linear_rows"] > 0
         assert K.launch_counts()["sampler_prologue"] == 0
+        assert K.launch_counts()["sampler_boundary"] == 0
         with V.plain_route():
             ref = model.sample(images, x0=x0, noises=noises, mask=mask)
         _close(out, ref, tol)

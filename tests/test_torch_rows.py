@@ -161,12 +161,13 @@ def test_layer_route(rows, calls):
     assert rec.calls == calls
 
 
-@pytest.mark.parametrize("B,N,per_step", [(1, 20, 2 + 5 * 2), (2, 12, 2 + 5 * 2),
-                                          (3, 12, 2 + 7 * 2)])
+@pytest.mark.parametrize("B,N,per_step", [(1, 20, 1 + 5 * 2), (2, 12, 1 + 5 * 2),
+                                          (3, 12, 1 + 7 * 2)])
 def test_sampler_step_calls(B, N, per_step):
-    """A sampler step is 2 + 5 L calls (42 at L = 8) while its B N rows take
-    the few-rows route, 2 + 7 L above (a batched eval), and none of them is
-    a layernorm in the first case."""
+    """A sampler step is 1 + 5 L calls (41 at L = 8: the layers and the
+    boundary into the next step, the epilogue at the last), plus step 0's
+    prologue, while its B N rows take the few-rows route, 1 + 7 L above (a
+    batched eval), and none of them is a layernorm in the first case."""
     from posediffusion_tpu_torch.diffusion.schedule import make_schedule
     from posediffusion_tpu_torch.models.denoiser import Denoiser
     from posediffusion_tpu_torch.models.pose_diffusion import init_random_weights
@@ -182,7 +183,7 @@ def test_sampler_step_calls(B, N, per_step):
     with torch.no_grad():
         out = run_sampler(inp, ops=rec)
         ref = run_sampler(inp, ops=K.PLAIN)
-    assert len(rec.calls) == steps * per_step
+    assert len(rec.calls) == steps * per_step + 1
     assert (sum(name == "layernorm" for name, _ in rec.calls) == 0) == (B * N <= 32)
     assert torch.equal(out, ref)
 
