@@ -1,7 +1,8 @@
 """Drive the PyTorch port's inference paths, without GGS, with GGS from a
-matches file, and with GGS from matches extracted from the images, and its
-training path, with the DINO ViT-S/16, DINOv2 ViT-S/14 and DINO ViT-B/16
-backbones, once on an NVIDIA card.
+matches file, and with GGS from matches extracted from the images, DDIM,
+the Co3D evaluation (test_torch.py) and its training path, with the DINO
+ViT-S/16, DINOv2 ViT-S/14 and DINO ViT-B/16 backbones, once on an NVIDIA
+card.
 
     python3 chip_smoke.py             # from the repository root, one CUDA card
     python3 chip_smoke.py --profile   # also: torch.profiler over one GGS inference,
@@ -72,6 +73,20 @@ Phases (any failure exits non-zero and prints no result line):
              20 frames at 1,024 keypoints (190 pairs), and the first 6 frames
              at the default 4,096; finite cameras, matches reaching GGS, every
              kernel of the path launched;
+  4c. ddim   DDIM at 10 of 100 steps (model.sample(sampling_timesteps=10)),
+             each step on the denoiser trunk kernel: one step against the
+             plain trunk tightly, 10 steps at eta 0 and 1 and with GGS by
+             the chaos rule; the pred_x0 whole-loop sampler's entries at
+             steps 0 and 98 and its 100-step chain against plain; the path
+             driven at eta 0, eta 1 and with GGS at 100/pair (10 fused_trunk
+             passes an inference, no sampler launch), its times; one DINO
+             train step at pred_x0 / l2 on 64 images (loss finite,
+             parameters moved);
+  4d. eval   test_torch.main, the Co3D evaluation, twice on a Co3D-format
+             tree of samples/apple (10 frames, 224px, GGS from the images
+             with random MagicLeap weights): the results JSON finite with
+             test.py's keys, every kernel of the path launched, a
+             sequence's sampling and match times;
   5. train   the training slice (TPU kernels 9 and 10): the train kernels
              (attention_bwd, layernorm_bwd, linear_wgrad and dgrad,
              act_dropout_bwd, the dropout masks bitwise) against their plain
@@ -117,7 +132,11 @@ Phases (any failure exits non-zero and prints no result line):
              qkv beside torch.addmm on the same bf16 operands, and at the
              serving ViTs' twelve product shapes by CUDA graph; the
              LayerNorm forward at the train shapes beside F.layer_norm, by
-             CUDA graph); a sampler step's device time (also from a child
+             CUDA graph; sum_partials_kernel, the weight gradients' sum
+             of partials, at fc1's f32 partials beside torch.sum, by CUDA
+             graph with the partials in the L2 and from memory, and its
+             launches a DINO step in both modes); a sampler step's device
+             time (also from a child
              process, with its fold-ins' share) and the ViT trunk's
              CUDA-graph time against their wall times; every
              attention forward the port runs (SuperGlue self and cross, the
@@ -254,6 +273,18 @@ GGS_PATH = NO_GGS_PATH + ("ggs_phase", "ggs_phase_chunked")
 SUPERGLUE_KERNELS = ("superglue_coupling", "superglue_sinkhorn", "superglue_matches")
 MATCH_PATH = GGS_PATH + SUPERGLUE_KERNELS
 TRAIN_KERNELS = ("attention_bwd", "layernorm_bwd", "linear_wgrad", "act_dropout_bwd")
+# DDIM (sampling_timesteps 10 of 100) on samples/apple: the ViT, kernel 3 a
+# step, and at t < DDIM_COND_START (its last step) the GGS phases
+DDIM_STEPS = 10
+DDIM_COND_START = 10
+DDIM_PATH = ("layernorm", "linear", "attention", "linear_rows", "ggs_phase_chunked")
+PRED_X0_IMAGES = 64  # the pred_x0 / l2 train step's cut batch (4 sequences of 16)
+# test_torch.main on the Co3D tree of samples/apple: the ViT, the whole-loop
+# sampler, the GGS tail and phases, and the matcher
+EVAL_RUNS = 2
+EVAL_PATH = NO_GGS_PATH + SUPERGLUE_KERNELS
+TRAIN_CU = "posediffusion_tpu_torch/csrc/train.cu"
+SUM_PARTIALS_COLD = 4  # 4 x 26 MB of partials, more than the H100's 50 MB L2
 # the in-training eval samples its batch of sequences through
 # denoiser_train_apply, as the JAX package does: no sampler kernels
 TRAIN_PATH = ("layernorm", "linear", "attention") + TRAIN_KERNELS
@@ -1947,13 +1978,14 @@ def _train_batch(cfg, dev, timesteps):
 
 
 def _step_launches(K, step):
-    """Launch counts of one call of ``step``."""
+    """Launch counts of one call of ``step``, with ``sum_partials`` (the
+    weight gradients' in-order sum of partials, a helper launch)."""
     import torch
 
     K.reset_launch_counts()
     step()
     torch.cuda.synchronize()
-    return K.launch_counts()
+    return {**K.launch_counts(), "sum_partials": K._sum_partials.launches}
 
 
 def train_slice(report, dev, work, smi, t_start, dev_ms):
@@ -2854,6 +2886,282 @@ def attention_slice(report, dev, smi):
     return out
 
 
+def ddim_slice(report, dev, work, t_start, model, images, x0, noises, gen, matches100,
+               cond100, cond100_plain):
+    """[ddim] DDIM (``model.sample(sampling_timesteps=DDIM_STEPS)``) and the
+    pred_x0 objective: the DDIM chain on kernel 3 against its plain route
+    (one step tightly, DDIM_STEPS steps at eta 0 and 1 and with GGS by the
+    chaos rule); the pred_x0 whole-loop sampler's entries at steps 0 and 98
+    and its 100-step chain against plain; then the DDIM path driven through
+    ``model.sample`` at eta 0, eta 1 and with GGS from a 100/pair table
+    (counts set to 0 just before): DDIM_STEPS fused_trunk passes an
+    inference and no sampler launch, the ViT's kernels and the GGS kernels
+    launched, finite encodings; their CUDA-event times; last one DINO train
+    step at pred_x0 / l2 on a cut batch (kernels 9 and 10): loss finite,
+    parameters moved. Returns (timings, launches of the DDIM path, launches
+    of the pred_x0 train step)."""
+    import torch
+
+    from posediffusion_tpu_torch.diffusion import ggs as G
+    from posediffusion_tpu_torch.diffusion.gaussian import ddim_sample_loop
+    from posediffusion_tpu_torch.geometry.pose_codec import pose_encoding_to_camera
+    from posediffusion_tpu_torch.models.denoiser import denoiser_apply_fused
+    from posediffusion_tpu_torch.ops import kernels as K
+    from posediffusion_tpu_torch.ops.denoiser_kernel import (
+        fused_trunk,
+        fused_trunk_plain,
+        stack_trunk_params,
+    )
+    from posediffusion_tpu_torch.ops.sampler_kernel import (
+        fused_sample_loop,
+        fused_sample_loop_plain,
+        prepare_sampler,
+    )
+
+    print(f"[ddim] DDIM at {DDIM_STEPS} steps and the pred_x0 objective, 20 frames, 224px",
+          flush=True)
+    den = model.diffuser.model
+    S, n = DDIM_STEPS, images.shape[0]
+    imgs = images[None]
+    d_noises = torch.randn((S, 1, n, 9), generator=gen, device=dev)
+    moved = x0 + CHAOS_PERTURBATION * torch.randn(x0.shape, generator=gen, device=dev)
+    with torch.no_grad():
+        z = model.extract_features(imgs)
+        stk = stack_trunk_params(den._trunk, model.weight_dtype)
+
+        def chain(trunk, start, steps, eta, cond=None):
+            fn = lambda xt, t: denoiser_apply_fused(den, xt, t, z, None, stk,  # noqa: E731
+                                                    trunk=trunk)
+            return ddim_sample_loop(model.schedule, fn, start.shape, dev, steps, eta, x0=start,
+                                    noises=d_noises[:steps], cond_fn=cond,
+                                    cond_start_step=DDIM_COND_START)
+
+        err = (chain(fused_trunk, x0, 1, 0.0) - chain(fused_trunk_plain, x0, 1, 0.0)).abs()
+        report.check("DDIM one step (t 99 -> -1), fused_trunk vs plain", err.max().item(),
+                     TOL_STEPS[1])
+        for what, eta, cond, cond_plain, floor in (
+                ("eta 0", 0.0, None, None, TOL_STEPS[10]),
+                ("eta 1", 1.0, None, None, TOL_STEPS[10]),
+                ("eta 0, GGS 100/pair", 0.0, cond100, cond100_plain, TOL_GGS_TAIL)):
+            ref = chain(fused_trunk_plain, x0, S, eta, cond_plain)
+            spread = (chain(fused_trunk_plain, moved, S, eta, cond_plain) - ref).abs().max().item()
+            err = (chain(fused_trunk, x0, S, eta, cond) - ref).abs().max().item()
+            report.check(f"DDIM {S} steps {what} (plain chain spread under a "
+                         f"{CHAOS_PERTURBATION:.1e} x0 perturbation: {spread:.2e})",
+                         err, max(floor, CHAOS_FACTOR * spread))
+
+        # the whole-loop sampler at pred_x0: per-step scalars (c2, -c1)
+        inp = prepare_sampler(den, model.schedule, z, weight_dtype=model.weight_dtype, x0=x0,
+                              noises=noises, objective="pred_x0")
+        sampler_parity(report, torch, K, inp, "bf16 pred_x0", n)
+
+        def loop(fn, start):
+            return fn(den, model.schedule, z, weight_dtype=model.weight_dtype, x0=start,
+                      noises=noises, objective="pred_x0")
+
+        ref = loop(fused_sample_loop_plain, x0)
+        spread = (loop(fused_sample_loop_plain, moved) - ref).abs().max().item()
+        err = (loop(fused_sample_loop, x0) - ref).abs().max().item()
+        report.check(f"pred_x0 whole-loop sampler, 100 steps (plain chain spread under a "
+                     f"{CHAOS_PERTURBATION:.1e} x0 perturbation: {spread:.2e})",
+                     err, max(TOL_STEPS[100], CHAOS_FACTOR * spread))
+
+    # the DDIM path through model.sample, counts set to 0 just before
+    hw = (IMAGE_SIZE, IMAGE_SIZE)
+    cond = G.build_cond_fn(*matches100, n, hw, G.GGSConfig(), dev)
+    runs = {"eta 0": dict(ddim_eta=0.0), "eta 1": dict(ddim_eta=1.0),
+            "eta 0, GGS 100/pair": dict(cond_fn=cond, cond_start_step=DDIM_COND_START)}
+    passes = {}
+    K.reset_launch_counts()
+    fused_trunk.launches = 0
+    for what, kw in runs.items():
+        before = fused_trunk.launches
+        enc = model.sample(imgs, x0=x0, noises=d_noises, sampling_timesteps=S, **kw)
+        torch.cuda.synchronize()
+        passes[what] = fused_trunk.launches - before
+        cams = pose_encoding_to_camera(enc)
+        finite = all(bool(torch.isfinite(t).all()) for t in (enc, cams.R, cams.T))
+        report.require(f"DDIM {what}: finite encodings and cameras of shape (1, {n}, 9)",
+                       finite and tuple(enc.shape) == (1, n, 9))
+    launches = K.launch_counts()
+    print(f"  launches during the DDIM path (3 inferences): {launches}; fused_trunk passes "
+          f"{passes}")
+    _check_launches(report, "DDIM", DDIM_PATH, launches)
+    report.require(f"a DDIM inference is {S} fused_trunk passes", all(
+        v == S for v in passes.values()), f"({passes})")
+    report.require("the DDIM path launches no sampler entry",
+                   all(launches[k] == 0 for k in SAMPLER_ENTRIES))
+    report.require("the DDIM path with GGS launches the GGS kernels",
+                   launches["ggs_phase"] + launches["ggs_phase_chunked"] > 0)
+    with torch.no_grad():
+        timings = {
+            f"DDIM-{S} inference (extract + {S} steps, eta 0)": _time_ms(
+                torch, lambda: model.sample(imgs, x0=x0, noises=d_noises,
+                                            sampling_timesteps=S), reps=5),
+            f"DDIM-{S} inference with GGS (100/pair, last step conditioned)": _time_ms(
+                torch, lambda: model.sample(imgs, x0=x0, noises=d_noises, sampling_timesteps=S,
+                                            cond_fn=cond, cond_start_step=DDIM_COND_START),
+                reps=5),
+        }
+    for name, ms in timings.items():
+        print(f"  {name}: {ms:.3f} ms", flush=True)
+    train_launches = pred_x0_train_step(report, torch, K, dev, work)
+    print(f"  [ddim] done at {time.perf_counter() - t_start:.0f} s", flush=True)
+    return timings, {**launches, "fused_trunk passes": passes}, train_launches
+
+
+def pred_x0_train_step(report, torch, K, dev, work):
+    """One DINO train step at MODEL.DIFFUSER.objective=pred_x0 and
+    loss_type=l2 on a cut batch (PRED_X0_IMAGES images): loss finite, the
+    parameters moved, the train kernels launched. Returns its launches."""
+    from posediffusion_tpu_torch.models.pose_diffusion import (
+        PoseDiffusionModel,
+        init_random_weights,
+    )
+    from posediffusion_tpu_torch.training.optim import make_optimizer
+    from posediffusion_tpu_torch.training.step import train_step
+    from posediffusion_tpu_torch.utils.config import model_config_from_cfg
+
+    cfg = _train_cfg(work, "train_x0", "MODEL.DIFFUSER.objective=pred_x0",
+                     "MODEL.DIFFUSER.loss_type=l2", f"train.max_images={PRED_X0_IMAGES}")
+    t = cfg.train
+    model = PoseDiffusionModel(model_config_from_cfg(cfg.MODEL))
+    report.require("the train config maps pred_x0 / l2",
+                   (model.config.objective, model.config.loss_type) == ("pred_x0", "l2"))
+    init_random_weights(model, SEED)
+    model.to(dev)
+    batch, draws, n_rows = _train_batch(cfg, dev, model.config.timesteps)
+    opt, _ = make_optimizer(model, lr=t.lr, T_0=t.restart_num, iters_per_epoch=t.len_train,
+                            clip_grad=t.clip_grad)
+    start = {k: p.detach().clone() for k, p in model.named_parameters()}
+    out = []
+    launches = _step_launches(K, lambda: out.append(
+        train_step(model, opt, batch, t.batch_repeat, draws=draws)))
+    change = max((p.detach() - start[k]).abs().max().item() for k, p in model.named_parameters())
+    report.require("pred_x0 / l2 train step: loss finite", bool(np.isfinite(out[0]["loss"])),
+                   f"(loss {out[0]['loss']})")
+    report.require("pred_x0 / l2 train step: parameters moved", change > 0,
+                   f"(largest {change:.3e})")
+    _check_launches(report, "pred_x0 / l2 train step", TRAIN_PATH, launches)
+    B, F = batch["images"].shape[:2]
+    print(f"  pred_x0 / l2 train step ({B} sequences x {F} frames, {n_rows} diffusion "
+          f"sequences): loss {out[0]['loss']:.6f}, largest parameter change {change:.3e}",
+          flush=True)
+    del model, opt, start, batch
+    torch.cuda.empty_cache()
+    return {k: v for k, v in launches.items() if v}
+
+
+def eval_slice(report, dev, work, t_start, wdir):
+    """[eval] test_torch.main, the Co3D evaluation, on the Co3D-format tree
+    of samples/apple (one category, one sequence of 20 frames) at
+    default_test.yaml's 10 frames and 224px, GGS from matches extracted
+    from the images with random MagicLeap weights (``wdir``), EVAL_RUNS
+    times (the later runs time a sequence without first-call costs); counts
+    set to 0 just before. The results JSON finite with test.py's keys, every
+    kernel of the path launched. Returns (timings, launches)."""
+    import torch
+
+    import test_torch
+    from posediffusion_tpu_torch.ops import kernels as K
+    from posediffusion_tpu_torch.ops.denoiser_kernel import fused_trunk
+
+    print("[eval] test_torch.main on a Co3D tree of samples/apple, 10 frames, GGS from the "
+          "images", flush=True)
+    co3d_dir, ann_dir = write_co3d_tree(os.path.join(REPO, "build", "co3d_apple"),
+                                        os.path.join(REPO, "samples", "apple"))
+    results = os.path.join(work, "eval_results.json")
+    args = [f"test.CO3D_DIR={co3d_dir}", f"test.CO3D_ANNOTATION_DIR={ann_dir}",
+            "test.category=apple", "test.min_num_images=20", f"seed={SEED}",
+            f"results_file={results}", "GGS.enable=True", f"GGS.matcher_ckpt_dir={wdir}",
+            *MATCH_ARGS]
+    records = []
+    K.reset_launch_counts()
+    fused_trunk.launches = 0
+    for _ in range(EVAL_RUNS):
+        test_torch.main(args, records)
+    torch.cuda.synchronize()
+    launches = {**K.launch_counts(), "fused_trunk passes": fused_trunk.launches}
+    print(f"  launches during the eval path ({EVAL_RUNS} runs): {launches}")
+    _check_launches(report, "eval", EVAL_PATH, launches)
+    report.require("the eval path launches a GGS kernel",
+                   launches["ggs_phase"] + launches["ggs_phase_chunked"] > 0)
+    report.require("the eval path runs fused_trunk (the GGS tail)", fused_trunk.launches > 0)
+    with open(results) as f:
+        saved = json.load(f)
+    values = [v for m in test_torch.METRIC_NAMES for v in saved.get(m, {}).values()]
+    report.require("eval results: test.py's keys, the category and the mean, all finite",
+                   list(saved) == test_torch.METRIC_NAMES
+                   and all(set(saved[m]) == {"apple", "mean"} for m in saved)
+                   and all(np.isfinite(v) for v in values), f"({saved})")
+    report.require(f"eval: {EVAL_RUNS} sequences sampled with GGS",
+                   len(records) == EVAL_RUNS and all(r["ggs"] for r in records))
+    report.require("eval: finite encodings and errors", all(
+        np.isfinite(r["pose_encoding"]).all() and np.isfinite(r["r_deg"]).all()
+        and np.isfinite(r["t_deg"]).all() for r in records))
+    seconds = [r["seconds"] for r in records]
+    matching = [r["match_seconds"] for r in records]
+    timings = {"eval sequence sampling, first run (10 frames, GGS; ms)": 1e3 * seconds[0],
+               "eval sequence sampling, repeat (10 frames, GGS; ms)":
+               1e3 * statistics.median(seconds[1:]),
+               "eval sequence matches, repeat (10 frames, from the images; ms)":
+               1e3 * statistics.median(matching[1:])}
+    print(f"  a sequence's sampling {[round(1e3 * s, 2) for s in seconds]} ms, its matches "
+          f"{[round(1e3 * s, 2) for s in matching]} ms (first run, then repeats); Racc_30 "
+          f"{saved['Racc_30']['apple']:.3f}, AUC_30 "
+          f"{saved['Auc_30']['apple']:.3f} (random weights)")
+    print(f"  [eval] done at {time.perf_counter() - t_start:.0f} s", flush=True)
+    return timings, launches
+
+
+def sum_partials_entry(report, torch, K, dev, f32_step, bf16_step):
+    """The kernels-line entry of csrc/train.cu's sum_partials_kernel (the
+    weight gradients' in-order sum of float32 partials) at fc1's f32 weight
+    gradient, (S, 384, 1,536) partials at 512 images: against the same
+    in-order sum in plain PyTorch (bitwise) and ``torch.sum`` over S; its
+    bound the bytes (S + 1) x 384 x 1,536 x 4; device time by CUDA graph,
+    with the partials L2-resident (as in a step) and over SUM_PARTIALS_COLD
+    buffers in turn (from memory); launches one f32 DINO train step (the
+    bf16 step's beside it)."""
+    M, Kk, N = VIT_IMAGES * 264, 384, 1536
+    S = -(-M // K.wgrad_rows(M, Kk, N, False))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    part = torch.randn((S, Kk, N), generator=gen, device=dev)
+
+    def plain():
+        out = torch.zeros((Kk, N), device=dev)
+        for k in range(S):
+            out += part[k]
+        return out
+
+    with open(os.path.join(REPO, TRAIN_CU)) as f:
+        line = next(i + 1 for i, text in enumerate(f) if "void sum_partials_kernel(" in text)
+    err = (K._sum_partials(part) - plain()).abs().max().item()
+    report.check(f"sum_partials ({S} x {Kk} x {N}) against the in-order sum", err, 0.0)
+    cold = [part] + [torch.randn_like(part) for _ in range(SUM_PARTIALS_COLD - 1)]
+    b_ms, b_by = bound(nbytes(part) + Kk * N * 4, S * Kk * N)
+    e = {
+        "name": "sum_partials", "route": "cuda",
+        "source": f"{TRAIN_CU}:{line}",
+        "replaces": TPU_KERNELS["linear_wgrad"], "launches": f32_step.get("sum_partials", 0),
+        "launches_bf16_step": bf16_step.get("sum_partials", 0), "max_abs_err": err,
+        "ms": _time_ms(torch, lambda: K._sum_partials(part), inner=10),
+        "plain_ms": _time_ms(torch, plain, reps=5),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": _time_ms(torch, lambda: torch.sum(part, 0), inner=10),
+        "device_ms": _graph_ms(torch, lambda: K._sum_partials(part)),
+        "device_ms_l2_cold": _graph_ms(
+            torch, lambda: [K._sum_partials(p) for p in cold]) / len(cold),
+        "case": f"fc1's f32 partials ({S} x {Kk} x {N}); launches: one f32 DINO train step "
+                f"(launches_bf16_step: one bf16 step); device_ms by CUDA graph, the partials "
+                f"L2-resident as in the step (written by linear_wgrad just before); "
+                f"device_ms_l2_cold over {SUM_PARTIALS_COLD} buffers in turn, more than the L2",
+    }
+    print(f"  sum_partials: {e}", flush=True)
+    del part, cold
+    return e
+
+
 def main(argv) -> int:
     import torch
 
@@ -3361,6 +3669,12 @@ def main(argv) -> int:
     _check_launches(report, "match", MATCH_PATH, match_launches)
     print(f"  [match] done at {time.perf_counter() - t_start:.0f} s", flush=True)
 
+    # ---- 4c. DDIM and pred_x0; 4d. the Co3D evaluation (test_torch.main)
+    ddim_timings, ddim_launches, x0_step = ddim_slice(
+        report, dev, work, t_start, model, images, x0, noises, gen, matches[100], cond100,
+        cond100_plain)
+    eval_timings, eval_launches = eval_slice(report, dev, work, t_start, wdir)
+
     # ---- 5. the training slice: parity of its kernels, train_torch.py, timings
     # device times of bf16 mode's weight gradient and the sampler's prologue
     # and epilogue, read in a child process (the profiler under-reads here)
@@ -3725,11 +4039,14 @@ def main(argv) -> int:
                     f"inferences a run)",
         })
     kernels_json += train_json + bb_json
+    kernels_json.append(sum_partials_entry(report, torch, K, dev, dino_step, dino_bf16_step))
     with torch.no_grad():
         kernels_json += layernorm_entries(report, torch, F, K, dev, gen)
     attention_cases = attention_slice(report, dev, smi)
     timings.update(train_timings)
     timings.update(bb_timings)
+    timings.update(ddim_timings)
+    timings.update(eval_timings)
 
     # the ten TPU kernels' rows (PERF.md section 6): each row's case, its
     # kernel route and plain route, its bound and a one-call yardstick
@@ -3843,7 +4160,9 @@ def main(argv) -> int:
     print(json.dumps({"timings_ms": timings, "card": smi,
                       "launches_per_sampler_step": per_step,
                       "ggs_launches_per_inference": ggs_per_inference,
-                      "launches_per_train_step": train_steps}))
+                      "launches_per_train_step": train_steps,
+                      "ddim_launches": ddim_launches, "pred_x0_step_launches": x0_step,
+                      "eval_launches": eval_launches}))
     print(json.dumps({"kernels": kernels_json}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

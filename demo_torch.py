@@ -14,8 +14,10 @@ MagicLeap ``superpoint_v1.pth`` and ``superglue_outdoor.pth`` in
 ``GGS.matcher_ckpt_dir`` (SuperPoint, SuperGlue on the CUDA kernels on a
 card, RANSAC, remap into the cropped frame; ``GGS.max_keypoints``,
 ``GGS.match_threshold``, ``GGS.ransac_threshold_px``,
-``GGS.min_pair_matches``) -> 100-step diffusion sampling (ViT trunk and
-sampler on the CUDA kernels on a card), whose last ``GGS.start_step`` steps
+``GGS.min_pair_matches``) -> diffusion sampling, 100 steps at the
+default config (``MODEL.DIFFUSER.timesteps``) with the config's objective,
+``pred_noise`` or ``pred_x0`` (ViT trunk and sampler on the CUDA kernels on
+a card), whose last ``GGS.start_step`` steps
 are geometry-guided when matches exist (the GGS phases on the GGS kernels on
 a card) -> decode to cameras -> 7-DoF alignment to gt_cameras.npz, if
 present -> absolute rotation error -> ``<out_dir>/predictions.npz``.
@@ -24,8 +26,9 @@ present -> absolute rotation error -> ``<out_dir>/predictions.npz``.
 existing ``.pth`` gives random weights seeded by ``seed``. It runs on the
 card; ``device=cpu`` runs it on the CPU (the kernels' plain versions).
 With GGS on but neither a matches file nor matcher weights, the demo says
-so and samples without GGS, as demo.py does. The frustum plot and the HTML
-export are not ported yet.
+so and samples without GGS, as demo.py does. ``get_matches`` serves
+test_torch.py too. The frustum plot and the HTML export are not ported
+yet.
 """
 
 import os

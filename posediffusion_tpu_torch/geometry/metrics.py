@@ -1,5 +1,6 @@
-"""Pairwise relative-pose errors (Racc/Tacc/AUC) and the absolute rotation
-error, as ``posediffusion_tpu.geometry.metrics``."""
+"""Pairwise relative-pose errors (Racc/Tacc/AUC, the AUC also in NumPy for
+the evaluation) and the absolute rotation error, as
+``posediffusion_tpu.geometry.metrics``."""
 
 from __future__ import annotations
 
@@ -79,6 +80,15 @@ def calculate_auc(r_error: torch.Tensor, t_error: torch.Tensor,
     last = (err >= bins[-2]) & (err <= bins[-1])
     hist[-1] = (last * w).sum()
     return torch.cumsum(hist / w.sum().clamp(min=1.0), 0).mean()
+
+
+def calculate_auc_np(r_error, t_error, max_threshold: int = 30) -> float:
+    """AUC@threshold in NumPy, for the evaluation's accumulated errors: the
+    mean of the cumulative histogram of max(r, t) over integer-degree bins,
+    ``np.histogram``'s last bin closed."""
+    max_errors = np.maximum(np.asarray(r_error), np.asarray(t_error))
+    histogram, _ = np.histogram(max_errors, bins=np.arange(max_threshold + 1))
+    return float(np.mean(np.cumsum(histogram.astype(float) / len(max_errors))))
 
 
 def compute_are(rotation1: torch.Tensor, rotation2: torch.Tensor) -> torch.Tensor:

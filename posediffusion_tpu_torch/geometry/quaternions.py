@@ -1,5 +1,6 @@
-"""Quaternion (wxyz) <-> rotation matrix, as in
-``posediffusion_tpu.geometry.quaternions``."""
+"""Quaternions (wxyz): to and from rotation matrices, and their algebra,
+as in ``posediffusion_tpu.geometry.quaternions``. q and -q are the same
+rotation."""
 
 from __future__ import annotations
 
@@ -52,3 +53,29 @@ def matrix_to_quaternion(matrix: torch.Tensor) -> torch.Tensor:
     ], dim=-2) / (2.0 * q_abs[..., None].clamp_min(0.1))
     best = q_abs.argmax(dim=-1)
     return torch.take_along_dim(cand, best[..., None, None], dim=-2)[..., 0, :]
+
+
+def quaternion_normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    return q / q.norm(dim=-1, keepdim=True).clamp_min(eps)
+
+
+def quaternion_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of quaternions (..., 4) wxyz."""
+    aw, ax, ay, az = a.unbind(-1)
+    bw, bx, by, bz = b.unbind(-1)
+    return torch.stack([
+        aw * bw - ax * bx - ay * by - az * bz,
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+    ], dim=-1)
+
+
+def quaternion_invert(q: torch.Tensor) -> torch.Tensor:
+    """Inverse of a unit quaternion (its conjugate)."""
+    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+
+
+def standardize_quaternion(q: torch.Tensor) -> torch.Tensor:
+    """Make the real part non-negative (q and -q are the same rotation)."""
+    return torch.where(q[..., :1] < 0, -q, q)

@@ -16,15 +16,18 @@ without GGS), then, with a ``cond_fn``, the conditioned tail t < n_cond in
 ``p_sample_loop`` with ``denoiser_apply_fused`` (trunk on the kernels) and
 the GGS ``cond_fn`` (its phases on the GGS kernels); a batch runs
 ``p_sample_loop`` over ``denoiser_train_apply`` (the JAX package's batched
-route). Which code runs each kernel is decided by the images' device alone.
+route). DDIM (``sampling_timesteps``) and the trajectory route call the
+denoiser once a step, as the tail does. Which code runs each kernel is
+decided by the images' device alone.
 
 ``loss`` is the training loss (``posediffusion_tpu``'s ``loss``, :260-385):
 ``extract_features_train`` (TPU kernel 9/10's ViT flavour, with LayerScale
 for DINOv2), ``batch_repeat``
 tiling of the features and poses, then ``p_losses`` over
-``denoiser_train_apply`` (the encoder flavour, with dropout), masked by the
-frame mask. Its draws (t, the noise, the dropout seed) are arguments, or
-come from a ``torch.Generator``.
+``denoiser_train_apply`` (the encoder flavour, with dropout) at the
+config's objective and loss type, masked by the frame mask. Its draws (t,
+the noise, the dropout seed) are arguments, or come from a
+``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -41,7 +44,12 @@ from posediffusion_tpu_torch.diffusion.schedule import (
     DiffusionSchedule,
     make_schedule,
 )
-from posediffusion_tpu_torch.diffusion.gaussian import DiffusionLoss, p_losses, p_sample_loop
+from posediffusion_tpu_torch.diffusion.gaussian import (
+    DiffusionLoss,
+    ddim_sample_loop,
+    p_losses,
+    p_sample_loop,
+)
 from posediffusion_tpu_torch.models.denoiser import (
     Denoiser,
     denoiser_apply_fused,
@@ -98,6 +106,8 @@ class PoseDiffusionConfig:
     beta_1: float = 1e-4
     beta_T: float = 0.1
     beta_schedule: str = "custom"
+    objective: str = "pred_noise"  # or "pred_x0"
+    loss_type: str = "l1"  # or "l2"
 
 
 class GaussianDiffuser(nn.Module):
@@ -216,7 +226,7 @@ class PoseDiffusionModel(nn.Module):
             )
 
         out = p_losses(self.schedule, model_fn, pose_encodings, t.to(dev),
-                       noise.to(dev))
+                       noise.to(dev), objective=c.objective, loss_type=c.loss_type)
         if mask is not None:
             out = out._replace(loss=out.loss * mask[..., None].to(out.loss.dtype))
         return out
@@ -231,50 +241,75 @@ class PoseDiffusionModel(nn.Module):
         mask: Optional[torch.Tensor] = None,
         cond_fn: Optional[Callable] = None,
         cond_start_step: int = 0,
-    ) -> torch.Tensor:
-        """All reverse steps -> (B, N, 9) pose encodings.
+        return_trajectory: bool = False,
+        sampling_timesteps: Optional[int] = None,
+        ddim_eta: float = 0.0,
+    ):
+        """The reverse process -> (B, N, 9) pose encodings, or with
+        ``return_trajectory`` (encodings, trajectory).
 
-        ``x0`` (B, N, 9) and ``noises`` (T, B, N, 9) inject the draws in
-        step order (t = T-1 first); else they come from ``generator``. With
-        ``cond_fn`` (GGS), the steps t < ``cond_start_step`` condition the
-        posterior mean with it and take no noise (their draws are unused);
-        they run one sequence (B == 1).
+        ``x0`` (B, N, 9) and ``noises`` (R, B, N, 9) inject the draws in
+        step order (t = T-1 first); else they come from ``generator``. R is
+        T for ancestral sampling and S for DDIM (``sampling_timesteps`` S
+        below T; ``ddim_eta`` its eta). With ``cond_fn`` (GGS), the steps
+        t < ``cond_start_step`` condition the mean with it and take no
+        noise (their draws are unused); they run one sequence (B == 1).
+        The trajectory is the (T + 1, B, N, 9) states of ancestral sampling,
+        x0 first; DDIM returns None for it, as the JAX package does.
 
-        The denoiser's route follows the JAX package's (its ``sample``,
-        :436-493): one sequence runs the whole-loop sampler on
-        ``weight_dtype`` stacks and its GGS tail ``denoiser_apply_fused``; a
+        The routes follow the JAX package's ``sample`` (:436-581), each with
+        ``config.objective``. Ancestral sampling of one sequence runs the
+        whole-loop sampler on ``weight_dtype`` stacks and its GGS tail
+        ``denoiser_apply_fused``; with ``return_trajectory`` every step runs
+        ``p_sample_loop`` over ``denoiser_apply_fused``. DDIM of one
+        sequence runs ``ddim_sample_loop`` over ``denoiser_apply_fused``. A
         batch (B > 1) runs every step through ``denoiser_train_apply`` on
-        float32 weights. At ``denoiser_dtype=bfloat16`` the batch, and the
-        GGS tail, take that route on bf16-rounded weights with bf16
-        activations and residual stream."""
+        float32 weights. At ``denoiser_dtype=bfloat16`` the batch, the GGS
+        tail, the trajectory and DDIM take that route on bf16-rounded
+        weights with bf16 activations and residual stream."""
+        c = self.config
         z = self.extract_features(images)
         den = self.diffuser.model
-        T = self.config.timesteps
+        T = c.timesteps
+        shape = (*z.shape[:2], den.target_dim)
         n_cond = min(max(cond_start_step, 0), T) if cond_fn is not None else 0
-        bf16 = self.config.denoiser_dtype == "bfloat16"
-        if z.shape[0] > 1:
+        if sampling_timesteps is not None and sampling_timesteps < T:
+            x = ddim_sample_loop(
+                self.schedule, self._step_fn(z, mask), shape, z.device, sampling_timesteps,
+                ddim_eta, generator=generator, x0=x0, noises=noises, cond_fn=cond_fn,
+                cond_start_step=cond_start_step, objective=c.objective)
+            return (x, None) if return_trajectory else x
+        if z.shape[0] > 1 or return_trajectory:
             return p_sample_loop(
-                self.schedule, self._train_route_fn(z, mask, bf16),
-                (*z.shape[:2], den.target_dim), z.device, generator=generator, x0=x0,
-                noises=noises, cond_fn=cond_fn, cond_start_step=cond_start_step)
+                self.schedule, self._step_fn(z, mask), shape, z.device, generator=generator,
+                x0=x0, noises=noises, cond_fn=cond_fn, cond_start_step=cond_start_step,
+                objective=c.objective, return_trajectory=return_trajectory)
         x = fused_sample_loop(
             den, self.schedule, z, mask=mask, n_cond=n_cond,
             weight_dtype=self.weight_dtype, x0=x0,
             noises=None if noises is None else noises[:T - n_cond],
-            generator=generator,
+            generator=generator, objective=c.objective,
         )
         if n_cond == 0:
             return x
-        if bf16:
-            tail_fn = self._train_route_fn(z, mask, True)
-        else:
-            stacks = stack_trunk_params(den._trunk, self.weight_dtype)
-            tail_fn = lambda xt, t: denoiser_apply_fused(den, xt, t, z, mask, stacks)
         return p_sample_loop(
-            self.schedule, tail_fn, x.shape, x.device,
+            self.schedule, self._step_fn(z, mask), x.shape, x.device,
             noises=torch.zeros((n_cond, *x.shape), device=x.device),
             x_init=x, from_t=n_cond, cond_fn=cond_fn, cond_start_step=cond_start_step,
+            objective=c.objective,
         )
+
+    def _step_fn(self, z: torch.Tensor, mask: Optional[torch.Tensor]):
+        """model_fn of the routes that call the denoiser once a step: one
+        sequence over ``denoiser_apply_fused`` (its trunk ``fused_trunk``)
+        on ``weight_dtype`` stacks built once; a batch, or any B at
+        ``denoiser_dtype=bfloat16``, over ``denoiser_train_apply``."""
+        bf16 = self.config.denoiser_dtype == "bfloat16"
+        if z.shape[0] > 1 or bf16:
+            return self._train_route_fn(z, mask, bf16)
+        den = self.diffuser.model
+        stacks = stack_trunk_params(den._trunk, self.weight_dtype)
+        return lambda xt, t: denoiser_apply_fused(den, xt, t, z, mask, stacks)
 
     def _train_route_fn(self, z: torch.Tensor, mask: Optional[torch.Tensor],
                         bf16: bool):

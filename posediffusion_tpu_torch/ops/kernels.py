@@ -1225,11 +1225,17 @@ attention_bwd.launches = 0
 
 
 def _sum_partials(part: torch.Tensor) -> torch.Tensor:
-    """(S, ...) float32 partials -> their sum over S, in order."""
+    """(S, ...) float32 partials -> their sum over S, in order. A helper of
+    ``linear_wgrad`` and ``layerscale_bwd``, not a wrapper of
+    ``launch_counts``: ``_sum_partials.launches`` counts its launches apart."""
     out = torch.empty(part.shape[1:], device=part.device, dtype=torch.float32)
     _launch(load_library().pd_sum_partials, _ptr(part), _ptr(out), part.shape[0],
             out.numel(), _stream(part))
+    _sum_partials.launches += 1
     return out
+
+
+_sum_partials.launches = 0
 
 
 def layernorm_bwd_plain(x, g, dh, eps: float, residual=None,
@@ -1470,6 +1476,7 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in vars(KERNELS).values():
         fn.launches = 0
+    _sum_partials.launches = 0
     layernorm.by_shape.clear()
     linear.by_shape.clear()
     linear_rows.by_shape.clear()

@@ -12,10 +12,18 @@ next step's prologue, in one launch), ``sampler_epilogue`` at the last step.
 That is 1 + 5 L launches per step (41 at L = 8; the LayerNorms ride the
 products at up to 32 rows, 1 + 7 L above), one more in all, and nothing
 else: the noise, the
-per-step scalars cx = c1 a + c2 and ce = c1 b, sigma (0 at t = 0), the
-time-embedding projection tc, the feature projection zf and the weight
-stacks are computed once before the loop, as the JAX wrapper computes them
-outside its ``pallas_call``.
+per-step scalars (cx, ce), sigma (0 at t = 0), the time-embedding
+projection tc, the feature projection zf and the weight stacks are computed
+once before the loop, as the JAX wrapper computes them outside its
+``pallas_call``.
+
+The kernel's update, x <- cx x - ce out + sigma noise, is linear in x and
+the denoiser's output for both objectives: ``pred_noise`` (x_0 = a x - b out,
+mean = c1 x_0 + c2 x) takes (cx, ce) = (c1 a + c2, c1 b), ``pred_x0``
+(x_0 = out) takes (c2, -c1). The JAX package's TPU kernel bakes in the
+first pair whatever the objective (posediffusion_tpu/ops/sampler_kernel.py
+:27-31); here the objective picks the pair, so the whole-loop sampler
+samples ``pred_x0`` as ``p_sample_loop`` does.
 
 Randomness: ``x0`` (B, N, T) and ``noises`` (R, B, N, T) are raw standard
 normals, injected or drawn from ``generator``.
@@ -28,6 +36,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from posediffusion_tpu_torch.diffusion.gaussian import check_objective
 from posediffusion_tpu_torch.diffusion.schedule import DiffusionSchedule
 from posediffusion_tpu_torch.models.denoiser import pivot_onehot
 from posediffusion_tpu_torch.models.layers import key_bias_from_mask
@@ -74,10 +83,13 @@ def prepare_sampler(
     x0: Optional[torch.Tensor] = None,
     noises: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    objective: str = "pred_noise",
 ) -> SamplerInputs:
     """Draw (or take) the noise and compute everything the steps
-    t = T-1 .. n_cond read: per-step scalars, the row-split first
-    projection, tc, zf, the head and the trunk weight stacks."""
+    t = T-1 .. n_cond read: per-step scalars (those of ``objective``), the
+    row-split first projection, tc, zf, the head and the trunk weight
+    stacks."""
+    check_objective(objective)
     B, N, _ = z.shape
     device = z.device
     TD = denoiser.target_dim
@@ -99,7 +111,10 @@ def prepare_sampler(
     a, b = s.sqrt_recip_alphas_cumprod[tds], s.sqrt_recipm1_alphas_cumprod[tds]
     sigma = torch.exp(0.5 * s.posterior_log_variance_clipped[tds])
     sigma = torch.where(tds > 0, sigma, torch.zeros_like(sigma))
-    coef = torch.stack([c1 * a + c2, c1 * b], dim=-1).contiguous()
+    if objective == "pred_noise":
+        coef = torch.stack([c1 * a + c2, c1 * b], dim=-1).contiguous()
+    else:
+        coef = torch.stack([c2, -c1], dim=-1).contiguous()
     noise = (noises.to(torch.float32) * sigma[:, None, None, None]).reshape(R, rows, TD)
 
     # ---- first projection split by input rows
@@ -162,11 +177,12 @@ def fused_sample_loop(
     x0: Optional[torch.Tensor] = None,
     noises: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    objective: str = "pred_noise",
 ) -> torch.Tensor:
     """Run reverse steps t = T-1 .. n_cond through the kernel wrappers and
     return the (B, N, T) pose state."""
-    return run_sampler(prepare_sampler(denoiser, schedule, z, mask, n_cond,
-                                       weight_dtype, x0, noises, generator), KERNELS)
+    return run_sampler(prepare_sampler(denoiser, schedule, z, mask, n_cond, weight_dtype,
+                                       x0, noises, generator, objective), KERNELS)
 
 
 @torch.no_grad()
@@ -175,8 +191,8 @@ def fused_sample_loop_plain(
     mask: Optional[torch.Tensor] = None, n_cond: int = 0,
     weight_dtype: torch.dtype = torch.bfloat16,
     x0: Optional[torch.Tensor] = None, noises: Optional[torch.Tensor] = None,
-    generator: Optional[torch.Generator] = None,
+    generator: Optional[torch.Generator] = None, objective: str = "pred_noise",
 ) -> torch.Tensor:
     """The same math in plain PyTorch on any device."""
-    return run_sampler(prepare_sampler(denoiser, schedule, z, mask, n_cond,
-                                       weight_dtype, x0, noises, generator), PLAIN)
+    return run_sampler(prepare_sampler(denoiser, schedule, z, mask, n_cond, weight_dtype,
+                                       x0, noises, generator, objective), PLAIN)

@@ -105,7 +105,10 @@ def model_config_from_cfg(model_cfg: Config):
     """Map cfgs/default.yaml's MODEL tree (and the extensions the JAX
     package reads: extractor ``depth``, ``scale_factors``, ``freeze`` and
     ``compute_dtype``, transformer ``dropout`` and ``compute_dtype``,
-    diffuser ``timesteps``) onto the port's config."""
+    diffuser ``timesteps``, ``objective`` and ``loss_type``) onto the port's
+    config. An unknown objective or loss type raises the JAX package's
+    ``ValueError``."""
+    from posediffusion_tpu_torch.diffusion.gaussian import check_loss_type, check_objective
     from posediffusion_tpu_torch.models.pose_diffusion import PoseDiffusionConfig
 
     tr = model_cfg.get_path("DENOISER.TRANSFORMER", Config())
@@ -132,11 +135,9 @@ def model_config_from_cfg(model_cfg: Config):
         beta_1=float(diff.get("beta_1", 1e-4)),
         beta_T=float(diff.get("beta_T", 0.1)),
         beta_schedule=diff.get("beta_schedule", "custom"),
+        objective=check_objective(str(diff.get("objective", "pred_noise"))),
+        loss_type=check_loss_type(str(diff.get("loss_type", "l1"))),
     )
-    if diff.get("objective", "pred_noise") != "pred_noise":
-        raise ValueError("only the pred_noise objective is ported")
-    if diff.get("loss_type", "l1") != "l1":
-        raise ValueError("only the l1 loss is ported")
     return config
 
 

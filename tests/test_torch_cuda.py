@@ -633,6 +633,101 @@ def test_batched_sample_routes(cuda):
         _close(out, ref, tol)
 
 
+def _tiny_sample_model(dev, **config):
+    from posediffusion_tpu_torch.models.pose_diffusion import (
+        PoseDiffusionConfig,
+        PoseDiffusionModel,
+        init_random_weights,
+    )
+
+    model = PoseDiffusionModel(PoseDiffusionConfig(
+        z_dim=64, vit_depth=2, vit_heads=2, d_model=64, nhead=2, num_encoder_layers=2,
+        dim_feedforward=128, timesteps=8, **config))
+    init_random_weights(model, 0)
+    return model.to(dev)
+
+
+@pytest.mark.parametrize("objective", ["pred_noise", "pred_x0"])
+@pytest.mark.parametrize("eta", [0.0, 1.0])
+def test_ddim_on_fused_trunk_matches_plain(cuda, objective, eta):
+    """DDIM of one sequence on kernel 3 against its plain trunk from the
+    same features and draws: one step (S 1) to 1e-5; four of 8 timesteps
+    to 1e-4, or 10x the plain chain's own spread under a 2^-22 change of
+    x0 where that is larger (pred_x0 at eta 1 grew f32 sums in another
+    order to 2.1e-4 in four steps on an NVIDIA H100 80GB HBM3 at 700 W:
+    the chain is chaotic at random weights);
+    ``model.sample(sampling_timesteps=4)`` runs four
+    fused_trunk passes and no sampler launch."""
+    from posediffusion_tpu_torch.diffusion.gaussian import ddim_sample_loop
+    from posediffusion_tpu_torch.models.denoiser import denoiser_apply_fused
+    from posediffusion_tpu_torch.ops.denoiser_kernel import (
+        fused_trunk,
+        fused_trunk_plain,
+        stack_trunk_params,
+    )
+
+    model = _tiny_sample_model(cuda, objective=objective, weight_dtype="float32",
+                               extractor_act_bf16=False)
+    den = model.diffuser.model
+    r = _gen(4)
+    images = _t(r.uniform(size=(1, 5, 3, 96, 96)), cuda)
+    x0, noises = _t(r.normal(size=(1, 5, 9)), cuda), _t(r.normal(size=(4, 1, 5, 9)), cuda)
+    z = model.extract_features(images)
+    st = stack_trunk_params(den._trunk, torch.float32)
+
+    def chain(trunk, start, steps):
+        return ddim_sample_loop(
+            model.schedule, lambda x, t: denoiser_apply_fused(den, x, t, z, None, st,
+                                                              trunk=trunk),
+            (1, 5, 9), cuda, steps, eta, x0=start, noises=noises[:steps], objective=objective)
+
+    _close(chain(fused_trunk, x0, 1), chain(fused_trunk_plain, x0, 1), TOL_F32)
+    outs = [chain(fused_trunk, x0, 4), chain(fused_trunk_plain, x0, 4)]
+    moved = x0 + 2.0**-22 * _t(r.normal(size=(1, 5, 9)), cuda)
+    spread = (chain(fused_trunk_plain, moved, 4) - outs[1]).abs().max().item()
+    _close(outs[0], outs[1], max(1e-4, 10 * spread))
+    K.reset_launch_counts()
+    fused_trunk.launches = 0
+    out = model.sample(images, x0=x0, noises=noises, sampling_timesteps=4, ddim_eta=eta)
+    assert fused_trunk.launches == 4
+    assert all(K.launch_counts()[k] == 0
+               for k in ("sampler_prologue", "sampler_boundary", "sampler_epilogue"))
+    _close(out, outs[0], TOL_F32)
+
+
+def test_pred_x0_whole_loop_and_trajectory_match_plain(cuda):
+    """The whole-loop sampler at pred_x0 (per-step pair (c2, -c1)) against
+    its plain version, its first 4 of 8 steps (t = 7 .. 4; the last steps
+    of a pred_x0 chain are chaotic at random weights: x becomes the
+    denoiser's output), f32 stacks, a masked frame: 1e-4. The trajectory
+    route of one sequence (every step on kernel 3) passes the same state
+    after those steps, within the same bound, and runs 8 passes."""
+    from posediffusion_tpu_torch.ops.denoiser_kernel import fused_trunk
+    from posediffusion_tpu_torch.ops.sampler_kernel import (
+        fused_sample_loop,
+        fused_sample_loop_plain,
+    )
+
+    model = _tiny_sample_model(cuda, objective="pred_x0", weight_dtype="float32",
+                               extractor_act_bf16=False)
+    den = model.diffuser.model
+    r = _gen(6)
+    images = _t(r.uniform(size=(1, 5, 3, 96, 96)), cuda)
+    mask = torch.tensor([[1, 1, 1, 1, 0]], device=cuda)
+    x0, noises = _t(r.normal(size=(1, 5, 9)), cuda), _t(r.normal(size=(8, 1, 5, 9)), cuda)
+    z = model.extract_features(images)
+    kw = dict(mask=mask, n_cond=4, weight_dtype=torch.float32, x0=x0, noises=noises[:4],
+              objective="pred_x0")
+    out = fused_sample_loop(den, model.schedule, z, **kw)
+    _close(out, fused_sample_loop_plain(den, model.schedule, z, **kw), 1e-4)
+    fused_trunk.launches = 0
+    x, traj = model.sample(images, x0=x0, noises=noises, mask=mask, return_trajectory=True)
+    assert fused_trunk.launches == 8 and traj.shape == (9, 1, 5, 9)
+    assert torch.equal(traj[0], x0) and torch.equal(traj[-1], x)
+    assert torch.isfinite(traj).all()
+    _close(traj[4], out, 1e-4)
+
+
 @pytest.mark.parametrize("mask_last", [0, 3])
 def test_fused_trunk_matches_plain(cuda, mask_last):
     from posediffusion_tpu_torch.models.layers import TransformerEncoder

@@ -72,3 +72,69 @@ def test_images_and_camera_helpers_equal(rng):
     assert info_a["paths"] == info_b["paths"]
     R = np.linalg.qr(rng.normal(size=(5, 3, 3)))[0]
     np.testing.assert_array_equal(jcam.matrix_to_quaternion(R), cam.matrix_to_quaternion(R))
+
+
+def test_re10k_source_is_the_original_with_imports_pointed_aside():
+    import os
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(repo, "posediffusion_tpu", "data", "re10k.py")) as f:
+        ref = f.read()
+    with open(os.path.join(repo, "posediffusion_tpu_torch", "data", "re10k.py")) as f:
+        ours = f.read()
+    assert "posediffusion_tpu." not in ours
+    assert ours == ref.replace("posediffusion_tpu.", "posediffusion_tpu_torch.")
+
+
+def _re10k_scene(root, rng, scenes=("sceneA", "sceneB"), n_frames=6, hw=(48, 64)):
+    """A RealEstate10K-format tree: frames/train/video_loc.txt, each
+    scene's PNG frames named by timestamp, and per scene a txt of one header
+    line then ``timestamp fx fy cx cy k1 k2`` and a 3x4 COLMAP extrinsic
+    per frame (intrinsics normalised by the image size)."""
+    import os
+
+    from PIL import Image
+
+    train = os.path.join(root, "frames", "train")
+    ann = os.path.join(root, "ann", "train")
+    os.makedirs(ann, exist_ok=True)
+    for scene in scenes:
+        os.makedirs(os.path.join(train, scene), exist_ok=True)
+        rows = []
+        for i in range(n_frames):
+            stamp = 1000 * (i + 1)
+            arr = rng.integers(0, 255, size=(*hw, 3), dtype=np.uint8)
+            Image.fromarray(arr).save(os.path.join(train, scene, f"{stamp}.png"))
+            R = np.linalg.qr(rng.normal(size=(3, 3)))[0]
+            R *= np.sign(np.linalg.det(R))
+            t = rng.normal(size=3) * 0.3 + np.array([0.0, 0.0, 3.0])
+            intr = [0.9, 1.2, 0.5 + 0.02 * rng.normal(), 0.5, 0.0, 0.0]
+            rows.append(" ".join(str(v) for v in [stamp, *intr,
+                                                   *np.hstack([R, t[:, None]]).ravel()]))
+        with open(os.path.join(ann, f"{scene}.txt"), "w") as f:
+            f.write("header\n" + "\n".join(rows) + "\n")
+    with open(os.path.join(train, "video_loc.txt"), "w") as f:
+        f.write("\n".join(scenes) + "\n")
+    return root, os.path.join(root, "ann")
+
+
+@pytest.mark.parametrize("kw", [dict(color_aug=True), dict(eval_time=True, sort_by_filename=True)])
+def test_re10k_readers_equal(rng, tmp_path, kw):
+    """Both packages' Re10KDataset on one tiny RealEstate10K tree: the same
+    scenes, items (augmented and at eval time) and paths."""
+    from posediffusion_tpu.data import Re10KDataset as JRe10K
+    from posediffusion_tpu_torch.data import Re10KDataset
+
+    d, a = _re10k_scene(str(tmp_path), rng)
+    common = dict(Re10K_DIR=d, Re10K_ANNOTATION_DIR=a, min_num_images=3, img_size=32,
+                  normalize_cameras=True, seed=4, **kw)
+    ref, ours = JRe10K(**common), Re10KDataset(**common)
+    assert ref.sequence_list == ours.sequence_list and len(ours) == 2
+    for spec in ((0, 4, 21), (1, 3, 22)):
+        a_item, b_item = ref[spec], ours[spec]
+        assert np.isfinite(b_item["R"]).all() and np.isfinite(b_item["T"]).all()
+        _equal(a_item, b_item)
+    batch_a, paths_a = ref.get_data(index=1, ids=(0, 2, 5), return_path=True)
+    batch_b, paths_b = ours.get_data(index=1, ids=(0, 2, 5), return_path=True)
+    _equal(batch_a, batch_b)
+    assert paths_a == paths_b

@@ -3,7 +3,8 @@
 A subprocess installs a meta-path finder that refuses ``posediffusion_tpu``
 (the JAX package, numpy-only modules included) and ``jax``/``flax``, then
 imports every module of ``posediffusion_tpu_torch`` and the port's entry
-points. The port's copy of the RANSAC source must equal the JAX package's.
+points (demo_torch.py, train_torch.py, test_torch.py, chip_smoke.py). The
+port's copy of the RANSAC source must equal the JAX package's.
 """
 
 import os
@@ -26,7 +27,7 @@ import posediffusion_tpu_torch as p
 mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + ".")]
 for m in mods:
     importlib.import_module(m)
-import demo_torch, train_torch, chip_smoke
+import demo_torch, train_torch, test_torch, chip_smoke
 print(len(mods))
 '''
 
