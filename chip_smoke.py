@@ -1,8 +1,8 @@
 """Drive the PyTorch port's inference paths, without GGS, with GGS from a
 matches file, and with GGS from matches extracted from the images, DDIM,
-the Co3D evaluation (test_torch.py) and its training path, with the DINO
-ViT-S/16, DINOv2 ViT-S/14 and DINO ViT-B/16 backbones, once on an NVIDIA
-card.
+the Co3D evaluation (test_torch.py), its training path and data-parallel
+training, with the DINO ViT-S/16, DINOv2 ViT-S/14, DINO ViT-B/16,
+ResNet-50 and ResNet-101 backbones, once on an NVIDIA card.
 
     python3 chip_smoke.py             # from the repository root, one CUDA card
     python3 chip_smoke.py --profile   # also: torch.profiler over one GGS inference,
@@ -32,6 +32,8 @@ card.
         # the same, that order repeated N times (host-bound calls spread
         # more from one process to the next than within one)
     python3 chip_smoke.py --attention   # the attention cases alone
+    python3 chip_smoke.py --resnet      # the ResNet phases alone ([resnet], [viz],
+                                        # [resnet-train], [dp])
     python3 chip_smoke.py --wgrad       # bf16 mode's weight gradient and its
                                         # train step alone
     python3 chip_smoke.py --ptxas       # registers, spills and shared memory
@@ -86,7 +88,9 @@ Phases (any failure exits non-zero and prints no result line):
              tree of samples/apple (10 frames, 224px, GGS from the images
              with random MagicLeap weights): the results JSON finite with
              test.py's keys, every kernel of the path launched, a
-             sequence's sampling and match times;
+             sequence's sampling and match times, and its match extraction
+             split by stage (matcher weights, decode, SuperPoint,
+             SuperGlue, RANSAC, GGS tables; PhaseTimer);
   5. train   the training slice (TPU kernels 9 and 10): the train kernels
              (attention_bwd, layernorm_bwd, linear_wgrad and dgrad,
              act_dropout_bwd, the dropout masks bitwise) against their plain
@@ -123,6 +127,19 @@ Phases (any failure exits non-zero and prints no result line):
              step's time on both routes and its peak memory; ViT-B's
              fused_vit_trunk at 20 x 264 x 768, layernorm_bwd at 135,168 x
              768 and one train step at 512 images with its peak memory;
+  5c. resnet ResNet-50 and ResNet-101 (cuDNN, float32 with TF32 off):
+             demo_torch with ResNet-50 without GGS and with GGS from a
+             100/pair table, ResNet-101, and ResNet-50 at
+             compute_dtype=bfloat16 (finite cameras, the path's kernels
+             launched and no ViT kernel), the sampler's three entries on
+             ResNet-50's 2,048-wide features against plain, each
+             inference's and extractor's time beside the convolutions'
+             bound; [viz] the demo's cameras.html (and cameras.png where
+             matplotlib is installed); [resnet-train] ResNet-50 train steps
+             at 64 and 128 images (time, peak memory, every BatchNorm
+             statistic moved); [dp] a data-parallel step over NCCL at world
+             size 1 against the one-process step, and train_torch.run under
+             torchrun's variables;
   6. timing  CUDA-event medians of the inferences, the conditioned tail,
              the match extraction stages, and each kernel beside its plain
              version, its bound (bytes or operations over the H100's peaks)
@@ -282,6 +299,7 @@ PRED_X0_IMAGES = 64  # the pred_x0 / l2 train step's cut batch (4 sequences of 1
 # test_torch.main on the Co3D tree of samples/apple: the ViT, the whole-loop
 # sampler, the GGS tail and phases, and the matcher
 EVAL_RUNS = 2
+MATCH_SPLIT_ROUNDS = 3  # the eval sequence's match extraction timed by stage
 EVAL_PATH = NO_GGS_PATH + SUPERGLUE_KERNELS
 TRAIN_CU = "posediffusion_tpu_torch/csrc/train.cu"
 SUM_PARTIALS_COLD = 4  # 4 x 26 MB of partials, more than the H100's 50 MB L2
@@ -304,6 +322,18 @@ DINOV2_TRAIN_PATH = TRAIN_PATH + ("layerscale_bwd",)
 # serving path's LayerNorms and products are the sampler's, all folded
 DINOV2_SERVE_PATH = ("linear_rows", "attention") + SAMPLER_ENTRIES
 LS_PER_STEP = 24  # layerscale_bwd: 2 sites x 12 blocks (the encoder has no gains)
+# ResNet-50 and ResNet-101 (torchvision's Bottleneck ResNets on cuDNN, float32
+# with TF32 off, or their bf16 convolutions): serving on the sampler, GGS and
+# denoiser kernels with z 2,048 wide, the ViT kernels off the path; training
+# through autograd, the denoiser on the encoder train trunk (kernels 9-10).
+RESNET50 = "MODEL.IMAGE_FEATURE_EXTRACTOR.modelname=resnet50"
+RESNET101 = "MODEL.IMAGE_FEATURE_EXTRACTOR.modelname=resnet101"
+RESNET_BF16 = "MODEL.IMAGE_FEATURE_EXTRACTOR.compute_dtype=bfloat16"
+RESNET_SERVE_PATH = ("linear_rows", "attention") + SAMPLER_ENTRIES
+# cfgs/default_train.yaml's 512 images a step, cut: a float32 ResNet-50
+# backward over 512 x 3 scales would hold ~70 GB of activations
+RESNET_TRAIN_IMAGES = (64, 128)
+TOL_DP = 1e-6  # the data-parallel step at world size 1 against one process
 # The LayerNorm forward at the train trunks' shapes (TPU kernel 9's forward):
 # (rows, D, what); the serving ViT's 5,280 x 384 bf16 case is the layernorm
 # entry of the kernels line
@@ -3052,6 +3082,48 @@ def pred_x0_train_step(report, torch, K, dev, work):
     return {k: v for k, v in launches.items() if v}
 
 
+def match_stages(torch, cfg, paths, hw, dev, rounds=MATCH_SPLIT_ROUNDS):
+    """A sequence's match extraction as ``demo_torch.get_matches`` runs it
+    for test_torch.py, stage by stage under a ``PhaseTimer`` (a
+    synchronize at each stage's end): loading the MagicLeap weights, the
+    frames' decode (host), SuperPoint (cuDNN, top-k), SuperGlue (the
+    kernels, then its matches to the host), RANSAC (host) and the GGS
+    tables (``build_cond_fn``); the first round warms up, the others are
+    averaged. The stages are extract_match's own calls, in its order, with
+    the config's arguments and demo_torch's defaults. Returns {stage: ms}."""
+    from posediffusion_tpu_torch.diffusion.ggs import build_cond_fn
+    from posediffusion_tpu_torch.matching import extract as X
+    from posediffusion_tpu_torch.utils.config import build_ggs_config
+    from posediffusion_tpu_torch.utils.profiling import PhaseTimer
+
+    g = cfg.GGS
+    n = len(paths)
+    pairs = [(a, b) for a in range(n) for b in range(a + 1, n)]
+    timer = PhaseTimer()
+    for r in range(rounds + 1):
+        t = timer if r else PhaseTimer()
+        with t.phase("matcher weights (load)"):
+            sp, sg = X.load_matcher_weights(str(g.matcher_ckpt_dir), dev)
+        with t.phase("decode (host)"):
+            grays, sizes = X.load_grays(paths)
+        with t.phase("SuperPoint"):
+            feats = X.detect_frames(sp, grays, int(g.get("max_keypoints", 4096)))
+        with t.phase("SuperGlue"):
+            kpts, matches = X.match_all_pairs(sg, feats, sizes, pairs, 50,
+                                              float(g.get("match_threshold", 0.2)))
+        with t.phase("RANSAC (host)"):
+            kp1, kp2, i12 = X.verify_pairs(kpts, matches, pairs, n,
+                                           float(g.get("ransac_threshold_px", 4.0)),
+                                           int(g.get("min_pair_matches", 8)))
+        with t.phase("GGS tables (build_cond_fn)"):
+            build_cond_fn(np.concatenate(kp1), np.concatenate(kp2), np.concatenate(i12), n, hw,
+                          build_ggs_config(g), dev)
+    print("  a sequence's match extraction by stage (PhaseTimer, "
+          f"{rounds} rounds after one warm-up):\n    "
+          + timer.summary().replace("\n", "\n    "))
+    return {name: 1e3 * timer.totals[name] / timer.counts[name] for name in timer.totals}
+
+
 def eval_slice(report, dev, work, t_start, wdir):
     """[eval] test_torch.main, the Co3D evaluation, on the Co3D-format tree
     of samples/apple (one category, one sequence of 20 frames) at
@@ -3059,7 +3131,8 @@ def eval_slice(report, dev, work, t_start, wdir):
     from the images with random MagicLeap weights (``wdir``), EVAL_RUNS
     times (the later runs time a sequence without first-call costs); counts
     set to 0 just before. The results JSON finite with test.py's keys, every
-    kernel of the path launched. Returns (timings, launches)."""
+    kernel of the path launched; then the last sequence's match extraction
+    split into its stages (``match_stages``). Returns (timings, launches)."""
     import torch
 
     import test_torch
@@ -3110,8 +3183,378 @@ def eval_slice(report, dev, work, t_start, wdir):
           f"{[round(1e3 * s, 2) for s in matching]} ms (first run, then repeats); Racc_30 "
           f"{saved['Racc_30']['apple']:.3f}, AUC_30 "
           f"{saved['Auc_30']['apple']:.3f} (random weights)")
+    # the frames of the last sequence, as Co3dDataset.get_data orders them
+    from posediffusion_tpu_torch.utils.config import load_config
+
+    cfg = load_config("default_test", args)
+    seq_dir = os.path.join(co3d_dir, "apple", "seq0")
+    names = sorted(f for f in os.listdir(seq_dir) if f.lower().endswith(".jpg"))
+    paths = sorted(os.path.join(seq_dir, names[i]) for i in records[-1]["ids"])
+    hw = (int(cfg.test.img_size), int(cfg.test.img_size))
+    for stage, ms in match_stages(torch, cfg, paths, hw, dev).items():
+        timings[f"eval sequence matches: {stage} (ms)"] = ms
     print(f"  [eval] done at {time.perf_counter() - t_start:.0f} s", flush=True)
     return timings, launches
+
+
+def _device_ms_and_launches(torch, fn, calls=3):
+    """(device ms, kernels and copies launched) per call of ``fn``, from
+    torch.profiler's CUDA activity after one warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in events) / 1e3 / calls,
+            sum(e.count for e in events) / calls)
+
+
+def resnet_conv_flops(torch, net, fn):
+    """The operations (2 x multiply-adds) of every convolution of ``net``
+    that ``fn`` runs: the ResNet extractor's work, nearly all of it."""
+    total = [0]
+
+    def count(mod, inp, out):
+        kh, kw = mod.kernel_size
+        total[0] += 2 * out.numel() * (mod.in_channels // mod.groups) * kh * kw
+
+    hooks = [m.register_forward_hook(count) for m in net.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    try:
+        fn()
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def resnet_slice(report, dev, work, smi, t_start):
+    """[resnet] and [viz]: the ResNet backbones serving on the card, at
+    cfgs/default.yaml's 224px, three scales and 20 frames of samples/apple,
+    seeded random weights: demo_torch with ResNet-50 without GGS and with
+    GGS from a 100/pair matches table, ResNet-101 without GGS, ResNet-50 at
+    compute_dtype=bfloat16 without GGS, each run's counts set to 0 just
+    before it and its path's kernels required; the sampler's three entries
+    (kernel 2) on ResNet-50's zf against their plain versions; each
+    inference's and extractor's time (CUDA events after warm-up) beside the
+    extractor's convolutions' bound; [viz]: the ResNet-50 run's
+    cameras.html and, where matplotlib imports, cameras.png. Returns
+    (kernel JSON entries, timings, launches by run)."""
+    import torch
+
+    import demo_torch
+    from posediffusion_tpu_torch.data.images import load_and_preprocess_images
+    from posediffusion_tpu_torch.diffusion import ggs as G
+    from posediffusion_tpu_torch.models.feature_extractor import extract_features_resnet
+    from posediffusion_tpu_torch.models.pose_diffusion import (
+        PoseDiffusionModel,
+        init_random_weights,
+    )
+    from posediffusion_tpu_torch.ops import kernels as K
+    from posediffusion_tpu_torch.ops.sampler_kernel import prepare_sampler
+    from posediffusion_tpu_torch.utils.config import load_config, model_config_from_cfg
+
+    print("[resnet] demo_torch on samples/apple: ResNet-50 without and with GGS (100/pair), "
+          "ResNet-101, ResNet-50 at compute_dtype=bfloat16", flush=True)
+    apple = os.path.join(REPO, "samples", "apple")
+    imgs = torch.as_tensor(load_and_preprocess_images(apple, IMAGE_SIZE)[0], device=dev)[None]
+    n = imgs.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+    x0 = torch.randn((1, n, 9), generator=gen, device=dev)
+    matches = write_matches(os.path.join(work, "matches_resnet_100.npz"), apple, 100, SEED + 100)
+    hw = (IMAGE_SIZE, IMAGE_SIZE)
+    m_np = np.load(matches)
+    cond = G.build_cond_fn(m_np["kp1"], m_np["kp2"], m_np["i12"], n, hw, G.GGSConfig(), dev)
+    out_dir = os.path.join(work, "out_resnet")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    runs = (("ResNet-50", (RESNET50,), ("GGS.enable=False",), RESNET_SERVE_PATH),
+            ("ResNet-50 GGS 100/pair", (RESNET50,),
+             ("GGS.enable=True", f"GGS.matches_file={matches}"),
+             RESNET_SERVE_PATH + ("ggs_phase_chunked",)),
+            ("ResNet-101", (RESNET101,), ("GGS.enable=False",), RESNET_SERVE_PATH),
+            ("ResNet-50 bf16", (RESNET50, RESNET_BF16), ("GGS.enable=False",),
+             RESNET_SERVE_PATH))
+    timings, launches, models = {}, {}, {}
+    for what, model_args, ggs_args, path in runs:
+        K.reset_launch_counts()
+        out = demo_torch.run(demo_cfg(work, apple, *model_args, *ggs_args,
+                                      f"out_dir={out_dir}"), dev.type)
+        torch.cuda.synchronize()
+        launches[what] = K.launch_counts()
+        _check_launches(report, what, path, launches[what])
+        _check_cameras(report, out, n, what)
+        if what == "ResNet-50":
+            viz_check(report, out, out_dir)
+        if model_args not in models:
+            model = PoseDiffusionModel(model_config_from_cfg(
+                load_config("default", list(model_args)).MODEL))
+            init_random_weights(model, SEED)
+            models[model_args] = model.to(dev)
+        model = models[model_args]
+        noises = torch.randn((model.config.timesteps, 1, n, 9), generator=gen, device=dev)
+        c_fn, c_start = (cond, 10) if "GGS" in what else (None, 0)
+        with torch.no_grad():
+            ms = _time_ms(torch, lambda: model.sample(imgs, x0=x0, noises=noises, cond_fn=c_fn,
+                                                      cond_start_step=c_start), reps=5)
+            timings[f"{what} inference (20 frames, 224px; ms)"] = ms
+            if c_fn is None:
+                net = model.image_feature_extractor._net
+                ext = _time_ms(torch, lambda: model.extract_features(imgs), reps=5)
+                # counted on the float32 route: the bf16 route runs the same
+                # convolutions (on rounded operands), outside the modules' forward
+                flops = resnet_conv_flops(torch, net, lambda: extract_features_resnet(
+                    net, imgs[0], model.config.scale_factors))
+                b_ms = flops / PEAK_F32 * 1e3
+                dev_ms, n_launch = _device_ms_and_launches(
+                    torch, lambda: model.extract_features(imgs))
+                timings[f"{what} extractor (ms)"] = ext
+                timings[f"{what} extractor device (ms, profiler)"] = dev_ms
+                timings[f"{what} extractor launches (kernels and copies)"] = n_launch
+                timings[f"{what} extractor convolutions (GFLOP)"] = flops / 1e9
+                timings[f"{what} extractor bound (ms, ops at the float32 rate)"] = b_ms
+                print(f"  {what}: inference {ms:.3f} ms, extractor {ext:.3f} ms "
+                      f"({100 * ext / ms:.1f}% of it; {flops / 1e9:.1f} GFLOP of convolutions, "
+                      f"bound {b_ms:.3f} ms, {100 * b_ms / ext:.1f}% of it); the extractor's "
+                      f"device time {dev_ms:.3f} ms in {n_launch:.0f} launches "
+                      f"({100 * (1 - dev_ms / ext):.1f}% of its wall time the card is idle)")
+            else:
+                print(f"  {what}: inference {ms:.3f} ms")
+    print(f"  launches of the ResNet runs ({DEMO_INFERENCES} inferences each): {launches}")
+    report.require("ResNet serving: no ViT kernel (layernorm, linear) on the path",
+                   all(launches[w]["layernorm"] == 0 and launches[w]["linear"] == 0
+                       for w in launches), "")
+
+    # kernel 2's entries on ResNet-50's 2,048-wide features (projected to zf
+    # by prepare_sampler's plain product), against their plain versions
+    model = models[(RESNET50,)]
+    with torch.no_grad():
+        z = model.extract_features(imgs)
+        report.require("ResNet-50 features (1, 20, 2048), finite",
+                       tuple(z.shape) == (1, n, 2048) and bool(torch.isfinite(z).all()))
+        noises = torch.randn((model.config.timesteps, 1, n, 9), generator=gen, device=dev)
+        inp = prepare_sampler(model.diffuser.model, model.schedule, z,
+                              weight_dtype=model.weight_dtype, x0=x0, noises=noises)
+        kernels_json = []
+        for key, (name, args, err) in sampler_parity(report, torch, K, inp, "resnet50 bf16",
+                                                     n).items():
+            kern, plain = getattr(K, key), getattr(K, f"{key}_plain")
+            args_k = [a.clone() if torch.is_tensor(a) else a for a in args]
+            b_ms, b_by = sampler_bound(key, args)
+            kernels_json.append({
+                "name": f"{key} resnet50", "route": "cuda", "source": SOURCES[key],
+                "replaces": TPU_KERNELS[key], "launches": launches["ResNet-50"][key],
+                "max_abs_err": err, "ms": _time_ms(torch, lambda: kern(*args_k), inner=10),
+                "plain_ms": _time_ms(torch, lambda: plain(*args_k), inner=10),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "case": f"{name} on ResNet-50's zf (launches: the ResNet-50 no-GGS path, "
+                        f"{DEMO_INFERENCES} inferences)",
+            })
+            print(f"  {kernels_json[-1]['name']}: {kernels_json[-1]}")
+    del models, model, inp, z
+    torch.cuda.empty_cache()
+    print(f"  [resnet] done at {time.perf_counter() - t_start:.0f} s", flush=True)
+    return kernels_json, timings, launches
+
+
+def viz_check(report, out, out_dir):
+    """[viz] demo_torch's plots: cameras.html always, cameras.png where
+    matplotlib imports (else the demo said it skipped it)."""
+    html, png = (os.path.join(out_dir, f) for f in ("cameras.html", "cameras.png"))
+    try:
+        import matplotlib  # noqa: F401
+
+        has_mpl = True
+    except ImportError:
+        has_mpl = False
+    print(f"[viz] {out['plots']} (matplotlib {'found' if has_mpl else 'not installed'})")
+    report.require("[viz] cameras.html written and not empty",
+                   os.path.isfile(html) and os.path.getsize(html) > 0)
+    if has_mpl:
+        report.require("[viz] cameras.png written and not empty",
+                       os.path.isfile(png) and os.path.getsize(png) > 0)
+    else:
+        report.require("[viz] no cameras.png without matplotlib", png not in out["plots"])
+
+
+def resnet_train_slice(report, dev, work, smi, t_start):
+    """[resnet-train] ResNet-50 train steps at cfgs/default_train.yaml on the
+    Co3D tree of samples/apple, the step cut from 512 images to
+    RESNET_TRAIN_IMAGES (the extractor's activations for its backward, in
+    float32, would not fit 512): one step's launches (the denoiser on the
+    encoder train trunk, kernels 9-10), each size's step time (CUDA events,
+    three after one warm-up) and peak memory (``device_memory_stats``), the
+    losses finite, every BatchNorm statistic and the other parameters moved
+    over the steps. Returns (timings, the launches of one step)."""
+    import torch
+
+    from posediffusion_tpu_torch.models.pose_diffusion import (
+        PoseDiffusionModel,
+        init_random_weights,
+    )
+    from posediffusion_tpu_torch.ops import kernels as K
+    from posediffusion_tpu_torch.training.optim import make_optimizer
+    from posediffusion_tpu_torch.training.step import train_step
+    from posediffusion_tpu_torch.utils.config import model_config_from_cfg
+    from posediffusion_tpu_torch.utils.profiling import device_memory_stats
+
+    print(f"[resnet-train] ResNet-50 train steps, cfgs/default_train.yaml cut to "
+          f"{' and '.join(map(str, RESNET_TRAIN_IMAGES))} images a step", flush=True)
+    cfg = _train_cfg(work, "train_resnet", RESNET50)
+    t = cfg.train
+    model = PoseDiffusionModel(model_config_from_cfg(cfg.MODEL))
+    init_random_weights(model, SEED)
+    model.to(dev)
+    opt, _ = make_optimizer(model, lr=t.lr, T_0=t.restart_num, iters_per_epoch=t.len_train,
+                            clip_grad=t.clip_grad)
+    initial = {k: p.detach().clone() for k, p in model.named_parameters()}
+    timings, step_launches, losses = {}, None, []
+    for n_img in RESNET_TRAIN_IMAGES:
+        batch, draws, rows = _train_batch(
+            _train_cfg(work, "train_resnet", RESNET50, f"train.max_images={n_img}"), dev,
+            model.config.timesteps)
+
+        def step():
+            losses.append(train_step(model, opt, batch, t.batch_repeat, draws=draws)["loss"])
+
+        if step_launches is None:
+            step_launches = _step_launches(K, step)
+            _check_launches(report, "ResNet-50 train step", TRAIN_PATH, step_launches)
+            print(f"  launches of one ResNet-50 train step: {step_launches}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        card = f"cuda:{torch.cuda.current_device()}"
+        resident = device_memory_stats()[card]["allocated_bytes.all.current"] / 1e9
+        ms = _time_ms(torch, step, reps=3, warmup=1)
+        peak = device_memory_stats()[card]["allocated_bytes.all.peak"] / 1e9
+        timings[f"ResNet-50 train step, {n_img} images, batch_repeat {t.batch_repeat} (ms)"] = ms
+        timings[f"ResNet-50 peak memory of a train step, {n_img} images (GB)"] = peak
+        timings[f"ResNet-50 train step's own memory, {n_img} images (GB: peak less resident)"] = \
+            peak - resident
+        print(f"  ResNet-50 train step, {tuple(batch['images'].shape)} images ({rows} denoiser "
+              f"rows): {ms:.2f} ms, peak {peak:.2f} GB ({resident:.2f} GB resident before "
+              f"it, {peak - resident:.2f} GB the step's own) (card: {smi})")
+        del batch, draws
+    report.require("ResNet-50 train losses finite", bool(np.isfinite(losses).all()),
+                   f"({[round(x, 5) for x in losses]})")
+    moved = {k: (p.detach() - initial[k]).abs().max().item()
+             for k, p in model.named_parameters()}
+    stats = {k: v for k, v in moved.items() if k.endswith(("running_mean", "running_var"))}
+    others = {k: v for k, v in moved.items() if k not in stats}
+    print(f"  after {opt.step_count} steps: {sum(v > 0 for v in stats.values())} of "
+          f"{len(stats)} BatchNorm statistics moved (smallest change "
+          f"{min(stats.values()):.3e}), {sum(v > 0 for v in others.values())} of {len(others)} "
+          f"other parameters")
+    report.require("ResNet-50 train: every BatchNorm mean and variance moved",
+                   len(stats) == 2 * 53 and min(stats.values()) > 0)
+    report.require("ResNet-50 train: the other parameters moved", max(others.values()) > 0)
+    del model, opt, initial
+    torch.cuda.empty_cache()
+    print(f"  [resnet-train] done at {time.perf_counter() - t_start:.0f} s", flush=True)
+    return timings, step_launches
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dp_slice(report, dev, work, t_start):
+    """[dp] data parallelism at world size 1 over NCCL, under torchrun's
+    variables (MASTER_ADDR localhost): one ResNet-50 train step (64 images)
+    through ``train_step(distributed=True)`` against the one-process step
+    from the same state and draws (parameters within TOL_DP, and said
+    whether bitwise); then train_torch.run under the variables: 2 steps on
+    the NCCL group it sets up and takes down, the path's kernels launched,
+    finite losses, a checkpoint. Returns the data-parallel path's launches."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+
+    import train_torch
+    from posediffusion_tpu_torch.models.pose_diffusion import (
+        PoseDiffusionModel,
+        init_random_weights,
+    )
+    from posediffusion_tpu_torch.ops import kernels as K
+    from posediffusion_tpu_torch.parallel.distributed import maybe_initialize_distributed
+    from posediffusion_tpu_torch.training.optim import make_optimizer
+    from posediffusion_tpu_torch.training.step import train_step
+    from posediffusion_tpu_torch.utils.config import model_config_from_cfg
+
+    n_img = RESNET_TRAIN_IMAGES[0]
+    print(f"[dp] world size 1 over NCCL: a ResNet-50 step ({n_img} images) through the "
+          "data-parallel path against the one-process step; train_torch.run under torchrun's "
+          "variables", flush=True)
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(_free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        cfg = _train_cfg(work, "train_dp", RESNET50, f"train.max_images={n_img}")
+        t = cfg.train
+        one = PoseDiffusionModel(model_config_from_cfg(cfg.MODEL))
+        init_random_weights(one, SEED)
+        one.to(dev)
+        par = copy.deepcopy(one)
+        batch, draws, _ = _train_batch(cfg, dev, one.config.timesteps)
+        report.require("[dp] maybe_initialize_distributed sets up NCCL at world size 1",
+                       maybe_initialize_distributed("cuda") and dist.get_backend() == "nccl"
+                       and dist.get_world_size() == 1)
+        steps = {}
+        for name, model, distributed in (("one process", one, False), ("data-parallel", par, True)):
+            opt, _ = make_optimizer(model, lr=t.lr, T_0=t.restart_num,
+                                    iters_per_epoch=t.len_train, clip_grad=t.clip_grad)
+            steps[name] = train_step(model, opt, batch, t.batch_repeat, draws=draws,
+                                     distributed=distributed)
+        dist.destroy_process_group()
+        pa = dict(one.named_parameters())
+        diffs = [(p.detach() - pa[k].detach()).abs().max().item() for k, p in par.named_parameters()]
+        bitwise = all(torch.equal(p, pa[k]) for k, p in par.named_parameters())
+        print(f"  loss {steps['one process']['loss']:.6f} / {steps['data-parallel']['loss']:.6f}, "
+              f"gradient norm {steps['one process']['grad_norm']:.6f} / "
+              f"{steps['data-parallel']['grad_norm']:.6f}; parameters bitwise equal: {bitwise}")
+        report.check("[dp] data-parallel step vs one-process step: parameters", max(diffs), TOL_DP)
+        report.check("[dp] data-parallel step vs one-process step: loss",
+                     abs(steps["one process"]["loss"] - steps["data-parallel"]["loss"]), TOL_DP)
+        del one, par, batch, draws
+        torch.cuda.empty_cache()
+
+        cfg = _train_cfg(work, "train_dp_run", RESNET50, f"train.max_images={n_img}",
+                         "train.epochs=1", "train.len_train=2")
+        shutil.rmtree(cfg.exp_dir, ignore_errors=True)
+        K.reset_launch_counts()
+        result = train_torch.run(cfg)
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        _check_launches(report, "data-parallel train", TRAIN_PATH, launches)
+        print(f"  train_torch.run: rank {result['rank']} of {result['world_size']} on "
+              f"{result['device']}, backend {result['backend']}, {result['steps']} steps, losses "
+              f"{[round(x, 5) for x in result['losses']]}")
+        report.require("[dp] train_torch.run trained on NCCL at world size 1",
+                       result["backend"] == "nccl" and result["world_size"] == 1
+                       and result["steps"] == 2 and result["finite"])
+        report.require("[dp] train_torch.run wrote its checkpoint and took its group down",
+                       bool(result["checkpoint"]) and os.path.exists(result["checkpoint"])
+                       and not dist.is_initialized())
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    print(f"  [dp] done at {time.perf_counter() - t_start:.0f} s", flush=True)
+    return launches
 
 
 def sum_partials_entry(report, torch, K, dev, f32_step, bf16_step):
@@ -3245,6 +3688,15 @@ def main(argv) -> int:
         del batch, draws
         entries = wgrad_bf16_entries(report, torch, K, dev, bf_by_shape, run_device_times())
         print(json.dumps({"wgrad_bf16": entries, "timings_ms": bf_timings, "card": smi}))
+        if report.failures:
+            print("FAILED:\n  " + "\n  ".join(report.failures), file=sys.stderr)
+            return 1
+        return 0
+    if "--resnet" in argv:  # the ResNet phases alone: serving, [viz], training, [dp]
+        resnet_json, resnet_timings, _ = resnet_slice(report, dev, work, smi, t_start)
+        resnet_timings.update(resnet_train_slice(report, dev, work, smi, t_start)[0])
+        dp_slice(report, dev, work, t_start)
+        print(json.dumps({"kernels": resnet_json, "timings_ms": resnet_timings, "card": smi}))
         if report.failures:
             print("FAILED:\n  " + "\n  ".join(report.failures), file=sys.stderr)
             return 1
@@ -3684,6 +4136,10 @@ def main(argv) -> int:
     # ---- 5b. DINOv2 (LayerScale) serving and training, and ViT-B
     bb_json, bb_timings, bb_rows, bb_steps = backbones_slice(report, dev, work, smi, t_start,
                                                              dino_step)
+    # ---- 5c. the ResNet backbones: serving ([resnet], [viz]), training, data parallelism
+    resnet_json, resnet_timings, resnet_launches = resnet_slice(report, dev, work, smi, t_start)
+    resnet_train_timings, resnet_step = resnet_train_slice(report, dev, work, smi, t_start)
+    dp_launches = dp_slice(report, dev, work, t_start)
 
     # ---- 6. timing (default mode, CUDA events after warm-up)
     print(f"[timing] medians of {N_TIMED}, card: {smi}")
@@ -4038,7 +4494,7 @@ def main(argv) -> int:
             "case": f"200-iteration phase, {where} (launches: GGS path, {DEMO_INFERENCES} "
                     f"inferences a run)",
         })
-    kernels_json += train_json + bb_json
+    kernels_json += train_json + bb_json + resnet_json
     kernels_json.append(sum_partials_entry(report, torch, K, dev, dino_step, dino_bf16_step))
     with torch.no_grad():
         kernels_json += layernorm_entries(report, torch, F, K, dev, gen)
@@ -4047,6 +4503,8 @@ def main(argv) -> int:
     timings.update(bb_timings)
     timings.update(ddim_timings)
     timings.update(eval_timings)
+    timings.update(resnet_timings)
+    timings.update(resnet_train_timings)
 
     # the ten TPU kernels' rows (PERF.md section 6): each row's case, its
     # kernel route and plain route, its bound and a one-call yardstick
@@ -4115,6 +4573,7 @@ def main(argv) -> int:
     # rows 9 and 10 by train step: the kernels one step launches, per backbone
     train_steps = {"DINO": {k: v for k, v in dino_step.items() if v},
                    "DINO bf16": {k: v for k, v in dino_bf16_step.items() if v},
+                   "ResNet-50": {k: v for k, v in resnet_step.items() if v},
                    **{b: {k: v for k, v in c.items() if v} for b, c in bb_steps.items()}}
     for b, c in train_steps.items():
         print(f"  launches of one {b} train step: {c}")
@@ -4162,7 +4621,8 @@ def main(argv) -> int:
                       "ggs_launches_per_inference": ggs_per_inference,
                       "launches_per_train_step": train_steps,
                       "ddim_launches": ddim_launches, "pred_x0_step_launches": x0_step,
-                      "eval_launches": eval_launches}))
+                      "eval_launches": eval_launches, "resnet_launches": resnet_launches,
+                      "dp_launches": dp_launches}))
     print(json.dumps({"kernels": kernels_json}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

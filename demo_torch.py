@@ -20,15 +20,18 @@ default config (``MODEL.DIFFUSER.timesteps``) with the config's objective,
 a card), whose last ``GGS.start_step`` steps
 are geometry-guided when matches exist (the GGS phases on the GGS kernels on
 a card) -> decode to cameras -> 7-DoF alignment to gt_cameras.npz, if
-present -> absolute rotation error -> ``<out_dir>/predictions.npz``.
+present -> absolute rotation error -> ``<out_dir>/predictions.npz``, and the
+cameras (with the aligned prediction and the ground truth, when present)
+as ``<out_dir>/cameras.html``, an interactive scene, and
+``<out_dir>/cameras.png`` where matplotlib is installed (else the demo says
+it skipped the PNG).
 
 ``ckpt`` is a reference ``.pth`` (strict load); anything else that is not an
 existing ``.pth`` gives random weights seeded by ``seed``. It runs on the
 card; ``device=cpu`` runs it on the CPU (the kernels' plain versions).
 With GGS on but neither a matches file nor matcher weights, the demo says
 so and samples without GGS, as demo.py does. ``get_matches`` serves
-test_torch.py too. The frustum plot and the HTML export are not ported
-yet.
+test_torch.py too.
 """
 
 import os
@@ -87,6 +90,7 @@ def run(cfg, device: str) -> dict:
     from posediffusion_tpu_torch.utils.config import build_ggs_config, model_config_from_cfg
     from posediffusion_tpu_torch.utils.convert import load_reference_state_dict
     from posediffusion_tpu_torch.utils.precision import pin_full_float32
+    from posediffusion_tpu_torch.utils.visualize import export_scene_html, plot_cameras
 
     pin_full_float32()
     model = PoseDiffusionModel(model_config_from_cfg(cfg.MODEL))
@@ -136,6 +140,7 @@ def run(cfg, device: str) -> dict:
         "T": pred.T.cpu().numpy(),
         "focal_length": pred.focal_length.cpu().numpy(),
     }
+    camera_sets = {"ours_pred": pred}
     gt_path = os.path.join(folder, "gt_cameras.npz")
     if os.path.exists(gt_path):
         gt = np.load(gt_path)
@@ -145,6 +150,8 @@ def run(cfg, device: str) -> dict:
         aligned = align_cameras(pred, gt_cameras, estimate_scale=True)
         are = float(compute_are(aligned.R, gt_cameras.R).mean())
         print(f"For {folder}: the absolute rotation error is {are:.6f} degrees.")
+        camera_sets["ours_pred_aligned"] = aligned
+        camera_sets["gt_cameras"] = gt_cameras
         out["ARE_deg"] = are
     else:
         print("No GT provided. No evaluation conducted.")
@@ -152,7 +159,13 @@ def run(cfg, device: str) -> dict:
     out_dir = cfg.get("out_dir", "outputs")
     os.makedirs(out_dir, exist_ok=True)
     np.savez(os.path.join(out_dir, "predictions.npz"), **out)
-    print(f"Saved {os.path.join(out_dir, 'predictions.npz')}")
+    plots = [export_scene_html(camera_sets, os.path.join(out_dir, "cameras.html"))]
+    try:
+        plots.append(plot_cameras(camera_sets, os.path.join(out_dir, "cameras.png")))
+    except ImportError as e:
+        print(f"Skipped cameras.png: matplotlib is not installed ({e})")
+    print(f"Saved {os.path.join(out_dir, 'predictions.npz')} + {' + '.join(plots)}")
+    out["plots"] = plots
     return out
 
 

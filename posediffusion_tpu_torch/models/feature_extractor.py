@@ -2,11 +2,16 @@
 ``posediffusion_tpu.models.feature_extractor``: ImageNet-normalise, run the
 ViT at scales 1, 1/2 and 1/3 packed into one token row (197 + 50 + 17 = 264
 tokens at 224px with patch 16; 257 + 65 + 26 = 348 with DINOv2's patch 14),
-and average the per-scale CLS features.
+and average the per-scale CLS features; or run a ResNet on each scale's
+bilinear resize and average its pooled features.
 
 Backbones (``modelname``, the reference's contract): ``dino_vits16``,
-``dino_vitb16`` and ``dinov2_vits14`` (LayerScale, patch 14, position grid
-37). The JAX package's ``resnet50`` / ``resnet101`` are not ported.
+``dino_vitb16``, ``dinov2_vits14`` (LayerScale, patch 14, position grid
+37), ``resnet50`` and ``resnet101`` (2,048-wide features, ``models/resnet``).
+``extract_features_resnet`` is the ResNets' route for serving and training
+alike, as in the JAX package, where the Flax module serves and trains them:
+the normalisation, the resizes and the network in plain PyTorch (cuDNN on a
+card), differentiable, at float32 or at the Flax bf16 convolutions' sites.
 
 ``extract_features_fused`` is the DINO inference path: the patch embedding,
 position interpolation, packing, CLS LayerNorm and average are plain
@@ -35,8 +40,9 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from posediffusion_tpu_torch.models.resnet import ResNet, resnet_layers
 from posediffusion_tpu_torch.models.vit import VisionTransformer
-from posediffusion_tpu_torch.ops.image import imagenet_normalize
+from posediffusion_tpu_torch.ops.image import imagenet_normalize, resize_bilinear, scale_size
 from posediffusion_tpu_torch.ops.kernels import attention, round_bf16
 from posediffusion_tpu_torch.ops.vit_kernel import fused_vit_trunk, stack_vit_params
 from posediffusion_tpu_torch.ops.vit_train_kernel import (
@@ -46,18 +52,20 @@ from posediffusion_tpu_torch.ops.vit_train_kernel import (
 
 
 class MultiScaleImageFeatureExtractor(nn.Module):
-    """The ViT backbone that ``modelname`` names: DINO (``dino_vits16``,
-    ``dino_vitb16``: ``patch_size``) or DINOv2 (``dinov2_vits14``: patch 14,
-    grid 37, LayerScale), as ``posediffusion_tpu/models/feature_extractor.py
-    :44-63``. The ResNet backbones raise: they are not ported."""
+    """The backbone that ``modelname`` names: DINO (``dino_vits16``,
+    ``dino_vitb16``: ``patch_size``), DINOv2 (``dinov2_vits14``: patch 14,
+    grid 37, LayerScale) or a ResNet (``resnet50``, ``resnet101``; the ViT
+    arguments unused), as ``posediffusion_tpu/models/feature_extractor.py
+    :44-63``."""
 
     def __init__(self, scale_factors: Sequence[float] = (1.0, 1.0 / 2, 1.0 / 3),
                  modelname: str = "dino_vits16", patch_size: int = 16,
                  embed_dim: int = 384, depth: int = 12, num_heads: int = 6):
         super().__init__()
-        if "resnet" in modelname:
-            raise NotImplementedError(f"backbone {modelname} is not ported")
         self.scale_factors = tuple(scale_factors)
+        if "resnet" in modelname:
+            self._net = ResNet(resnet_layers(modelname))
+            return
         dinov2 = "dinov2" in modelname
         self._net = VisionTransformer(
             patch_size=14 if dinov2 else patch_size, embed_dim=embed_dim, depth=depth,
@@ -66,12 +74,35 @@ class MultiScaleImageFeatureExtractor(nn.Module):
 
     @property
     def output_dim(self) -> int:
-        return self._net.embed_dim
+        return self._net.output_dim if isinstance(self._net, ResNet) else self._net.embed_dim
 
     def forward(self, images_nchw: torch.Tensor) -> torch.Tensor:
         """(B, 3, H, W) in [0, 1] -> (B, D), all in plain PyTorch."""
+        if isinstance(self._net, ResNet):
+            return extract_features_resnet(self._net, images_nchw, self.scale_factors)
         feats = self._net(imagenet_normalize(images_nchw), self.scale_factors)
         return feats.mean(dim=1)
+
+
+def extract_features_resnet(
+    net: ResNet,
+    images_nchw: torch.Tensor,  # (B, 3, H, W) in [0, 1]
+    scale_factors: Sequence[float] = (1.0, 1.0 / 2, 1.0 / 3),
+    bf16: bool = False,
+) -> torch.Tensor:
+    """(B, 3, H, W) -> (B, 2,048): the network on each scale's bilinear
+    resize (torch's floor sizes and ``scale_factor`` coordinates), the
+    pooled features averaged over the scales
+    (``posediffusion_tpu/models/feature_extractor.py:67-80``)."""
+    img = imagenet_normalize(images_nchw)
+    h, w = img.shape[-2:]
+    total = None
+    for s in scale_factors:
+        inp = img if s == 1 else resize_bilinear(
+            img, (scale_size(h, s), scale_size(w, s)), scale_factor=s)
+        feat = net(inp, bf16)
+        total = feat if total is None else total + feat
+    return total / len(scale_factors)
 
 
 def _embed_pack_scales(vit: VisionTransformer, images_nchw: torch.Tensor,

@@ -3,14 +3,17 @@
 
 The module tree carries the released checkpoint's keys:
 ``image_feature_extractor._net.*`` (the ViT; DINOv2's adds
-``blocks.N.ls{1,2}.gamma``), ``diffuser.model.*`` (denoiser) and the 13
-schedule buffers ``diffuser.<name>``, so a reference ``.pth`` loads with a
-strict ``load_state_dict``. Backbones: ``dino_vits16`` (the default),
-``dino_vitb16`` and ``dinov2_vits14``.
+``blocks.N.ls{1,2}.gamma``; a ResNet's are torchvision's),
+``diffuser.model.*`` (denoiser) and the 13 schedule buffers
+``diffuser.<name>``, so a reference ``.pth`` loads with a strict
+``load_state_dict``. Backbones: ``dino_vits16`` (the default),
+``dino_vitb16``, ``dinov2_vits14``, ``resnet50`` and ``resnet101`` (whose
+2,048-wide features the denoiser takes as z).
 
 ``sample`` runs ``extract_features_fused`` (DINO: ViT trunk on the kernels;
 DINOv2, and DINO at ``compute_dtype=bfloat16``: ``extract_features_blocks``,
-its attention on the kernels), then, for one sequence,
+its attention on the kernels; a ResNet: ``extract_features_resnet``, cuDNN
+on a card), then, for one sequence,
 ``fused_sample_loop`` for the unconditioned steps [n_cond, T) (all of them
 without GGS), then, with a ``cond_fn``, the conditioned tail t < n_cond in
 ``p_sample_loop`` with ``denoiser_apply_fused`` (trunk on the kernels) and
@@ -22,7 +25,8 @@ decided by the images' device alone.
 
 ``loss`` is the training loss (``posediffusion_tpu``'s ``loss``, :260-385):
 ``extract_features_train`` (TPU kernel 9/10's ViT flavour, with LayerScale
-for DINOv2), ``batch_repeat``
+for DINOv2; a ResNet through ``extract_features_resnet`` and autograd, as
+the JAX package differentiates its Flax module), ``batch_repeat``
 tiling of the features and poses, then ``p_losses`` over
 ``denoiser_train_apply`` (the encoder flavour, with dropout) at the
 config's objective and loss type, masked by the frame mask. Its draws (t,
@@ -59,15 +63,16 @@ from posediffusion_tpu_torch.models.feature_extractor import (
     MultiScaleImageFeatureExtractor,
     extract_features_blocks,
     extract_features_fused,
+    extract_features_resnet,
     extract_features_train,
 )
+from posediffusion_tpu_torch.models.resnet import BatchNormInference, ResNet
 from posediffusion_tpu_torch.models.vit import LayerScale
 from posediffusion_tpu_torch.ops.denoiser_kernel import stack_trunk_params
 from posediffusion_tpu_torch.ops.sampler_kernel import fused_sample_loop
 
 
-# the JAX package's backbones (posediffusion_tpu/utils/config.py:128); the
-# ResNets are not ported and raise in the extractor
+# the JAX package's backbones (posediffusion_tpu/utils/config.py:128)
 KNOWN_BACKBONES = ("dino_vits16", "dino_vitb16", "dinov2_vits14", "resnet50", "resnet101")
 
 
@@ -164,16 +169,19 @@ class PoseDiffusionModel(nn.Module):
         kernels; DINOv2's blocks in float32 with their attention on the
         kernels; at ``compute_dtype=bfloat16`` DINO's blocks at the Flax
         bf16 blocks' rounding sites (DINOv2 raises), as the JAX package
-        routes them (:409-414, :432; its extractor's ``dtype``, :170)."""
+        routes them (:409-414, :432; its extractor's ``dtype``, :170); a
+        ResNet at float32 or at its bf16 convolutions' sites."""
         B, N = images.shape[:2]
-        vit = self.image_feature_extractor._net
+        net = self.image_feature_extractor._net
         flat = images.reshape(B * N, *images.shape[2:])
         bf16 = self.config.compute_dtype == "bfloat16"
-        if vit.layer_scale or bf16:
-            z = extract_features_blocks(vit, flat, self.config.scale_factors, bf16=bf16)
+        if isinstance(net, ResNet):
+            z = extract_features_resnet(net, flat, self.config.scale_factors, bf16=bf16)
+        elif net.layer_scale or bf16:
+            z = extract_features_blocks(net, flat, self.config.scale_factors, bf16=bf16)
         else:
             z = extract_features_fused(
-                vit, flat, scale_factors=self.config.scale_factors,
+                net, flat, scale_factors=self.config.scale_factors,
                 act_bf16=self.config.extractor_act_bf16,
                 weight_dtype=self.weight_dtype,
             )
@@ -199,11 +207,14 @@ class PoseDiffusionModel(nn.Module):
         B, N = images.shape[:2]
         flat = images.reshape(B * N, *images.shape[2:])
         bf16 = c.compute_dtype == "bfloat16"
+        net = self.image_feature_extractor._net
         with torch.set_grad_enabled(torch.is_grad_enabled() and not c.freeze_extractor):
-            z = extract_features_train(
-                self.image_feature_extractor._net, flat, c.scale_factors,
-                act_bf16=bf16, residual_bf16=bf16,
-            ).reshape(B, N, -1)
+            if isinstance(net, ResNet):
+                z = extract_features_resnet(net, flat, c.scale_factors, bf16=bf16)
+            else:
+                z = extract_features_train(net, flat, c.scale_factors, act_bf16=bf16,
+                                           residual_bf16=bf16)
+            z = z.reshape(B, N, -1)
         if batch_repeat > 0:
             pose_encodings = pose_encodings.repeat(batch_repeat, 1, 1)
             z = z.repeat(batch_repeat, 1, 1)
@@ -329,15 +340,27 @@ class PoseDiffusionModel(nn.Module):
 @torch.no_grad()
 def init_random_weights(model: nn.Module, seed: int, std: float = 0.02) -> None:
     """Fill every parameter with seeded draws: N(0, std), plus 1 for
-    LayerNorm weights and LayerScale gains (gains near 0 would scale every
-    branch and its gradient away). Buffers (the schedule) keep their values.
-    The draws come from one CPU generator, so the weights do not depend on
-    the device."""
+    LayerNorm weights, LayerScale gains (gains near 0 would scale every
+    branch and its gradient away) and a ResNet's BatchNorm weights and
+    variances; a ResNet's convolution kernels N(0, 1 / fan_in), which keeps
+    the stream's scale through its 16-33 blocks (its BatchNorms run on fixed
+    statistics and do not renormalise: at N(0, std) each strided shortcut
+    shrinks the stream and the BatchNorm biases dominate the features).
+    Buffers (the schedule) keep their values. The draws come from one CPU
+    generator, so the weights do not depend on the device."""
     gen = torch.Generator().manual_seed(seed)
+    resnet_convs = {id(m) for r in model.modules() if isinstance(r, ResNet)
+                    for m in r.modules() if isinstance(m, nn.Conv2d)}
     for module in model.modules():
         for name, p in module.named_parameters(recurse=False):
-            draw = torch.randn(p.shape, generator=gen) * std
-            if (isinstance(module, nn.LayerNorm) and name == "weight") or isinstance(
-                    module, LayerScale):
+            draw = torch.randn(p.shape, generator=gen)
+            if id(module) in resnet_convs:
+                draw *= p[0].numel() ** -0.5
+            else:
+                draw *= std
+            if ((isinstance(module, nn.LayerNorm) and name == "weight")
+                    or isinstance(module, LayerScale)
+                    or (isinstance(module, BatchNormInference)
+                        and name in ("weight", "running_var"))):
                 draw += 1.0
             p.copy_(draw)

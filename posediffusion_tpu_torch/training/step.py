@@ -1,11 +1,20 @@
-"""The train and eval steps, as ``posediffusion_tpu.training.step`` (on one
-card; data parallelism is not ported yet).
+"""The train and eval steps, as ``posediffusion_tpu.training.step``.
 
 The train step (reference pose_diffusion/train.py:151-253): the diffusion
 loss normalised over the valid frames of the ``batch_repeat``-tiled batch,
 its gradients, clipping and the AdamW update, then the pose metrics of the
 x_0 predictions of the first repeat. The eval step samples cameras and
 scores them (train.py:216-222).
+
+Data parallelism (``distributed``, one process a card) follows
+``make_sharded_train_step`` (``posediffusion_tpu/training/step.py
+:127-210``): each rank's loss is its own sum over the denominator summed
+over the ranks (the valid frames x 9, or the element count), its gradients
+are summed over the ranks (not averaged), and every rank runs the same
+AdamW update on the same gradients, the whole batch's gradient, as that
+step's own reference test computes it (the JAX step itself applies world
+size x it: a ``psum`` in its loss transposes to a second sum). Each rank
+brings its own batch and draws; the metrics are the rank's own.
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ from posediffusion_tpu_torch.geometry.metrics import (
     camera_to_rel_deg,
 )
 from posediffusion_tpu_torch.geometry.pose_codec import pose_encoding_to_camera
+from posediffusion_tpu_torch.parallel.distributed import all_reduce_grads, all_reduce_sum
 from posediffusion_tpu_torch.training.optim import AdamW
 
 
@@ -50,29 +60,40 @@ def pose_metrics(pred_encodings: torch.Tensor, gt_encodings: torch.Tensor,
 
 
 def normalized_loss(loss: torch.Tensor, n_coords: int, batch_repeat: int,
-                    mask: Optional[torch.Tensor]) -> torch.Tensor:
+                    mask: Optional[torch.Tensor], distributed: bool = False) -> torch.Tensor:
     """The unreduced loss -> its mean over the valid frames' coordinates
-    (posediffusion_tpu/training/step.py:95-108)."""
+    (posediffusion_tpu/training/step.py:95-108); ``distributed``: this
+    rank's sum over the denominator of all ranks (:176-189)."""
     if mask is None:
-        return loss.mean()
+        if not distributed:
+            return loss.mean()
+        return loss.sum() / all_reduce_sum(torch.tensor(float(loss.numel()), device=loss.device))
     rep = mask.repeat(batch_repeat, 1) if batch_repeat > 0 else mask
-    return loss.sum() / (rep.to(torch.float32).sum().clamp(min=1.0) * n_coords)
+    den = rep.to(torch.float32).sum()
+    if distributed:
+        den = all_reduce_sum(den)
+    return loss.sum() / (den.clamp(min=1.0) * n_coords)
 
 
 def train_step(model, optimizer: AdamW, batch: Dict[str, torch.Tensor],
                batch_repeat: int = 0, generator: Optional[torch.Generator] = None,
-               draws: Optional[dict] = None,
-               compute_metrics: bool = True) -> Dict[str, float]:
+               draws: Optional[dict] = None, compute_metrics: bool = True,
+               distributed: bool = False) -> Dict[str, float]:
     """One step on ``batch`` ({"images", "pose_encodings", optional "mask"}):
     loss, backward, clip and update. ``draws`` (t, noise, drop_seed) are
-    the loss's random draws; else they come from ``generator``."""
+    the loss's random draws; else they come from ``generator``.
+    ``distributed``: this rank's part of a data-parallel step (the loss
+    reported is the whole step's)."""
     gt = batch["pose_encodings"]
     mask = batch.get("mask")
     optimizer.zero_grad()
     out = model.loss(batch["images"], gt, batch_repeat=batch_repeat, mask=mask,
                      train=True, generator=generator, **(draws or {}))
-    loss = normalized_loss(out.loss, gt.shape[-1], batch_repeat, mask)
+    loss = normalized_loss(out.loss, gt.shape[-1], batch_repeat, mask, distributed)
     loss.backward()
+    if distributed:
+        all_reduce_grads(optimizer.params)
+        loss = all_reduce_sum(loss.detach().clone())
     info = optimizer.step()
     metrics = {"loss": float(loss.detach()), "lr": info["lr"], "grad_norm": info["grad_norm"]}
     if compute_metrics:

@@ -4,8 +4,9 @@
 ``posediffusion_tpu.utils.convert.convert_pose_diffusion_checkpoint``: it
 maps the JAX params pytree (leaves as numpy arrays) onto the reference
 checkpoint's keys. Dense kernels (in, out) are transposed to torch Linear
-weights (out, in); the patch-embed Conv kernel goes from HWIO to OIHW;
-LayerNorm scale/bias become weight/bias.
+weights (out, in); Conv kernels (the patch embedding, the ResNets) go from
+HWIO to OIHW; LayerNorm scale/bias become weight/bias, and a ResNet's
+BatchNorm scale/bias/mean/var weight/bias/running_mean/running_var.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 
 from posediffusion_tpu_torch.utils.manifest import OPTIONAL_CONSTANT_KEYS
 
-VIT_PREFIX = "image_feature_extractor._net."
+NET_PREFIX = "image_feature_extractor._net."  # the backbone, ViT or ResNet
 DENOISER_PREFIX = "diffuser.model."
 
 
@@ -65,6 +66,45 @@ def vit_state_dict_from_jax(net, prefix: str = "") -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _conv_oihw(p) -> torch.Tensor:
+    return _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+
+
+def _resnet_bn(p, prefix: str) -> Dict[str, torch.Tensor]:
+    return {f"{prefix}.weight": _t(p["scale"]), f"{prefix}.bias": _t(p["bias"]),
+            f"{prefix}.running_mean": _t(p["mean"]), f"{prefix}.running_var": _t(p["var"])}
+
+
+def bottleneck_state_dict_from_jax(bp, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """Flax ``Bottleneck`` params -> torchvision's block keys
+    (``downsample_conv`` / ``downsample_bn`` -> ``downsample.0`` / ``.1``)."""
+    sd = {}
+    for i in (1, 2, 3):
+        sd[f"{prefix}conv{i}.weight"] = _conv_oihw(bp[f"conv{i}"])
+        sd.update(_resnet_bn(bp[f"bn{i}"], f"{prefix}bn{i}"))
+    if "downsample_conv" in bp:
+        sd[f"{prefix}downsample.0.weight"] = _conv_oihw(bp["downsample_conv"])
+        sd.update(_resnet_bn(bp["downsample_bn"], f"{prefix}downsample.1"))
+    return sd
+
+
+def resnet_state_dict_from_jax(net, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """Flax ``ResNet`` params -> torchvision's keys: the inverse of
+    ``posediffusion_tpu.models.resnet.convert_resnet`` (HWIO kernels to
+    OIHW, ``layer{s}_{b}`` -> ``layer{s}.{b}``)."""
+    sd = {f"{prefix}conv1.weight": _conv_oihw(net["conv1"])}
+    sd.update(_resnet_bn(net["bn1"], f"{prefix}bn1"))
+    stage = 1
+    while f"layer{stage}_0" in net:
+        b = 0
+        while f"layer{stage}_{b}" in net:
+            sd.update(bottleneck_state_dict_from_jax(net[f"layer{stage}_{b}"],
+                                                     f"{prefix}layer{stage}.{b}."))
+            b += 1
+        stage += 1
+    return sd
+
+
 def denoiser_state_dict_from_jax(p, prefix: str = "") -> Dict[str, torch.Tensor]:
     """Flax ``Denoiser`` params -> reference denoiser keys."""
     sd = {}
@@ -93,12 +133,21 @@ def denoiser_state_dict_from_jax(p, prefix: str = "") -> Dict[str, torch.Tensor]
 def state_dict_from_jax(params_np, schedule=None) -> Dict[str, torch.Tensor]:
     """Full JAX model params ``{"extractor": {"params": {"net": ...}},
     "denoiser": {"params": ...}}`` -> the reference checkpoint's keys (with
-    the LayerScale gains of a DINOv2 backbone).
+    the LayerScale gains of a DINOv2 backbone). The backbone's family comes
+    from its layout, as ``convert_pose_diffusion_checkpoint`` tells it
+    (``posediffusion_tpu/utils/convert.py:143-160``): a ViT has a
+    ``cls_token``, a ResNet a ``conv1``.
 
     The schedule buffers (``diffuser.<name>``) are not JAX parameters; pass
     the port's ``DiffusionSchedule`` to include them, as a strict load of
     the whole model needs."""
-    sd = vit_state_dict_from_jax(params_np["extractor"]["params"]["net"], VIT_PREFIX)
+    net = params_np["extractor"]["params"]["net"]
+    if "cls_token" in net:
+        sd = vit_state_dict_from_jax(net, NET_PREFIX)
+    elif "conv1" in net:
+        sd = resnet_state_dict_from_jax(net, NET_PREFIX)
+    else:
+        raise ValueError("unrecognized feature-extractor params layout")
     sd.update(denoiser_state_dict_from_jax(params_np["denoiser"]["params"],
                                            DENOISER_PREFIX))
     if schedule is not None:

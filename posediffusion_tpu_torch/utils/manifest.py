@@ -5,7 +5,8 @@ The reference loads its released weights with strict ``load_state_dict``
 the model's state-dict keys.  This module enumerates those keys + shapes from
 the reference module definitions:
 
-* extractor: DINO ViT-S/16 under ``image_feature_extractor._net.``
+* extractor: DINO ViT-S/16 (or, with ``backbone``, a torchvision ResNet-50
+  or ResNet-101, ``resnet_manifest``) under ``image_feature_extractor._net.``
   (image_feature_extractor.py:42; torch.hub DINO layout — cls_token,
   pos_embed, patch_embed.proj, blocks.N.{norm1, attn.qkv, attn.proj, norm2,
   mlp.fc1, mlp.fc2}, norm).  The ImageNet mean/std buffers are registered
@@ -86,6 +87,41 @@ def vit_manifest(
     return m
 
 
+def _bn(dim: int, prefix: str) -> Dict[str, Tuple[int, ...]]:
+    return {f"{prefix}.{n}": (dim,) for n in ("weight", "bias", "running_mean", "running_var")}
+
+
+RESNET_LAYERS = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3)}
+
+
+def resnet_manifest(
+    prefix: str = "image_feature_extractor._net.",
+    layers: Tuple[int, ...] = RESNET_LAYERS["resnet50"],
+) -> Dict[str, Tuple[int, ...]]:
+    """torchvision's Bottleneck ResNet keys without ``fc`` (the reference
+    replaces it with Identity) and without the BatchNorms'
+    ``num_batches_tracked`` counters (a load accepts and drops them)."""
+    p = prefix
+    m: Dict[str, Tuple[int, ...]] = {f"{p}conv1.weight": (64, 3, 7, 7)}
+    m.update(_bn(64, f"{p}bn1"))
+    inplanes, planes = 64, 64
+    for stage, blocks in enumerate(layers):
+        for b in range(blocks):
+            k = f"{p}layer{stage + 1}.{b}"
+            m[f"{k}.conv1.weight"] = (planes, inplanes, 1, 1)
+            m.update(_bn(planes, f"{k}.bn1"))
+            m[f"{k}.conv2.weight"] = (planes, planes, 3, 3)
+            m.update(_bn(planes, f"{k}.bn2"))
+            m[f"{k}.conv3.weight"] = (4 * planes, planes, 1, 1)
+            m.update(_bn(4 * planes, f"{k}.bn3"))
+            if b == 0:
+                m[f"{k}.downsample.0.weight"] = (4 * planes, inplanes, 1, 1)
+                m.update(_bn(4 * planes, f"{k}.downsample.1"))
+            inplanes = 4 * planes
+        planes *= 2
+    return m
+
+
 def denoiser_manifest(
     prefix: str = "diffuser.model.",
     d_model: int = 512,
@@ -122,16 +158,27 @@ def schedule_manifest(timesteps: int = 100) -> Dict[str, Tuple[int, ...]]:
     return {f"diffuser.{n}": (timesteps,) for n in SCHEDULE_BUFFER_NAMES}
 
 
-def reference_checkpoint_manifest(variant: str = "co3d") -> Dict[str, Tuple[int, ...]]:
+def reference_checkpoint_manifest(variant: str = "co3d",
+                                  backbone: str = "dino_vits16") -> Dict[str, Tuple[int, ...]]:
     """Complete {key: shape} manifest of a released reference checkpoint.
 
     variant: "co3d" (224px) or "re10k" (336px) — identical manifests, both
     accepted so call sites document which checkpoint they mean.
+    backbone: "dino_vits16" (the released checkpoints' extractor), or
+    "resnet50" / "resnet101" (the reference's ``modelname`` option): a
+    ResNet's keys, and the denoiser's first projection reading its 2,048-wide
+    features (input 189 + 128 + 2,048 + 1 = 2,366).
     """
     if variant not in ("co3d", "re10k"):
         raise ValueError(f"unknown variant {variant!r}")
     m: Dict[str, Tuple[int, ...]] = {}
-    m.update(vit_manifest())
-    m.update(denoiser_manifest())
+    if backbone == "dino_vits16":
+        m.update(vit_manifest())
+        m.update(denoiser_manifest())
+    elif backbone in RESNET_LAYERS:
+        m.update(resnet_manifest(layers=RESNET_LAYERS[backbone]))
+        m.update(denoiser_manifest(input_dim=189 + 128 + 2048 + 1))
+    else:
+        raise ValueError(f"unknown backbone {backbone!r}")
     m.update(schedule_manifest())
     return m

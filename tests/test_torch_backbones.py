@@ -1,7 +1,8 @@
 """The port's backbones against the JAX package on the CPU: DINOv2 ViT-S/14
 (LayerScale, patch 14, position grid 37) and DINO ViT-B/16 (12 heads).
 
-* the config mapping of the three ViT names, and a ResNet refused;
+* the config mapping of the three ViT names, the ResNets' feature width, and
+  an unknown name refused;
 * the LayerScale ViT module and the packed DINOv2 extractor (module and the
   serving path, ``extract_features_blocks``) against the Flax modules;
 * the LayerScale train trunk's output and every gradient, the gains
@@ -97,14 +98,18 @@ class TestConfig:
                 k: v.shape for k, v in vit.state_dict().items()}
 
     def test_resnet_is_refused_and_unknown_names_raise(self):
+        """The ResNets build (their 2,048-wide features feed the denoiser);
+        an unknown name raises."""
         from posediffusion_tpu_torch.utils.config import load_config, model_config_from_cfg
 
         def build(name):
             return PoseDiffusionModel(model_config_from_cfg(load_config("default", [
                 f"MODEL.IMAGE_FEATURE_EXTRACTOR.modelname={name}"]).MODEL))
 
-        with pytest.raises(NotImplementedError, match="not ported"):
-            build("resnet50")
+        for name in ("resnet50", "resnet101"):
+            ext = build(name).image_feature_extractor
+            assert ext.output_dim == 2048
+            assert JModel(JConfig(modelname=name)).extractor.output_dim == 2048
         with pytest.raises(ValueError, match="unsupported backbone"):
             build("vit_huge")
 

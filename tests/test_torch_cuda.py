@@ -1538,3 +1538,56 @@ def test_layernorm_forward_repeats_bitwise(cuda, rows, D):
     g, b = _t(r.normal(size=D), cuda), _t(r.normal(size=D), cuda)
     y = K.layernorm(x, g, b, 1e-6, True)
     assert all(torch.equal(y, K.layernorm(x, g, b, 1e-6, True)) for _ in range(3))
+
+
+def test_resnet50_features_match_the_cpu(cuda):
+    """ResNet-50 through the extractor (three scales of 224px, 4 frames) on
+    cuDNN at float32 with TF32 off, against the same weights on the CPU:
+    float32 sums in another order through 16 blocks, 1e-4 x max(1,
+    |features|)."""
+    from posediffusion_tpu_torch.models.pose_diffusion import (
+        PoseDiffusionConfig,
+        PoseDiffusionModel,
+        init_random_weights,
+    )
+    from posediffusion_tpu_torch.utils.precision import pin_full_float32
+
+    pin_full_float32()
+    model = PoseDiffusionModel(PoseDiffusionConfig(modelname="resnet50"))
+    init_random_weights(model, 3)
+    images = torch.as_tensor(_gen(3).uniform(size=(1, 4, 3, 224, 224)), dtype=torch.float32)
+    ref = model.extract_features(images)
+    out = model.to(cuda).extract_features(images.to(cuda))
+    assert out.shape == (1, 4, 2048)
+    _close(out.cpu(), ref, 1e-4)
+
+
+def test_resnet_sample_kernel_route_matches_plain(cuda):
+    """The whole-loop sampler (kernel 2) on ResNet-50's 2,048-wide
+    features, its first 4 of 8 steps on float32 stacks against its plain
+    version on the card: 1e-4, as on the ViT's."""
+    from posediffusion_tpu_torch.models.pose_diffusion import (
+        PoseDiffusionConfig,
+        PoseDiffusionModel,
+        init_random_weights,
+    )
+    from posediffusion_tpu_torch.ops.sampler_kernel import (
+        fused_sample_loop,
+        fused_sample_loop_plain,
+    )
+
+    model = PoseDiffusionModel(PoseDiffusionConfig(
+        modelname="resnet50", num_encoder_layers=2, timesteps=8, weight_dtype="float32"))
+    init_random_weights(model, 4)
+    model.to(cuda)
+    den = model.diffuser.model
+    r = _gen(7)
+    images = _t(r.uniform(size=(1, 5, 3, 128, 128)), cuda)
+    x0, noises = _t(r.normal(size=(1, 5, 9)), cuda), _t(r.normal(size=(4, 1, 5, 9)), cuda)
+    z = model.extract_features(images)
+    assert z.shape == (1, 5, 2048)
+    kw = dict(n_cond=4, weight_dtype=torch.float32, x0=x0, noises=noises)
+    K.reset_launch_counts()
+    out = fused_sample_loop(den, model.schedule, z, **kw)
+    assert K.launch_counts()["sampler_boundary"] == 3
+    _close(out, fused_sample_loop_plain(den, model.schedule, z, **kw), 1e-4)

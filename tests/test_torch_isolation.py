@@ -7,6 +7,7 @@ points (demo_torch.py, train_torch.py, test_torch.py, chip_smoke.py). The
 port's copy of the RANSAC source must equal the JAX package's.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -28,7 +29,8 @@ mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + ".")]
 for m in mods:
     importlib.import_module(m)
 import demo_torch, train_torch, test_torch, chip_smoke
-print(len(mods))
+import json
+print(json.dumps(mods))
 '''
 
 
@@ -37,7 +39,10 @@ def test_port_imports_nothing_of_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", REFUSE], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 40
+    mods = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert len(mods) >= 40
+    for m in ("models.resnet", "parallel.distributed", "utils.visualize", "utils.profiling"):
+        assert f"posediffusion_tpu_torch.{m}" in mods, m
 
 
 def test_ransac_source_is_a_faithful_copy():

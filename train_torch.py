@@ -20,7 +20,22 @@ kernels; ``device=cpu`` runs their plain versions. Weights are drawn from
 ``seed`` (``init_random_weights``) unless ``train.resume_ckpt`` names a
 reference ``.pth`` (strict load) or a checkpoint directory (``True``: the
 newest under ``exp_dir``), which restores the model, the optimizer and the
-epoch. Data parallelism over several cards is not ported yet.
+epoch.
+
+Data parallelism, as train.py's ``train.dp``: one process a card, started
+by torchrun (or any launcher that sets ``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT``):
+
+    torchrun --nproc_per_node=4 train_torch.py train.CO3D_DIR=... exp_dir=...
+
+Rank r trains on ``cuda:LOCAL_RANK`` over NCCL (gloo with ``device=cpu``),
+draws its own sequences (the sampler's item seed offset by 1,000 r) in the
+batch shapes that every rank shares (one ``shape_seed``), ``max_images`` a
+rank, its own loss draws, and its own share of the eval sequences; the
+train step sums the gradients over the ranks
+(``training/step.train_step(distributed=True)``). Rank 0 alone writes the
+checkpoints, ``stats.jsonl`` and the plots. ``train.dp``, when set, must
+equal the world size; ``train.fsdp`` above 1 raises (FSDP is not ported).
 """
 
 from __future__ import annotations
@@ -72,9 +87,34 @@ def _to_device(batch, device):
     return {k: torch.as_tensor(v).to(device, non_blocking=True) for k, v in batch.items()}
 
 
+FSDP_GAP = ("train.fsdp > 1 is not ported: the PyTorch port trains data-parallel only "
+            "(one process a card, train.dp = the world size); parameter sharding "
+            "(posediffusion_tpu/parallel/mesh.py fsdp_param_spec) has no counterpart")
+
+
 def run(cfg) -> dict:
     """Train with a loaded config; returns a summary of the run (losses, the
-    last eval metrics, the last checkpoint, the largest parameter change)."""
+    last eval metrics, the last checkpoint, the largest parameter change).
+    Under torchrun's variables this process is one rank of a data-parallel
+    run (the process group is set up here, and taken down at the end)."""
+    import torch
+    import torch.distributed as dist
+
+    from posediffusion_tpu_torch.parallel.distributed import maybe_initialize_distributed
+    from posediffusion_tpu_torch.utils.config import device_from_cfg
+
+    if int(cfg.train.get("fsdp") or 1) > 1:
+        raise ValueError(FSDP_GAP)
+    started = not dist.is_initialized() and maybe_initialize_distributed(
+        torch.device(device_from_cfg(cfg)).type)
+    try:
+        return _run(cfg)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _run(cfg) -> dict:
     import numpy as np
     import torch
 
@@ -91,29 +131,44 @@ def run(cfg) -> dict:
         save,
     )
     from posediffusion_tpu_torch.training.optim import EXTRACTOR_PREFIX, make_optimizer
+    from posediffusion_tpu_torch.parallel.distributed import local_rank, rank_and_world
     from posediffusion_tpu_torch.training.stats import StatsLogger
     from posediffusion_tpu_torch.training.step import eval_step, train_step
     from posediffusion_tpu_torch.utils.config import device_from_cfg, model_config_from_cfg
     from posediffusion_tpu_torch.utils.precision import pin_full_float32
     from posediffusion_tpu_torch.utils.seeding import seed_all_random_engines
 
-    device = torch.device(device_from_cfg(cfg))
-    pin_full_float32()
-    seed_all_random_engines(cfg.seed)
     t = cfg.train
+    rank, world = rank_and_world()
+    distributed = torch.distributed.is_initialized()
+    if t.get("dp") and int(t.dp) != world:
+        raise ValueError(f"train.dp={t.dp} but the world size is {world}: one process a card")
+    device = torch.device(device_from_cfg(cfg))
+    if device.type == "cuda" and distributed:
+        device = torch.device("cuda", local_rank())
+        torch.cuda.set_device(device)
+    if distributed:
+        print(f"distributed: rank {rank} of {world} on {device}")
+    pin_full_float32()
+    seed_all_random_engines(cfg.seed, process_unique=True)
+    is_main = rank == 0
 
     dataset, eval_dataset = get_co3d_dataset(cfg)
     print(f"train sequences: {len(dataset)}  eval sequences: {len(eval_dataset)}")
     buckets = tuple(t.get("frame_buckets") or (4, 8, 16, 24, 32, 51))
+    # each rank draws its own items, all ranks one stream of batch shapes
+    # (train.py:124-135); each rank evaluates its own share of the sequences
     sampler = DynamicBatchSampler(
         len(dataset), dataset_len=t.len_train, max_images=t.max_images,
         images_per_seq=tuple(t.images_per_seq), frame_buckets=buckets,
-        seed=cfg.seed, shape_seed=cfg.seed + 31,
+        seed=cfg.seed + 1000 * rank, shape_seed=cfg.seed + 31,
     )
+    eval_share = np.arange(len(eval_dataset))[rank::world]
     eval_sampler = DynamicBatchSampler(
-        len(eval_dataset), dataset_len=t.len_eval, max_images=t.max_images // 2,
-        images_per_seq=tuple(t.images_per_seq), frame_buckets=buckets,
-        seed=cfg.seed + 1, shape_seed=cfg.seed + 37,
+        len(eval_dataset), dataset_len=t.len_eval if len(eval_share) else 0,
+        max_images=t.max_images // 2, images_per_seq=tuple(t.images_per_seq),
+        frame_buckets=buckets, seed=cfg.seed + 1 + 1000 * rank,
+        sequence_indices=eval_share if world > 1 else None, shape_seed=cfg.seed + 37,
     )
 
     config = model_config_from_cfg(cfg.MODEL)
@@ -127,7 +182,7 @@ def run(cfg) -> dict:
     )
     if config.freeze_extractor:
         print("extractor frozen: no updates (incl. weight decay) to the backbone")
-    gen = torch.Generator().manual_seed(cfg.seed)  # the loss's draws
+    gen = torch.Generator().manual_seed(cfg.seed + 1000 * rank)  # the loss's draws
     if t.resume_ckpt:
         resume = str(t.resume_ckpt)
         if resume.endswith(".pth"):
@@ -146,14 +201,14 @@ def run(cfg) -> dict:
     stats = StatsLogger(
         ["loss", "lr", "sec/it", "Auc_30", "Racc_5", "Racc_15", "Racc_30",
          "Tacc_5", "Tacc_15", "Tacc_30"],
-        jsonl_path=os.path.join(cfg.exp_dir, "stats.jsonl"),
+        jsonl_path=os.path.join(cfg.exp_dir, "stats.jsonl") if is_main else None,
     )
-    eval_gen = torch.Generator(device=device).manual_seed(cfg.seed + 1)
+    eval_gen = torch.Generator(device=device).manual_seed(cfg.seed + 1 + 1000 * rank)
     losses, step_seconds, eval_metrics, ckpt = [], [], None, None
     start_epoch = optimizer.step_count // max(t.len_train, 1)
     for epoch in range(start_epoch, t.epochs):
         stats.new_epoch()
-        seed_all_random_engines(cfg.seed + epoch)
+        seed_all_random_engines(cfg.seed + epoch, process_unique=True)
 
         if epoch != 0 and epoch % t.eval_interval == 0:
             print(f"---------- eval at epoch {epoch} ----------")
@@ -186,7 +241,7 @@ def run(cfg) -> dict:
                 batch = _to_device(batch, device)
                 t0 = time.perf_counter()
                 metrics = train_step(model, optimizer, batch, batch_repeat=t.batch_repeat,
-                                     generator=gen)
+                                     generator=gen, distributed=distributed)
                 step_seconds.append(time.perf_counter() - t0)
                 losses.append(metrics["loss"])
                 stats.update(metrics, stat_set="train")
@@ -197,19 +252,23 @@ def run(cfg) -> dict:
             stop.set()
             producer.join(timeout=10)
 
-        stats.plot(os.path.join(cfg.exp_dir, "stats.png"))
-        if epoch % t.ckpt_interval == 0 or epoch == t.epochs - 1:
+        if is_main:
+            stats.plot(os.path.join(cfg.exp_dir, "stats.png"))
+        if is_main and (epoch % t.ckpt_interval == 0 or epoch == t.epochs - 1):
             ckpt = save(cfg.exp_dir, model, optimizer, optimizer.step_count,
                         extra={"generator": gen.get_state()})
             print(f"saved checkpoint {ckpt}")
 
     stats.flush()
-    stats.plot(os.path.join(cfg.exp_dir, "stats.png"))
+    if is_main:
+        stats.plot(os.path.join(cfg.exp_dir, "stats.png"))
     change = max(float((p.detach().cpu() - initial[k]).abs().max())
                  for k, p in model.named_parameters())
     return {"losses": losses, "step_seconds": step_seconds, "steps": optimizer.step_count,
             "eval": eval_metrics, "checkpoint": ckpt, "param_change": change,
-            "finite": bool(np.isfinite(losses).all()) if losses else False}
+            "finite": bool(np.isfinite(losses).all()) if losses else False,
+            "rank": rank, "world_size": world, "device": str(device),
+            "backend": torch.distributed.get_backend() if distributed else None}
 
 
 def main(argv=None):
