@@ -34,6 +34,8 @@ ResNet-50 and ResNet-101 backbones, once on an NVIDIA card.
     python3 chip_smoke.py --attention   # the attention cases alone
     python3 chip_smoke.py --resnet      # the ResNet phases alone ([resnet], [viz],
                                         # [resnet-train], [dp])
+    python3 chip_smoke.py --fsdp        # [fsdp], [train-336] and [dinov2-bf16]
+                                        # alone
     python3 chip_smoke.py --wgrad       # bf16 mode's weight gradient and its
                                         # train step alone
     python3 chip_smoke.py --ptxas       # registers, spills and shared memory
@@ -140,6 +142,21 @@ Phases (any failure exits non-zero and prints no result line):
              statistic moved); [dp] a data-parallel step over NCCL at world
              size 1 against the one-process step, and train_torch.run under
              torchrun's variables;
+  5d. fsdp, 336px, DINOv2 bf16  [fsdp] a DINO model sharded by
+             parallel/mesh.shard_model on a (1, 1) mesh over NCCL at world
+             size 1 (torchrun's variables, as [dp]): one step of 64 images
+             against the one-process step, every gradient present and every
+             parameter moved, the train kernels launched, the eval on the
+             sharded model equal to the gathered weights' sample, the whole
+             checkpoint loaded strictly into one process (fsdp >= 2 is
+             proven on the CPU only); [train-336] one DINO step at
+             train.img_size=336 (593 packed tokens) at 512 images (or the
+             largest of 384 and 256 that fits), its time, peak memory and
+             ViT trunk forward and backward, beside the same four at 224px
+             measured the same way; [dinov2-bf16] demo_torch with
+             DINOv2 at compute_dtype=bfloat16 (kernels 2 and 5 launched, no
+             kernel of the fused ViT trunk), its inference and extractor
+             times beside the float32 route's;
   6. timing  CUDA-event medians of the inferences, the conditioned tail,
              the match extraction stages, and each kernel beside its plain
              version, its bound (bytes or operations over the H100's peaks)
@@ -334,6 +351,11 @@ RESNET_SERVE_PATH = ("linear_rows", "attention") + SAMPLER_ENTRIES
 # backward over 512 x 3 scales would hold ~70 GB of activations
 RESNET_TRAIN_IMAGES = (64, 128)
 TOL_DP = 1e-6  # the data-parallel step at world size 1 against one process
+FSDP_IMAGES = 64  # [fsdp]'s cut step (4 sequences of 16): the path, not its scale
+# [train-336]: cfgs/default_train.yaml's 512 images at train.img_size=336,
+# or the largest of the rest that fits
+TRAIN336_IMAGES = (512, 384, 256)
+DINOV2_BF16 = "MODEL.IMAGE_FEATURE_EXTRACTOR.compute_dtype=bfloat16"
 # The LayerNorm forward at the train trunks' shapes (TPU kernel 9's forward):
 # (rows, D, what); the serving ViT's 5,280 x 384 bf16 case is the layernorm
 # entry of the kernels line
@@ -3466,6 +3488,29 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+@contextlib.contextmanager
+def _torchrun_world_one():
+    """torchrun's variables for one process (RANK 0 of WORLD_SIZE 1,
+    MASTER_ADDR localhost, a free port) inside the block, restored after;
+    a process group still up at the end is taken down."""
+    import torch.distributed as dist
+
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(_free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def dp_slice(report, dev, work, t_start):
     """[dp] data parallelism at world size 1 over NCCL, under torchrun's
     variables (MASTER_ADDR localhost): one ResNet-50 train step (64 images)
@@ -3494,11 +3539,7 @@ def dp_slice(report, dev, work, t_start):
     print(f"[dp] world size 1 over NCCL: a ResNet-50 step ({n_img} images) through the "
           "data-parallel path against the one-process step; train_torch.run under torchrun's "
           "variables", flush=True)
-    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
-           "MASTER_PORT": str(_free_port())}
-    saved = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    try:
+    with _torchrun_world_one():
         cfg = _train_cfg(work, "train_dp", RESNET50, f"train.max_images={n_img}")
         t = cfg.train
         one = PoseDiffusionModel(model_config_from_cfg(cfg.MODEL))
@@ -3545,16 +3586,267 @@ def dp_slice(report, dev, work, t_start):
         report.require("[dp] train_torch.run wrote its checkpoint and took its group down",
                        bool(result["checkpoint"]) and os.path.exists(result["checkpoint"])
                        and not dist.is_initialized())
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
     print(f"  [dp] done at {time.perf_counter() - t_start:.0f} s", flush=True)
     return launches
+
+
+def fsdp_slice(report, dev, work, t_start):
+    """[fsdp] parameter sharding (parallel/mesh.shard_model, FSDP2) over NCCL
+    at world size 1, under torchrun's variables as [dp]: a DINO model
+    sharded on a (1, 1) ("dp", "fsdp") mesh takes one step of FSDP_IMAGES
+    images through train_step against the one-process step from the same
+    state and draws (TOL_DP), every parameter's gradient present and every
+    parameter moved, the train kernels launched; the in-training eval on
+    the sharded model equal to the gathered weights' sample; the full
+    checkpoint written and loaded strictly into one process. A world of
+    one card shards nothing: fsdp >= 2 is proven on the CPU only (gloo,
+    tests/test_torch_fsdp.py). Returns the sharded step's launches."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+
+    from posediffusion_tpu_torch.models.pose_diffusion import (
+        PoseDiffusionModel,
+        init_random_weights,
+    )
+    from posediffusion_tpu_torch.ops import kernels as K
+    from posediffusion_tpu_torch.parallel.distributed import maybe_initialize_distributed
+    from posediffusion_tpu_torch.parallel.mesh import (
+        full,
+        full_state_dict,
+        is_sharded,
+        make_mesh,
+        shard_model,
+    )
+    from posediffusion_tpu_torch.training.checkpoints import restore, save
+    from posediffusion_tpu_torch.training.optim import make_optimizer
+    from posediffusion_tpu_torch.training.step import eval_step, train_step
+    from posediffusion_tpu_torch.utils.config import model_config_from_cfg
+
+    print(f"[fsdp] world size 1 over NCCL, a (1, 1) mesh: one DINO step ({FSDP_IMAGES} images) "
+          "of the sharded model against the one-process step, its eval and its checkpoint; "
+          "fsdp >= 2 is proven on the CPU only (gloo, 2 and 4 processes)", flush=True)
+    with _torchrun_world_one():
+        cfg = _train_cfg(work, "train_fsdp", f"train.max_images={FSDP_IMAGES}")
+        t = cfg.train
+        config = model_config_from_cfg(cfg.MODEL)
+        one = PoseDiffusionModel(config)
+        init_random_weights(one, SEED)
+        one.to(dev)
+        sharded = copy.deepcopy(one)
+        initial = {k: v.detach().clone() for k, v in one.named_parameters()}
+        batch, draws, _ = _train_batch(cfg, dev, config.timesteps)
+        report.require("[fsdp] maybe_initialize_distributed sets up NCCL at world size 1",
+                       maybe_initialize_distributed(dev.type) and dist.get_backend() == "nccl"
+                       and dist.get_world_size() == 1)
+        shard_model(sharded, make_mesh(1, 1, dev.type))
+        report.require("[fsdp] shard_model made one FSDP unit, every parameter a DTensor",
+                       is_sharded(sharded) and all(type(p).__name__ == "DTensor"
+                                                   for p in sharded.parameters()))
+        steps = {}
+        for name, model in (("one process", one), ("sharded", sharded)):
+            opt, _ = make_optimizer(model, lr=t.lr, T_0=t.restart_num,
+                                    iters_per_epoch=t.len_train, clip_grad=t.clip_grad)
+            if name == "sharded":
+                K.reset_launch_counts()
+            steps[name] = train_step(model, opt, batch, t.batch_repeat, draws=draws)
+            torch.cuda.synchronize()
+        launches = K.launch_counts()
+        _check_launches(report, "FSDP train", TRAIN_PATH, launches)
+        pa = dict(one.named_parameters())
+        diffs = [(full(p).detach() - pa[k].detach()).abs().max().item()
+                 for k, p in sharded.named_parameters()]
+        bitwise = all(torch.equal(full(p), pa[k]) for k, p in sharded.named_parameters())
+        print(f"  loss {steps['one process']['loss']:.6f} / {steps['sharded']['loss']:.6f}, "
+              f"gradient norm {steps['one process']['grad_norm']:.6f} / "
+              f"{steps['sharded']['grad_norm']:.6f}; parameters bitwise equal: {bitwise}")
+        report.check("[fsdp] sharded step vs one-process step: parameters", max(diffs), TOL_DP)
+        report.check("[fsdp] sharded step vs one-process step: loss",
+                     abs(steps["one process"]["loss"] - steps["sharded"]["loss"]), TOL_DP)
+        params = list(sharded.named_parameters())
+        report.require("[fsdp] every parameter's gradient arrived",
+                       all(p.grad is not None for _, p in params), f"({len(params)} parameters)")
+        still = [k for k, p in params if torch.equal(full(p), initial[k])]
+        report.require("[fsdp] every parameter moved", not still, f"({still[:3]})")
+
+        # the in-training eval on the sharded model, against the gathered weights
+        rows = batch["images"].shape[0] // 2
+        ev = {k: v[:rows] for k, v in batch.items()}
+        gathered = PoseDiffusionModel(config).to(dev)
+        gathered.load_state_dict(full_state_dict(sharded), strict=True)
+        K.reset_launch_counts()
+        enc, _ = eval_step(sharded, ev, generator=torch.Generator(dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        eval_launches = {k: v for k, v in K.launch_counts().items() if v}
+        print(f"  eval of {rows} sequences on the sharded model: launches {eval_launches}")
+        ref, _ = eval_step(gathered, ev, generator=torch.Generator(dev).manual_seed(SEED))
+        report.require("[fsdp] eval on the sharded model equals the gathered weights' sample",
+                       torch.equal(enc, ref) and bool(torch.isfinite(enc).all()),
+                       f"(max diff {(enc - ref).abs().max().item():.3e})")
+
+        # the full checkpoint, into one process strictly
+        path = save(os.path.join(work, "fsdp_ckpt"), sharded, opt, opt.step_count)
+        loaded = PoseDiffusionModel(config)
+        state = restore(path, loaded)
+        same = all(torch.equal(loaded.state_dict()[k].to(dev), full(v))
+                   for k, v in sharded.state_dict().items())
+        report.require("[fsdp] the checkpoint holds whole tensors and loads strictly into "
+                       "one process", same and state["step"] == 1
+                       and len(state["optimizer"]["mu"]) == len(params))
+        del one, sharded, gathered, loaded, batch, draws
+        torch.cuda.empty_cache()
+    print(f"  [fsdp] done at {time.perf_counter() - t_start:.0f} s", flush=True)
+    return {k: v for k, v in launches.items() if v}
+
+
+def train336_slice(report, dev, work, smi, t_start):
+    """[train-336] one DINO train step at train.img_size=336 (442 + 101 + 50
+    = 593 packed tokens) at the reference's 512 images (cut to the largest
+    of TRAIN336_IMAGES that fits), and beside it the same measurements at
+    224px (264 tokens) in the same way: every kernel of the train path
+    launched, finite loss, every parameter moved; the step's time (CUDA
+    events), its peak memory (from a reset before the step) beside what
+    was resident before it (the model, its optimizer, the batch and
+    whatever earlier phases hold), and its ViT trunk's
+    forward and forward + backward (N x tokens, 12 blocks, f32). Returns
+    (timings, launches of one 336px step)."""
+    import torch
+
+    from posediffusion_tpu_torch.models.feature_extractor import _embed_pack_scales
+    from posediffusion_tpu_torch.models.pose_diffusion import (
+        PoseDiffusionModel,
+        init_random_weights,
+    )
+    from posediffusion_tpu_torch.ops import kernels as K
+    from posediffusion_tpu_torch.ops import vit_train_kernel as V
+    from posediffusion_tpu_torch.training.optim import make_optimizer
+    from posediffusion_tpu_torch.training.step import train_step
+    from posediffusion_tpu_torch.utils.config import model_config_from_cfg
+
+    timings = {}
+    for px, sizes in ((336, TRAIN336_IMAGES), (224, (512,))):
+        for n_img in sizes:
+            print(f"[train-336] one DINO train step at train.img_size={px}, {n_img} images "
+                  f"(cfgs/default_train.yaml: 512), batch_repeat 90; card: {smi}", flush=True)
+            cfg = _train_cfg(work, f"train_{px}", f"train.img_size={px}",
+                             f"train.max_images={n_img}")
+            t = cfg.train
+            model = PoseDiffusionModel(model_config_from_cfg(cfg.MODEL))
+            init_random_weights(model, SEED)
+            model.to(dev)
+            initial = {k: v.detach().clone() for k, v in model.named_parameters()}
+            batch, draws, _ = _train_batch(cfg, dev, model.config.timesteps)
+            opt, _ = make_optimizer(model, lr=t.lr, T_0=t.restart_num,
+                                    iters_per_epoch=t.len_train, clip_grad=t.clip_grad)
+            try:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                resident_gb = torch.cuda.memory_allocated() / 1e9
+                step_launches = _step_launches(
+                    K, lambda: train_step(model, opt, batch, t.batch_repeat, draws=draws))
+                peak_gb = torch.cuda.max_memory_allocated() / 1e9
+                break
+            except torch.cuda.OutOfMemoryError:
+                print(f"  {n_img} images do not fit in the card's memory", flush=True)
+                del model, initial, batch, draws, opt
+                torch.cuda.empty_cache()
+        if px == 336:
+            launches = step_launches
+        report.require(f"[train-336] the batch is {px}px",
+                       tuple(batch["images"].shape[-2:]) == (px, px),
+                       f"({tuple(batch['images'].shape)})")
+        _check_launches(report, f"{px}px train", TRAIN_PATH, step_launches)
+        moved = [k for k, p in model.named_parameters() if not torch.equal(p, initial[k])]
+        report.require(f"[train-336] {px}px: every parameter moved", len(moved) == len(initial),
+                       f"({len(moved)} of {len(initial)})")
+        metrics = train_step(model, opt, batch, t.batch_repeat, draws=draws)
+        report.require(f"[train-336] {px}px: finite loss", bool(np.isfinite(metrics["loss"])),
+                       f"({metrics['loss']:.6f})")
+        step_ms = _time_ms(torch, lambda: train_step(model, opt, batch, t.batch_repeat,
+                                                     draws=draws), reps=2, warmup=1)
+        vit = model.image_feature_extractor._net
+        with torch.no_grad():
+            tok, bias, _ = _embed_pack_scales(vit, batch["images"].flatten(0, 1)[:n_img],
+                                              model.config.scale_factors)
+            vst = {k: v.detach().clone() for k, v in V.stack_vit_params_train(vit).items()}
+        n_tok = {224: 264, 336: 593}[px]
+        report.require(f"[train-336] {n_tok} packed tokens a row at {px}px",
+                       tok.shape[1] == n_tok, f"({tuple(tok.shape)})")
+        cot = torch.randn(tok.shape, device=dev,
+                          generator=torch.Generator(dev).manual_seed(SEED))
+        run = lambda x, st: V.fused_vit_trunk_train(x, st, bias, 6, False, False)  # noqa: E731
+        timings[f"{px}px train step ({n_img} images, batch_repeat 90)"] = step_ms
+        timings[f"{px}px peak memory of a train step (GB)"] = peak_gb
+        timings[f"{px}px memory resident before the step (GB)"] = resident_gb
+        timings[f"{px}px vit trunk fwd+bwd ({n_img}x{n_tok})"] = _time_ms(
+            torch, lambda: _trunk_grads(run, tok, vst, cot), reps=2, warmup=1)
+        with torch.no_grad():
+            timings[f"{px}px vit trunk fwd ({n_img}x{n_tok})"] = _time_ms(
+                torch, lambda: run(tok, vst), reps=2, warmup=1)
+        timings[f"{px}px train images"] = n_img
+        del model, opt, batch, draws, tok, vst, cot, initial
+        torch.cuda.empty_cache()
+    for name, v in timings.items():
+        print(f"  {name}: {v:.3f}")
+    print(f"  [train-336] done at {time.perf_counter() - t_start:.0f} s", flush=True)
+    return timings, {k: v for k, v in launches.items() if v}
+
+
+def dinov2_bf16_slice(report, dev, work, smi, t_start):
+    """[dinov2-bf16] demo_torch with dinov2_vits14 at compute_dtype=bfloat16
+    on samples/apple without GGS: finite cameras, attention (TPU kernel 5)
+    and the sampler's entries (kernel 2) launched, no LayerNorm or product
+    kernel of the fused ViT trunk (kernel 1); the inference's and the
+    extractor's times beside the float32 route's. Returns (timings,
+    launches)."""
+    import torch
+
+    import demo_torch
+    from posediffusion_tpu_torch.data.images import load_and_preprocess_images
+    from posediffusion_tpu_torch.models.pose_diffusion import (
+        PoseDiffusionModel,
+        init_random_weights,
+    )
+    from posediffusion_tpu_torch.ops import kernels as K
+    from posediffusion_tpu_torch.utils.config import load_config, model_config_from_cfg
+
+    apple = os.path.join(REPO, "samples", "apple")
+    print(f"[dinov2-bf16] demo_torch on samples/apple, dinov2_vits14 at "
+          f"compute_dtype=bfloat16, no GGS; card: {smi}", flush=True)
+    K.reset_launch_counts()
+    out = demo_torch.run(demo_cfg(work, apple, DINOV2, DINOV2_BF16, "GGS.enable=False"),
+                         dev.type)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    _check_launches(report, "DINOv2 bf16", DINOV2_SERVE_PATH, launches)
+    report.require("[dinov2-bf16] no kernel of the fused ViT trunk (kernel 1)",
+                   launches["layernorm"] == 0 and launches["linear"] == 0,
+                   f"(layernorm {launches['layernorm']}, linear {launches['linear']})")
+    imgs = torch.as_tensor(load_and_preprocess_images(apple, IMAGE_SIZE)[0], device=dev)[None]
+    _check_cameras(report, out, imgs.shape[1], "DINOv2 bf16")
+    timings = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = load_config("default", [DINOV2,
+                                      f"MODEL.IMAGE_FEATURE_EXTRACTOR.compute_dtype={dtype}"])
+        model = PoseDiffusionModel(model_config_from_cfg(cfg.MODEL))
+        init_random_weights(model, SEED)
+        model.to(dev)
+        gen = lambda: torch.Generator(dev).manual_seed(SEED)  # noqa: E731
+        with torch.no_grad():
+            z = model.extract_features(imgs)
+            report.require(f"[dinov2-bf16] {dtype} features finite",
+                           bool(torch.isfinite(z).all()), f"({tuple(z.shape)})")
+            timings[f"DINOv2 {dtype} inference (extract + 100-step sampler, 20 frames)"] = (
+                _time_ms(torch, lambda: model.sample(imgs, generator=gen()), reps=5))
+            timings[f"DINOv2 {dtype} extractor (20 frames)"] = _time_ms(
+                torch, lambda: model.extract_features(imgs), reps=5)
+        del model
+    for name, v in timings.items():
+        print(f"  {name}: {v:.3f} ms")
+    torch.cuda.empty_cache()
+    print(f"  [dinov2-bf16] done at {time.perf_counter() - t_start:.0f} s", flush=True)
+    return timings, {k: v for k, v in launches.items() if v}
 
 
 def sum_partials_entry(report, torch, K, dev, f32_step, bf16_step):
@@ -3697,6 +3989,15 @@ def main(argv) -> int:
         resnet_timings.update(resnet_train_slice(report, dev, work, smi, t_start)[0])
         dp_slice(report, dev, work, t_start)
         print(json.dumps({"kernels": resnet_json, "timings_ms": resnet_timings, "card": smi}))
+        if report.failures:
+            print("FAILED:\n  " + "\n  ".join(report.failures), file=sys.stderr)
+            return 1
+        return 0
+    if "--fsdp" in argv:  # [fsdp], [train-336] and [dinov2-bf16] alone
+        launches = {"fsdp": fsdp_slice(report, dev, work, t_start)}
+        t336, launches["train-336"] = train336_slice(report, dev, work, smi, t_start)
+        v2bf, launches["dinov2-bf16"] = dinov2_bf16_slice(report, dev, work, smi, t_start)
+        print(json.dumps({"timings_ms": {**t336, **v2bf}, "launches": launches, "card": smi}))
         if report.failures:
             print("FAILED:\n  " + "\n  ".join(report.failures), file=sys.stderr)
             return 1
@@ -4140,6 +4441,10 @@ def main(argv) -> int:
     resnet_json, resnet_timings, resnet_launches = resnet_slice(report, dev, work, smi, t_start)
     resnet_train_timings, resnet_step = resnet_train_slice(report, dev, work, smi, t_start)
     dp_launches = dp_slice(report, dev, work, t_start)
+    # ---- 5d. FSDP at world size 1, a train step at 336px, DINOv2 at bf16
+    fsdp_launches = fsdp_slice(report, dev, work, t_start)
+    t336_timings, t336_launches = train336_slice(report, dev, work, smi, t_start)
+    v2bf_timings, v2bf_launches = dinov2_bf16_slice(report, dev, work, smi, t_start)
 
     # ---- 6. timing (default mode, CUDA events after warm-up)
     print(f"[timing] medians of {N_TIMED}, card: {smi}")
@@ -4505,6 +4810,8 @@ def main(argv) -> int:
     timings.update(eval_timings)
     timings.update(resnet_timings)
     timings.update(resnet_train_timings)
+    timings.update(t336_timings)
+    timings.update(v2bf_timings)
 
     # the ten TPU kernels' rows (PERF.md section 6): each row's case, its
     # kernel route and plain route, its bound and a one-call yardstick
@@ -4622,7 +4929,9 @@ def main(argv) -> int:
                       "launches_per_train_step": train_steps,
                       "ddim_launches": ddim_launches, "pred_x0_step_launches": x0_step,
                       "eval_launches": eval_launches, "resnet_launches": resnet_launches,
-                      "dp_launches": dp_launches}))
+                      "dp_launches": dp_launches, "fsdp_launches": fsdp_launches,
+                      "train336_launches": t336_launches,
+                      "dinov2_bf16_launches": v2bf_launches}))
     print(json.dumps({"kernels": kernels_json}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

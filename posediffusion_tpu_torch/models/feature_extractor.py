@@ -27,7 +27,10 @@ Flax blocks' ``dtype=bfloat16`` rounding sites as XLA evaluates them
 (``posediffusion_tpu/models/vit.py``): the residual stream, each Dense's
 operands, product and result, the attention's q, k, v, p and output (the
 TPU kernel's bf16 sites: ``round_in``), the GELU; LayerNorms and the CLS
-head stay float32. DINOv2 refuses it (``BF16_LAYER_SCALE_GAP``).
+head stay float32. DINOv2's float32 LayerScale gains promote each branch's
+output, and from the first residual sum on the whole stream, to float32,
+as the Flax module's promotions do (``posediffusion_tpu/models/vit.py
+:70-90``).
 ``extract_features_train`` is the flow for training, differentiable, with
 the trunk (LayerScale included) in
 ``ops.vit_train_kernel.fused_vit_trunk_train``.
@@ -41,7 +44,7 @@ import torch
 from torch import nn
 
 from posediffusion_tpu_torch.models.resnet import ResNet, resnet_layers
-from posediffusion_tpu_torch.models.vit import VisionTransformer
+from posediffusion_tpu_torch.models.vit import LayerScale, VisionTransformer
 from posediffusion_tpu_torch.ops.image import imagenet_normalize, resize_bilinear, scale_size
 from posediffusion_tpu_torch.ops.kernels import attention, round_bf16
 from posediffusion_tpu_torch.ops.vit_kernel import fused_vit_trunk, stack_vit_params
@@ -138,21 +141,14 @@ def extract_features_fused(
     return _multiscale_cls_head(vit, x, offsets)
 
 
-# Why DINOv2 (LayerScale) does not serve at compute_dtype=bfloat16.
-BF16_LAYER_SCALE_GAP = (
-    "compute_dtype=bfloat16 serving is not ported for LayerScale backbones "
-    "(dinov2_vits14): the float32 gains promote the JAX package's bf16 stream "
-    "to float32 and XLA then drops bf16 roundings this route cannot place; at "
-    "depth 2, width 64 the closest emulation stays 2e-3 to 1.1e-2 from the "
-    "Flax bf16 features, against 1.4e-2 for the float32 route. Serve it at "
-    "compute_dtype=float32.")
-
-
-def _dense_bf16(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+def _dense_bf16(x: torch.Tensor, lin: nn.Linear, round_out: bool = True) -> torch.Tensor:
     """Flax ``nn.Dense(dtype=bfloat16)``: input, kernel and bias cast to
-    bf16, the product and the biased result bf16 values."""
-    y = round_bf16(round_bf16(x) @ round_bf16(lin.weight).t())
-    return round_bf16(y + round_bf16(lin.bias))
+    bf16, the product and the biased result bf16 values. ``round_out``
+    False leaves the biased sum unrounded: where a float32 gain multiplies
+    it, XLA fuses the sum into the product with the gain and drops its
+    bf16 rounding."""
+    y = round_bf16(round_bf16(x) @ round_bf16(lin.weight).t()) + round_bf16(lin.bias)
+    return round_bf16(y) if round_out else y
 
 
 def _gelu_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -164,13 +160,22 @@ def _gelu_bf16(x: torch.Tensor) -> torch.Tensor:
 
 
 def _block_bf16(blk, x: torch.Tensor, xu: torch.Tensor, bias):
-    """One Flax ``ViTBlock(dtype=bfloat16)`` without LayerScale, as XLA
-    evaluates it: (x, xu) -> (x', xu'). The residual stream x carries each
-    sum rounded to bf16; the LayerNorm after a sum reads it before that
-    rounding (xu: XLA keeps the add fused into the LayerNorm in float32)."""
+    """One Flax ``ViTBlock(dtype=bfloat16)``, as XLA evaluates it: (x, xu)
+    -> (x', xu'). Without LayerScale the residual stream x carries each sum
+    rounded to bf16; the LayerNorm after a sum reads it before that
+    rounding (xu: XLA keeps the add fused into the LayerNorm in float32).
+    With LayerScale each branch ends in its Dense's unrounded sum times the
+    float32 gain, and the sums are float32 (x' = xu'): only the first
+    block's input is bf16 (the trunk's cast)."""
     a = blk.attn
     qkv = _dense_bf16(blk.norm1(xu), a.qkv)
     o = round_bf16(attention(qkv.contiguous(), a.num_heads, attn_bias=bias, round_in=True))
+    if isinstance(blk.ls1, LayerScale):
+        x1 = x + _dense_bf16(o, a.proj, round_out=False) * blk.ls1.gamma
+        h = _dense_bf16(_gelu_bf16(_dense_bf16(blk.norm2(x1), blk.mlp.fc1)), blk.mlp.fc2,
+                        round_out=False)
+        out = x1 + h * blk.ls2.gamma
+        return out, out
     x1u = x + _dense_bf16(o, a.proj)
     x1 = round_bf16(x1u)
     h = _dense_bf16(_gelu_bf16(_dense_bf16(blk.norm2(x1u), blk.mlp.fc1)), blk.mlp.fc2)
@@ -186,12 +191,10 @@ def extract_features_blocks(
 ) -> torch.Tensor:
     """(B, 3, H, W) -> (B, D) through the module's blocks with the attention
     in ``kernels.attention``: float32 (the DINOv2 inference path), or with
-    ``bf16`` the Flax bf16 blocks' rounding sites (DINO's route at
-    ``compute_dtype=bfloat16``; a LayerScale ViT raises)."""
+    ``bf16`` the Flax bf16 blocks' rounding sites (the route of DINO and
+    DINOv2 at ``compute_dtype=bfloat16``)."""
     x, bias, offsets = _embed_pack_scales(vit, images_nchw, scale_factors)
     if bf16:
-        if vit.layer_scale:
-            raise ValueError(BF16_LAYER_SCALE_GAP)
         x = xu = round_bf16(x)
         for blk in vit.blocks:
             x, xu = _block_bf16(blk, x, xu, bias)

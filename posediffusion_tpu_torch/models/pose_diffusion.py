@@ -167,8 +167,8 @@ class PoseDiffusionModel(nn.Module):
     def extract_features(self, images: torch.Tensor) -> torch.Tensor:
         """(B, N, 3, H, W) in [0, 1] -> (B, N, z_dim): DINO's trunk on the
         kernels; DINOv2's blocks in float32 with their attention on the
-        kernels; at ``compute_dtype=bfloat16`` DINO's blocks at the Flax
-        bf16 blocks' rounding sites (DINOv2 raises), as the JAX package
+        kernels; at ``compute_dtype=bfloat16`` the blocks of DINO and
+        DINOv2 at the Flax bf16 blocks' rounding sites, as the JAX package
         routes them (:409-414, :432; its extractor's ``dtype``, :170); a
         ResNet at float32 or at its bf16 convolutions' sites."""
         B, N = images.shape[:2]

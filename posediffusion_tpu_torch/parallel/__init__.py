@@ -1,2 +1,2 @@
-"""Data parallelism over processes (``torch.distributed``), as
-``posediffusion_tpu.parallel``'s data-parallel part."""
+"""Data parallelism over processes (``torch.distributed``) and parameter
+sharding (FSDP) over a ("dp", "fsdp") mesh, as ``posediffusion_tpu.parallel``."""

@@ -8,7 +8,7 @@ and gradients, ``psum`` over the "dp" axis). Here each rank is a process
 all-reduces what the ``psum`` sums: the loss's denominator and the
 gradients (``training/step.train_step(distributed=True)``). NCCL carries
 the collectives between cards, gloo on the CPU. The mesh's other axis,
-FSDP (``train.fsdp``), is not ported.
+FSDP (``train.fsdp``), shards the parameters: ``parallel/mesh``.
 """
 
 from __future__ import annotations

@@ -9,6 +9,11 @@ are clipped by their global norm (1.0) before AdamW (betas 0.9/0.999, eps
 JAX package's optax chain step for step: clip_by_global_norm, scale_by_adam,
 add_decayed_weights, scale by -lr(step) with the step counted from 0.
 Frozen parameters get no update and no decay.
+
+On a sharded model (``parallel/mesh.shard_model``) each rank updates its
+own shards and keeps their moments; the clip's global norm adds the
+shards' squares over the "fsdp" group (each "dp" replica holds the same
+shards), and ``state_dict`` gathers the moments whole.
 """
 
 from __future__ import annotations
@@ -17,6 +22,9 @@ import math
 from typing import Callable, Dict, Iterable, List, Optional
 
 import torch
+import torch.distributed as dist
+
+from posediffusion_tpu_torch.parallel.mesh import full_like, local, norm_group, shard_of
 
 
 def warmup_cosine_restarts(
@@ -67,8 +75,9 @@ class AdamW:
         self.b1, self.b2 = betas
         self.eps = eps
         self.step_count = 0
-        self.mu = [torch.zeros_like(p) for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.norm_group = norm_group(self.params)
+        self.mu = [torch.zeros_like(local(p)) for p in self.params]
+        self.nu = [torch.zeros_like(local(p)) for p in self.params]
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -79,15 +88,20 @@ class AdamW:
         """One update from the parameters' ``.grad`` (None counts as 0).
         Returns the learning rate used and the gradients' global norm."""
         lr = self.schedule(self.step_count)
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
-        norm = torch.sqrt(sum((g ** 2).sum() for g in grads))
+        params = [local(p) for p in self.params]
+        grads = [torch.zeros_like(lp) if p.grad is None else local(p.grad)
+                 for p, lp in zip(self.params, params)]
+        sq = sum((g ** 2).sum() for g in grads)
+        if self.norm_group is not None:
+            dist.all_reduce(sq, group=self.norm_group)
+        norm = torch.sqrt(sq)
         if self.clip_grad and self.clip_grad > 0:
             # optax.clip_by_global_norm: g / norm * max_norm above the bound
             clip = norm >= self.clip_grad
             grads = [torch.where(clip, g / norm * self.clip_grad, g) for g in grads]
         t = self.step_count + 1
         c1, c2 = 1 - self.b1**t, 1 - self.b2**t
-        for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
+        for p, g, mu, nu in zip(params, grads, self.mu, self.nu):
             mu.mul_(self.b1).add_(g, alpha=1 - self.b1)
             nu.mul_(self.b2).add_(g * g, alpha=1 - self.b2)
             update = (mu / c1) / (torch.sqrt(nu / c2) + self.eps) + self.weight_decay * p
@@ -96,16 +110,19 @@ class AdamW:
         return {"lr": lr, "grad_norm": float(norm)}
 
     def state_dict(self) -> dict:
-        return {"step": self.step_count, "mu": [m.clone() for m in self.mu],
-                "nu": [n.clone() for n in self.nu]}
+        """The step and the moments, whole (gathered from the ranks' shards:
+        a collective on a sharded model)."""
+        return {"step": self.step_count,
+                "mu": [full_like(m, p) for m, p in zip(self.mu, self.params)],
+                "nu": [full_like(n, p) for n, p in zip(self.nu, self.params)]}
 
     def load_state_dict(self, state: dict) -> None:
         if len(state["mu"]) != len(self.mu):
             raise ValueError(f"optimizer state for {len(state['mu'])} parameters, "
                              f"this optimizer has {len(self.mu)}")
         self.step_count = int(state["step"])
-        for dst, src in zip(self.mu + self.nu, state["mu"] + state["nu"]):
-            dst.copy_(src)
+        for dst, src, p in zip(self.mu + self.nu, state["mu"] + state["nu"], self.params * 2):
+            dst.copy_(shard_of(src.to(dst.device), p))
 
 
 def make_optimizer(model: torch.nn.Module, lr: float = 1e-4, T_0: int = 50,

@@ -15,6 +15,14 @@ AdamW update on the same gradients, the whole batch's gradient, as that
 step's own reference test computes it (the JAX step itself applies world
 size x it: a ``psum`` in its loss transposes to a second sum). Each rank
 brings its own batch and draws; the metrics are the rank's own.
+
+A sharded model (``parallel/mesh.shard_model``, FSDP) takes the same
+denominators, and FSDP2 reduce-scatters its gradients as their mean over
+the world: the step scales the loss by the world size before the
+backward, so the shards hold the whole batch's gradient, as under data
+parallelism and as the JAX package's GSPMD step (``make_train_step`` on
+FSDP-placed parameters) computes it. It never calls ``all_reduce_grads``.
+The eval step samples on the gathered model (``parallel/mesh.gathered``).
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from posediffusion_tpu_torch.geometry.metrics import (
     batched_all_pairs,
@@ -30,6 +39,7 @@ from posediffusion_tpu_torch.geometry.metrics import (
 )
 from posediffusion_tpu_torch.geometry.pose_codec import pose_encoding_to_camera
 from posediffusion_tpu_torch.parallel.distributed import all_reduce_grads, all_reduce_sum
+from posediffusion_tpu_torch.parallel.mesh import gathered, is_sharded
 from posediffusion_tpu_torch.training.optim import AdamW
 
 
@@ -83,16 +93,22 @@ def train_step(model, optimizer: AdamW, batch: Dict[str, torch.Tensor],
     loss, backward, clip and update. ``draws`` (t, noise, drop_seed) are
     the loss's random draws; else they come from ``generator``.
     ``distributed``: this rank's part of a data-parallel step (the loss
-    reported is the whole step's)."""
+    reported is the whole step's); a sharded model's step is always one."""
+    sharded = is_sharded(model)
+    distributed = distributed or sharded
     gt = batch["pose_encodings"]
     mask = batch.get("mask")
     optimizer.zero_grad()
     out = model.loss(batch["images"], gt, batch_repeat=batch_repeat, mask=mask,
                      train=True, generator=generator, **(draws or {}))
     loss = normalized_loss(out.loss, gt.shape[-1], batch_repeat, mask, distributed)
-    loss.backward()
+    if sharded:
+        (loss * dist.get_world_size()).backward()  # FSDP2 divides by the world
+    else:
+        loss.backward()
+        if distributed:
+            all_reduce_grads(optimizer.params)
     if distributed:
-        all_reduce_grads(optimizer.params)
         loss = all_reduce_sum(loss.detach().clone())
     info = optimizer.step()
     metrics = {"loss": float(loss.detach()), "lr": info["lr"], "grad_norm": info["grad_norm"]}
@@ -108,5 +124,6 @@ def eval_step(model, batch: Dict[str, torch.Tensor],
               generator: Optional[torch.Generator] = None):
     """Sample cameras for ``batch`` and score them: (encodings, metrics)."""
     mask = batch.get("mask")
-    enc = model.sample(batch["images"], generator=generator, mask=mask)
+    with gathered(model):
+        enc = model.sample(batch["images"], generator=generator, mask=mask)
     return enc, {k: float(v) for k, v in pose_metrics(enc, batch["pose_encodings"], mask).items()}

@@ -1591,3 +1591,99 @@ def test_resnet_sample_kernel_route_matches_plain(cuda):
     out = fused_sample_loop(den, model.schedule, z, **kw)
     assert K.launch_counts()["sampler_boundary"] == 3
     _close(out, fused_sample_loop_plain(den, model.schedule, z, **kw), 1e-4)
+
+
+def test_fsdp_step_at_world_size_one_matches_one_process(cuda):
+    """A model sharded by ``parallel/mesh.shard_model`` on a (1, 1) mesh
+    over NCCL at world size 1 (a group of its own on a free local port):
+    one train step (2 blocks, 2 encoder layers, 2 x 4 frames of 224px) on
+    the train kernels against the one-process step from the same weights
+    and draws, 1e-6 (the all-gather and reduce-scatter over one rank are
+    copies); every gradient present; the eval on the sharded model equal
+    to the gathered weights' sample. A world of one card shards nothing:
+    fsdp >= 2 is held on the CPU (tests/test_torch_fsdp.py)."""
+    import copy
+    import socket
+
+    import torch.distributed as dist
+
+    from posediffusion_tpu_torch.models.pose_diffusion import (
+        PoseDiffusionConfig,
+        PoseDiffusionModel,
+        init_random_weights,
+    )
+    from posediffusion_tpu_torch.parallel.mesh import (
+        full,
+        full_state_dict,
+        make_mesh,
+        shard_model,
+    )
+    from posediffusion_tpu_torch.training.optim import make_optimizer
+    from posediffusion_tpu_torch.training.step import eval_step, train_step
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1)
+    try:
+        config = PoseDiffusionConfig(vit_depth=2, num_encoder_layers=2, timesteps=10)
+        one = PoseDiffusionModel(config)
+        init_random_weights(one, 5)
+        one.to(cuda)
+        sharded = shard_model(copy.deepcopy(one), make_mesh(1, 1, "cuda"))
+        r = _gen(5)
+        batch = {"images": _t(r.uniform(size=(2, 4, 3, 224, 224)), cuda),
+                 "pose_encodings": _t(r.normal(size=(2, 4, 9)) * 0.3, cuda),
+                 "mask": _t([[1, 1, 1, 0], [1, 1, 1, 1]], cuda)}
+        draws = dict(t=torch.tensor([1, 7, 3, 9]), noise=torch.tensor(
+            r.normal(size=(4, 4, 9)), dtype=torch.float32), drop_seed=3)
+        losses = []
+        for i, model in enumerate((one, sharded)):
+            opt, _ = make_optimizer(model, lr=1e-3, T_0=2, iters_per_epoch=1)
+            K.reset_launch_counts()
+            losses.append(train_step(model, opt, batch, 2, draws=draws)["loss"])
+        counts = K.launch_counts()
+        for name in ("layernorm", "linear", "attention", "attention_bwd", "layernorm_bwd",
+                     "linear_wgrad", "act_dropout_bwd"):
+            assert counts[name] > 0, name
+        assert abs(losses[0] - losses[1]) <= 1e-6
+        ref = dict(one.named_parameters())
+        for k, p in sharded.named_parameters():
+            assert p.grad is not None, k
+            _close(full(p).detach(), ref[k].detach(), 1e-6)
+        gathered = PoseDiffusionModel(config).to(cuda)
+        gathered.load_state_dict(full_state_dict(sharded), strict=True)
+        enc, _ = eval_step(sharded, batch, generator=torch.Generator(cuda).manual_seed(1))
+        again, _ = eval_step(gathered, batch, generator=torch.Generator(cuda).manual_seed(1))
+        assert torch.equal(enc, again) and bool(torch.isfinite(enc).all())
+    finally:
+        dist.destroy_process_group()
+
+
+def test_dinov2_bf16_serving_matches_the_cpu(cuda):
+    """DINOv2 at compute_dtype=bfloat16 (12 blocks, 4 frames of 224px):
+    the attention on kernel 5, no LayerNorm or product kernel of the fused
+    trunk, against the same route on the CPU (which the CPU tests hold to
+    the Flax bf16 features). The products sum in another order, and a rare
+    bf16 rounding that lands the other way spreads through the blocks: one
+    flipped bf16 rounding's bound, 2^-7 x max(1, |z|)."""
+    from posediffusion_tpu_torch.models.pose_diffusion import (
+        PoseDiffusionConfig,
+        PoseDiffusionModel,
+        init_random_weights,
+    )
+    from posediffusion_tpu_torch.utils.precision import pin_full_float32
+
+    pin_full_float32()
+    model = PoseDiffusionModel(PoseDiffusionConfig(modelname="dinov2_vits14",
+                                                   compute_dtype="bfloat16"))
+    init_random_weights(model, 6)
+    images = torch.as_tensor(_gen(6).uniform(size=(1, 4, 3, 224, 224)), dtype=torch.float32)
+    ref = model.extract_features(images)
+    K.reset_launch_counts()
+    out = model.to(cuda).extract_features(images.to(cuda))
+    counts = K.launch_counts()
+    assert counts["attention"] == 12 and counts["layernorm"] == 0 and counts["linear"] == 0
+    assert out.shape == (1, 4, 384)
+    _close(out.cpu(), ref, TOL_BF16)

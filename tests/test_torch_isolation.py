@@ -41,7 +41,8 @@ def test_port_imports_nothing_of_the_jax_package():
     assert proc.returncode == 0, proc.stderr[-2000:]
     mods = json.loads(proc.stdout.strip().splitlines()[-1])
     assert len(mods) >= 40
-    for m in ("models.resnet", "parallel.distributed", "utils.visualize", "utils.profiling"):
+    for m in ("models.resnet", "parallel.distributed", "parallel.mesh", "utils.visualize",
+              "utils.profiling"):
         assert f"posediffusion_tpu_torch.{m}" in mods, m
 
 

@@ -216,9 +216,13 @@ class TestSetUp:
         assert maybe_initialize_distributed("cpu") is False
         assert rank_and_world() == (0, 1)
 
-    @pytest.mark.parametrize("override,match", [("train.fsdp=2", "fsdp > 1 is not ported"),
-                                                ("train.dp=2", "world size is 1")])
+    @pytest.mark.parametrize("override,match", [
+        ("train.fsdp=2", r"train.dp x train.fsdp must be the world size.*train.fsdp=2, "
+                         "but the world size is 1"),
+        ("train.dp=2", "world size is 1")])
     def test_train_refuses_fsdp_and_a_dp_that_is_not_the_world(self, override, match):
+        """One process a card: train.dp x train.fsdp must be the world size
+        (at world size 1, neither fsdp 2 nor dp 2 fits)."""
         import train_torch
         from posediffusion_tpu_torch.utils.config import load_config
 

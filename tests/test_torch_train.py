@@ -5,7 +5,8 @@
   mask, ``batch_repeat`` 2, dropout 0: the two packages draw dropout from
   different generators);
 * the gradients of the normalised loss against ``jax.grad`` on
-  tests/test_training.py's tiny model;
+  tests/test_training.py's tiny model; one train step at 336px (593 packed
+  tokens) against ``make_train_step``;
 * the LR schedule, AdamW with clipping against optax, ``pose_metrics`` with
   a mask;
 * checkpoint resume repeats the next step bitwise; a frozen extractor does
@@ -50,11 +51,12 @@ TINY = dict(z_dim=32, d_model=32, nhead=2, num_encoder_layers=2, dim_feedforward
 B, N, HW, REPEAT = 2, 3, 32, 2
 
 
-def tiny_pair(rng, **over):
-    """The JAX tiny model with numpy-drawn weights and the port's twin."""
+def tiny_pair(rng, init_hw=HW, **over):
+    """The JAX tiny model with numpy-drawn weights and the port's twin
+    (``init_hw``: the image size the extractor's shapes are traced at)."""
     jm = JModel(JConfig(**{**TINY, **over}))
     params = {
-        "extractor": random_params(jm.extractor, rng, jnp.zeros((1, 3, HW, HW))),
+        "extractor": random_params(jm.extractor, rng, jnp.zeros((1, 3, init_hw, init_hw))),
         "denoiser": random_params(
             jm.denoiser, rng, jnp.zeros((1, 2, 9)), jnp.zeros((1,), jnp.int32),
             jnp.zeros((1, 2, TINY["z_dim"])), kernel_std=0.02),
@@ -187,6 +189,43 @@ class TestLossAgainstJax:
             scale = max(1.0, float(ref[k].abs().max()))
             np.testing.assert_allclose(p.grad.numpy(), ref[k].numpy(), atol=2e-5 * scale,
                                        err_msg=k)
+
+
+def test_train_step_at_336px_matches_jax_make_train_step(rng):
+    """The DINO packing at train.img_size=336: 442 + 101 + 50 = 593 tokens
+    a row (patch 16 at scales 1, 1/2, 1/3). One port train step against the
+    JAX package's ``make_train_step`` with the same weights and draws (its
+    gradient read through an SGD step of rate 1): the loss, and every
+    gradient at 2e-5 x max(1, |grad|)."""
+    import optax
+
+    from posediffusion_tpu.training import TrainState, make_train_step
+
+    hw, scales = 336, (1.0, 1.0 / 2, 1.0 / 3)
+    jm, params, pm = tiny_pair(rng, init_hw=hw, scale_factors=scales, dropout=0.0)
+    _, _, offsets = pm.image_feature_extractor._net.pack_scales(torch.zeros(1, 3, hw, hw), scales)
+    assert int(offsets[-1]) == 593
+    images = rng.uniform(size=(B, N, 3, hw, hw)).astype(np.float32)
+    enc = (rng.normal(size=(B, N, 9)) * 0.3).astype(np.float32)
+    mask = np.array([[1, 1, 0], [1, 1, 1]], np.float32)
+    key = jax.random.PRNGKey(12)
+    tx = optax.sgd(1.0)
+    step = jax.jit(make_train_step(jm, tx, batch_repeat=REPEAT, compute_metrics=False))
+    new_state, metrics = step(TrainState.create(params, tx),
+                              {"images": images, "pose_encodings": enc, "mask": mask}, key)
+    ref = state_dict_from_jax(jax.tree.map(lambda a, b: np.asarray(a) - np.asarray(b),
+                                           params, new_state.params))
+    t, noise = replay_loss_draws(key, B * REPEAT, TINY["timesteps"])
+    opt, _ = O.make_optimizer(pm, lr=1e-3, T_0=2, iters_per_epoch=1)
+    m = train_step(pm, opt, {"images": torch.tensor(images), "pose_encodings": torch.tensor(enc),
+                             "mask": torch.tensor(mask)}, REPEAT,
+                   draws=dict(t=t, noise=noise, drop_seed=0), compute_metrics=False)
+    assert m["loss"] == pytest.approx(float(metrics["loss"]), abs=1e-6)
+    grads = dict(pm.named_parameters())
+    assert set(ref) == set(grads)
+    for k, g in ref.items():
+        scale = max(1.0, float(g.abs().max()))
+        np.testing.assert_allclose(grads[k].grad.numpy(), g.numpy(), atol=2e-5 * scale, err_msg=k)
 
 
 class TestOptimizer:

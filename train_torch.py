@@ -34,8 +34,21 @@ batch shapes that every rank shares (one ``shape_seed``), ``max_images`` a
 rank, its own loss draws, and its own share of the eval sequences; the
 train step sums the gradients over the ranks
 (``training/step.train_step(distributed=True)``). Rank 0 alone writes the
-checkpoints, ``stats.jsonl`` and the plots. ``train.dp``, when set, must
-equal the world size; ``train.fsdp`` above 1 raises (FSDP is not ported).
+checkpoints, ``stats.jsonl`` and the plots.
+
+FSDP, as train.py's ``train.fsdp``: the world is a ``(train.dp,
+train.fsdp)`` mesh (``train.dp`` defaults to the world size / train.fsdp;
+any other product is refused), and ``train.fsdp`` above 1 shards the
+parameters and the optimizer's moments over the mesh's "fsdp" dim
+(``parallel/mesh.shard_model``; HSDP with ``train.dp`` above 1):
+
+    torchrun --nproc_per_node=4 train_torch.py train.fsdp=2 train.CO3D_DIR=... exp_dir=...
+    torchrun --nproc_per_node=2 train_torch.py device=cpu train.fsdp=2 ...   # gloo
+
+Each rank still draws its own items, so the step is the data-parallel
+step's on sharded weights; the eval samples on the gathered model, and
+every rank takes part in writing a checkpoint (rank 0 writes the whole
+tensors). A frozen extractor is sharded too, and gets no update.
 """
 
 from __future__ import annotations
@@ -87,24 +100,18 @@ def _to_device(batch, device):
     return {k: torch.as_tensor(v).to(device, non_blocking=True) for k, v in batch.items()}
 
 
-FSDP_GAP = ("train.fsdp > 1 is not ported: the PyTorch port trains data-parallel only "
-            "(one process a card, train.dp = the world size); parameter sharding "
-            "(posediffusion_tpu/parallel/mesh.py fsdp_param_spec) has no counterpart")
-
-
 def run(cfg) -> dict:
     """Train with a loaded config; returns a summary of the run (losses, the
     last eval metrics, the last checkpoint, the largest parameter change).
     Under torchrun's variables this process is one rank of a data-parallel
-    run (the process group is set up here, and taken down at the end)."""
+    or sharded run (the process group is set up here, and taken down at the
+    end)."""
     import torch
     import torch.distributed as dist
 
     from posediffusion_tpu_torch.parallel.distributed import maybe_initialize_distributed
     from posediffusion_tpu_torch.utils.config import device_from_cfg
 
-    if int(cfg.train.get("fsdp") or 1) > 1:
-        raise ValueError(FSDP_GAP)
     started = not dist.is_initialized() and maybe_initialize_distributed(
         torch.device(device_from_cfg(cfg)).type)
     try:
@@ -132,6 +139,7 @@ def _run(cfg) -> dict:
     )
     from posediffusion_tpu_torch.training.optim import EXTRACTOR_PREFIX, make_optimizer
     from posediffusion_tpu_torch.parallel.distributed import local_rank, rank_and_world
+    from posediffusion_tpu_torch.parallel.mesh import full, gathered, make_mesh, shard_model
     from posediffusion_tpu_torch.training.stats import StatsLogger
     from posediffusion_tpu_torch.training.step import eval_step, train_step
     from posediffusion_tpu_torch.utils.config import device_from_cfg, model_config_from_cfg
@@ -141,8 +149,12 @@ def _run(cfg) -> dict:
     t = cfg.train
     rank, world = rank_and_world()
     distributed = torch.distributed.is_initialized()
-    if t.get("dp") and int(t.dp) != world:
-        raise ValueError(f"train.dp={t.dp} but the world size is {world}: one process a card")
+    fsdp = int(t.get("fsdp") or 1)
+    dp = int(t.get("dp") or 0) or world // fsdp
+    if dp * fsdp != world:
+        raise ValueError(f"train.dp x train.fsdp must be the world size (train.py:120): "
+                         f"train.dp={t.get('dp')} (None: the world size / train.fsdp), "
+                         f"train.fsdp={fsdp}, but the world size is {world}: one process a card")
     device = torch.device(device_from_cfg(cfg))
     if device.type == "cuda" and distributed:
         device = torch.device("cuda", local_rank())
@@ -175,6 +187,9 @@ def _run(cfg) -> dict:
     model = PoseDiffusionModel(config)
     init_random_weights(model, cfg.seed)
     model.to(device)
+    if fsdp > 1:
+        shard_model(model, make_mesh(world, fsdp, device.type))
+        print(f"parameters sharded over a (dp {dp}, fsdp {fsdp}) mesh")
     optimizer, schedule = make_optimizer(
         model, lr=t.lr, T_0=t.restart_num, iters_per_epoch=t.len_train,
         clip_grad=t.clip_grad,
@@ -192,11 +207,12 @@ def _run(cfg) -> dict:
             path = latest_checkpoint(resume if os.path.isdir(resume) else cfg.exp_dir)
             if path:
                 state = restore(path, model, optimizer)
-                gen.set_state(state["generator"])
+                gen.set_state(state["generators"][rank] if "generators" in state
+                              else state["generator"])
                 print(f"Resumed full state from {path}")
     n_params = sum(p.numel() for p in model.parameters())
     print(f"params: {n_params / 1e6:.1f}M on {device}")
-    initial = {k: v.detach().cpu().clone() for k, v in model.named_parameters()}
+    initial = {k: full(v).detach().cpu().clone() for k, v in model.named_parameters()}
 
     stats = StatsLogger(
         ["loss", "lr", "sec/it", "Auc_30", "Racc_5", "Racc_15", "Racc_30",
@@ -213,13 +229,15 @@ def _run(cfg) -> dict:
         if epoch != 0 and epoch % t.eval_interval == 0:
             print(f"---------- eval at epoch {epoch} ----------")
             model.eval()
-            for bi, spec in enumerate(eval_sampler):
-                items = [eval_dataset[s] for s in spec]
-                batch = _to_device(collate_batch(items, pad_frames_to=eval_sampler.bucket_for(spec[0][1])), device)
-                _, eval_metrics = eval_step(model, batch, generator=eval_gen)
-                stats.update(eval_metrics, stat_set="eval")
-                if bi % t.print_interval == 0:
-                    print(stats.status_string("eval", max_it=t.len_eval))
+            with gathered(model):  # every rank, whatever its share of the eval
+                for bi, spec in enumerate(eval_sampler):
+                    items = [eval_dataset[s] for s in spec]
+                    batch = _to_device(collate_batch(
+                        items, pad_frames_to=eval_sampler.bucket_for(spec[0][1])), device)
+                    _, eval_metrics = eval_step(model, batch, generator=eval_gen)
+                    stats.update(eval_metrics, stat_set="eval")
+                    if bi % t.print_interval == 0:
+                        print(stats.status_string("eval", max_it=t.len_eval))
 
         print(f"---------- train epoch {epoch} ----------")
         model.train()
@@ -254,20 +272,29 @@ def _run(cfg) -> dict:
 
         if is_main:
             stats.plot(os.path.join(cfg.exp_dir, "stats.png"))
-        if is_main and (epoch % t.ckpt_interval == 0 or epoch == t.epochs - 1):
-            ckpt = save(cfg.exp_dir, model, optimizer, optimizer.step_count,
-                        extra={"generator": gen.get_state()})
-            print(f"saved checkpoint {ckpt}")
+        if epoch % t.ckpt_interval == 0 or epoch == t.epochs - 1:
+            # every rank: a sharded model gathers its state, and each rank's
+            # loss draws resume from its own generator
+            gens = [gen.get_state()]
+            if distributed:
+                gens = [None] * world
+                torch.distributed.all_gather_object(gens, gen.get_state())
+            extra = {"generator": gens[0], **({"generators": gens} if distributed else {})}
+            ckpt = save(cfg.exp_dir, model, optimizer, optimizer.step_count, extra=extra,
+                        write=is_main)
+            if is_main:
+                print(f"saved checkpoint {ckpt}")
 
     stats.flush()
     if is_main:
         stats.plot(os.path.join(cfg.exp_dir, "stats.png"))
-    change = max(float((p.detach().cpu() - initial[k]).abs().max())
+    change = max(float((full(p).detach().cpu() - initial[k]).abs().max())
                  for k, p in model.named_parameters())
     return {"losses": losses, "step_seconds": step_seconds, "steps": optimizer.step_count,
             "eval": eval_metrics, "checkpoint": ckpt, "param_change": change,
             "finite": bool(np.isfinite(losses).all()) if losses else False,
-            "rank": rank, "world_size": world, "device": str(device),
+            "rank": rank, "world_size": world, "mesh": {"dp": dp, "fsdp": fsdp},
+            "device": str(device),
             "backend": torch.distributed.get_backend() if distributed else None}
 
 
