@@ -2,7 +2,8 @@
 matches file, and with GGS from matches extracted from the images, DDIM,
 the Co3D evaluation (test_torch.py), its training path and data-parallel
 training, with the DINO ViT-S/16, DINOv2 ViT-S/14, DINO ViT-B/16,
-ResNet-50 and ResNet-101 backbones, once on an NVIDIA card.
+ResNet-50 and ResNet-101 backbones, and the learnability experiment's
+model at its widths, once on an NVIDIA card.
 
     python3 chip_smoke.py             # from the repository root, one CUDA card
     python3 chip_smoke.py --profile   # also: torch.profiler over one GGS inference,
@@ -36,6 +37,7 @@ ResNet-50 and ResNet-101 backbones, once on an NVIDIA card.
                                         # [resnet-train], [dp])
     python3 chip_smoke.py --fsdp        # [fsdp], [train-336] and [dinov2-bf16]
                                         # alone
+    python3 chip_smoke.py --learn       # [learn] alone
     python3 chip_smoke.py --wgrad       # bf16 mode's weight gradient and its
                                         # train step alone
     python3 chip_smoke.py --ptxas       # registers, spills and shared memory
@@ -157,6 +159,18 @@ Phases (any failure exits non-zero and prints no result line):
              DINOv2 at compute_dtype=bfloat16 (kernels 2 and 5 launched, no
              kernel of the fused ViT trunk), its inference and extractor
              times beside the float32 route's;
+  5e. learn  experiments/synthetic_learnability_torch.py's model and data
+             (ViT D 192, 4 blocks, 17 tokens at 64px; denoiser D 256, 4
+             layers; init_flax_weights), float32: the ViT and encoder train
+             trunks, fused_vit_trunk, the sampler's three entries, a
+             fused_trunk pass and a GGS phase on the chunked route (6
+             frames, 5,985 exact matches) against their plain versions at
+             these widths; the first 200 steps of the 10,000-step card run
+             (its batches, schedule and draws), the loss's fall checked
+             against that run's curve; one held-out sequence sampled with
+             GGS (finite cameras, the launches of kernels 1, 2, 3, 5 and 7
+             as predicted); each kernel at its [learn] width in the kernels
+             line;
   6. timing  CUDA-event medians of the inferences, the conditioned tail,
              the match extraction stages, and each kernel beside its plain
              version, its bound (bytes or operations over the H100's peaks)
@@ -352,6 +366,22 @@ RESNET_SERVE_PATH = ("linear_rows", "attention") + SAMPLER_ENTRIES
 RESNET_TRAIN_IMAGES = (64, 128)
 TOL_DP = 1e-6  # the data-parallel step at world size 1 against one process
 FSDP_IMAGES = 64  # [fsdp]'s cut step (4 sequences of 16): the path, not its scale
+# [learn]: experiments/synthetic_learnability_torch.py at 64px; the first
+# LEARN_STEPS steps of its LEARN_SCHEDULE-step card run (the same batches,
+# schedule and draws), whose last 100 steps' mean loss must fall under
+# LEARN_LOSS_MAX. That run (experiments/synthetic_learnability_torch.json,
+# loss_mean_per_100; NVIDIA H100 80GB HBM3, 700 W) fell from 0.80375 over
+# steps 0-99 to 0.79489 over steps 100-199 (its learning rate warms up
+# from 1e-7: 2e-6 at step 200); the threshold is their midpoint, so the
+# phase must show at least half that fall (a margin of 0.0044 above the
+# run's own 0.79489, which the phase reproduced to the last digit). The GGS
+# sample's unconditioned steps end at LEARN_GGS_START.
+LEARN_IMG = 64
+LEARN_STEPS = 200
+LEARN_SCHEDULE = 10_000
+LEARN_LOSS_MAX = (0.80375 + 0.79489) / 2
+LEARN_GGS_START = 10
+LEARN_GGS_ITERS = 100  # the timed GGS phase: the experiment's GGS.iter_num
 # [train-336]: cfgs/default_train.yaml's 512 images at train.img_size=336,
 # or the largest of the rest that fits
 TRAIN336_IMAGES = (512, 384, 256)
@@ -3784,6 +3814,12 @@ def train336_slice(report, dev, work, smi, t_start):
         with torch.no_grad():
             timings[f"{px}px vit trunk fwd ({n_img}x{n_tok})"] = _time_ms(
                 torch, lambda: run(tok, vst), reps=2, warmup=1)
+        # the trunk's bounds as rows 9-10 of the kernel table take them
+        D_v, F_v, L_v = vit.embed_dim, 4 * vit.embed_dim, len(vit.blocks)
+        w_vit = L_v * (4 * D_v * D_v + 2 * D_v * F_v)
+        fwd_b, bwd_b = trunk_bounds(n_img * n_tok, n_tok, D_v, F_v, L_v, 4, 4 * w_vit)
+        timings[f"{px}px vit trunk fwd bound ({n_img}x{n_tok})"] = fwd_b
+        timings[f"{px}px vit trunk bwd bound ({n_img}x{n_tok})"] = bwd_b
         timings[f"{px}px train images"] = n_img
         del model, opt, batch, draws, tok, vst, cot, initial
         torch.cuda.empty_cache()
@@ -3847,6 +3883,364 @@ def dinov2_bf16_slice(report, dev, work, smi, t_start):
     torch.cuda.empty_cache()
     print(f"  [dinov2-bf16] done at {time.perf_counter() - t_start:.0f} s", flush=True)
     return timings, {k: v for k, v in launches.items() if v}
+
+
+def learnability_module():
+    """experiments/synthetic_learnability_torch.py, imported by path."""
+    import importlib.util
+
+    path = os.path.join(REPO, "experiments", "synthetic_learnability_torch.py")
+    spec = importlib.util.spec_from_file_location("synthetic_learnability_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _diff_counts(K, before):
+    """Kernel launches since ``before`` (a ``K.launch_counts()``), nonzero only."""
+    return {k: v - before[k] for k, v in K.launch_counts().items() if v - before[k]}
+
+
+def learn_entry(torch, key, case, err, launches, kernel, plain, b, library=None,
+                slow_plain=False):
+    """One kernels-line entry of [learn]: CUDA-event times of ``kernel``,
+    ``plain`` (three single calls when ``slow_plain``) and ``library`` (a
+    one-call PyTorch yardstick, or None)."""
+    plain_ms = (_time_ms(torch, plain, reps=3, warmup=1) if slow_plain
+                else _time_ms(torch, plain, inner=10))
+    e = {"name": key, "route": "cuda", "source": SOURCES[key], "replaces": TPU_KERNELS[key],
+         "launches": launches.get(key, 0), "max_abs_err": err,
+         "ms": _time_ms(torch, kernel, inner=10), "plain_ms": plain_ms,
+         "bound_ms": b[0], "bound_by": b[1],
+         "library_ms": None if library is None else _time_ms(torch, library, inner=10),
+         "case": f"[learn] {case}"}
+    print(f"  {key} {case}: kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, library "
+          f"{e['library_ms']}, bound {e['bound_ms']:.5f} ms ({e['bound_by']}), "
+          f"{e['launches']} launches", flush=True)
+    return e
+
+
+def learn_slice(report, dev, smi, t_start):
+    """[learn] experiments/synthetic_learnability_torch.py's model and data
+    (ViT z_dim 192, 4 blocks, 3 heads, 17 tokens at 64px; denoiser d_model
+    256, 4 layers; B 8 x N 6, batch_repeat 8; init_flax_weights), float32:
+    at step 0 its kernels at these widths against their plain versions (the
+    ViT train trunk forward and backward at 48 x 17 x 192 in both modes, the
+    encoder train trunk at 64 x 6 x 256, fused_vit_trunk at 48 x 17 x 192 in
+    both modes, the sampler's three entries and one fused_trunk pass at 6
+    rows of 256, a 30-iteration GGS phase on the chunked cluster route at 6
+    frames and the exact matches of the first GGS sequence); then the first
+    LEARN_STEPS steps of the LEARN_SCHEDULE-step card run (its batches,
+    schedule and draws): finite losses, their last 100 steps' mean under
+    LEARN_LOSS_MAX, the train kernels launched; then that sequence sampled
+    with GGS: finite cameras and the launches predicted by
+    LEARN_GGS_LAUNCHES. Returns (kernels-line entries, timings, launches)."""
+    import torch
+    import torch.nn.functional as F
+
+    from posediffusion_tpu_torch.diffusion import ggs as G
+    from posediffusion_tpu_torch.models.feature_extractor import _embed_pack_scales
+    from posediffusion_tpu_torch.ops import kernels as K
+    from posediffusion_tpu_torch.ops import vit_train_kernel as V
+    from posediffusion_tpu_torch.ops.denoiser_kernel import (
+        fused_trunk,
+        fused_trunk_plain,
+        stack_trunk_params,
+    )
+    from posediffusion_tpu_torch.ops.ggs_grad import (
+        ggs_tables,
+        loss_and_grad_core,
+        pack_matches_grouped,
+    )
+    from posediffusion_tpu_torch.ops.ggs_kernel import (
+        default_chunk_pairs,
+        ggs_phase_fused_chunked,
+        ggs_phase_fused_plain,
+    )
+    from posediffusion_tpu_torch.ops.sampler_kernel import prepare_sampler
+    from posediffusion_tpu_torch.ops.vit_kernel import (
+        fused_vit_trunk,
+        fused_vit_trunk_plain,
+        stack_vit_params,
+    )
+    from posediffusion_tpu_torch.training.step import pose_metrics
+
+    t_phase = time.perf_counter()
+    Lm = learnability_module()
+    print(f"[learn] experiments/synthetic_learnability_torch.py's model and data, f32; card: "
+          f"{smi}", flush=True)
+    model = Lm.build_model("float32", SEED).to(dev)
+    c = model.config
+    vit, den = model.image_feature_extractor._net, model.diffuser.model
+    hw = (LEARN_IMG, LEARN_IMG)
+    rng = np.random.default_rng(SEED)
+    texture = Lm.make_texture(rng)
+    held = Lm.make_batch(np.random.default_rng(Lm.EVAL_SEED0), texture, Lm.B, Lm.N, LEARN_IMG,
+                         dev)
+    seq, enc, matches = Lm.make_eval_sequence_with_matches(
+        np.random.default_rng(Lm.GGS_SEED0), texture, Lm.GGS_FRAMES, LEARN_IMG, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)  # noqa: E731
+    with torch.no_grad():
+        tok, vbias, _ = _embed_pack_scales(vit, held["images"].flatten(0, 1), c.scale_factors)
+    Bv, Nv, Dv = tok.shape
+    H = c.vit_heads
+    print(f"  ViT tokens {tuple(tok.shape)}, {H} heads; encoder {c.d_model} wide, "
+          f"{c.num_encoder_layers} layers", flush=True)
+    errs = {}
+
+    # the train trunks, forward and every gradient, kernel route against plain
+    vst = {k: v.detach().clone() for k, v in V.stack_vit_params_train(vit).items()}
+    cot_v = rnd(*tok.shape)
+
+    def vit_run(mode, plain):
+        def run(x, st):
+            with _route(V, plain):
+                return V.fused_vit_trunk_train(x, st, vbias, H, mode, mode)
+        return run
+
+    for mode in (False, True):
+        tag = "bf16 operands and residuals" if mode else "f32"
+        worst = _worst_rel(_trunk_grads(vit_run(mode, False), tok, vst, cot_v),
+                           _trunk_grads(vit_run(mode, True), tok, vst, cot_v))
+        report.check(f"[learn] fused_vit_trunk_train {tag} ({c.vit_depth} blocks, {Bv}x{Nv}x"
+                     f"{Dv}): output and every gradient, worst {worst[1]}", worst[0],
+                     TOL_TRAIN_BF16 if mode else TOL_TRAIN_F32)
+    Be, De = Lm.B * Lm.BATCH_REPEAT, c.d_model
+    est = {k: v.detach().clone() for k, v in V.stack_encoder_trunk_params(den._trunk).items()}
+    h_e, cot_e = rnd(Be, Lm.N, De), rnd(Be, Lm.N, De)
+    ebias = torch.zeros((Be, Lm.N), device=dev)
+
+    def enc_run(plain):
+        def run(x, st):
+            with _route(V, plain):
+                return V.fused_encoder_trunk_train(x, st, ebias, SEED, c.nhead, dropout=c.dropout)
+        return run
+
+    outs = list(zip(_trunk_grads(enc_run(False), h_e, est, cot_e),
+                    _trunk_grads(enc_run(True), h_e, est, cot_e)))
+    tag = f"({c.num_encoder_layers} layers, {Be}x{Lm.N}x{De})"
+    _close_rel(report, f"[learn] fused_encoder_trunk_train f32 y {tag}", outs[0][0][1],
+               outs[0][1][1], TOL_TRAIN_F32)
+    mean_err, share = 0.0, 0.0
+    for (name, a), (_, b) in outs[1:]:
+        rel = (a - b).abs() / max(1.0, b.abs().max().item())
+        mean_err = max(mean_err, rel.mean().item())
+        share = max(share, (rel > ENCODER_GRAD_OUTLIER).float().mean().item())
+    report.check(f"[learn] fused_encoder_trunk_train f32 gradients, largest mean relative "
+                 f"error {tag}", mean_err, TOL_ENCODER_GRAD_MEAN)
+    report.check(f"[learn] fused_encoder_trunk_train f32 gradients, largest share beyond "
+                 f"{ENCODER_GRAD_OUTLIER:.0e} {tag}", share, TOL_ENCODER_GRAD_SHARE)
+    del outs
+
+    # the serving trunks: fused_vit_trunk, the sampler's entries, fused_trunk
+    sampler_args = {}
+    with torch.no_grad():
+        for mode, wdt, act in (("f32", torch.float32, False), ("bf16", torch.bfloat16, True)):
+            st = stack_vit_params(vit, wdt)
+            err = (fused_vit_trunk(tok, st, H, act, vbias)
+                   - fused_vit_trunk_plain(tok, st, H, act, vbias)).abs().max().item()
+            report.check(f"[learn] fused_vit_trunk {mode} ({c.vit_depth} blocks, {Bv}x{Nv}x{Dv})",
+                         err, TOL_VIT_BF16 if act else TOL_VIT_F32)
+            z = model.extract_features(seq)
+            n = seq.shape[1]
+            x0 = rnd(1, n, 9)
+            inp = prepare_sampler(den, model.schedule, z, weight_dtype=wdt, x0=x0,
+                                  noises=rnd(c.timesteps, 1, n, 9))
+            for key, (name, args, e) in sampler_parity(report, torch, K, inp, mode, n).items():
+                if mode == "bf16":
+                    sampler_args[key] = (name, args, e)
+            hp = K.sampler_prologue_plain(inp.x0, *inp.prologue, 0)
+            stk = stack_trunk_params(den._trunk, wdt)
+            zb = torch.zeros(n, device=dev)
+            _close_rel(report, f"[learn] fused_trunk {mode} ({c.num_encoder_layers} layers, "
+                       f"{n} rows of {De})", fused_trunk(hp, zb, stk, c.nhead),
+                       fused_trunk_plain(hp, zb, stk, c.nhead), TOL_F32)
+        rows_args = rows_products(inp.layers[0], hp, None, None)[0]
+        errs["linear_rows"] = _close_rel(
+            report, f"[learn] linear_rows in_proj bf16 ({n}x{De} @ {De}x{3 * De}, LayerNorm "
+            "folded)", K.linear(*rows_args[1], **rows_args[2]),
+            K.linear_plain(*rows_args[1], **rows_args[2]), TOL_F32)
+
+    # one GGS phase on the chunked cluster route (kernel 7) at the sequence's matches
+    gm = pack_matches_grouped(*matches, n, device=dev)
+    n_match = int(gm.valid.sum().item())
+    P, Q = gm.valid.shape
+    report.require(f"[learn] the GGS table ({n} frames, {n_match} matches, {P} x {Q}) takes "
+                   "the chunked route", not G.fused_fits(gm), f"({P * Q} entries)")
+    x_g = (enc[0] + 0.05 * rnd(*enc[0].shape)).contiguous()
+    kw = dict(iters=30, **GGS_PHASE)
+    ref = ggs_phase_fused_plain(x_g, gm, hw, True, True, True, 10.0, **kw)
+    chk = ggs_phase_fused_chunked(x_g, gm, hw, True, True, True, 10.0, **kw)
+    errs["ggs_phase_chunked"] = (chk - ref).abs().max().item()
+    report.check(f"[learn] ggs_phase_chunked ({n} frames, {n_match} matches, 30 iterations)",
+                 errs["ggs_phase_chunked"], TOL_GGS_30)
+    report.require("[learn] the GGS phase moved x", not torch.equal(chk, x_g))
+    torch.cuda.synchronize()
+    print(f"  [learn] parity done in {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # the first LEARN_STEPS steps of the card run
+    before = K.launch_counts()
+    run = Lm.train(model, texture, rng, LEARN_SCHEDULE, LEARN_IMG, dev, SEED,
+                   run_steps=LEARN_STEPS, log=lambda s: print(f"  {s}", flush=True))
+    torch.cuda.synchronize()
+    train_launches = _diff_counts(K, before)
+    losses = np.asarray(run["losses"])
+    first, last = float(losses[:100].mean()), float(losses[-100:].mean())
+    report.require(f"[learn] {LEARN_STEPS} train steps: every loss finite",
+                   bool(np.isfinite(losses).all()))
+    report.require(f"[learn] mean loss of steps {LEARN_STEPS - 100}-{LEARN_STEPS - 1} under "
+                   f"{LEARN_LOSS_MAX:.5f}", last < LEARN_LOSS_MAX,
+                   f"(steps 0-99 {first:.4f}, last 100 {last:.4f})")
+    print(f"  launches of one train step: {run['launches']}; of {LEARN_STEPS} steps: "
+          f"{train_launches}", flush=True)
+    for name in TRAIN_PATH:
+        if not run["launches"].get(name):
+            report.failures.append(f"[learn] kernel {name} was not launched in a train step")
+
+    # one held-out sequence sampled with GGS from its exact matches
+    before, ft0 = K.launch_counts(), fused_trunk.launches
+    out = Lm.ggs_sample(model, seq, matches, LEARN_IMG, dev, Lm.GGS_SEED0)
+    torch.cuda.synchronize()
+    ggs_launches = {**_diff_counts(K, before), "fused_trunk": fused_trunk.launches - ft0}
+    report.require("[learn] GGS sample: finite (1, 6, 9) encodings",
+                   tuple(out.shape) == (1, n, 9) and bool(torch.isfinite(out).all()))
+    L_enc, T = c.num_encoder_layers, c.timesteps
+    R = T - LEARN_GGS_START
+    predicted = {  # kernels 1 (its ViT), 2 (the sampler), 3 and 7 (the tail), 5 (attention)
+        "layernorm": 2 * c.vit_depth, "linear": 4 * c.vit_depth,
+        "attention": c.vit_depth + L_enc * T, "linear_rows": 4 * L_enc * T,
+        "sampler_prologue": 1, "sampler_boundary": R - 1, "sampler_epilogue": 1,
+        "ggs_phase_chunked": 5 * LEARN_GGS_START, "fused_trunk": LEARN_GGS_START}
+    report.require("[learn] GGS sample: the predicted launches", ggs_launches == predicted,
+                   f"({ggs_launches}; predicted {predicted})")
+    with torch.no_grad():
+        m = pose_metrics(out, enc)
+    print(f"  [learn] the GGS sample after {LEARN_STEPS} steps: Racc@15 {m['Racc_15']:.3f}, "
+          f"Tacc@15 {m['Tacc_15']:.3f}", flush=True)
+
+    # the kernels line: each kernel at its [learn] width
+    x2 = tok.reshape(-1, Dv).contiguous()
+    blk = vit.blocks[0]
+    g1, b1 = blk.norm1.weight.detach(), blk.norm1.bias.detach()
+    wq, bq = blk.attn.qkv.weight.detach().t().contiguous(), blk.attn.qkv.bias.detach()
+    entries = []
+    with torch.no_grad():
+        h = K.layernorm_plain(x2, g1, b1, 1e-6)
+        e = _close_rel(report, f"[learn] layernorm f32 ({x2.shape[0]}x{Dv})",
+                       K.layernorm(x2, g1, b1, 1e-6), h, TOL_F32)
+        entries.append(learn_entry(
+            torch, "layernorm", f"ViT norm1 f32 ({x2.shape[0]}x{Dv}; launches: the train steps)",
+            e, train_launches, lambda: K.layernorm(x2, g1, b1, 1e-6),
+            lambda: K.layernorm_plain(x2, g1, b1, 1e-6),
+            bound(2 * nbytes(x2) + 2 * Dv * 4, 8 * x2.numel()),
+            lambda: F.layer_norm(x2, (Dv,), g1, b1, 1e-6)))
+        qkv = K.linear_plain(h, wq, bq)
+        e = _close_rel(report, f"[learn] linear qkv f32 ({x2.shape[0]}x{Dv} @ {Dv}x{3 * Dv})",
+                       K.linear(h, wq, bq), qkv, TOL_F32)
+        entries.append(learn_entry(
+            torch, "linear", f"ViT qkv f32 ({x2.shape[0]}x{Dv} @ {Dv}x{3 * Dv}; launches: the "
+            "train steps)", e, train_launches, lambda: K.linear(h, wq, bq),
+            lambda: K.linear_plain(h, wq, bq), linear_bound(h, wq, bq),
+            lambda: torch.addmm(bq, h, wq)))
+        qkv = qkv.view(Bv, Nv, 3 * Dv)
+        e = _close_rel(report, f"[learn] attention f32 ({Bv}x{Nv}, {H} heads)",
+                       K.attention(qkv, H, attn_bias=vbias),
+                       K.attention_plain(qkv, H, attn_bias=vbias), TOL_F32)
+        q, k_, v = qkv.view(Bv, Nv, 3, H, Dv // H).permute(2, 0, 3, 1, 4)
+        entries.append(learn_entry(
+            torch, "attention", f"ViT f32 ({Bv}x{Nv}, {H} heads; launches: the train steps)",
+            e, train_launches, lambda: K.attention(qkv, H, attn_bias=vbias),
+            lambda: K.attention_plain(qkv, H, attn_bias=vbias),
+            attention_bound(qkv, attn_bias=vbias),
+            lambda: F.scaled_dot_product_attention(q, k_, v, attn_mask=vbias)))
+        dout = rnd(Bv, Nv, Dv)
+        e = _close_rel(report, f"[learn] attention_bwd f32 ({Bv}x{Nv}, {H} heads)",
+                       K.attention_bwd(qkv, dout, H, attn_bias=vbias),
+                       K.attention_bwd_plain(qkv, dout, H, attn_bias=vbias), TOL_F32)
+    sdpa = lambda a, b_, c_: F.scaled_dot_product_attention(a, b_, c_, attn_mask=vbias)  # noqa
+    entries.append(learn_entry(
+        torch, "attention_bwd", f"ViT f32 ({Bv}x{Nv}, {H} heads; launches: the train steps)",
+        e, train_launches, lambda: K.attention_bwd(qkv, dout, H, attn_bias=vbias),
+        lambda: K.attention_bwd_plain(qkv, dout, H, attn_bias=vbias),
+        attention_bwd_bound(qkv, attn_bias=vbias)))
+    entries[-1]["library_ms"] = _library_grad_ms(
+        torch, sdpa, [q, k_, v], dout.view(Bv, Nv, H, Dv // H).permute(0, 2, 1, 3))
+    with torch.no_grad():
+        dh = rnd(*x2.shape)
+        e = max(_close_rel(report, f"[learn] layernorm_bwd f32 ({x2.shape[0]}x{Dv}) {name}", a,
+                           b_, TOL_F32)
+                for name, a, b_ in zip(("dx", "dg", "db"), K.layernorm_bwd(x2, g1, dh, 1e-6),
+                                       K.layernorm_bwd_plain(x2, g1, dh, 1e-6)))
+        entries.append(learn_entry(
+            torch, "layernorm_bwd", f"ViT norm1 f32 ({x2.shape[0]}x{Dv}; launches: the train "
+            "steps)", e, train_launches, lambda: K.layernorm_bwd(x2, g1, dh, 1e-6),
+            lambda: K.layernorm_bwd_plain(x2, g1, dh, 1e-6),
+            bound(nbytes(x2, dh, g1) + nbytes(x2) + 2 * Dv * 4, 12 * x2.numel())))
+    entries[-1]["library_ms"] = _library_grad_ms(
+        torch, lambda a, g: F.layer_norm(a, (Dv,), g, b1, 1e-6), [x2, g1], dh)
+    with torch.no_grad():
+        dy = rnd(x2.shape[0], 3 * Dv)
+        e = max(_close_rel(report, f"[learn] linear_wgrad f32 ({x2.shape[0]}x{Dv})^T "
+                           f"({x2.shape[0]}x{3 * Dv}) {name}", a, b_, TOL_F32)
+                for name, a, b_ in zip(("dW", "db"), K.linear_wgrad(h, dy),
+                                       K.linear_wgrad_plain(h, dy)))
+        entries.append(learn_entry(
+            torch, "linear_wgrad", f"ViT qkv f32 ({x2.shape[0]}x{Dv})^T ({x2.shape[0]}x"
+            f"{3 * Dv}; launches: the train steps)", e, train_launches,
+            lambda: K.linear_wgrad(h, dy), lambda: K.linear_wgrad_plain(h, dy),
+            wgrad_bound(h, dy), lambda: torch.matmul(h.t(), dy)))
+        a_fc, dh_fc = rnd(x2.shape[0], 4 * Dv), rnd(x2.shape[0], 4 * Dv)
+        e = _close_rel(report, f"[learn] act_dropout_bwd gelu ({x2.shape[0]}x{4 * Dv})",
+                       K.act_dropout_bwd(dh_fc, a_fc, "gelu"),
+                       K.act_dropout_bwd_plain(dh_fc, a_fc, "gelu"), TOL_F32)
+        entries.append(learn_entry(
+            torch, "act_dropout_bwd", f"ViT fc1 GELU ({x2.shape[0]}x{4 * Dv}; launches: the "
+            "train steps)", e, train_launches, lambda: K.act_dropout_bwd(dh_fc, a_fc, "gelu"),
+            lambda: K.act_dropout_bwd_plain(dh_fc, a_fc, "gelu"),
+            bound(3 * nbytes(a_fc), 20 * a_fc.numel()),
+            lambda: torch.ops.aten.gelu_backward(dh_fc, a_fc)))
+        for key, (name, args, e) in sampler_args.items():
+            a_k = [t.clone() if torch.is_tensor(t) else t for t in args]  # x updated in place
+            entries.append(learn_entry(
+                torch, key, f"{name} (launches: the GGS sample)", e, ggs_launches,
+                lambda f=getattr(K, key), a=a_k: f(*a),
+                lambda f=getattr(K, f"{key}_plain"), a=a_k: f(*a), sampler_bound(key, args)))
+        ra, rk = rows_args[1], rows_args[2]
+        entries.append(learn_entry(
+            torch, "linear_rows", f"denoiser in_proj bf16, LayerNorm folded ({n}x{De} @ "
+            f"{De}x{3 * De}; launches: the GGS sample)", errs["linear_rows"], ggs_launches,
+            lambda: K.linear(*ra, **rk), lambda: K.linear_plain(*ra, **rk),
+            linear_bound(ra[0], ra[1], ra[2])))
+    chunk = default_chunk_pairs(gm)
+    tab = ggs_tables(G.pad_grouped_pairs(gm, chunk))
+    kw100 = dict(iters=LEARN_GGS_ITERS, **GGS_PHASE)
+    call = lambda: K.ggs_phase_chunked(x_g, tab, hw, True, True, True, 10.0,  # noqa: E731
+                                       chunk=chunk, **kw100)
+    _, count, _ = loss_and_grad_core(call(), tab.kp1x, tab.kp1y, tab.kp2x, tab.kp2y, tab.valid,
+                                     tab.B1, tab.B2, hw, True, True, True, 10.0)
+    report.require("[learn] the timed GGS phase never stopped",
+                   count.item() / n >= GGS_PHASE["min_matches"], f"({count.item():.0f} matches)")
+    e = learn_entry(
+        torch, "ggs_phase_chunked", f"{LEARN_GGS_ITERS}-iteration phase, {n} frames, "
+        f"{n_match} matches (cluster {K.ggs_phase_chunked.cluster}; launches: the GGS sample)",
+        errs["ggs_phase_chunked"], ggs_launches, call,
+        lambda: K.ggs_phase_chunked_plain(x_g, tab, hw, True, True, True, 10.0, chunk=chunk,
+                                          **kw100),
+        bound(5 * nbytes(gm.valid) + 2 * nbytes(x_g),
+              LEARN_GGS_ITERS * n_match * GGS_FLOP_PER_MATCH), slow_plain=True)
+    entries.append(e)
+    render, step = np.asarray(run["render_ms"][1:]), np.asarray(run["step_ms"][1:])
+    timings = {"[learn] render ms a step (host, median)": float(np.median(render)),
+               "[learn] train step ms (median)": float(np.median(step)),
+               f"[learn] mean loss steps 0-99": first,
+               f"[learn] mean loss steps {LEARN_STEPS - 100}-{LEARN_STEPS - 1}": last,
+               "[learn] seconds": time.perf_counter() - t_phase}
+    for name, v in timings.items():
+        print(f"  {name}: {v:.4f}")
+    print(f"  [learn] done at {time.perf_counter() - t_start:.0f} s", flush=True)
+    return entries, timings, {"train step": run["launches"], f"{LEARN_STEPS} train steps":
+                              train_launches, "GGS sample": ggs_launches}
 
 
 def sum_partials_entry(report, torch, K, dev, f32_step, bf16_step):
@@ -3998,6 +4392,14 @@ def main(argv) -> int:
         t336, launches["train-336"] = train336_slice(report, dev, work, smi, t_start)
         v2bf, launches["dinov2-bf16"] = dinov2_bf16_slice(report, dev, work, smi, t_start)
         print(json.dumps({"timings_ms": {**t336, **v2bf}, "launches": launches, "card": smi}))
+        if report.failures:
+            print("FAILED:\n  " + "\n  ".join(report.failures), file=sys.stderr)
+            return 1
+        return 0
+    if "--learn" in argv:  # [learn] alone
+        learn_json, learn_timings, learn_launches = learn_slice(report, dev, smi, t_start)
+        print(json.dumps({"kernels": learn_json, "timings_ms": learn_timings,
+                          "learn_launches": learn_launches, "card": smi}))
         if report.failures:
             print("FAILED:\n  " + "\n  ".join(report.failures), file=sys.stderr)
             return 1
@@ -4445,6 +4847,8 @@ def main(argv) -> int:
     fsdp_launches = fsdp_slice(report, dev, work, t_start)
     t336_timings, t336_launches = train336_slice(report, dev, work, smi, t_start)
     v2bf_timings, v2bf_launches = dinov2_bf16_slice(report, dev, work, smi, t_start)
+    # ---- 5e. the learnability experiment's widths: parity, train steps, a GGS sample
+    learn_json, learn_timings, learn_launches = learn_slice(report, dev, smi, t_start)
 
     # ---- 6. timing (default mode, CUDA events after warm-up)
     print(f"[timing] medians of {N_TIMED}, card: {smi}")
@@ -4799,7 +5203,7 @@ def main(argv) -> int:
             "case": f"200-iteration phase, {where} (launches: GGS path, {DEMO_INFERENCES} "
                     f"inferences a run)",
         })
-    kernels_json += train_json + bb_json + resnet_json
+    kernels_json += train_json + bb_json + resnet_json + learn_json
     kernels_json.append(sum_partials_entry(report, torch, K, dev, dino_step, dino_bf16_step))
     with torch.no_grad():
         kernels_json += layernorm_entries(report, torch, F, K, dev, gen)
@@ -4812,6 +5216,7 @@ def main(argv) -> int:
     timings.update(resnet_train_timings)
     timings.update(t336_timings)
     timings.update(v2bf_timings)
+    timings.update(learn_timings)
 
     # the ten TPU kernels' rows (PERF.md section 6): each row's case, its
     # kernel route and plain route, its bound and a one-call yardstick
@@ -4931,7 +5336,8 @@ def main(argv) -> int:
                       "eval_launches": eval_launches, "resnet_launches": resnet_launches,
                       "dp_launches": dp_launches, "fsdp_launches": fsdp_launches,
                       "train336_launches": t336_launches,
-                      "dinov2_bf16_launches": v2bf_launches}))
+                      "dinov2_bf16_launches": v2bf_launches,
+                      "learn_launches": learn_launches}))
     print(json.dumps({"kernels": kernels_json}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

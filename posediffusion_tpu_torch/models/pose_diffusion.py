@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import math
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -364,3 +365,47 @@ def init_random_weights(model: nn.Module, seed: int, std: float = 0.02) -> None:
                         and name in ("weight", "running_var"))):
                 draw += 1.0
             p.copy_(draw)
+
+
+# jax.nn.initializers.variance_scaling's truncated-normal correction: the std
+# of a unit normal truncated to [-2, 2]
+TRUNCATED_STD = 0.87962566103423978
+
+
+def truncated_normal(shape, generator: torch.Generator, std: float) -> torch.Tensor:
+    """``std`` x a unit normal truncated to [-2, 2], by the inverse CDF of a
+    uniform draw (as ``jax.random.truncated_normal``), float32."""
+    lo, hi = math.erf(-2 / math.sqrt(2)), math.erf(2 / math.sqrt(2))
+    u = torch.rand(shape, generator=generator, dtype=torch.float64)
+    x = math.sqrt(2) * torch.erfinv(lo + (hi - lo) * u)
+    return (x.clamp(-2.0, 2.0) * std).to(torch.float32)
+
+
+@torch.no_grad()
+def init_flax_weights(model: nn.Module, seed: int) -> None:
+    """Draw every parameter from the law of its Flax counterpart's
+    initializer, as the JAX package's ``PoseDiffusionModel.init`` makes it:
+    the backbone's Dense and Conv kernels ``lecun_normal`` (a normal
+    truncated at 2 sigma, std sqrt(1 / fan_in), fan_in the input width, and
+    the patch embedding's 16 x 16 x 3), ``cls_token`` and ``pos_embed``
+    ``truncated_normal(0.02)``; the denoiser's Dense kernels (time
+    embedding, ``first``, the encoder layers, the output head)
+    ``truncated_normal(0.02)`` (``layers.default_kernel_init``); every bias
+    zero; LayerNorm and BatchNorm scales, BatchNorm variances and LayerScale
+    gains one, BatchNorm means zero. Buffers (the schedule) keep their
+    values. The draws come from one CPU generator, so the weights do not
+    depend on the device."""
+    gen = torch.Generator().manual_seed(seed)
+    backbone = {id(p) for p in model.image_feature_extractor.parameters()}
+    for module in model.modules():
+        for name, p in module.named_parameters(recurse=False):
+            if isinstance(module, (nn.LayerNorm, BatchNormInference, LayerScale)):
+                one = name in ("weight", "running_var", "gamma")
+                p.fill_(1.0 if one else 0.0)
+            elif "bias" in name:
+                p.zero_()
+            elif id(p) in backbone and name not in ("cls_token", "pos_embed"):
+                std = p[0].numel() ** -0.5 / TRUNCATED_STD
+                p.copy_(truncated_normal(p.shape, gen, std))
+            else:
+                p.copy_(truncated_normal(p.shape, gen, 0.02))
