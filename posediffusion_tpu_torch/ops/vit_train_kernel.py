@@ -52,6 +52,7 @@ import dataclasses
 import torch
 
 from posediffusion_tpu_torch.ops.kernels import KERNELS, PLAIN, drop_args
+from posediffusion_tpu_torch.utils.profiling import span
 
 WEIGHT_KEYS = ("g1", "b1", "wqkv", "bqkv", "wproj", "bproj",
                "g2", "b2", "wfc1", "bfc1", "wfc2", "bfc2")
@@ -71,6 +72,7 @@ class TrunkSpec:
     seed: int = 0
     plain: bool = False  # PLAIN ops on any device (``plain_route``)
     layer_scale: bool = False  # DINOv2's ls1 / ls2 gains (``LS_KEYS``)
+    name: str = "trunk"  # its spans pd.<name>.fwd / .bwd (``utils/profiling.span``)
 
     def drop(self, layer: int, site: str):
         return drop_args(self.seed, layer, site, self.dropout)
@@ -280,7 +282,7 @@ def trunk_backward(s: TrunkSpec, saved, dy, weights, attn_bias=None,
 class _TrainTrunk(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, attn_bias, key_bias, spec: TrunkSpec, *weights):
-        with torch.no_grad():
+        with span(spec.name + ".fwd"), torch.no_grad():
             y, saved = trunk_forward(spec, x.contiguous(), weights, attn_bias,
                                      key_bias, save=True)
         ctx.spec = spec
@@ -291,7 +293,7 @@ class _TrainTrunk(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         attn_bias, key_bias, *weights = ctx.saved_tensors
-        with torch.no_grad():
+        with span(ctx.spec.name + ".bwd"), torch.no_grad():
             dx, dw = trunk_backward(ctx.spec, ctx.saved, dy, weights, attn_bias,
                                     key_bias)
         ctx.saved = None
@@ -341,7 +343,8 @@ def fused_vit_trunk_train(
     from the stacks): forward and backward on the kernels. Gradients reach
     x and the stacks."""
     spec = TrunkSpec(nhead=nhead, eps=1e-6, act="gelu", act_bf16=act_bf16,
-                     residual_bf16=residual_bf16, layer_scale=layer_scale)
+                     residual_bf16=residual_bf16, layer_scale=layer_scale,
+                     name="vit_trunk")
     return train_trunk(x, stacks, spec, attn_bias=attn_bias.contiguous())
 
 
@@ -359,7 +362,7 @@ def fused_encoder_trunk_train(
     pre-norm, ReLU, LayerNorm eps 1e-5, dropout at the four sites)."""
     spec = TrunkSpec(nhead=nhead, eps=1e-5, act="relu", act_bf16=act_bf16,
                      residual_bf16=residual_bf16, dropout=dropout,
-                     seed=int(seed))
+                     seed=int(seed), name="encoder_trunk")
     return train_trunk(x, stacks, spec, key_bias=key_bias.contiguous())
 
 

@@ -25,6 +25,7 @@ import torch
 import torch.distributed as dist
 
 from posediffusion_tpu_torch.parallel.mesh import full_like, local, norm_group, shard_of
+from posediffusion_tpu_torch.utils.profiling import span
 
 
 def warmup_cosine_restarts(
@@ -85,29 +86,31 @@ class AdamW:
 
     @torch.no_grad()
     def step(self) -> Dict[str, float]:
-        """One update from the parameters' ``.grad`` (None counts as 0).
-        Returns the learning rate used and the gradients' global norm."""
-        lr = self.schedule(self.step_count)
-        params = [local(p) for p in self.params]
-        grads = [torch.zeros_like(lp) if p.grad is None else local(p.grad)
-                 for p, lp in zip(self.params, params)]
-        sq = sum((g ** 2).sum() for g in grads)
-        if self.norm_group is not None:
-            dist.all_reduce(sq, group=self.norm_group)
-        norm = torch.sqrt(sq)
-        if self.clip_grad and self.clip_grad > 0:
-            # optax.clip_by_global_norm: g / norm * max_norm above the bound
-            clip = norm >= self.clip_grad
-            grads = [torch.where(clip, g / norm * self.clip_grad, g) for g in grads]
-        t = self.step_count + 1
-        c1, c2 = 1 - self.b1**t, 1 - self.b2**t
-        for p, g, mu, nu in zip(params, grads, self.mu, self.nu):
-            mu.mul_(self.b1).add_(g, alpha=1 - self.b1)
-            nu.mul_(self.b2).add_(g * g, alpha=1 - self.b2)
-            update = (mu / c1) / (torch.sqrt(nu / c2) + self.eps) + self.weight_decay * p
-            p.add_(update, alpha=-lr)
-        self.step_count += 1
-        return {"lr": lr, "grad_norm": float(norm)}
+        """One update from the parameters' ``.grad`` (None counts as 0), in
+        the span ``pd.optimizer``. Returns the learning rate used and the
+        gradients' global norm."""
+        with span("optimizer"):
+            lr = self.schedule(self.step_count)
+            params = [local(p) for p in self.params]
+            grads = [torch.zeros_like(lp) if p.grad is None else local(p.grad)
+                     for p, lp in zip(self.params, params)]
+            sq = sum((g ** 2).sum() for g in grads)
+            if self.norm_group is not None:
+                dist.all_reduce(sq, group=self.norm_group)
+            norm = torch.sqrt(sq)
+            if self.clip_grad and self.clip_grad > 0:
+                # optax.clip_by_global_norm: g / norm * max_norm above the bound
+                clip = norm >= self.clip_grad
+                grads = [torch.where(clip, g / norm * self.clip_grad, g) for g in grads]
+            t = self.step_count + 1
+            c1, c2 = 1 - self.b1**t, 1 - self.b2**t
+            for p, g, mu, nu in zip(params, grads, self.mu, self.nu):
+                mu.mul_(self.b1).add_(g, alpha=1 - self.b1)
+                nu.mul_(self.b2).add_(g * g, alpha=1 - self.b2)
+                update = (mu / c1) / (torch.sqrt(nu / c2) + self.eps) + self.weight_decay * p
+                p.add_(update, alpha=-lr)
+            self.step_count += 1
+            return {"lr": lr, "grad_norm": float(norm)}
 
     def state_dict(self) -> dict:
         """The step and the moments, whole (gathered from the ranks' shards:

@@ -41,6 +41,7 @@ from posediffusion_tpu_torch.geometry.pose_codec import pose_encoding_to_camera
 from posediffusion_tpu_torch.parallel.distributed import all_reduce_grads, all_reduce_sum
 from posediffusion_tpu_torch.parallel.mesh import gathered, is_sharded
 from posediffusion_tpu_torch.training.optim import AdamW
+from posediffusion_tpu_torch.utils.profiling import span
 
 
 def pose_metrics(pred_encodings: torch.Tensor, gt_encodings: torch.Tensor,
@@ -93,30 +94,37 @@ def train_step(model, optimizer: AdamW, batch: Dict[str, torch.Tensor],
     loss, backward, clip and update. ``draws`` (t, noise, drop_seed) are
     the loss's random draws; else they come from ``generator``.
     ``distributed``: this rank's part of a data-parallel step (the loss
-    reported is the whole step's); a sharded model's step is always one."""
-    sharded = is_sharded(model)
-    distributed = distributed or sharded
-    gt = batch["pose_encodings"]
-    mask = batch.get("mask")
-    optimizer.zero_grad()
-    out = model.loss(batch["images"], gt, batch_repeat=batch_repeat, mask=mask,
-                     train=True, generator=generator, **(draws or {}))
-    loss = normalized_loss(out.loss, gt.shape[-1], batch_repeat, mask, distributed)
-    if sharded:
-        (loss * dist.get_world_size()).backward()  # FSDP2 divides by the world
-    else:
-        loss.backward()
+    reported is the whole step's); a sharded model's step is always one.
+    Spans (``utils/profiling.span``): ``pd.train_step`` around the call,
+    ``pd.loss``, ``pd.backward`` and ``pd.metrics`` inside it (AdamW opens
+    ``pd.optimizer``)."""
+    with span("train_step"):
+        sharded = is_sharded(model)
+        distributed = distributed or sharded
+        gt = batch["pose_encodings"]
+        mask = batch.get("mask")
+        optimizer.zero_grad()
+        with span("loss"):
+            out = model.loss(batch["images"], gt, batch_repeat=batch_repeat, mask=mask,
+                             train=True, generator=generator, **(draws or {}))
+            loss = normalized_loss(out.loss, gt.shape[-1], batch_repeat, mask, distributed)
+        with span("backward"):
+            if sharded:
+                (loss * dist.get_world_size()).backward()  # FSDP2 divides by the world
+            else:
+                loss.backward()
+                if distributed:
+                    all_reduce_grads(optimizer.params)
         if distributed:
-            all_reduce_grads(optimizer.params)
-    if distributed:
-        loss = all_reduce_sum(loss.detach().clone())
-    info = optimizer.step()
-    metrics = {"loss": float(loss.detach()), "lr": info["lr"], "grad_norm": info["grad_norm"]}
-    if compute_metrics:
-        with torch.no_grad():
-            pm = pose_metrics(out.x_0_pred[: gt.shape[0]].detach(), gt, mask)
-        metrics.update({k: float(v) for k, v in pm.items()})
-    return metrics
+            loss = all_reduce_sum(loss.detach().clone())
+        info = optimizer.step()
+        metrics = {"loss": float(loss.detach()), "lr": info["lr"],
+                   "grad_norm": info["grad_norm"]}
+        if compute_metrics:
+            with span("metrics"), torch.no_grad():
+                pm = pose_metrics(out.x_0_pred[: gt.shape[0]].detach(), gt, mask)
+                metrics.update({k: float(v) for k, v in pm.items()})
+        return metrics
 
 
 @torch.no_grad()

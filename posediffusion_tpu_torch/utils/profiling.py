@@ -3,9 +3,12 @@
 * :func:`trace`: ``torch.profiler`` over the enclosed block (CPU activity,
   and the card's where CUDA is up), its Chrome trace written into a
   directory;
-* :class:`PhaseTimer`: named wall-clock phases; with ``block=True`` each
-  phase ends with a ``torch.cuda.synchronize()`` (when CUDA is
-  initialised), so work the host queued is counted in its own phase;
+* :func:`span`: a named host span of the program (``pd.<name>``) that a
+  running profiler records beside the card's work; without one, a shared
+  null context;
+* :class:`PhaseTimer`: named wall-clock phases, each also a span; with
+  ``block=True`` each phase ends with a ``torch.cuda.synchronize()`` (when
+  CUDA is initialised), so work the host queued is counted in its own phase;
 * :func:`device_memory_stats`: ``torch.cuda.memory_stats`` of every card.
 """
 
@@ -18,6 +21,20 @@ from collections import defaultdict
 from typing import Dict
 
 import torch
+
+SPAN_PREFIX = "pd."
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """The host span ``pd.<name>`` around a block: a
+    ``torch.profiler.record_function`` while a profiler is recording this
+    thread (its host events then share the clock of the card's operations
+    in the same trace), else one shared null context after a single check
+    that enters no dispatcher."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(SPAN_PREFIX + name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
@@ -38,7 +55,7 @@ def trace(logdir: str):
 class PhaseTimer:
     """Accumulate wall-clock time per named phase; ``block=True`` waits for
     the card at the end of the phase, so asynchronous launches do not hide
-    their time in a later phase."""
+    their time in a later phase. Each phase is also the span of its name."""
 
     def __init__(self):
         self.totals: Dict[str, float] = defaultdict(float)
@@ -47,13 +64,14 @@ class PhaseTimer:
     @contextlib.contextmanager
     def phase(self, name: str, block: bool = True):
         start = time.perf_counter()
-        try:
-            yield
-        finally:
-            if block and torch.cuda.is_initialized():
-                torch.cuda.synchronize()
-            self.totals[name] += time.perf_counter() - start
-            self.counts[name] += 1
+        with span(name):
+            try:
+                yield
+            finally:
+                if block and torch.cuda.is_initialized():
+                    torch.cuda.synchronize()
+                self.totals[name] += time.perf_counter() - start
+                self.counts[name] += 1
 
     def summary(self) -> str:
         rows = []
