@@ -321,6 +321,9 @@ GGS_PATH = NO_GGS_PATH + ("ggs_phase", "ggs_phase_chunked")
 SUPERGLUE_KERNELS = ("superglue_coupling", "superglue_sinkhorn", "superglue_matches")
 MATCH_PATH = GGS_PATH + SUPERGLUE_KERNELS
 TRAIN_KERNELS = ("attention_bwd", "layernorm_bwd", "linear_wgrad", "act_dropout_bwd")
+# the kernels of linear's float32 tensor-core routes (kernels.linear_route):
+# mma.sync, or TF32 wgmma after its split of W
+LINEAR_F32_KERNELS = ("linear_tf32_kernel", "tf32_split_kernel", "linear_tf32_wgmma_kernel")
 # DDIM (sampling_timesteps 10 of 100) on samples/apple: the ViT, kernel 3 a
 # step, and at t < DDIM_COND_START (its last step) the GGS phases
 DDIM_STEPS = 10
@@ -863,6 +866,8 @@ def ptxas_report():
     # dynamic: ptxas reports static shared memory only
     print(f"  linear.cu linear_bf16_wgmma_kernel: dynamic shared memory "
           f"{K.linear_bf16_smem_bytes()} B")
+    print(f"  linear.cu linear_tf32_wgmma_kernel: dynamic shared memory "
+          f"{K.linear_tf32_wgmma_smem_bytes()} B")
     return 0
 
 
@@ -906,10 +911,10 @@ def _graph_ms(torch, fn, calls=20, reps=5):
 
 
 def _kernel_device_ms(torch, fn, kernel="attention_kernel", calls=20):
-    """Device time of ``kernel`` (every kernel and copy when None) per call
-    of ``fn``, from torch.profiler's CUDA activity: the kernels' own time,
-    without the host's launch cost that CUDA events around a short call
-    measure instead."""
+    """Device time of ``kernel`` (a name, a tuple of names, or every kernel
+    and copy when None) per call of ``fn``, from torch.profiler's CUDA
+    activity: the kernels' own time, without the host's launch cost that
+    CUDA events around a short call measure instead."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -919,9 +924,21 @@ def _kernel_device_ms(torch, fn, kernel="attention_kernel", calls=20):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+    names = (kernel,) if isinstance(kernel, str) else kernel
     us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and (kernel is None or kernel in e.key))
+             if e.device_type == DeviceType.CUDA
+             and (names is None or any(n in e.key for n in names)))
     return us / 1e3 / calls
+
+
+def _linear_f32_device(torch, K, fn):
+    """{"device_ms", "linear_route"}: the device time of the kernels of
+    linear's float32 routes per call of ``fn``, and the routes one call
+    took (``linear.by_route``)."""
+    K.linear.by_route.clear()
+    fn()
+    routes = dict(K.linear.by_route)
+    return {"device_ms": _kernel_device_ms(torch, fn, LINEAR_F32_KERNELS), "linear_route": routes}
 
 
 def _kernel_split_ms(torch, fn, calls=20):
@@ -2479,7 +2496,7 @@ def train_slice(report, dev, work, smi, t_start, dev_ms):
         if key.startswith("linear "):  # the tensor-core tile beside cuBLAS's one call
             library = ((lambda: torch.matmul(dy_fc, w_fc.t())) if key == "linear dgrad"
                        else (lambda: torch.addmm(b_q, x_fc, w_q)))
-            e["device_ms"] = _kernel_device_ms(torch, kern, "linear_tf32_kernel")
+            e.update(_linear_f32_device(torch, K, kern))
             e["library_device_ms"] = _kernel_device_ms(torch, library, None)
         elif e["name"] == "attention_bwd":
             e["device_ms"] = {k: _kernel_device_ms(torch, kern, k)
@@ -2491,7 +2508,8 @@ def train_slice(report, dev, work, smi, t_start, dev_ms):
                 torch, lambda dy=dy: torch.matmul(x_fc.t(), dy), None)
         if "device_ms" in e:
             print(f"  {e['name']} by device time: {e['device_ms']}, library "
-                  f"{e.get('library_device_ms')}")
+                  f"{e.get('library_device_ms')}"
+                  + (f", route {e['linear_route']}" if "linear_route" in e else ""))
     timings["peak memory of a train step (GB)"] = peak_gb
     # the bf16 train mode: one DINO step, then its weight gradients (csrc/wgrad.cu)
     # at the step's shapes, their device times read in a child process
@@ -2731,7 +2749,7 @@ def backbones_slice(report, dev, work, smi, t_start, dino_step_launches):
         "replaces": TPU_KERNELS["linear"], "launches": linear_shapes.get((M, Fv, Dv, False), 0),
         "max_abs_err": err, "ms": timings[name], "plain_ms": timings[f"{name} plain"],
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "device_ms": _kernel_device_ms(torch, kern, "linear_tf32_kernel"),
+        **_linear_f32_device(torch, K, kern),
         "case": f"{name} (launches: DINOv2 train path, this shape)",
     }
     del cases, hm
@@ -5175,7 +5193,7 @@ def main(argv) -> int:
                 "max_abs_err": err, "ms": timings[name], "plain_ms": timings[f"{name} plain"],
                 "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": timings[library] if library else None,
-                "device_ms": _kernel_device_ms(torch, call, "linear_tf32_kernel"),
+                **_linear_f32_device(torch, K, call),
                 "case": f"{name} (launches: match path, this K and N)",
             }
             if library:

@@ -3,6 +3,9 @@
     python3 kernel_probes.py            # both probes
     python3 kernel_probes.py --stream   # act_dropout_bwd's grid layouts only
     python3 kernel_probes.py --mma      # the TF32 mma.sync ceiling only
+    python3 kernel_probes.py --linear [--few-tiles] [--root DIR]
+        # linear's float32 train products (or products of fewer 128 x 128
+        # tiles than SMs), timed; the port imported from DIR
 
 --stream times act_dropout_bwd's computation (dh x mask x GELU'(a), and the
 mask alone) at the ViT's fc1 (135,168 x 1,536 float32) in layouts that
@@ -17,6 +20,19 @@ aten.gelu_backward and torch.add (the same 12 bytes an element).
 That is the ceiling of the 3xTF32 tiles (csrc/linear.cu, csrc/superglue.cu,
 csrc/attention*.cu), which cannot use wgmma for operands that are not
 K-major.
+
+--linear times ``linear`` at the float32 train trunks' products (DINO's ViT
+at 512 x 264 rows, the encoder at 2,880 x 16: the forward with its
+epilogues and the dgrad) beside the port's plain version, the 3xTF32 bound
+and two library yardsticks that the port never calls, torch.matmul (or
+torch.addmm with a bias) with allow_tf32 False and True, and prints the route
+each took (``linear.by_route``, where the port has it). With --root DIR the
+port is imported from DIR (for instance the parent commit unpacked with git
+archive; its kernels build under DIR/build/kernels), so two trees compare on
+one card, one after the other. With --few-tiles it times products of
+fewer 128 x 128 tiles than the card has SMs instead (the f32 serving ViT's
+N 384 products, a learnability-sized trunk, few rows with trans_w), by CUDA
+events and by CUDA-graph replay (the device's time without the host's).
 
 The probe kernels are built here with nvcc into build/probes/ (they are not
 part of the port). Times are CUDA-event medians after warm-up, with the
@@ -218,18 +234,100 @@ def mma_probe(torch, so, time_ms):
               f"m16n8k8 a ms = {mmas * 2048 / ms / 1e9:.1f} TFLOP/s (495 dense TF32 peak)")
 
 
+# (name, M, K, N, trans_w, epilogue) of the float32 train products
+LINEAR_CASES = [
+    ("vit qkv", 135168, 384, 1152, False, "bias"),
+    ("vit proj", 135168, 384, 384, False, "residual"),
+    ("vit fc1", 135168, 384, 1536, False, "gelu"),
+    ("vit fc2", 135168, 1536, 384, False, "residual"),
+    ("vit qkv dgrad", 135168, 1152, 384, True, None),
+    ("vit proj dgrad", 135168, 384, 384, True, None),
+    ("vit fc1 dgrad", 135168, 1536, 384, True, None),
+    ("vit fc2 dgrad", 135168, 384, 1536, True, None),
+    ("encoder linear1", 46080, 512, 1024, False, "gelu"),
+    ("encoder linear1 dgrad", 46080, 1024, 512, True, None),
+]
+
+
+# products of fewer 128 x 128 tiles than an H100's 132 SMs
+LINEAR_FEW_TILE_CASES = [
+    ("serving vit proj", 5280, 384, 384, False, "bias"),
+    ("serving vit fc2", 5280, 1536, 384, False, "residual"),
+    ("serving vit proj dgrad", 5280, 384, 384, True, None),
+    ("4000 x 512 -> 512", 4000, 512, 512, False, "bias"),
+    ("learnability fc1", 2048, 256, 1024, False, "gelu"),
+    ("learnability fc1 dgrad", 2048, 1024, 256, True, None),
+    ("few rows dgrad", 32, 1024, 512, True, None),
+    ("one tile", 128, 384, 128, False, "bias"),
+]
+
+
+def linear_probe(torch, time_ms, few_tiles=False):
+    import json
+
+    from chip_smoke import _graph_ms
+    from posediffusion_tpu_torch.ops import kernels as K
+
+    print(f"[linear] port from {os.path.dirname(os.path.dirname(os.path.dirname(K.__file__)))}")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    for name, M, Kd, N, trans, epi in LINEAR_FEW_TILE_CASES if few_tiles else LINEAR_CASES:
+        a = torch.randn((M, Kd), generator=g, device=dev)
+        w = torch.randn((N, Kd) if trans else (Kd, N), generator=g, device=dev) / Kd**0.5
+        b = torch.randn(N, generator=g, device=dev) if epi else None
+        kw = {}
+        if epi == "residual":
+            kw = dict(residual=torch.randn((M, N), generator=g, device=dev),
+                      drop=K.drop_args(0, 1, "m1", 0.1))
+        elif epi == "gelu":
+            kw = dict(act="gelu", drop=K.drop_args(0, 1, "mff", 0.1), want_pre=True)
+        io = (M * Kd + Kd * N + M * N * (2 if kw else 1) + (N if b is not None else 0)) * 4
+        bound = max(io / 3.35e12, 3 * 2 * M * Kd * N / 495e12) * 1e3
+        wt = w.t() if trans else w
+        call = lambda: K.linear(a, w, b, trans_w=trans, **kw)  # noqa: E731
+        K.reset_launch_counts()
+        call()
+        route = dict(getattr(K.linear, "by_route", {})) or "tf32_mma (no by_route)"
+        ms = time_ms(torch, call, reps=10, inner=10 if few_tiles else 1)
+        graph_ms = _graph_ms(torch, call) if few_tiles else None
+        plain_ms = time_ms(torch, lambda: K.linear_plain(a, w, b, trans_w=trans, **kw), reps=5)
+        lib = {}
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            fn = (lambda: torch.addmm(b, a, wt)) if b is not None else (lambda: torch.matmul(a, wt))
+            lib[f"allow_tf32={tf32}"] = time_ms(torch, fn, reps=10)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        row = dict(case=name, M=M, K=Kd, N=N, trans_w=trans, epilogue=epi, route=route,
+                   kernel_ms=ms, graph_ms=graph_ms, plain_ms=plain_ms, bound_ms=bound,
+                   pct_of_3xtf32=100 * bound / ms, library_ms=lib)
+        rows.append(row)
+        print(f"  {name} ({M}x{Kd} -> {N}{', trans_w' if trans else ''}, {epi}): {route} "
+              f"{ms:.4f} ms{f' (graph {graph_ms:.4f})' if few_tiles else ''}, "
+              f"{100 * bound / ms:.1f}% of the 3xTF32 bound {bound:.4f} ms; plain "
+              f"{plain_ms:.4f}; torch f32 {lib['allow_tf32=False']:.4f}, TF32 "
+              f"{lib['allow_tf32=True']:.4f}")
+        del a, w, b, kw
+    print(json.dumps({"linear_probe": rows}))
+
+
 def main(argv) -> int:
+    if "--root" in argv:  # before the port's first import
+        sys.path.insert(0, os.path.abspath(argv[argv.index("--root") + 1]))
     import torch
 
     if not torch.cuda.is_available():
         print("kernel_probes.py needs a CUDA card", file=sys.stderr)
         return 2
-    sys.path.insert(0, REPO)
+    sys.path.insert(1 if "--root" in argv else 0, REPO)
     from chip_smoke import _time_ms
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout
     print(f"card: {smi.strip()}")
+    if "--linear" in argv:
+        linear_probe(torch, _time_ms, few_tiles="--few-tiles" in argv)
+        return 0
     so = build()
     if "--mma" not in argv:
         stream_probe(torch, so, _time_ms)

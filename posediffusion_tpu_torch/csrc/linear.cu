@@ -31,7 +31,8 @@
 // ViT's (M = 20 frames x 264 tokens = 5,280 rows) 1.6-6.2 GFLOP; the
 // sampler's (M = 20 rows) are bound by reading the weights once (0.16-0.47
 // us at HBM rate) and, in practice, by latency.
-// Design: three forward kernels.
+// Design: four forward kernels; linear_route (mirrored by
+// ops/kernels.py linear_route) picks among the last three.
 //   * M <= 32 and W not transposed (the denoiser's 20-row products, TPU
 //     kernels 2 and 3): the few-rows route, linear_rows_kernel below. It
 //     streams each weight element once with 16-byte copies, splits K over a
@@ -42,12 +43,21 @@
 //     registers (linear_bf16_wgmma_kernel, 128 x 128 tiles on a
 //     persistent grid, a producer warp feeding a TMA ring through mbarriers,
 //     two consumer warpgroups that round a to bf16 as they load it).
-//   * float32 a (bf16 or f32 W, transposed or not, round_a or not, but not
-//     bf16 W with round_a), more than 32 rows or W transposed: 3xTF32
-//     tensor-core tiles (linear_tf32_kernel, 128 x 128 a block, a 3-stage
-//     cp.async ring), two TF32 products where one operand is exact in TF32
-//     (a bf16 W, or a rounded a). The f32 products on the tensor cores: 495
-//     TFLOP/s of TF32 for three products against 67 of float32 FMA. The JAX
+//   * float32 a and W without round_a, rows TMA can address (16-byte
+//     aligned bases, K % 4 == 0, N % 4 == 0): the float32 train trunks'
+//     forward, recompute and dgrad products, the f32 serving ViT's and
+//     SuperGlue's, down to a single tile (below one tile an SM it still
+//     took about half of linear_tf32_kernel's device time on an H100:
+//     kernel_probes.py --linear --few-tiles). 3xTF32 on TF32 wgmma (linear_tf32_wgmma_kernel, the same ring, roles and grid
+//     as the bf16 tile; tf32_split_kernel first writes W's hi and lo TF32
+//     halves K-major into the call's scratch, the consumers split a in
+//     registers).
+//   * float32 a otherwise (a bf16 W, round_a, rows off 16 bytes or K, N
+//     off 4): 3xTF32 mma.sync
+//     tiles (linear_tf32_kernel, 128 x 128 a block, a 3-stage cp.async
+//     ring), two TF32 products where one operand is exact in TF32 (a bf16
+//     W, or a rounded a). The f32 products on the tensor cores: 495 TFLOP/s
+//     of TF32 for three products against 67 of float32 FMA. The JAX
 //     kernel's f32 dot with a bf16 weight is the same function: the widened
 //     weight is exact.
 // The weight gradient reduces over all M rows into a small (K, N) result:
@@ -59,10 +69,13 @@
 // 128 x 128 tile fed by a cp.async ring), in bf16 mode bf16 wgmma
 // (wgrad_bf16_wgmma_kernel in wgrad.cu, a 128 x 128 tile fed by TMA, both
 // operands rounded into shared memory); db is the column sum of dY in the
-// same pass. The TF32 kernels use mma.sync, not wgmma: TF32 wgmma reads only
-// K-major operands from shared memory, and the forward's W (K, N) and both
-// operands of the weight gradient are not. bf16 wgmma takes MN-major
-// operands, so the bf16 routes read W (K, N), X and dY as they lie.
+// same pass. TF32 wgmma reads B from shared memory only K-major: A ((M, K)
+// row-major: a in the forward, dY in the dgrad) and the dgrad's W (N, K)
+// are K-major as they lie, the forward's W (K, N) is MN-major and is
+// transposed as its TF32 halves are written; both operands of the weight
+// gradient (X and dY, contracted over rows) are M-major, so it stays on
+// mma.sync. bf16 wgmma takes MN-major operands, so the bf16 routes read W
+// (K, N), X and dY as they lie.
 #include <cooperative_groups.h>
 #include <cuda_pipeline.h>
 
@@ -522,6 +535,23 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[64], const uint32_t (&a)[4
       : BW_D16(0), BW_D16(16), BW_D16(32), BW_D16(48)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc), "n"(TB));
 }
+
+// d (+)= a @ B, m64n128k8 TF32: a the thread's four TF32 A registers, B
+// K-major by its descriptor (TF32 wgmma has no transpose), acc 0 zeroes d
+// first
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4],
+                                           uint64_t desc, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : BW_D16(0), BW_D16(16), BW_D16(32), BW_D16(48)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+}
 #undef BW_D16
 #undef BW_D4
 
@@ -719,6 +749,263 @@ linear_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
 }
 
 
+// ---- float32 a and W on TF32 wgmma (sm_90a): 3xTF32
+//
+// y = epi(a @ W), a (M, K) float32; W float32 (K, N), or (N, K) read
+// transposed (the dgrad dY W^T); rows TMA can address (linear_route).
+// linear_tf32_kernel's mma.sync tops out at the TF32
+// mma.sync issue ceiling (~316 TFLOP/s, 64% of the dense peak:
+// kernel_probes.py --mma) and reached a quarter to a third of the 3xTF32
+// rate at the train trunks' products; only wgmma reaches the rest. Bound:
+// compute, three TF32 products of 2 M K N operations at 495 TFLOP/s (the
+// train products are 40-160 GFLOP each).
+//   * TF32 wgmma reads B from shared memory only K-major. A ((M, K)
+//     row-major: a, or dY in the dgrad) is K-major as it lies; the dgrad's W
+//     (N, K) is K-major, the forward's W (K, N) MN-major. tf32_split_kernel
+//     first writes W's TF32 halves K-major into a scratch the wrapper
+//     allocates for the call (2N rows of K: hi = cvt.rna.tf32(w), lo = w -
+//     hi, split_tf32), transposing the forward's W through a shared tile and
+//     splitting the dgrad's where it lies. Splitting W in the tile instead,
+//     from a TMA-landed float32 slot into shared hi and lo tiles by converter
+//     warps, cost the tile 11-18 points of the 3xTF32 rate
+//     (measured on an H100 at 700 W); the scratch is at most 4.7 MB on the
+//     train path, freed after the call, and its pass a few microseconds
+//     against the product's 0.2-2.5 ms.
+//   * Tiles, grid and roles as linear_bf16_wgmma_kernel: 128 x 128 of y, a
+//     persistent grid (block b takes tiles b, b + grid, ..., n fastest),
+//     warpgroups 0 and 1 consume (64 rows of the tile each), warp 8 loads
+//     with TMA; setmaxnreg gives the consumers 232 registers, warpgroup 2
+//     40. A ring slot (Tw) holds one 32-wide K slice: a (128 x 32 floats),
+//     W's hi and its lo (128 rows of n x 32 of k), all with the 128-byte
+//     swizzle, so hi and lo lie in wgmma's K-major B layout as they land.
+//   * Products: wgmma m64n128k8 tf32 with A from registers: a consumer thread
+//     reads its fragment of a from the slot (rows r0 and r0 + 8, columns t
+//     and t + 4 of each k8 step) and splits it in registers. Each k8 step
+//     runs lo.hi, hi.lo, hi.hi into one accumulator (linear_tf32_kernel's
+//     order); lo.lo (~2^-22) is dropped.
+//   * Precision: as linear_tf32_kernel, each 64-wide K slice (two slots) goes
+//     into an accumulator zeroed by scale-d = 0 and is then added, rounded
+//     to nearest, into the running one (the tensor core truncates its sums).
+//     A fixed order, no atomics, no split of K: the result repeats bitwise.
+//   * Epilogue: each consumer warpgroup passes its 64 x 128 of the tile
+//     through its own shared buffer 32 columns at a time (rows of 40 floats:
+//     the float2 writes of a half-warp hit 32 banks) into Epilogue::store4,
+//     element by element where alignment forbids: the epilogue and dropout
+//     mask of the other tiles. (Running a tile's passes behind the next
+//     tile's first products measured no faster, so they run in place.)
+constexpr int TW_BK = 32;        // K of a slot: one 128-byte row of float32
+constexpr int TW_EPI_COLS = 32;  // columns of an epilogue pass
+
+// the tile's shared memory (ops/kernels.py linear_tf32_wgmma_smem_bytes holds
+// the same): 1,024 bytes of alignment slack, STAGES slots of a's slice, W's
+// hi and its lo (16 KB each, multiples of 1,024 bytes), the two warpgroups'
+// epilogue buffers (64 rows of 32 + 8 floats each), then the full and empty
+// barriers
+struct Tw {
+  static constexpr int BM = 128, BN = 128;
+  static constexpr int A_BYTES = BM * TW_BK * 4;
+  static constexpr int W_BYTES = BN * TW_BK * 4;
+  static constexpr int HI = A_BYTES, LO = A_BYTES + W_BYTES;  // offsets in a slot
+  static constexpr int STAGE = LO + W_BYTES;
+  static constexpr int STAGES = 4;  // as many as fit beside the epilogue buffers
+  static constexpr int LDC = TW_EPI_COLS + 8;  // an epilogue row, floats
+  static constexpr int EPI = 2 * 64 * LDC * 4;
+  static constexpr int SMEM = 1024 + STAGES * STAGE + EPI + 2 * STAGES * 8;
+};
+
+// W's TF32 halves, K-major: rows 0 .. N - 1 of hl hold hi, rows N .. 2N - 1
+// lo; row n holds column n of the product's B (K values). TRANS: W (N, K)
+// is split where it lies (float4 runs, K % 4 == 0); else W (K, N) goes
+// through a 32 x 32 shared tile (32 x 8 threads) so both sides are read and
+// written in rows.
+template <bool TRANS>
+__global__ void __launch_bounds__(256)
+tf32_split_kernel(const float* __restrict__ W, uint32_t* __restrict__ hl, int N, int K) {
+  const size_t total = (size_t)N * K;
+  if constexpr (TRANS) {
+    for (size_t i = 4 * ((size_t)blockIdx.x * 256 + threadIdx.x); i < total;
+         i += 4 * (size_t)gridDim.x * 256) {
+      const float4 v = *reinterpret_cast<const float4*>(W + i);
+      uint4 h, l;
+      split_tf32(v.x, h.x, l.x);
+      split_tf32(v.y, h.y, l.y);
+      split_tf32(v.z, h.z, l.z);
+      split_tf32(v.w, h.w, l.w);
+      *reinterpret_cast<uint4*>(hl + i) = h;
+      *reinterpret_cast<uint4*>(hl + total + i) = l;
+    }
+  } else {
+    __shared__ float tile[32][33];
+    const int n0 = blockIdx.x * 32, k0 = blockIdx.y * 32;
+    const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+#pragma unroll
+    for (int r = ty; r < 32; r += 8)
+      tile[r][tx] = k0 + r < K && n0 + tx < N ? W[(size_t)(k0 + r) * N + n0 + tx] : 0.f;
+    __syncthreads();
+#pragma unroll
+    for (int r = ty; r < 32; r += 8) {
+      const int n = n0 + r, k = k0 + tx;
+      if (n < N && k < K) {
+        uint32_t h, l;
+        split_tf32(tile[tx][r], h, l);
+        hl[(size_t)n * K + k] = h;
+        hl[total + (size_t)n * K + k] = l;
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(BW_THREADS, 1)
+linear_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
+                         const __grid_constant__ CUtensorMap tm_w, Epilogue ep, int M, int N,
+                         int K, int vec_out) {
+  using S = Tw;
+  extern __shared__ __align__(1024) unsigned char tw_smem[];
+  unsigned char* smem = tw_smem + ((1024 - (smem_u32(tw_smem) & 1023)) & 1023);
+  float* epi = reinterpret_cast<float*>(smem + S::STAGES * S::STAGE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::STAGES * S::STAGE + S::EPI);
+  uint64_t* empty = full + S::STAGES;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tiles_n = (N + S::BN - 1) / S::BN;
+  const int tiles = tiles_n * ((M + S::BM - 1) / S::BM);
+  const int slots = (K + TW_BK - 1) / TW_BK;  // K > 0 on this route
+  const int mine = (int)blockIdx.x < tiles ? (tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+  const int steps = mine * slots;  // (tile, slot) steps of this block
+
+  // the origin of the block's tile i
+  auto origin = [&](int i, int& m0, int& n0) {
+    const int tile = (int)blockIdx.x + i * (int)gridDim.x;
+    m0 = (tile / tiles_n) * S::BM;
+    n0 = (tile % tiles_n) * S::BN;
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < S::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // the producer warpgroup: warp 8 loads, 9-11 leave
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == 8) {
+      for (int q = 0; q < steps; ++q) {
+        const int stage = q % S::STAGES;
+        mbar_wait(&empty[stage], ((q / S::STAGES) & 1) ^ 1);  // the first pass finds it free
+        if (lane == 0) {
+          int m0, n0;
+          origin(q / slots, m0, n0);
+          const int k0 = (q % slots) * TW_BK;
+          unsigned char* sa = smem + stage * S::STAGE;
+          mbar_expect_tx(&full[stage], S::STAGE);
+          tma_load_2d(sa, &tm_a, k0, m0, &full[stage]);
+          // hi's rows n0 .. n0 + 127 (past N they are lo's first rows or
+          // zeros: columns the epilogue does not store), lo's N + n0 ..
+          tma_load_2d(sa + S::HI, &tm_w, k0, n0, &full[stage]);
+          tma_load_2d(sa + S::LO, &tm_w, k0, N + n0, &full[stage]);
+        }
+        __syncwarp();
+      }
+    }
+  } else {  // the consumer warpgroups
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+    const int r0 = wg * 64 + (warp & 3) * 16 + g;  // A rows r0, r0 + 8; r0 % 8 == g
+    float* ce = epi + wg * 64 * S::LDC;            // this warpgroup's epilogue rows
+    float acc[S::BN / 2], part[S::BN / 2];
+    for (int i = 0; i < mine; ++i) {  // both warpgroups on each of the block's tiles
+      for (int sl = 0; sl < slots; ++sl) {
+        const int q = i * slots + sl, stage = q % S::STAGES;
+        mbar_wait(&full[stage], (q / S::STAGES) & 1);
+        const unsigned char* sa = smem + stage * S::STAGE;
+        const uint32_t hi = smem_u32(sa + S::HI), lo = smem_u32(sa + S::LO);
+        // A of k8 step kk: (r0, c), (r0 + 8, c), (r0, c + 4), (r0 + 8, c + 4)
+        // with c = 8 kk + t, split into TF32 halves
+        uint32_t ah[4][4], al[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const int b = 32 * kk + 4 * t;  // byte of column c in a's row
+          const float x[4] = {*reinterpret_cast<const float*>(sa + bw_swz(r0, b)),
+                              *reinterpret_cast<const float*>(sa + bw_swz(r0 + 8, b)),
+                              *reinterpret_cast<const float*>(sa + bw_swz(r0, b + 16)),
+                              *reinterpret_cast<const float*>(sa + bw_swz(r0 + 8, b + 16))};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) split_tf32(x[e], ah[kk][e], al[kk][e]);
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          // k8 step kk: 32 bytes into each K-major row of B
+          const uint64_t dh = bw_desc(hi + 32 * kk, 16, 1024);
+          const uint64_t dl = bw_desc(lo + 32 * kk, 16, 1024);
+          wgmma_tf32(part, al[kk], dh, (sl & 1) | kk);  // 0 at a 64-wide slice's start
+          wgmma_tf32(part, ah[kk], dl, 1);
+          wgmma_tf32(part, ah[kk], dh, 1);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        reg_fence(part);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[stage]);
+        if ((sl & 1) || sl == slots - 1) {
+#pragma unroll
+          for (int j = 0; j < S::BN / 2; ++j) acc[j] = sl < 2 ? part[j] : acc[j] + part[j];
+        }
+      }
+
+      // the tile's epilogue: accumulator 4j + 2h + c is row r0 + 8h, column
+      // 8j + 2t + c of the tile; pass p takes columns 32p .. 32p + 31
+      int m0, n0;
+      origin(i, m0, n0);
+      const int wr = (warp & 3) * 16 + g;  // the row in this warpgroup's buffer
+      const int lt = tid & 127, mw = m0 + wg * 64;
+#pragma unroll 1
+      for (int p = 0; p < S::BN / TW_EPI_COLS; ++p) {
+        asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");  // the last pass is read
+#pragma unroll
+        for (int j = 0; j < S::BN / 8; ++j) {
+          if (j / (TW_EPI_COLS / 8) != p) continue;
+          const int c = 8 * (j % (TW_EPI_COLS / 8)) + 2 * t;
+          *reinterpret_cast<float2*>(ce + wr * S::LDC + c) =
+              make_float2(acc[4 * j], acc[4 * j + 1]);
+          *reinterpret_cast<float2*>(ce + (wr + 8) * S::LDC + c) =
+              make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+        }
+        asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+        const int np = n0 + p * TW_EPI_COLS;
+        if (vec_out) {
+          constexpr int RUNS = 64 * TW_EPI_COLS / 4, U = RUNS / 128;  // float4 runs, all in flight
+          float4 v[U], r[U];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const int e = lt + u * 128, row = e / (TW_EPI_COLS / 4);
+            const int c = 4 * (e % (TW_EPI_COLS / 4));
+            const int m = mw + row, n = np + c;
+            v[u] = *reinterpret_cast<const float4*>(ce + row * S::LDC + c);
+            r[u] = ep.res && m < M && n < N
+                       ? *reinterpret_cast<const float4*>(ep.res + (size_t)m * N + n)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const int e = lt + u * 128, row = e / (TW_EPI_COLS / 4);
+            const int c = 4 * (e % (TW_EPI_COLS / 4));
+            if (mw + row < M && np + c < N) ep.store4(v[u], r[u], mw + row, np + c, N);
+          }
+        } else {
+#pragma unroll 1
+          for (int e = lt; e < 64 * TW_EPI_COLS; e += 128) {
+            const int row = e / TW_EPI_COLS, c = e % TW_EPI_COLS;
+            if (mw + row < M && np + c < N) ep.store(ce[row * S::LDC + c], mw + row, np + c, N);
+          }
+        }
+      }
+    }
+  }
+}
+
 template <typename WT, bool TRANS, bool ROUND_A>
 int launch_tf32(const float* a, const WT* w, const Epilogue& ep, int M, int N, int K,
                 cudaStream_t s) {
@@ -774,6 +1061,15 @@ bool weight_tmap(CUtensorMap* map, const __nv_bfloat16* w, uint64_t rows, uint64
   return true;
 }
 
+// setmaxnreg only moves registers within the block's allocation: the wgmma
+// tiles' consumers' 232 a thread need the producer's 128 above 40, i.e. a
+// launch at 168 (65,536 / 384); with fewer the consumers would wait forever
+bool wgmma_regs_ok(const void* kern) {
+  cudaFuncAttributes fa{};
+  return cudaFuncGetAttributes(&fa, kern) == cudaSuccess &&
+         fa.numRegs * BW_THREADS >= 232 * 256 + 40 * 128;
+}
+
 template <bool TRANS>
 int launch_bf16(const float* a, const __nv_bfloat16* w, const Epilogue& ep, int M, int N, int K,
                 cudaStream_t s) {
@@ -783,14 +1079,8 @@ int launch_bf16(const float* a, const __nv_bfloat16* w, const Epilogue& ep, int 
   static const cudaError_t attr =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
   if (attr != cudaSuccess) return (int)attr;
-  // setmaxnreg only moves registers within the block's allocation: the
-  // consumers' 232 a thread need the producer's 128 above 40, i.e. a launch
-  // at 168 (65,536 / 384); with fewer the consumers would wait forever
-  static const int regs = [&] {
-    cudaFuncAttributes fa{};
-    return cudaFuncGetAttributes(&fa, kern) == cudaSuccess ? fa.numRegs : 0;
-  }();
-  if (regs * BW_THREADS < 232 * 256 + 40 * 128) return (int)cudaErrorInvalidConfiguration;
+  static const bool regs_ok = wgmma_regs_ok((const void*)kern);
+  if (!regs_ok) return (int)cudaErrorInvalidConfiguration;
   int sms = 0;
   const cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return (int)err;
@@ -816,6 +1106,55 @@ int launch_bf16_t(const float* a, const __nv_bfloat16* w, int trans, const Epilo
                   int N, int K, cudaStream_t s) {
   return trans ? launch_bf16<true>(a, w, ep, M, N, K, s)
                : launch_bf16<false>(a, w, ep, M, N, K, s);
+}
+
+// W's halves into hl (2N x K, the wrapper's scratch), then the tile
+int launch_tf32_wgmma(const float* a, const float* w, int trans, uint32_t* hl, const Epilogue& ep,
+                      int M, int N, int K, cudaStream_t s) {
+  using S = Tw;
+  static_assert(S::SMEM <= BW_MAX_SMEM, "the ring does not fit");
+  auto kern = linear_tf32_wgmma_kernel;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  static const bool regs_ok = wgmma_regs_ok((const void*)kern);
+  if (!regs_ok) return (int)cudaErrorInvalidConfiguration;
+  if (!hl) return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (long long)((N + S::BN - 1) / S::BN) * ((M + S::BM - 1) / S::BM);
+  if (tiles * ((K + TW_BK - 1) / TW_BK) > 0x7fffffffLL || 2LL * N * K > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  if (trans) {
+    const long long blocks = ((long long)N * K / 4 + 255) / 256;  // a float4 run a thread
+    tf32_split_kernel<true><<<(int)(blocks < 4 * sms ? blocks : 4 * sms), 256, 0, s>>>(w, hl, N, K);
+  } else {
+    tf32_split_kernel<false><<<dim3((N + 31) / 32, (K + 31) / 32), 256, 0, s>>>(w, hl, N, K);
+  }
+  const cudaError_t split = cudaGetLastError();
+  if (split != cudaSuccess) return (int)split;
+  CUtensorMap tm_a{}, tm_w{};
+  const bool ok = tmap_2d(&tm_a, a, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, M, K, S::BM, TW_BK) &&
+                  tmap_2d(&tm_w, hl, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, 2ULL * N, K, S::BN, TW_BK);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const int vec_out = aligned(ep.y, 16) && aligned(ep.pre, 16) && aligned(ep.res, 16);
+  const int grid = (int)(tiles < sms ? tiles : sms);  // persistent: one block an SM
+  kern<<<grid, BW_THREADS, S::SMEM, s>>>(tm_a, tm_w, ep, M, N, K, vec_out);
+  return (int)cudaGetLastError();
+}
+
+// The route of pd_linear (ops/kernels.py linear_route mirrors it): bf16
+// wgmma for a bf16 W with round_a; TF32 wgmma for a float32 W without
+// round_a whose rows TMA can address (16-byte aligned a and W, K and N
+// multiples of 4); mma.sync for the rest.
+enum { ROUTE_TF32_MMA = 0, ROUTE_TF32_WGMMA = 1, ROUTE_BF16_WGMMA = 2 };
+
+int linear_route(int K, int N, int w_bf16, int round_a, int a_aligned, int w_aligned) {
+  if (w_bf16 && round_a) return ROUTE_BF16_WGMMA;
+  if (!w_bf16 && !round_a && a_aligned && w_aligned && K > 0 && K % 4 == 0 && N % 4 == 0)
+    return ROUTE_TF32_WGMMA;
+  return ROUTE_TF32_MMA;
 }
 
 // ---- the few-rows route: y = epi(LN?(a) @ W) for M <= 32
@@ -1317,20 +1656,26 @@ int wgrad_bf16_tile();
 int launch_wgrad_bf16(const float* x, const float* dy, float* pw, float* pb, int M, int K,
                       int N, int rows, cudaStream_t s);
 
+// y = epi(a @ W) above the few-rows route, on the route linear_route picks;
+// scratch holds 2 N K floats (W's TF32 halves) where that route is TF32
+// wgmma, and may be null otherwise.
 PD_API int pd_linear(const void* a, const void* w, int w_bf16, int trans_w,
                      const void* bias, const void* gain, const void* res,
                      void* y, void* pre,
                      int M, int N, int K, int round_a, int act,
                      unsigned int drop_key, int drop_thr, float drop_scale,
-                     int round_out, void* stream) {
+                     int round_out, void* scratch, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const float* A = (const float*)a;
   Epilogue ep{(const float*)bias, (const float*)gain, (const float*)res,
               (float*)y, (float*)pre, act, round_out,
               DropArgs{drop_key, drop_thr, drop_scale}};
   if (M < 1 || N < 1 || K < 0) return (int)cudaErrorInvalidValue;
-  if (w_bf16 && round_a)
+  const int route = linear_route(K, N, w_bf16, round_a, aligned(a, 16), aligned(w, 16));
+  if (route == ROUTE_BF16_WGMMA)
     return launch_bf16_t(A, (const __nv_bfloat16*)w, trans_w, ep, M, N, K, s);
+  if (route == ROUTE_TF32_WGMMA)
+    return launch_tf32_wgmma(A, (const float*)w, trans_w, (uint32_t*)scratch, ep, M, N, K, s);
   if (w_bf16)
     return launch_tf32_t<__nv_bfloat16, false>(A, (const __nv_bfloat16*)w, trans_w, ep, M,
                                                N, K, s);
@@ -1368,6 +1713,17 @@ PD_API int pd_linear_rows(const void* a, const void* w, int w_bf16,
 // Shared memory of the bf16 wgmma tile (ops/kernels.py linear_bf16_smem_bytes
 // holds the same).
 PD_API int pd_linear_bf16_smem_bytes() { return Bw::SMEM; }
+
+// Shared memory of the TF32 wgmma tile (ops/kernels.py
+// linear_tf32_wgmma_smem_bytes holds the same).
+PD_API int pd_linear_tf32_wgmma_smem_bytes() { return Tw::SMEM; }
+
+// pd_linear's route for these operands (0 TF32 mma.sync, 1 TF32 wgmma, 2
+// bf16 wgmma; ops/kernels.py linear_route mirrors it, and linear asks it
+// whether the call needs W's TF32 halves).
+PD_API int pd_linear_route(int K, int N, int w_bf16, int round_a, int a_aligned, int w_aligned) {
+  return linear_route(K, N, w_bf16, round_a, a_aligned, w_aligned);
+}
 
 // The dW tile of a block (ops/kernels.py WGRAD_TILE holds the same): 128 x
 // 128 in both modes.

@@ -8,7 +8,8 @@ of the training trunks (DINOv2's LayerScale included):
 ``layernorm``            row LayerNorm, eps and bf16 output rounding as arguments
 ``linear``               ``drop(act(a @ W + b) * gain) [+ residual]``, W float32
                          or bfloat16, read transposed for the dgrad product;
-                         float32 a on 3xTF32 tensor-core MMAs, a bf16 W with
+                         float32 a and W as 3xTF32 on TF32 ``wgmma`` fed by
+                         TMA (else 3xTF32 ``mma.sync``), a bf16 W with
                          ``round_a`` on bf16 ``wgmma`` fed by TMA
 ``linear_rows``          the same for at most 32 rows (the sampler's products):
                          W streamed once over a cluster split of K, with the
@@ -87,8 +88,10 @@ _F = ctypes.c_float
 _DROP = [_U, _I, _F]  # a dropout site: key, threshold, scale (DropArgs)
 _SIGNATURES = {
     "pd_layernorm": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
-    "pd_linear": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, *_DROP, _I, _P],
+    "pd_linear": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, *_DROP, _I, _P, _P],
     "pd_linear_bf16_smem_bytes": [],
+    "pd_linear_tf32_wgmma_smem_bytes": [],
+    "pd_linear_route": [_I] * 6,
     "pd_linear_rows": [_P, _P, _I] + [_P] * 7 + [_F] + [_I] * 6 + [*_DROP, _I, _P],
     "pd_attention": [_P, _P, _I, _P, _I, _I, _I, _I, _F, _I, *_DROP, _P],
     "pd_attention_smem_bytes": [_I, _I, _I],
@@ -400,14 +403,29 @@ def linear(a, w, bias, act: str = "none", residual=None, round_a: bool = False,
 
     On the card, up to LINEAR_ROWS_MAX rows with W not transposed take the
     few-rows route (``linear_rows``), which alone folds ``ln``; asking for
-    ``ln`` on any other route raises. The rest run on the tensor cores: a
-    bf16 W with ``round_a`` on bf16 ``wgmma`` (csrc/linear.cu
-    linear_bf16_wgmma_kernel: TMA-fed, a rounded to bf16 as it is loaded,
-    128 x 128 tiles), everything else as 3xTF32 ``mma.sync``
-    MMAs (linear_tf32_kernel: about 2^-21 relative a product; two TF32
-    products where the bf16 W or the rounded a is exact in TF32). Counts its
-    launches in ``linear.launches`` and, per (M, K, N, trans_w), in
-    ``linear.by_shape``."""
+    ``ln`` on any other route raises. The rest run on the tensor cores, by
+    ``linear_route`` (csrc/linear.cu pd_linear mirrors it):
+
+    * ``bf16_wgmma``: a bf16 W with ``round_a``, bf16 ``wgmma``
+      (linear_bf16_wgmma_kernel: TMA-fed, a rounded to bf16 as it is
+      loaded, 128 x 128 tiles).
+    * ``tf32_wgmma``: a float32 W without ``round_a``, a and W on 16-byte
+      boundaries, K and N multiples of 4 (rows TMA can address), down to a
+      single 128 x 128 tile: 3xTF32 on TF32 ``wgmma``
+      (tf32_split_kernel writes W's hi and lo TF32 halves K-major, the
+      forward's transposed, into a scratch of 2 N K floats for the call;
+      linear_tf32_wgmma_kernel loads them and a by TMA and splits a in
+      registers; about 2^-21 relative a product). TF32 ``wgmma`` is the
+      only way to the card's TF32 rate; it is bound by its three products
+      at 495 TFLOP/s. The float32 train trunks' forward, recompute and
+      dgrad products take it, and the f32 serving ViT's and SuperGlue's.
+    * ``tf32_mma``: everything else (a bf16 W, ``round_a``, rows off 16
+      bytes or K, N off 4, such as K 702 or N 9): 3xTF32 ``mma.sync``
+      (linear_tf32_kernel; two TF32 products where the bf16 W or the
+      rounded a is exact in TF32).
+
+    Counts its launches in ``linear.launches``, per (M, K, N, trans_w) in
+    ``linear.by_shape`` and per route in ``linear.by_route``."""
     if not _on_card(a, w, bias, residual, gain, *_ln_tensors(ln)):
         return linear_plain(a, w, bias, act, residual, round_a, trans_w, drop,
                             round_out, want_pre, gain, ln)
@@ -422,17 +440,68 @@ def linear(a, w, bias, act: str = "none", residual=None, round_a: bool = False,
     y = torch.empty((M, N), device=a.device, dtype=torch.float32)
     pre = torch.empty_like(y) if want_pre else None
     bf16 = w.dtype == torch.bfloat16
-    _launch(load_library().pd_linear, _ptr(a), _ptr(w), int(bf16), int(trans_w), _ptr(bias),
+    lib = load_library()
+    route = LINEAR_ROUTES[lib.pd_linear_route(
+        K, N, int(bf16), int(round_a), int(a.data_ptr() % 16 == 0), int(w.data_ptr() % 16 == 0))]
+    # W's TF32 halves for this call only (2 N K floats, at most 4.7 MB on the
+    # train path): nothing split outlives the call
+    split = (torch.empty((2 * N, K), device=a.device, dtype=torch.float32)
+             if route == "tf32_wgmma" else None)
+    _launch(lib.pd_linear, _ptr(a), _ptr(w), int(bf16), int(trans_w), _ptr(bias),
             _ptr(gain), _ptr(residual), _ptr(y), _ptr(pre), M, N, K, int(round_a),
-            _ACT[act], *(drop.args() if drop else _NO_DROP), int(round_out), _stream(a))
+            _ACT[act], *(drop.args() if drop else _NO_DROP), int(round_out), _ptr(split),
+            _stream(a))
     linear.launches += 1
     key = (M, K, N, bool(trans_w))
     linear.by_shape[key] = linear.by_shape.get(key, 0) + 1
+    linear.by_route[route] = linear.by_route.get(route, 0) + 1
     return (y, pre) if want_pre else y
 
 
 linear.launches = 0
 linear.by_shape = {}
+linear.by_route = {}
+
+LINEAR_ROUTES = ("tf32_mma", "tf32_wgmma", "bf16_wgmma")  # pd_linear_route's codes
+
+
+def linear_route(K: int, N: int, w_bf16: bool, round_a: bool, aligned: bool = True) -> str:
+    """The tensor-core route ``linear`` takes above the few-rows route, as
+    csrc/linear.cu linear_route decides it (``linear`` asks pd_linear_route):
+    ``bf16_wgmma`` for a bf16 W with ``round_a``; ``tf32_wgmma`` for a
+    float32 W without ``round_a`` whose rows TMA can address (``aligned``: a
+    and W on 16-byte boundaries; K and N multiples of 4); ``tf32_mma`` for
+    the rest."""
+    if w_bf16 and round_a:
+        return "bf16_wgmma"
+    if not w_bf16 and not round_a and aligned and K > 0 and K % 4 == 0 and N % 4 == 0:
+        return "tf32_wgmma"
+    return "tf32_mma"
+
+
+# csrc/linear.cu linear_tf32_wgmma_kernel (struct Tw): tiles of
+# LINEAR_TF32_WGMMA_ROWS rows (two consumer warpgroups of 64) by
+# LINEAR_TF32_WGMMA_COLS columns, one persistent block an SM; a ring slot
+# holds a 32-wide K slice of a and of W's hi and lo TF32 halves (16 KB each),
+# and each consumer warpgroup passes its rows through an epilogue buffer 32
+# columns at a time. Every train-trunk product of both cells tiles exactly (M
+# 135,168, 178,176 or 46,080; K and N in 384, 512, 1,024, 1,152, 1,536).
+LINEAR_TF32_WGMMA_ROWS = 128
+LINEAR_TF32_WGMMA_COLS = 128
+LINEAR_TF32_WGMMA_K = 32
+LINEAR_TF32_WGMMA_STAGES = 4
+LINEAR_TF32_WGMMA_EPI_COLS = 32
+
+
+def linear_tf32_wgmma_smem_bytes() -> int:
+    """Shared memory of the TF32 wgmma tile (csrc/linear.cu Tw::SMEM,
+    pd_linear_tf32_wgmma_smem_bytes): 1,024 bytes of alignment slack, four
+    ring slots (a's 128 x 32 float32 slice, W's hi and its lo, 128 x 32
+    each), two epilogue buffers (64 rows of 32 + 8 floats) and a full and an
+    empty barrier per slot."""
+    slot = (LINEAR_TF32_WGMMA_ROWS + 2 * LINEAR_TF32_WGMMA_COLS) * LINEAR_TF32_WGMMA_K * 4
+    epi = 2 * 64 * (LINEAR_TF32_WGMMA_EPI_COLS + 8) * 4
+    return 1024 + LINEAR_TF32_WGMMA_STAGES * slot + epi + 2 * LINEAR_TF32_WGMMA_STAGES * 8
 
 
 # csrc/linear.cu linear_bf16_wgmma_kernel: tiles of LINEAR_BF16_ROWS rows
@@ -1479,6 +1548,7 @@ def reset_launch_counts() -> None:
     _sum_partials.launches = 0
     layernorm.by_shape.clear()
     linear.by_shape.clear()
+    linear.by_route.clear()
     linear_rows.by_shape.clear()
     linear_wgrad.by_shape.clear()
     act_dropout_bwd.by_shape.clear()

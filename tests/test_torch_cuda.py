@@ -1107,9 +1107,12 @@ def test_layernorm_bwd_misaligned_and_grid(cuda):
 # The tensor-core tile of linear for float32 a (csrc/linear.cu,
 # linear_tf32_kernel): W float32 or bfloat16, transposed or not, round_a,
 # every epilogue; ragged M (33, and off the 128-row tile), K % 4 != 0 and
-# odd N (element copies, no float2 stores), and few rows with trans_w
+# odd N (element copies, no float2 stores), and few rows with trans_w. A
+# float32 W without round_a takes the TF32 wgmma route where K and N are
+# multiples of 4; K 130, N 129 and 4,000 x 510 -> 514 (160 tiles) keep
+# linear_tf32_kernel's float32 instance.
 TF32_SHAPES = [(33, 384, 1152), (300, 130, 77), (1000, 1536, 384), (129, 64, 129),
-               (20, 384, 1536), (4224, 512, 512)]
+               (20, 384, 1536), (4224, 512, 512), (4000, 512, 512), (4000, 510, 514)]
 TF32_OPERANDS = [(torch.float32, False, False), (torch.float32, False, True),
                  (torch.bfloat16, False, False), (torch.bfloat16, False, True),
                  (torch.float32, True, False), (torch.float32, True, True)]
@@ -1143,6 +1146,11 @@ def test_linear_tf32_epilogues(cuda, M, K_, N, wdtype, round_a, trans):
         rows = M <= K.LINEAR_ROWS_MAX and not trans  # the few-rows route
         assert K.launch_counts()["linear"] == int(not rows)
         assert K.launch_counts()["linear_rows"] == int(rows)
+        if not rows:
+            route = K.linear_route(K_, N, wdtype == torch.bfloat16, round_a)
+            assert K.linear.by_route == {route: 1}
+            assert (route == "tf32_wgmma") == (wdtype == torch.float32 and not round_a
+                                               and K_ % 4 == 0 and N % 4 == 0)
         ref = K.linear_plain(a, w, bias, **kw)
         if kw.get("want_pre"):
             _close(out[1], ref[1], TOL_F32)
@@ -1175,6 +1183,211 @@ def test_linear_tf32_misaligned_operands(cuda):
         wt = torch.cat([wt[:1], wt]).contiguous()[1:].view(N, K_) if trans else w
         _close(K.linear(a, wt, b, "relu", res, trans_w=trans),
                K.linear_plain(a, wt, b, "relu", res, trans_w=trans), TOL_F32)
+
+
+# ---- float32 a and W on TF32 wgmma (csrc/linear.cu linear_tf32_wgmma_kernel)
+# The cells' train-trunk products: DINO's and DINOv2's ViT (512 x 264 and
+# 512 x 348 rows) and the encoder (2,880 x 16), each forward (K, N) and its
+# dgrad (the forward W read transposed, K and N swapped)
+VIT_PRODUCTS = [(384, 1152), (384, 384), (384, 1536), (1536, 384)]
+ENC_PRODUCTS = [(512, 1536), (512, 512), (512, 1024), (1024, 512)]
+WGMMA_PATH = [(M, k, n, False) for M in (135168, 178176) for k, n in VIT_PRODUCTS] + \
+    [(M, n, k, True) for M in (135168, 178176) for k, n in VIT_PRODUCTS] + \
+    [(46080, k, n, False) for k, n in ENC_PRODUCTS] + [(46080, n, k, True) for k, n in ENC_PRODUCTS]
+
+
+@pytest.mark.parametrize("M,K_,N,trans", WGMMA_PATH)
+def test_linear_tf32_wgmma_path_shapes(cuda, M, K_, N, trans):
+    """The forward's epilogues (fc1's GELU with dropout and the saved
+    pre-activation; the residual with LayerScale's gain and dropout) and
+    the dgrad, at the cells' shapes, on the new route."""
+    a, w, b, gain, res = _tf32_case(M, K_, N, torch.float32, trans, cuda)
+    d = K.drop_args(11, 3, "m1", 0.1)
+    cases = [dict(trans_w=True)] if trans else [
+        dict(bias=b, act="gelu", drop=d, want_pre=True),
+        dict(bias=b, residual=res, gain=gain, drop=d)]
+    for kw in cases:
+        bias = kw.pop("bias", None)
+        K.reset_launch_counts()
+        out = K.linear(a, w, bias, **kw)
+        assert K.linear.by_route == {"tf32_wgmma": 1}
+        ref = K.linear_plain(a, w, bias, **kw)
+        if kw.get("want_pre"):
+            _close(out[1], ref[1], TOL_F32)
+            out, ref = out[0], ref[0]
+        _close(out, ref, TOL_F32)
+
+
+# ragged M, N and K on the new route: M off the tile (5,281, 17,001, and 100
+# < 128), N off the tile (392, 200, 516, 2,180 and 17,000), K off the 32-wide
+# slot (200, 392, 36, 4) and off the 64-wide accumulator slice (1,544: 49
+# slots)
+WGMMA_RAGGED = [(5281, 200, 392), (17001, 392, 200), (100, 36, 17000), (1000, 4, 2180),
+                (4224, 1544, 516)]
+
+
+@pytest.mark.parametrize("M,K_,N", WGMMA_RAGGED)
+@pytest.mark.parametrize("trans", [False, True])
+def test_linear_tf32_wgmma_epilogues(cuda, M, K_, N, trans):
+    a, w, b, gain, res = _tf32_case(M, K_, N, torch.float32, trans, cuda)
+    d = K.drop_args(11, 3, "m1", 0.1)
+    epilogues = [
+        dict(), dict(bias=b, act="relu"),
+        dict(bias=b, act="gelu", gain=gain, drop=d, want_pre=True),
+        dict(bias=b, residual=res, round_out=True, drop=d),
+        dict(bias=b, residual=res, gain=gain, want_pre=True),
+    ]
+    for ep in epilogues:
+        bias = ep.pop("bias", None)
+        kw = dict(ep, trans_w=trans)
+        K.reset_launch_counts()
+        out = K.linear(a, w, bias, **kw)
+        assert K.linear.by_route == {"tf32_wgmma": 1}
+        ref = K.linear_plain(a, w, bias, **kw)
+        if kw.get("want_pre"):
+            _close(out[1], ref[1], TOL_F32)
+            out, ref = out[0], ref[0]
+        _close(out, ref, TOL_BF16 if kw.get("round_out") else TOL_F32)
+
+
+@pytest.mark.parametrize("M,K_,N,trans", [(135168, 384, 1152, False), (46080, 1024, 512, True),
+                                          (5281, 200, 392, False), (17001, 392, 200, True)])
+def test_linear_tf32_wgmma_repeats_bitwise(cuda, M, K_, N, trans):
+    a, w, b, gain, res = _tf32_case(M, K_, N, torch.float32, trans, cuda, 1)
+    kw = dict(residual=res, gain=gain, trans_w=trans, act="gelu")
+    y = K.linear(a, w, b, **kw)
+    for _ in range(2):
+        assert torch.equal(y, K.linear(a, w, b, **kw))
+
+
+def test_linear_tf32_wgmma_keeps_no_split_copy(cuda):
+    """W's TF32 halves (2 N K floats) live only during the call: after it
+    the card holds y and nothing more."""
+    a, w, b, _, _ = _tf32_case(46080, 1024, 512, torch.float32, True, cuda)
+    for trans in (True, False):
+        wt = w if trans else w.t().contiguous()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(cuda)
+        K.reset_launch_counts()
+        y = K.linear(a, wt, b, trans_w=trans)
+        torch.cuda.synchronize()
+        assert K.linear.by_route == {"tf32_wgmma": 1}
+        assert torch.cuda.memory_allocated(cuda) - before == y.numel() * 4
+        del y
+
+
+def test_linear_tf32_wgmma_dropout_masks_match_the_mma_tile(cuda):
+    """The new route draws linear_tf32_kernel's masks on the same key, bit
+    for bit: zero weight and unit bias through both routes (K 8 on TF32
+    wgmma, K 6 on mma.sync), and the zeros of a real product with dropout."""
+    M, N = 46080, 512
+    d = K.drop_args(123, 7, "m2", 0.1)
+    ones = torch.ones(N, device=cuda)
+    ys = {}
+    for k in (8, 6):
+        K.reset_launch_counts()
+        ys[k] = K.linear(torch.zeros(M, k, device=cuda), torch.zeros(k, N, device=cuda), ones,
+                         drop=d)
+        ys[k, "route"] = next(iter(K.linear.by_route))
+    assert (ys[8, "route"], ys[6, "route"]) == ("tf32_wgmma", "tf32_mma")
+    assert torch.equal(ys[8], ys[6]) and torch.equal(ys[8], K.dropout_mask(d, (M, N), cuda))
+    a, w, b, _, _ = _tf32_case(M, 512, N, torch.float32, False, cuda)
+    K.reset_launch_counts()
+    y_new = K.linear(a, w, b, act="relu", drop=d)
+    y_old = K.linear(a, w, b, act="relu", drop=d, round_a=True)  # mma.sync
+    assert K.linear.by_route == {"tf32_wgmma": 1, "tf32_mma": 1}
+    drop = K.dropout_mask(d, (M, N), cuda) == 0
+    assert not bool(y_new[drop].any()) and not bool(y_old[drop].any())
+
+
+def test_tf32_wgmma_accumulation_truncates(cuda):
+    """Why the new tile adds each 64-wide K slice into a fresh accumulator:
+    TF32 wgmma's float32 accumulation truncates. Row 0 is 1 + 0.75 ulp(1)
+    (a at k 0 and k 8, two k8 steps of one slot, both exact in TF32; W
+    ones): rounded to nearest 1 + 2^-23, truncated 1; row 1 the same
+    negated. 132 x 1 tiles, on TF32 wgmma."""
+    M = 132 * 128
+    a = torch.zeros(M, 16, device=cuda)
+    a[0, 0], a[0, 8] = 1.0, 1.5 * 2.0**-24
+    a[1] = -a[0]
+    w = torch.ones(16, 8, device=cuda)
+    K.reset_launch_counts()
+    y = K.linear(a, w, None)
+    assert K.linear.by_route == {"tf32_wgmma": 1}
+    assert y[0, 0].item() == 1.0 and y[1, 0].item() == -1.0, (y[0, 0].item(), y[1, 0].item())
+    assert K.linear_plain(a, w, None)[0, 0].item() == 1.0 + 2.0**-23
+
+
+def test_linear_route_and_shared_memory_mirror_the_kernel(cuda):
+    lib = K.load_library()
+    assert lib.pd_linear_tf32_wgmma_smem_bytes() == K.linear_tf32_wgmma_smem_bytes()
+    for K_ in (0, 4, 6, 384, 702):
+        for N in (9, 200, 384, 514, 1152):
+            for w_bf16 in (False, True):
+                for round_a in (False, True):
+                    for a_ok, w_ok in ((1, 1), (0, 1), (1, 0)):
+                        code = lib.pd_linear_route(K_, N, int(w_bf16), int(round_a), a_ok, w_ok)
+                        assert K.LINEAR_ROUTES[code] == K.linear_route(
+                            K_, N, w_bf16, round_a, bool(a_ok and w_ok))
+
+
+def test_linear_tf32_wgmma_offset_views(cuda):
+    """a and W as row-offset views on 16-byte boundaries (TMA from an offset
+    base; a train step's weights are slices of a stack) take the new route;
+    off a 16-byte boundary they take mma.sync; the residual off 16 bytes
+    (element stores): all equal the plain version."""
+    M, K_, N = 16896, 384, 256
+    r = _gen(6)
+    rows = _t(r.normal(size=(M + 3, K_)), cuda)[3:]
+    stack = _t(r.normal(size=(3, K_, N)) / np.sqrt(K_), cuda)
+    flat = lambda n, s=1.0: _t(r.normal(size=n + 1) * s, cuda)[1:]  # noqa: E731
+    a_off, res_off = flat(M * K_).view(M, K_), flat(M * N).view(M, N)
+    b = _t(r.normal(size=N), cuda)
+    for a, route in ((rows, "tf32_wgmma"), (a_off, "tf32_mma")):
+        for trans in (False, True):
+            wt = stack[1].t().contiguous() if trans else stack[1]
+            K.reset_launch_counts()
+            out = K.linear(a, wt, b, "relu", res_off, trans_w=trans)
+            assert K.linear.by_route == {route: 1}
+            _close(out, K.linear_plain(a, wt, b, "relu", res_off, trans_w=trans), TOL_F32)
+
+
+def test_train_step_products_take_the_wgmma_route(cuda):
+    """One DINO train step (12 blocks, 8 encoder layers) at 4 x 8 frames,
+    batch_repeat 130 (8,448 ViT rows; 4,160 encoder rows, 33 x 4 tiles at
+    its narrowest N): every trunk forward, recompute and dgrad product (200
+    launches) goes to TF32 wgmma. The denoiser's first product (K 702) and
+    its head (N 9) are torch.nn.Linear in a train step; through ``linear``
+    their shapes take mma.sync."""
+    from posediffusion_tpu_torch.models.pose_diffusion import (
+        PoseDiffusionConfig,
+        PoseDiffusionModel,
+        init_random_weights,
+    )
+    from posediffusion_tpu_torch.training.optim import make_optimizer
+    from posediffusion_tpu_torch.training.step import train_step
+
+    model = PoseDiffusionModel(PoseDiffusionConfig(timesteps=10))
+    init_random_weights(model, 7)
+    model.to(cuda)
+    r = _gen(7)
+    B, F, rep = 4, 8, 130
+    batch = {"images": _t(r.uniform(size=(B, F, 3, 224, 224)), cuda),
+             "pose_encodings": _t(r.normal(size=(B, F, 9)) * 0.3, cuda)}
+    draws = dict(t=torch.tensor(r.integers(0, 10, size=B * rep)),
+                 noise=torch.tensor(r.normal(size=(B * rep, F, 9)), dtype=torch.float32),
+                 drop_seed=3)
+    opt, _ = make_optimizer(model, lr=1e-4, T_0=2, iters_per_epoch=1)
+    K.reset_launch_counts()
+    out = train_step(model, opt, batch, rep, draws=draws)
+    assert np.isfinite(out["loss"])
+    assert K.linear.launches == 200
+    assert K.linear.by_route == {"tf32_wgmma": 200}
+    for M, K_, N in ((B * rep * F, 702, 512), (B * rep * F, 128, 9)):
+        a, w, bias, _, _ = _tf32_case(M, K_, N, torch.float32, False, cuda)
+        K.reset_launch_counts()
+        _close(K.linear(a, w, bias), K.linear_plain(a, w, bias), TOL_F32)
+        assert K.linear.by_route == {"tf32_mma": 1}
 
 
 # ragged K x N (130 x 70), M off the 32-row slice and split (4,133), the

@@ -193,6 +193,127 @@ def test_a_fresh_accumulator_per_slice_holds_k_1536():
     assert running > TOL, running
 
 
+# ---- the TF32 wgmma route (csrc/linear.cu, linear_tf32_wgmma_kernel)
+def _wgmma_chain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as linear_tf32_wgmma_kernel sums it: 32-wide ring slots of four
+    k8 wgmma steps (zeros past K, as TMA fills them), each running lo.hi,
+    hi.lo and hi.hi into one accumulator that truncates its sums; the
+    accumulator is zeroed (scale-d 0) at the first step of every other slot
+    and added, rounded to nearest, into the running sum after every second
+    slot and after the last."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    Kd = a.shape[1]
+    slots = -(-Kd // 32)
+    acc, part = None, None
+    for sl in range(slots):
+        for kk in range(4):
+            ks = slice(min(Kd, 32 * sl + 8 * kk), min(Kd, 32 * sl + 8 * kk + 8))
+            for i, (x, y) in enumerate(((al, bh), (ah, bl), (ah, bh))):
+                prod = x[:, ks].double() @ y[ks].double()
+                zero = i == 0 and kk == 0 and sl % 2 == 0
+                part = _rz(prod if zero else part.double() + prod)
+        if sl % 2 == 1 or sl == slots - 1:
+            acc = part if sl < 2 else acc + part
+    return acc
+
+
+@pytest.mark.parametrize("K_,N,trans", [(1536, 384, False), (1536, 384, True),
+                                        (1544, 200, False), (392, 1152, True)])
+def test_wgmma_route_accumulation_holds_k_1536(K_, N, trans):
+    """fc2's product and the dgrad of fc1 (K 1,536, N 384; with trans_w the
+    same sums over W read as (N, K)), a K off 64 (1,544: the last 64-wide
+    slice one slot) and qkv's dgrad: the new kernel's order stays near
+    float32's own rounding, and it is linear_tf32_kernel's order (a fresh
+    accumulator per 64 of K, three products a k8 step), bitwise."""
+    a, w = _operands(K_, N, trans, K_ + N)
+    ref = a.double() @ w.double()
+    out = _wgmma_chain(a, w)
+    assert _rel(out.double(), ref) <= TOL / 10, _rel(out.double(), ref)
+    assert torch.equal(out, _mma_chain(a, w, 64))
+
+
+# (M, K, N) of the cells' train-trunk products: DINO's and DINOv2's ViT
+# (512 x 264 and 512 x 348 rows) and the encoder (2,880 x 16 rows), each
+# forward (K, N) and its dgrad (W (K, N) read transposed: K <-> N)
+CELL_PRODUCTS = [
+    (m, k, n) for m in (512 * 264, 512 * 348)
+    for k, n in ((384, 1152), (384, 384), (384, 1536), (1536, 384), (1152, 384))
+] + [(2880 * 16, k, n) for k, n in ((512, 1536), (512, 512), (512, 1024), (1024, 512),
+                                    (1536, 512))]
+
+
+@pytest.mark.parametrize("M,K_,N", CELL_PRODUCTS)
+def test_cell_products_take_the_wgmma_route_and_tile_exactly(M, K_, N):
+    """Every train-trunk product of both cells goes to TF32 wgmma and
+    tiles exactly: 128 x 128 tiles, whole 32-wide K slots, whole 64-wide
+    accumulator slices."""
+    assert K.linear_route(K_, N, False, False) == "tf32_wgmma"
+    assert M % K.LINEAR_TF32_WGMMA_ROWS == 0 and N % K.LINEAR_TF32_WGMMA_COLS == 0
+    assert K_ % 64 == 0 and K_ % K.LINEAR_TF32_WGMMA_K == 0
+
+
+# (M, K, N, w_bf16, round_a, aligned) -> route: a bf16 W, round_a, ragged
+# strides (the denoiser's K 702 and the head's N 9) and rows off 16 bytes
+# stay on mma.sync; any row count takes TF32 wgmma otherwise (few rows with
+# trans_w, the f32 serving ViT's N 384 at 20 frames: 126 tiles, a single
+# tile)
+ROUTE_TABLE = [
+    (135168, 384, 1152, False, False, True, "tf32_wgmma"),
+    (135168, 384, 1152, True, False, True, "tf32_mma"),
+    (135168, 384, 1152, False, True, True, "tf32_mma"),
+    (135168, 384, 1152, True, True, True, "bf16_wgmma"),
+    (135168, 384, 1152, False, False, False, "tf32_mma"),
+    (46080, 702, 512, False, False, True, "tf32_mma"),
+    (46080, 128, 9, False, False, True, "tf32_mma"),
+    (46080, 130, 512, False, False, True, "tf32_mma"),
+    (46080, 512, 514, False, False, True, "tf32_mma"),
+    (40, 384, 1536, False, False, True, "tf32_wgmma"),
+    (5280, 384, 384, False, False, True, "tf32_wgmma"),
+    (5280, 384, 1152, False, False, True, "tf32_wgmma"),
+    (4224, 512, 512, False, False, True, "tf32_wgmma"),
+    (4000, 512, 512, False, False, True, "tf32_wgmma"),
+    (128, 384, 128, False, False, True, "tf32_wgmma"),
+    (5281, 200, 392, False, False, True, "tf32_wgmma"),
+    (100, 36, 17000, False, False, True, "tf32_wgmma"),
+    (135168, 0, 384, False, False, True, "tf32_mma"),
+]
+
+
+@pytest.mark.parametrize("M,K_,N,w_bf16,round_a,aligned,route", ROUTE_TABLE)
+def test_route_table(M, K_, N, w_bf16, round_a, aligned, route):
+    assert K.linear_route(K_, N, w_bf16, round_a, aligned) == route
+
+
+LINEAR_CU = Path(K.__file__).resolve().parents[1] / "csrc" / "linear.cu"
+
+
+def test_route_and_tile_mirror_the_kernel():
+    """The tile constants and the route codes hold what csrc/linear.cu
+    holds (a card test compares pd_linear_route with kernels.linear_route,
+    and the shared memory)."""
+    src = LINEAR_CU.read_text()
+    assert "constexpr int TW_BK = 32;" in src and K.LINEAR_TF32_WGMMA_K == 32
+    assert "constexpr int TW_EPI_COLS = 32;" in src and K.LINEAR_TF32_WGMMA_EPI_COLS == 32
+    assert "static constexpr int BM = 128, BN = 128;" in src
+    assert K.LINEAR_TF32_WGMMA_ROWS == K.LINEAR_TF32_WGMMA_COLS == 128
+    assert re.search(r"struct Tw \{[^}]*static constexpr int STAGES = 4;", src)
+    assert K.LINEAR_TF32_WGMMA_STAGES == 4
+    codes = re.search(r"enum \{ ROUTE_TF32_MMA = 0, ROUTE_TF32_WGMMA = 1, ROUTE_BF16_WGMMA = 2 \};",
+                      src)
+    assert codes and K.LINEAR_ROUTES == ("tf32_mma", "tf32_wgmma", "bf16_wgmma")
+
+
+def test_wgmma_tile_shared_memory_worked_by_hand():
+    """4 slots of 48 KB (a, W's hi, W's lo: 16 KB each), two epilogue
+    buffers of 64 x 40 floats, 8 barriers, 1,024 bytes of slack: under the
+    232,448 bytes a Hopper block may use, and a fifth slot would not fit;
+    slots and their parts on 1,024-byte swizzle atoms."""
+    smem = K.linear_tf32_wgmma_smem_bytes()
+    assert smem == 1024 + 4 * 3 * 16384 + 2 * 64 * 40 * 4 + 8 * 8 == 218176
+    assert smem <= 232448 < smem + 3 * 16384
+    assert 16384 % 1024 == 0
+
+
 # ---- the weight gradient's row split (csrc/linear.cu, pd_linear_wgrad)
 ROWS = {"vit": 512 * 264, "dinov2": 512 * 348, "encoder": 2880 * 16}
 # (rows, K, N) of every weight gradient on the train path: the ViTs' qkv,
