@@ -2,8 +2,8 @@
 matches file, and with GGS from matches extracted from the images, DDIM,
 the Co3D evaluation (test_torch.py), its training path and data-parallel
 training, with the DINO ViT-S/16, DINOv2 ViT-S/14, DINO ViT-B/16,
-ResNet-50 and ResNet-101 backbones, and the learnability experiment's
-model at its widths, once on an NVIDIA card.
+ResNet-50 and ResNet-101 backbones, DINOv2 ViT-g/14's train step, and the
+learnability experiment's model at its widths, once on an NVIDIA card.
 
     python3 chip_smoke.py             # from the repository root, one CUDA card
     python3 chip_smoke.py --profile   # also: torch.profiler over one GGS inference,
@@ -38,6 +38,7 @@ model at its widths, once on an NVIDIA card.
     python3 chip_smoke.py --fsdp        # [fsdp], [train-336] and [dinov2-bf16]
                                         # alone
     python3 chip_smoke.py --learn       # [learn] alone
+    python3 chip_smoke.py --vitg        # [vitg] alone
     python3 chip_smoke.py --wgrad       # bf16 mode's weight gradient and its
                                         # train step alone
     python3 chip_smoke.py --ptxas       # registers, spills and shared memory
@@ -171,6 +172,13 @@ Phases (any failure exits non-zero and prints no result line):
              GGS (finite cameras, the launches of kernels 1, 2, 3, 5 and 7
              as predicted); each kernel at its [learn] width in the kernels
              line;
+  5f. vitg   DINOv2 ViT-g/14 at the benchmark cell's step (96 images, 348
+             tokens, D 1,536, 40 blocks): one train step's launches (the
+             gated w12 products, swiglu_bwd and layerscale_bwd required),
+             then the gated product, swiglu_bwd, layernorm_bwd and
+             layerscale_bwd at D 1,536 against their plain versions at its
+             33,408 rows, each in the kernels line with its device time
+             and bound;
   6. timing  CUDA-event medians of the inferences, the conditioned tail,
              the match extraction stages, and each kernel beside its plain
              version, its bound (bytes or operations over the H100's peaks)
@@ -290,6 +298,7 @@ TPU_KERNELS = {
                        "(dropout and activation backward) and the m1/m2 masks :314, :434",
     "layerscale_bwd": f"{TRAIN_SITE}:866 (_bwd_call -> :905), the LayerScale gradients "
                       ":316-319 and :436-456 (_LS_KEYS :85)",
+    "swiglu_bwd": "none: the TPU kernels have no SwiGLU feed-forward (DINOv2 ViT-g/14's gate)",
 }
 SOURCES = {
     "layernorm": "posediffusion_tpu_torch/csrc/layernorm.cu",
@@ -309,6 +318,7 @@ SOURCES = {
     "linear_wgrad": "posediffusion_tpu_torch/csrc/linear.cu",
     "act_dropout_bwd": "posediffusion_tpu_torch/csrc/train.cu",
     "layerscale_bwd": "posediffusion_tpu_torch/csrc/train.cu",
+    "swiglu_bwd": "posediffusion_tpu_torch/csrc/train.cu",
 }
 # The kernels around the sampler's products; the sampler's products take the
 # few-rows route (linear_rows) up to 32 rows: the serving paths' 20 frames,
@@ -356,6 +366,16 @@ DINOV2_TRAIN_PATH = TRAIN_PATH + ("layerscale_bwd",)
 # serving path's LayerNorms and products are the sampler's, all folded
 DINOV2_SERVE_PATH = ("linear_rows", "attention") + SAMPLER_ENTRIES
 LS_PER_STEP = 24  # layerscale_bwd: 2 sites x 12 blocks (the encoder has no gains)
+# DINOv2 ViT-g/14 (D 1,536, 40 blocks, 24 heads, SwiGLU hidden 4,096) at the
+# benchmark cell dinov2g-train-f32's step: 96 images (6 sequences of 16) x
+# 348 packed tokens = 33,408 trunk rows
+VITG = "MODEL.IMAGE_FEATURE_EXTRACTOR.modelname=dinov2_vitg14"
+VITG_IMAGES = 96
+VITG_D, VITG_HIDDEN, VITG_DEPTH = 1536, 4096, 40
+# a ViT-g step: the gated w12 product forward and recompute, swiglu_bwd, 2
+# LayerScale sites a block
+VITG_PER_STEP = {"gated": 2 * VITG_DEPTH, "swiglu_bwd": VITG_DEPTH,
+                 "layerscale_bwd": 2 * VITG_DEPTH}
 # ResNet-50 and ResNet-101 (torchvision's Bottleneck ResNets on cuDNN, float32
 # with TF32 off, or their bf16 convolutions): serving on the sampler, GGS and
 # denoiser kernels with z 2,048 wide, the ViT kernels off the path; training
@@ -3903,6 +3923,155 @@ def dinov2_bf16_slice(report, dev, work, smi, t_start):
     return timings, {k: v for k, v in launches.items() if v}
 
 
+def vitg_slice(report, dev, work, smi, t_start):
+    """[vitg] DINOv2 ViT-g/14's train path at the cell dinov2g-train-f32's
+    shapes: one train step of 96 images (after a warm-up step; launch counts
+    reset just before it, the gate's launches required), then the kernels
+    the path adds or widens against their plain versions at its 33,408 rows
+    with TOL_F32 -- the gated w12 product (forward, and with its
+    pre-activation as the recompute takes it), swiglu_bwd, layernorm_bwd at
+    D 1,536 (the wide kernel, with the residual) and layerscale_bwd at D
+    1,536 -- each timed beside its plain version, with its device time and
+    a bound from its inputs. Returns (kernels-line entries, timings, the
+    step's launches)."""
+    import torch
+
+    from posediffusion_tpu_torch.models.pose_diffusion import (
+        PoseDiffusionModel,
+        init_random_weights,
+    )
+    from posediffusion_tpu_torch.ops import kernels as K
+    from posediffusion_tpu_torch.training.optim import make_optimizer
+    from posediffusion_tpu_torch.training.step import train_step
+    from posediffusion_tpu_torch.utils.config import model_config_from_cfg
+
+    print(f"[vitg] DINOv2 ViT-g/14: one train step at {VITG_IMAGES} images, its kernels at "
+          "the step's shapes")
+    t_phase = time.perf_counter()
+    cfg = _train_cfg(work, "train_vitg", VITG, f"train.max_images={VITG_IMAGES}")
+    cfg_model = model_config_from_cfg(cfg.MODEL)
+    with torch.device(dev):
+        model = PoseDiffusionModel(cfg_model)
+    model.to(dev)
+    init_random_weights(model, SEED)
+    batch, draws, n_rows = _train_batch(cfg, dev, cfg_model.timesteps)
+    t = cfg.train
+    opt, _ = make_optimizer(model, lr=t.lr, T_0=t.restart_num, iters_per_epoch=t.len_train,
+                            clip_grad=t.clip_grad)
+    images = batch["images"].shape[0] * batch["images"].shape[1]
+    step = lambda: train_step(model, opt, batch, t.batch_repeat, draws=draws)  # noqa: E731
+    m = step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    launches = _step_launches(K, step)
+    step_ms = (time.perf_counter() - t0) * 1e3
+    routes, shapes = dict(K.linear.by_route), dict(K.linear.by_shape)
+    timings = {"[vitg] train step ms (host clock, one step)": step_ms,
+               "[vitg] peak memory of a train step (GB)": torch.cuda.max_memory_allocated() / 1e9}
+    rows = images * 348
+    gated = shapes.get((rows, VITG_D, 2 * VITG_HIDDEN, False), 0)
+    print(f"  {images} images ({rows} trunk rows, {n_rows} denoiser rows); launches of one step: "
+          f"{launches}; linear by route {routes}; gated w12 products {gated}")
+    report.require(f"[vitg] the step's images are the cell's {VITG_IMAGES}",
+                   images == VITG_IMAGES, f"({images})")
+    report.require("[vitg] train step loss finite", np.isfinite(m["loss"]), f"({m['loss']:.5f})")
+    for key, want in VITG_PER_STEP.items():
+        got = gated if key == "gated" else launches[key]
+        report.require(f"[vitg] a step launches {want} {key}", got == want, f"({got})")
+    del model, opt, batch, draws, m
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)  # noqa: E731
+    D, H, M = VITG_D, VITG_HIDDEN, rows
+    entries = []
+
+    def entry(key, name, case, err, n, kern, plain, b, device):
+        e = {"name": name, "route": "cuda", "source": SOURCES[key], "replaces": TPU_KERNELS[key],
+             "launches": n, "max_abs_err": err, "ms": _time_ms(torch, kern, reps=5),
+             "plain_ms": _time_ms(torch, plain, reps=5), "bound_ms": b[0], "bound_by": b[1],
+             "library_ms": None, **device, "case": f"[vitg] {case}"}
+        print(f"  {name} {case}: kernel {e['ms']:.4f} ms (device {e['device_ms']:.4f}), plain "
+              f"{e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms ({e['bound_by']}), "
+              f"{n} launches", flush=True)
+        entries.append(e)
+        timings[f"[vitg] {name}"] = e["ms"]
+
+    with torch.no_grad():
+        # the gated product: a (M, D) @ w12 (D, 2H) interleaved -> y (M, H);
+        # the forward writes y, the backward's recompute y and the (M, 2H) pre
+        a = rnd(M, D)
+        w = rnd(D, 2 * H) / D**0.5
+        b = 0.1 * rnd(2 * H)
+        errs = []
+        for want_pre in (False, True):
+            out = K.linear(a, w, b, act="swiglu", want_pre=want_pre)
+            ref = K.linear_plain(a, w, b, act="swiglu", want_pre=want_pre)
+            pairs = zip(("y", "pre"), out, ref) if want_pre else [("y", out, ref)]
+            errs += [_close_rel(report, f"[vitg] linear swiglu {part} ({M}x{D} @ {D}x{2 * H}"
+                                f"{', want_pre' if want_pre else ''})", o, r, TOL_F32)
+                     for part, o, r in pairs]
+            del out, ref
+        ops, peak = linear_work(2 * M * D * 2 * H, False, False)
+        fwd = lambda: K.linear(a, w, b, act="swiglu")  # noqa: E731
+        entry("linear", "linear f32 vitg w12 swiglu", f"the gated w12 product ({M}x{D} @ "
+              f"{D}x{2 * H} -> {M}x{H}; launches: forward and recompute a step)", max(errs),
+              gated, fwd, lambda: K.linear_plain(a, w, b, act="swiglu"),
+              bound(nbytes(a, w, b) + M * H * 4, ops, peak), _linear_f32_device(torch, K, fwd))
+        rec = lambda: K.linear(a, w, b, act="swiglu", want_pre=True)  # noqa: E731
+        entry("linear", "linear f32 vitg w12 swiglu recompute", f"the same with its "
+              f"({M}x{2 * H}) pre-activation (launches: as above)", max(errs), gated, rec,
+              lambda: K.linear_plain(a, w, b, act="swiglu", want_pre=True),
+              bound(nbytes(a, w, b) + M * H * 4 + M * 2 * H * 4, ops, peak),
+              _linear_f32_device(torch, K, rec))
+        del a, w, b
+        torch.cuda.empty_cache()
+        # the gate's backward: dh (M, H) and pre (M, 2H) read, dx12 (M, 2H) written
+        dh, pre = rnd(M, H), 2 * rnd(M, 2 * H)
+        err = _close_rel(report, f"[vitg] swiglu_bwd ({M}x{H})", K.swiglu_bwd(dh, pre),
+                         K.swiglu_bwd_plain(dh, pre), TOL_F32)
+        call = lambda: K.swiglu_bwd(dh, pre)  # noqa: E731
+        entry("swiglu_bwd", "swiglu_bwd", f"({M}x{H}, pre {M}x{2 * H})", err,
+              launches["swiglu_bwd"], call, lambda: K.swiglu_bwd_plain(dh, pre),
+              bound(nbytes(dh, pre) + nbytes(pre), 12 * dh.numel()),
+              {"device_ms": _kernel_device_ms(torch, call, "swiglu_bwd_kernel")})
+        del dh, pre
+        torch.cuda.empty_cache()
+        # layernorm_bwd at D 1,536 with the residual's cotangent (the wide kernel)
+        x, dhl, res = rnd(M, D), rnd(M, D), rnd(M, D)
+        g = 1 + 0.1 * rnd(D)
+        err = max(_close_rel(report, f"[vitg] layernorm_bwd {part} ({M}x{D}, + residual)", o, r,
+                             TOL_F32)
+                  for part, o, r in zip(("dx", "dg", "db"),
+                                        K.layernorm_bwd(x, g, dhl, 1e-6, residual=res),
+                                        K.layernorm_bwd_plain(x, g, dhl, 1e-6, residual=res)))
+        call = lambda: K.layernorm_bwd(x, g, dhl, 1e-6, residual=res)  # noqa: E731
+        entry("layernorm_bwd", "layernorm_bwd vitg", f"({M}x{D}, + residual; launches: the "
+              "step's, 80 of them at D 1,536)", err, launches["layernorm_bwd"], call,
+              lambda: K.layernorm_bwd_plain(x, g, dhl, 1e-6, residual=res),
+              bound(nbytes(x, dhl, res, g) + nbytes(x) + 2 * D * 4, 12 * M * D),
+              {"device_ms": _kernel_device_ms(torch, call, None)})
+        del x, dhl, res
+        # layerscale_bwd at D 1,536 (no dropout: the SwiGLU trunk has none)
+        dy, o_pre = rnd(M, D), rnd(M, D)
+        err = max(_close_rel(report, f"[vitg] layerscale_bwd {part} ({M}x{D})", o, r, TOL_F32)
+                  for part, o, r in zip(("dx", "dgamma"), K.layerscale_bwd(dy, o_pre, g),
+                                        K.layerscale_bwd_plain(dy, o_pre, g)))
+        call = lambda: K.layerscale_bwd(dy, o_pre, g)  # noqa: E731
+        entry("layerscale_bwd", "layerscale_bwd vitg", f"({M}x{D}, its columns over a grid y "
+              "of 2)", err, launches["layerscale_bwd"], call,
+              lambda: K.layerscale_bwd_plain(dy, o_pre, g),
+              bound(nbytes(dy, o_pre, g) + nbytes(dy) + D * 4, 3 * M * D),
+              {"device_ms": _kernel_device_ms(torch, call, None)})
+        del dy, o_pre, g
+    torch.cuda.empty_cache()
+    timings["[vitg] seconds"] = time.perf_counter() - t_phase
+    print(f"  [vitg] done at {time.perf_counter() - t_start:.0f} s, card {smi}", flush=True)
+    return entries, timings, {"train step": launches, "linear by route": routes,
+                              "gated w12 products": gated}
+
+
 def learnability_module():
     """experiments/synthetic_learnability_torch.py, imported by path."""
     import importlib.util
@@ -4422,6 +4591,14 @@ def main(argv) -> int:
             print("FAILED:\n  " + "\n  ".join(report.failures), file=sys.stderr)
             return 1
         return 0
+    if "--vitg" in argv:  # [vitg] alone
+        vitg_json, vitg_timings, vitg_launches = vitg_slice(report, dev, work, smi, t_start)
+        print(json.dumps({"kernels": vitg_json, "timings_ms": vitg_timings,
+                          "vitg_launches": vitg_launches, "card": smi}))
+        if report.failures:
+            print("FAILED:\n  " + "\n  ".join(report.failures), file=sys.stderr)
+            return 1
+        return 0
     if "--attention" in argv:  # the attention cases alone
         attn = attention_slice(report, dev, smi)
         print(json.dumps({"attention_cases": attn, "card": smi}))
@@ -4867,6 +5044,8 @@ def main(argv) -> int:
     v2bf_timings, v2bf_launches = dinov2_bf16_slice(report, dev, work, smi, t_start)
     # ---- 5e. the learnability experiment's widths: parity, train steps, a GGS sample
     learn_json, learn_timings, learn_launches = learn_slice(report, dev, smi, t_start)
+    # ---- 5f. DINOv2 ViT-g/14: a train step, its gate and wide kernels at its shapes
+    vitg_json, vitg_timings, vitg_launches = vitg_slice(report, dev, work, smi, t_start)
 
     # ---- 6. timing (default mode, CUDA events after warm-up)
     print(f"[timing] medians of {N_TIMED}, card: {smi}")
@@ -5221,7 +5400,7 @@ def main(argv) -> int:
             "case": f"200-iteration phase, {where} (launches: GGS path, {DEMO_INFERENCES} "
                     f"inferences a run)",
         })
-    kernels_json += train_json + bb_json + resnet_json + learn_json
+    kernels_json += train_json + bb_json + resnet_json + learn_json + vitg_json
     kernels_json.append(sum_partials_entry(report, torch, K, dev, dino_step, dino_bf16_step))
     with torch.no_grad():
         kernels_json += layernorm_entries(report, torch, F, K, dev, gen)
@@ -5235,6 +5414,7 @@ def main(argv) -> int:
     timings.update(t336_timings)
     timings.update(v2bf_timings)
     timings.update(learn_timings)
+    timings.update(vitg_timings)
 
     # the ten TPU kernels' rows (PERF.md section 6): each row's case, its
     # kernel route and plain route, its bound and a one-call yardstick
@@ -5355,7 +5535,7 @@ def main(argv) -> int:
                       "dp_launches": dp_launches, "fsdp_launches": fsdp_launches,
                       "train336_launches": t336_launches,
                       "dinov2_bf16_launches": v2bf_launches,
-                      "learn_launches": learn_launches}))
+                      "learn_launches": learn_launches, "vitg_launches": vitg_launches}))
     print(json.dumps({"kernels": kernels_json}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

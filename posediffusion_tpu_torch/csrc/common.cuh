@@ -46,7 +46,7 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
 }
 
 // Activation codes shared with the Python wrapper.
-enum { ACT_NONE = 0, ACT_RELU = 1, ACT_GELU = 2 };
+enum { ACT_NONE = 0, ACT_RELU = 1, ACT_GELU = 2, ACT_SWIGLU = 3 };
 
 // ---- dropout (the train kernels of ops/vit_train_kernel.py)
 //
@@ -87,6 +87,12 @@ __device__ __forceinline__ float gelu_grad(float a) {
   return 0.5f * (1.f + erff(a * 0.70710678118654752f)) +
          a * expf(-0.5f * a * a) * 0.39894228040143268f;
 }
+
+// SwiGLU's gate (linear.cu's gated epilogue, train.cu swiglu_bwd): silu(x)
+// = x / (1 + exp(-x)) and the sigmoid its derivative s (1 + x (1 - s)) reads,
+// as ops/kernels.py silu and swiglu_bwd_plain compute them.
+__device__ __forceinline__ float silu_f(float v) { return v / (1.f + expf(-v)); }
+__device__ __forceinline__ float sigmoid_f(float v) { return 1.f / (1.f + expf(-v)); }
 
 // ---- tensor cores (mma.sync) and asynchronous copies, shared by the
 // attention forward and backward (attention.cu, attention_bwd.cu) and the

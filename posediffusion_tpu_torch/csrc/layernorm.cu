@@ -48,12 +48,20 @@
 // partial per block, in the (blocks, 2, D) layout the summing pass reads;
 // ln_bwd_sum_kernel adds the partials in a fixed order (8 strided runs per
 // column, then the 8 runs in order). No atomics, so the result repeats
-// bitwise.
+// bitwise. Rows wider than 1,024, up to ViT-g/14's 1,536 (LNB_WIDE_MAX_D),
+// take layernorm_bwd_wide_kernel: the same warp a row and the same sums in
+// the same order, but a lane's dg and db sums live in the block's shared
+// memory (each warp its own row of it, dynamic: 2 x 8 x D floats) instead
+// of registers, which then hold only x and dh of the row (48 floats each:
+// float4 number c of lane l is columns 4 (l + 32 c) .. + 3 when D is 1,536
+// and aligned; else 48 columns l + 32 c, masked past D); the residual's
+// cotangent is read at the store.
 #include "common.cuh"
 
 constexpr int LNB_WARPS = 8;             // warps of a block
 constexpr int LNB_BLOCKS = 2 * 132;      // most blocks (partials) of a call
 constexpr int LNB_MAX_D = 1024;
+constexpr int LNB_WIDE_MAX_D = 1536;     // the wide kernel's rows (48 columns a lane)
 constexpr int LNB_SUM_RUNS = 8;          // strided runs per column in the sum
 
 __host__ __device__ inline int lnb_blocks(int rows) {
@@ -338,6 +346,83 @@ layernorm_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
   }
 }
 
+// Rows wider than LNB_MAX_D: layernorm_bwd_kernel's math with the dg / db
+// sums of warp w in acc[w][d] and acc[LNB_WARPS + w][d] (shared, 2 x
+// LNB_WARPS x D floats), merged in warp order as there.
+template <int NV, int VEC>
+__global__ void __launch_bounds__(LNB_WARPS * 32, 1)
+layernorm_bwd_wide_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                          const float* __restrict__ dh, const float* __restrict__ res,
+                          float* __restrict__ dx, float* __restrict__ part, int rows, int D,
+                          float eps, int round_out) {
+  constexpr int E = NV * VEC;
+  extern __shared__ float acc[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* ag = acc + (size_t)warp * D;
+  float* ab = acc + (size_t)(LNB_WARPS + warp) * D;
+  const float inv_d = 1.f / (float)D;
+  for (int d = lane; d < D; d += 32) ag[d] = ab[d] = 0.f;
+  __syncwarp();
+  for (int row = blockIdx.x * LNB_WARPS + warp; row < rows; row += gridDim.x * LNB_WARPS) {
+    float xv[E], dv[E];
+    lnb_load<NV, VEC>(x + (size_t)row * D, xv, lane, D);
+    lnb_load<NV, VEC>(dh + (size_t)row * D, dv, lane, D);
+    float s = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) s += xv[e];  // zeros past D
+    const float mean = warp_sum(s) * inv_d;
+    float v = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      if (VEC == 4 || lnb_col<VEC>(lane, e) < D) {
+        const float t = xv[e] - mean;
+        v = fmaf(t, t, v);
+      }
+    }
+    const float rstd = rsqrtf(warp_sum(v) * inv_d + eps);
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int d = lnb_col<VEC>(lane, e);
+      const float xh = (xv[e] - mean) * rstd;
+      if (VEC == 4 || d < D) {
+        ag[d] = fmaf(dv[e], xh, ag[d]);
+        ab[d] += dv[e];
+        dv[e] *= g[d];  // dxhat
+      } else {
+        dv[e] = 0.f;
+      }
+      xv[e] = xh;
+      s1 += dv[e];
+      s2 = fmaf(dv[e], xh, s2);
+    }
+    const float m1 = warp_sum(s1) * inv_d, m2 = warp_sum(s2) * inv_d;
+    float* out = dx + (size_t)row * D;
+    const float* rr = res ? res + (size_t)row * D : nullptr;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int d = lnb_col<VEC>(lane, e);
+      if (VEC == 4 || d < D) {
+        float o = rstd * (dv[e] - m1 - xv[e] * m2);
+        if (rr) o += rr[d];
+        if (round_out) o = round_bf16(o);
+        out[d] = o;
+      }
+    }
+  }
+  __syncthreads();
+  float* pg = part + (size_t)blockIdx.x * 2 * D;
+  for (int which = 0; which < 2; ++which) {
+    const float* a = acc + (size_t)which * LNB_WARPS * D;
+    for (int d = threadIdx.x; d < D; d += blockDim.x) {
+      float t = 0.f;
+#pragma unroll
+      for (int w = 0; w < LNB_WARPS; ++w) t += a[(size_t)w * D + d];
+      pg[which * D + d] = t;
+    }
+  }
+}
+
 // out[l] = sum over b < B of part[b, l] for l < L: block (32, LNB_SUM_RUNS)
 // owns 32 columns; thread (c, r) adds rows r, r + 8, ... in order, then
 // thread (c, 0) adds the 8 runs in order.
@@ -369,22 +454,34 @@ PD_API int pd_layernorm_bwd(const void* x, const void* g, const void* dh,
                             const void* res, void* dx, void* part, void* dgb,
                             int rows, int D, float eps, int round_out,
                             void* stream) {
-  if (D < 1 || D > LNB_MAX_D || rows < 1) return (int)cudaErrorInvalidValue;
+  if (D < 1 || D > LNB_WIDE_MAX_D || rows < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int blocks = lnb_blocks(rows);
   const bool vec = D % 128 == 0 && al16(x) && al16(g) && al16(dh) && al16(res) && al16(dx);
-  auto* kernel = &layernorm_bwd_kernel<32, 1, false>;
-  if (vec) {
-    switch (D / 128) {
-      case 3: kernel = &layernorm_bwd_kernel<3, 4, true>; break;
-      case 4: kernel = &layernorm_bwd_kernel<4, 4, false>; break;
-      case 6: kernel = &layernorm_bwd_kernel<6, 4, false>; break;
-      case 8: kernel = &layernorm_bwd_kernel<8, 4, false>; break;
+  if (D > LNB_MAX_D) {
+    auto* wide = vec && D == 1536 ? &layernorm_bwd_wide_kernel<12, 4>
+                                  : &layernorm_bwd_wide_kernel<LNB_WIDE_MAX_D / 32, 1>;
+    const int smem = 2 * LNB_WARPS * D * (int)sizeof(float);
+    const cudaError_t attr =
+        cudaFuncSetAttribute(wide, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (attr != cudaSuccess) return (int)attr;
+    wide<<<blocks, LNB_WARPS * 32, smem, s>>>(
+        (const float*)x, (const float*)g, (const float*)dh, (const float*)res, (float*)dx,
+        (float*)part, rows, D, eps, round_out);
+  } else {
+    auto* kernel = &layernorm_bwd_kernel<32, 1, false>;
+    if (vec) {
+      switch (D / 128) {
+        case 3: kernel = &layernorm_bwd_kernel<3, 4, true>; break;
+        case 4: kernel = &layernorm_bwd_kernel<4, 4, false>; break;
+        case 6: kernel = &layernorm_bwd_kernel<6, 4, false>; break;
+        case 8: kernel = &layernorm_bwd_kernel<8, 4, false>; break;
+      }
     }
+    kernel<<<blocks, LNB_WARPS * 32, 0, s>>>(
+        (const float*)x, (const float*)g, (const float*)dh, (const float*)res, (float*)dx,
+        (float*)part, rows, D, eps, round_out);
   }
-  kernel<<<blocks, LNB_WARPS * 32, 0, s>>>(
-      (const float*)x, (const float*)g, (const float*)dh, (const float*)res, (float*)dx,
-      (float*)part, rows, D, eps, round_out);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int L = 2 * D;

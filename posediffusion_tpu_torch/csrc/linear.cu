@@ -25,6 +25,17 @@
 // [pre <- v], activation, x gain[n] (DINOv2's LayerScale, (a@W + b) * ls at
 // vit_train_kernel.py:210-212, :238-240), x dropout mask, [round to bf16,
 // + residual, round to bf16 when the residual stream is bf16 (round_out)].
+// The gated activation (ACT_SWIGLU, DINOv2 ViT-g/14's SwiGLU feed-forward,
+// which the TPU kernels do not have) reads column pairs: the wrapper
+// interleaves w12's halves, so x1 and x2 of hidden column j are columns 2j
+// and 2j + 1 of the product and land in one thread's float4 of the
+// epilogue; y (M, N / 2) gets silu(x1 + b) * (x2 + b) and pre the whole
+// (M, N), so the forward writes no (M, N) x12 unless the backward's
+// recompute asks for it. No gain, dropout, residual or trans_w with it (the
+// wrapper refuses them), and only the TF32 wgmma route takes it, in an
+// instance of its own (GATED) with 16-byte aligned outputs, so the ungated
+// instance's epilogue is as it was (pd_linear refuses the gate on every
+// other route: every w12 product of the train trunk tiles for TMA).
 //
 // Bound: compute. The ViT's train products (M = 512 images x 264 tokens =
 // 135,168 rows, K and N 384 to 1,536) are 40-160 GFLOP each; the serving
@@ -142,6 +153,18 @@ struct Epilogue {
       }
     }
     *reinterpret_cast<float4*>(y + idx) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+
+  // The gated activation's columns n .. n + 3 of row m (n % 4 == 0, N % 4
+  // == 0, y and pre aligned): x1, x2 of hidden columns n / 2 and n / 2 + 1.
+  // The kernels pick it or store4 once an epilogue pass, so store4's pass is
+  // the ungated products' own code.
+  __device__ __forceinline__ void store4_gated(float4 acc, int m, int n, int N) const {
+    const size_t idx = (size_t)m * N + n;
+    float4 v = acc;
+    if (bias) v = make_float4(v.x + bias[n], v.y + bias[n + 1], v.z + bias[n + 2], v.w + bias[n + 3]);
+    if (pre) *reinterpret_cast<float4*>(pre + idx) = v;
+    *reinterpret_cast<float2*>(y + idx / 2) = make_float2(silu_f(v.x) * v.y, silu_f(v.z) * v.w);
   }
 };
 
@@ -855,6 +878,7 @@ tf32_split_kernel(const float* __restrict__ W, uint32_t* __restrict__ hl, int N,
   }
 }
 
+template <bool GATED>
 __global__ void __launch_bounds__(BW_THREADS, 1)
 linear_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
                          const __grid_constant__ CUtensorMap tm_w, Epilogue ep, int M, int N,
@@ -988,13 +1012,22 @@ linear_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
                        ? *reinterpret_cast<const float4*>(ep.res + (size_t)m * N + n)
                        : make_float4(0.f, 0.f, 0.f, 0.f);
           }
+          if constexpr (GATED) {
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+              const int e = lt + u * 128, row = e / (TW_EPI_COLS / 4);
+              const int c = 4 * (e % (TW_EPI_COLS / 4));
+              if (mw + row < M && np + c < N) ep.store4_gated(v[u], mw + row, np + c, N);
+            }
+            continue;
+          }
 #pragma unroll
           for (int u = 0; u < U; ++u) {
             const int e = lt + u * 128, row = e / (TW_EPI_COLS / 4);
             const int c = 4 * (e % (TW_EPI_COLS / 4));
             if (mw + row < M && np + c < N) ep.store4(v[u], r[u], mw + row, np + c, N);
           }
-        } else {
+        } else if constexpr (!GATED) {  // the gated instance runs with vec_out only
 #pragma unroll 1
           for (int e = lt; e < 64 * TW_EPI_COLS; e += 128) {
             const int row = e / TW_EPI_COLS, c = e % TW_EPI_COLS;
@@ -1108,12 +1141,14 @@ int launch_bf16_t(const float* a, const __nv_bfloat16* w, int trans, const Epilo
                : launch_bf16<false>(a, w, ep, M, N, K, s);
 }
 
-// W's halves into hl (2N x K, the wrapper's scratch), then the tile
+// W's halves into hl (2N x K, the wrapper's scratch), then the tile (GATED:
+// the instance with the gated epilogue, which takes 16-byte aligned y and pre)
+template <bool GATED>
 int launch_tf32_wgmma(const float* a, const float* w, int trans, uint32_t* hl, const Epilogue& ep,
                       int M, int N, int K, cudaStream_t s) {
   using S = Tw;
   static_assert(S::SMEM <= BW_MAX_SMEM, "the ring does not fit");
-  auto kern = linear_tf32_wgmma_kernel;
+  auto kern = linear_tf32_wgmma_kernel<GATED>;
   static const cudaError_t attr =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
   if (attr != cudaSuccess) return (int)attr;
@@ -1672,10 +1707,19 @@ PD_API int pd_linear(const void* a, const void* w, int w_bf16, int trans_w,
               DropArgs{drop_key, drop_thr, drop_scale}};
   if (M < 1 || N < 1 || K < 0) return (int)cudaErrorInvalidValue;
   const int route = linear_route(K, N, w_bf16, round_a, aligned(a, 16), aligned(w, 16));
+  // the gate: a forward float32 product of column pairs, nothing after the
+  // activation, on the TF32 wgmma tile's instance of its own
+  if (act == ACT_SWIGLU) {
+    if (route != ROUTE_TF32_WGMMA || trans_w || gain || res || drop_thr > 0 ||
+        !aligned(y, 16) || !aligned(pre, 16))
+      return (int)cudaErrorInvalidValue;
+    return launch_tf32_wgmma<true>(A, (const float*)w, 0, (uint32_t*)scratch, ep, M, N, K, s);
+  }
   if (route == ROUTE_BF16_WGMMA)
     return launch_bf16_t(A, (const __nv_bfloat16*)w, trans_w, ep, M, N, K, s);
   if (route == ROUTE_TF32_WGMMA)
-    return launch_tf32_wgmma(A, (const float*)w, trans_w, (uint32_t*)scratch, ep, M, N, K, s);
+    return launch_tf32_wgmma<false>(A, (const float*)w, trans_w, (uint32_t*)scratch, ep, M, N, K,
+                                    s);
   if (w_bf16)
     return launch_tf32_t<__nv_bfloat16, false>(A, (const __nv_bfloat16*)w, trans_w, ep, M,
                                                N, K, s);
@@ -1695,7 +1739,8 @@ PD_API int pd_linear_rows(const void* a, const void* w, int w_bf16,
                           int bn, int round_a, int act, unsigned int drop_key,
                           int drop_thr, float drop_scale, int round_out,
                           void* stream) {
-  if (M < 1 || M > FR_ROWS || N < 1 || K < 1) return (int)cudaErrorInvalidValue;
+  if (M < 1 || M > FR_ROWS || N < 1 || K < 1 || act == ACT_SWIGLU)
+    return (int)cudaErrorInvalidValue;
   if (ln_g && K > FR_CLUSTER * FR_KCH) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   Epilogue ep{(const float*)bias, (const float*)gain, (const float*)res,

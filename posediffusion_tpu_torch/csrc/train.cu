@@ -13,6 +13,8 @@
 //                                  m1 sites: do = dy * mask, the gain's
 //                                  gradient sum_rows do * o_pre, and the
 //                                  cotangent do * gamma: layerscale_bwd.
+// and, with no TPU counterpart, the backward of DINOv2 ViT-g/14's SwiGLU
+// gate h = silu(x1) * x2 (linear.cu's gated epilogue): swiglu_bwd.
 //
 // Bound: memory. act_dropout_bwd reads dh and a1 and writes da1 once
 // (135,168 x 1,536 f32 at the ViT's fc1: 2.5 GB a call, 0.744 ms at 3.35
@@ -43,7 +45,16 @@
 // of rows: loads along a row are coalesced, each thread sums its column's
 // do * o_pre in a register over the block's rows, and writes one f32 partial
 // per block, which sum_partials adds in order (no atomics: dgamma repeats
-// bitwise).
+// bitwise). Rows wider than 1,024 (ViT-g's 1,536) split their columns over
+// the grid's y: 768 threads twice at 1,536.
+// swiglu_bwd: bound by memory (dh read, the interleaved pre-activation
+// (x1, x2) read, its cotangent written: 20 bytes a hidden element, 2.7 GB a
+// call at ViT-g/14's 33,408 x 4,096). The columns are interleaved (x1, x2 of
+// hidden column j at 2j, 2j + 1), so the pass is elementwise over the flat
+// hidden index i whatever the rows: a thread takes two hidden elements, a
+// float2 of dh and a float4 of pre in and a float4 out, streaming hints as
+// act_dropout_bwd; the scalar instance for operands off a 16-byte boundary
+// (and an odd count's last element).
 #include "common.cuh"
 
 constexpr int AD_THREADS = 256;
@@ -142,7 +153,7 @@ __global__ void layerscale_bwd_kernel(const float* __restrict__ dy,
                                       float* __restrict__ out,
                                       float* __restrict__ pg, int M, int D,
                                       int rows, DropArgs drop) {
-  const int c = threadIdx.x;
+  const int c = blockIdx.y * blockDim.x + threadIdx.x;  // columns split over y past 1,024
   if (c >= D) return;
   const int r0 = blockIdx.x * rows, r1 = min(M, r0 + rows);
   const float gm = gamma[c];
@@ -155,6 +166,33 @@ __global__ void layerscale_bwd_kernel(const float* __restrict__ dy,
     out[i] = d * gm;
   }
   pg[(size_t)blockIdx.x * D + c] = acc;
+}
+
+// dx1 = dh x2 s (1 + x1 (1 - s)), dx2 = dh silu(x1) = dh x1 s, s = sigmoid(x1)
+__device__ __forceinline__ float2 swiglu_bwd_one(float dh, float x1, float x2) {
+  const float s = sigmoid_f(x1);
+  return make_float2(dh * x2 * (s * (1.f + x1 * (1.f - s))), dh * (x1 * s));
+}
+
+// VEC: hidden elements 2v, 2v + 1 a thread (float2 of dh, float4 of pre and
+// out), n even; else element v a thread.
+template <bool VEC>
+__global__ void __launch_bounds__(AD_THREADS)
+swiglu_bwd_kernel(const float* __restrict__ dh, const float* __restrict__ pre,
+                  float* __restrict__ out, unsigned int n) {
+  const unsigned int v = blockIdx.x * AD_THREADS + threadIdx.x;
+  if (VEC) {
+    if (v >= n / 2) return;
+    const float2 d = __ldcs(reinterpret_cast<const float2*>(dh) + v);
+    const float4 x = __ldcs(reinterpret_cast<const float4*>(pre) + v);
+    const float2 a = swiglu_bwd_one(d.x, x.x, x.y), b = swiglu_bwd_one(d.y, x.z, x.w);
+    __stcs(reinterpret_cast<float4*>(out) + v, make_float4(a.x, a.y, b.x, b.y));
+    return;
+  }
+  if (v >= n) return;
+  const float2 a = swiglu_bwd_one(dh[v], pre[2 * (size_t)v], pre[2 * (size_t)v + 1]);
+  out[2 * (size_t)v] = a.x;
+  out[2 * (size_t)v + 1] = a.y;
 }
 
 static int grid_for(size_t n, int threads) {
@@ -191,16 +229,39 @@ PD_API int pd_sum_partials(const void* part, void* out, int S, long long L,
 }
 
 // The LayerScale backward of an (M, D) branch: out = dy * mask * gamma and
-// the per-block partials pg (ceil(M / rows), D) of dgamma. D <= 1024.
+// the per-block partials pg (ceil(M / rows), D) of dgamma. D <= 1,536
+// (ViT-g/14's), at most 1,024 columns a block (ops/kernels.py
+// LAYERSCALE_MAX_D).
 PD_API int pd_layerscale_bwd(const void* dy, const void* o_pre,
                              const void* gamma, void* out, void* pg, int M,
                              int D, int rows, unsigned int drop_key,
                              int drop_thr, float drop_scale, void* stream) {
-  if (D < 1 || D > 1024 || M < 1 || rows < 1) return (int)cudaErrorInvalidValue;
+  if (D < 1 || D > 1536 || M < 1 || rows < 1) return (int)cudaErrorInvalidValue;
   const int blocks = (M + rows - 1) / rows;
-  const int threads = (D + 31) / 32 * 32;
-  layerscale_bwd_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  const int splits = (D + 1023) / 1024;  // column ranges of a row, grid y
+  const int threads = ((D + splits - 1) / splits + 31) / 32 * 32;
+  layerscale_bwd_kernel<<<dim3(blocks, splits), threads, 0, (cudaStream_t)stream>>>(
       (const float*)dy, (const float*)o_pre, (const float*)gamma, (float*)out,
       (float*)pg, M, D, rows, DropArgs{drop_key, drop_thr, drop_scale});
+  return (int)cudaGetLastError();
+}
+
+// out (n pairs, interleaved as pre) = the SwiGLU gate's backward of dh (n)
+// and pre (2n); n below 2^31 (the wrapper refuses more).
+PD_API int pd_swiglu_bwd(const void* dh, const void* pre, void* out, long long n,
+                         void* stream) {
+  if (n < 0 || n >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaSuccess;
+  const auto al16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const bool vec = n % 2 == 0 && al16(dh) && al16(pre) && al16(out);
+  const long long runs = vec ? n / 2 : n;
+  const int blocks = (int)((runs + AD_THREADS - 1) / AD_THREADS);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (vec)
+    swiglu_bwd_kernel<true><<<blocks, AD_THREADS, 0, s>>>(
+        (const float*)dh, (const float*)pre, (float*)out, (unsigned int)n);
+  else
+    swiglu_bwd_kernel<false><<<blocks, AD_THREADS, 0, s>>>(
+        (const float*)dh, (const float*)pre, (float*)out, (unsigned int)n);
   return (int)cudaGetLastError();
 }

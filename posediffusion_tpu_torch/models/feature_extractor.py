@@ -7,7 +7,9 @@ bilinear resize and average its pooled features.
 
 Backbones (``modelname``, the reference's contract): ``dino_vits16``,
 ``dino_vitb16``, ``dinov2_vits14`` (LayerScale, patch 14, position grid
-37), ``resnet50`` and ``resnet101`` (2,048-wide features, ``models/resnet``).
+37), ``dinov2_vitg14`` (the same with DINOv2's SwiGLU feed-forward;
+float32 only), ``resnet50`` and ``resnet101`` (2,048-wide features,
+``models/resnet``).
 ``extract_features_resnet`` is the ResNets' route for serving and training
 alike, as in the JAX package, where the Flax module serves and trains them:
 the normalisation, the resizes and the network in plain PyTorch (cuDNN on a
@@ -32,7 +34,7 @@ output, and from the first residual sum on the whole stream, to float32,
 as the Flax module's promotions do (``posediffusion_tpu/models/vit.py
 :70-90``).
 ``extract_features_train`` is the flow for training, differentiable, with
-the trunk (LayerScale included) in
+the trunk (LayerScale and the SwiGLU gate included) in
 ``ops.vit_train_kernel.fused_vit_trunk_train``.
 """
 
@@ -57,9 +59,10 @@ from posediffusion_tpu_torch.ops.vit_train_kernel import (
 class MultiScaleImageFeatureExtractor(nn.Module):
     """The backbone that ``modelname`` names: DINO (``dino_vits16``,
     ``dino_vitb16``: ``patch_size``), DINOv2 (``dinov2_vits14``: patch 14,
-    grid 37, LayerScale) or a ResNet (``resnet50``, ``resnet101``; the ViT
-    arguments unused), as ``posediffusion_tpu/models/feature_extractor.py
-    :44-63``."""
+    grid 37, LayerScale; ``dinov2_vitg14`` also the SwiGLU feed-forward, as
+    DINOv2's hubconf builds ``vit_giant2``) or a ResNet (``resnet50``,
+    ``resnet101``; the ViT arguments unused), as
+    ``posediffusion_tpu/models/feature_extractor.py :44-63``."""
 
     def __init__(self, scale_factors: Sequence[float] = (1.0, 1.0 / 2, 1.0 / 3),
                  modelname: str = "dino_vits16", patch_size: int = 16,
@@ -73,6 +76,7 @@ class MultiScaleImageFeatureExtractor(nn.Module):
         self._net = VisionTransformer(
             patch_size=14 if dinov2 else patch_size, embed_dim=embed_dim, depth=depth,
             num_heads=num_heads, pos_grid=37 if dinov2 else 14, layer_scale=dinov2,
+            ffn="swiglu" if modelname == "dinov2_vitg14" else "gelu",
         )
 
     @property
@@ -192,7 +196,11 @@ def extract_features_blocks(
     """(B, 3, H, W) -> (B, D) through the module's blocks with the attention
     in ``kernels.attention``: float32 (the DINOv2 inference path), or with
     ``bf16`` the Flax bf16 blocks' rounding sites (the route of DINO and
-    DINOv2 at ``compute_dtype=bfloat16``)."""
+    DINOv2 at ``compute_dtype=bfloat16``; the SwiGLU ViT-g/14 is float32
+    only)."""
+    if bf16 and vit.ffn != "gelu":
+        raise NotImplementedError(f"bf16 serving has no {vit.ffn} feed-forward: "
+                                  "dinov2_vitg14 serves at float32")
     x, bias, offsets = _embed_pack_scales(vit, images_nchw, scale_factors)
     if bf16:
         x = xu = round_bf16(x)
@@ -214,11 +222,12 @@ def extract_features_train(
     """(B, 3, H, W) -> (B, D), differentiable: patch embedding, positions,
     packing and the CLS head in plain PyTorch (autograd), the trunk in
     ``fused_vit_trunk_train`` with float32 weight stacks (and LayerScale
-    gains when the blocks have them)."""
+    gains when the blocks have them; the SwiGLU blocks' gated
+    feed-forward)."""
     x, bias, offsets = _embed_pack_scales(vit, images_nchw, scale_factors)
     x = fused_vit_trunk_train(
         x, stack_vit_params_train(vit), bias, nhead=vit.num_heads,
         act_bf16=act_bf16, residual_bf16=residual_bf16,
-        layer_scale=vit.layer_scale,
+        layer_scale=vit.layer_scale, act=vit.ffn,
     )
     return _multiscale_cls_head(vit, x, offsets)

@@ -7,8 +7,10 @@ The module tree carries the released checkpoint's keys:
 ``diffuser.model.*`` (denoiser) and the 13 schedule buffers
 ``diffuser.<name>``, so a reference ``.pth`` loads with a strict
 ``load_state_dict``. Backbones: ``dino_vits16`` (the default),
-``dino_vitb16``, ``dinov2_vits14``, ``resnet50`` and ``resnet101`` (whose
-2,048-wide features the denoiser takes as z).
+``dino_vitb16``, ``dinov2_vits14``, ``dinov2_vitg14`` (DINOv2's SwiGLU
+ViT-g/14, float32 only; its z is 1,536 wide, ``blocks.N.mlp.w12`` /
+``w3``), ``resnet50`` and ``resnet101`` (whose 2,048-wide features the
+denoiser takes as z).
 
 ``sample`` runs ``extract_features_fused`` (DINO: ViT trunk on the kernels;
 DINOv2, and DINO at ``compute_dtype=bfloat16``: ``extract_features_blocks``,
@@ -73,8 +75,14 @@ from posediffusion_tpu_torch.ops.denoiser_kernel import stack_trunk_params
 from posediffusion_tpu_torch.ops.sampler_kernel import fused_sample_loop
 
 
-# the JAX package's backbones (posediffusion_tpu/utils/config.py:128)
-KNOWN_BACKBONES = ("dino_vits16", "dino_vitb16", "dinov2_vits14", "resnet50", "resnet101")
+# the JAX package's backbones (posediffusion_tpu/utils/config.py:128), and
+# DINOv2's ViT-g/14, which upstream PoseDiffusion loads by name as it does
+# every dinov2_* model (models/image_feature_extractor.py:38-40)
+KNOWN_BACKBONES = ("dino_vits16", "dino_vitb16", "dinov2_vits14", "dinov2_vitg14",
+                   "resnet50", "resnet101")
+# (z_dim, vit_depth, vit_heads) that a backbone's name fixes: a config that
+# disagrees is refused, not built at another size under the name
+BACKBONE_SHAPES = {"dinov2_vitg14": (1536, 40, 24)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,6 +146,10 @@ class PoseDiffusionModel(nn.Module):
         if config.modelname not in KNOWN_BACKBONES:
             raise ValueError(f"unsupported backbone {config.modelname} "
                              f"(known: {KNOWN_BACKBONES})")
+        shape = BACKBONE_SHAPES.get(config.modelname)
+        if shape is not None and shape != (config.z_dim, config.vit_depth, config.vit_heads):
+            raise ValueError(f"{config.modelname} is z_dim, vit_depth, vit_heads = {shape}, "
+                             f"not {(config.z_dim, config.vit_depth, config.vit_heads)}")
         self.config = config
         c = config
         self.image_feature_extractor = MultiScaleImageFeatureExtractor(

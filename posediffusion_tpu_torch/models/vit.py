@@ -1,10 +1,14 @@
 """DINO ViT-S/16 and ViT-B/16 and DINOv2 ViT-S/14 backbones, as in
-``posediffusion_tpu.models.vit``.
+``posediffusion_tpu.models.vit``, and DINOv2 ViT-g/14, which the JAX
+package does not have.
 
 Keys are those of the DINO checkpoint (``cls_token``, ``pos_embed``,
 ``patch_embed.proj``, ``blocks.N.{norm1, attn.qkv, attn.proj, norm2,
 mlp.fc1, mlp.fc2}``, ``norm``), plus DINOv2's LayerScale gains
 ``blocks.N.ls1.gamma`` and ``blocks.N.ls2.gamma`` with ``layer_scale``.
+ViT-g/14's feed-forward is DINOv2's SwiGLU (``ffn="swiglu"``,
+dinov2/layers/swiglu_ffn.py ``SwiGLUFFNFused``) under its keys
+``blocks.N.mlp.w12`` and ``blocks.N.mlp.w3``.
 Position embeddings are resampled with torch's bicubic (Keys a = -0.75) for
 the smaller scales. For DINOv2 (patch 14, a 37 x 37 grid) this follows the
 JAX package, not DINOv2 upstream: no ``interpolate_offset`` and no
@@ -65,6 +69,26 @@ class Mlp(nn.Module):
         return self.fc2(F.gelu(self.fc1(x)))  # exact erf GELU
 
 
+def swiglu_hidden(dim: int, mlp_ratio: float = 4.0) -> int:
+    """DINOv2's SwiGLU hidden width (``SwiGLUFFNFused``): two thirds of the
+    GELU MLP's, rounded up to a multiple of 8 (4,096 at D 1,536; 176 at 64)."""
+    return (int(int(dim * mlp_ratio) * 2 / 3) + 7) // 8 * 8
+
+
+class SwiGLUFFN(nn.Module):
+    """DINOv2's gated feed-forward: ``x12 = w12(x)``, ``x1, x2 =
+    x12.chunk(2)``, ``w3(silu(x1) * x2)``."""
+
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.w12 = nn.Linear(dim, 2 * hidden)
+        self.w3 = nn.Linear(hidden, dim)
+
+    def forward(self, x):
+        x1, x2 = self.w12(x).chunk(2, dim=-1)
+        return self.w3(F.silu(x1) * x2)
+
+
 class LayerScale(nn.Module):
     """DINOv2's per-channel gain of a residual branch (``ls1_gamma`` /
     ``ls2_gamma`` in the JAX package)."""
@@ -79,12 +103,17 @@ class LayerScale(nn.Module):
 
 class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 layer_scale: bool = False):
+                 layer_scale: bool = False, ffn: str = "gelu"):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         self.attn = Attention(dim, num_heads)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        if ffn == "swiglu":
+            self.mlp = SwiGLUFFN(dim, swiglu_hidden(dim, mlp_ratio))
+        elif ffn == "gelu":
+            self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        else:
+            raise ValueError(f"unknown feed-forward {ffn!r} (gelu or swiglu)")
         # the gain after the projection, before the residual
         # (posediffusion_tpu/models/vit.py:78-90)
         self.ls1 = LayerScale(dim) if layer_scale else nn.Identity()
@@ -104,18 +133,19 @@ class PatchEmbed(nn.Module):
 class VisionTransformer(nn.Module):
     def __init__(self, patch_size: int = 16, embed_dim: int = 384, depth: int = 12,
                  num_heads: int = 6, mlp_ratio: float = 4.0, pos_grid: int = 14,
-                 layer_scale: bool = False):
+                 layer_scale: bool = False, ffn: str = "gelu"):
         super().__init__()
         self.patch_size = patch_size
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.pos_grid = pos_grid
         self.layer_scale = layer_scale
+        self.ffn = ffn
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, 1 + pos_grid**2, embed_dim))
         self.patch_embed = PatchEmbed(patch_size, embed_dim)
         self.blocks = nn.ModuleList(
-            Block(embed_dim, num_heads, mlp_ratio, layer_scale) for _ in range(depth)
+            Block(embed_dim, num_heads, mlp_ratio, layer_scale, ffn) for _ in range(depth)
         )
         self.norm = nn.LayerNorm(embed_dim, eps=1e-6)
 
@@ -189,3 +219,11 @@ def vit_small_dinov2() -> VisionTransformer:
     position grid (518px), so pos_embed is (1, 1,370, 384)."""
     return VisionTransformer(patch_size=14, embed_dim=384, depth=12, num_heads=6,
                              pos_grid=37, layer_scale=True)
+
+
+def vit_giant2_dinov2() -> VisionTransformer:
+    """DINOv2 ViT-g/14 (``dinov2_vitg14``, DINOv2's ``vit_giant2`` with
+    ``ffn_layer="swiglufused"``): D 1,536, 40 blocks, 24 heads of 64, patch
+    14, grid 37, LayerScale, SwiGLU hidden 4,096; 1.136B parameters."""
+    return VisionTransformer(patch_size=14, embed_dim=1536, depth=40, num_heads=24,
+                             pos_grid=37, layer_scale=True, ffn="swiglu")

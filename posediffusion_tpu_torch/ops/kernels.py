@@ -1,13 +1,17 @@
 """The hand-written Hopper kernels, their plain PyTorch versions, and routing.
 
-Seventeen wrappers (sources in ``posediffusion_tpu_torch/csrc``) carry the TPU
+Eighteen wrappers (sources in ``posediffusion_tpu_torch/csrc``) carry the TPU
 kernels of the inference paths with and without GGS, of match extraction and
-of the training trunks (DINOv2's LayerScale included):
+of the training trunks (DINOv2's LayerScale and ViT-g/14's SwiGLU gate
+included):
 
 =======================  =====================================================
 ``layernorm``            row LayerNorm, eps and bf16 output rounding as arguments
 ``linear``               ``drop(act(a @ W + b) * gain) [+ residual]``, W float32
                          or bfloat16, read transposed for the dgrad product;
+                         ``act="swiglu"`` gates column pairs of a float32
+                         product in its epilogue, silu(x1) * x2 (on TF32
+                         ``wgmma`` only);
                          float32 a and W as 3xTF32 on TF32 ``wgmma`` fed by
                          TMA (else 3xTF32 ``mma.sync``), a bf16 W with
                          ``round_a`` on bf16 ``wgmma`` fed by TMA
@@ -33,6 +37,7 @@ of the training trunks (DINOv2's LayerScale included):
 ``linear_wgrad``         weight and bias gradients X^T dY, colsum(dY)
 ``act_dropout_bwd``      dropout mask times GELU' or ReLU' of the cotangent
 ``layerscale_bwd``       LayerScale's cotangent and gain gradient, dropout mask
+``swiglu_bwd``           the gate's cotangent: (dx1, dx2) from dh and (x1, x2)
 =======================  =====================================================
 
 Dropout masks come from a counter hash of (seed, layer, site, element)
@@ -79,7 +84,7 @@ _NVCC_FLAGS = (
 )
 NEG = -1e30  # additive bias of a masked key (never -inf: no row gives NaN)
 
-_ACT = {"none": 0, "relu": 1, "gelu": 2}
+_ACT = {"none": 0, "relu": 1, "gelu": 2, "swiglu": 3}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
@@ -115,6 +120,7 @@ _SIGNATURES = {
     "pd_act_dropout_bwd": [_P, _P, _P, _L, _I, *_DROP, _P],
     "pd_sum_partials": [_P, _P, _I, _L, _P],
     "pd_layerscale_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, *_DROP, _P],
+    "pd_swiglu_bwd": [_P, _P, _P, _L, _P],
 }
 _MAX_SMEM = 232448  # bytes of shared memory one Hopper block may use
 
@@ -339,6 +345,17 @@ layernorm.by_shape = {}
 
 
 # -------------------------------------------------------------------- linear
+def silu(x):
+    """x sigmoid(x) as the kernels compute it, x / (1 + exp(-x))."""
+    return x / (1.0 + torch.exp(-x))
+
+
+def swiglu_plain(pre):
+    """The gate over a product's interleaved columns: column 2j is x1 and
+    2j + 1 is x2 of hidden column j -> silu(x1) * x2, half as wide."""
+    return silu(pre[..., 0::2]) * pre[..., 1::2]
+
+
 def _activate(y, act: str):
     if act == "relu":
         return torch.relu(y)
@@ -361,6 +378,10 @@ def linear_plain(a, w, bias, act: str = "none", residual=None,
     pre = a @ (wf.t() if trans_w else wf)
     if bias is not None:
         pre = pre + bias
+    if act == "swiglu":
+        _swiglu_check(pre.shape[-1], w.dtype, residual, round_a, drop, gain, trans_w)
+        y = swiglu_plain(pre)
+        return (y, pre) if want_pre else y
     y = _activate(pre, act)
     if gain is not None:
         y = y * gain
@@ -373,6 +394,18 @@ def linear_plain(a, w, bias, act: str = "none", residual=None,
         if round_out:
             y = round_bf16(y)
     return (y, pre) if want_pre else y
+
+
+def _swiglu_check(N: int, w_dtype, residual, round_a, drop, gain, trans_w) -> None:
+    """The gated product is a forward float32 product of an even width with
+    no residual, gain or dropout: what the SwiGLU feed-forward's w12 takes."""
+    if N % 2:
+        raise ValueError(f"act swiglu gates column pairs: N {N} is odd")
+    if w_dtype != torch.float32 or round_a:
+        raise NotImplementedError("act swiglu has no bf16 mode (a bf16 W or round_a): "
+                                  "the SwiGLU ViT trains and serves at float32")
+    if residual is not None or drop is not None or gain is not None or trans_w:
+        raise ValueError("act swiglu takes no residual, gain, dropout or trans_w")
 
 
 def _linear_check(a, w, bias, residual, gain, trans_w: bool):
@@ -400,6 +433,11 @@ def linear(a, w, bias, act: str = "none", residual=None, round_a: bool = False,
     and the sum to bf16 (a bf16 residual stream); ``want_pre`` also returns
     the pre-activation ``LN(a) @ W + bias``. ``ln = (g, b, eps)`` applies
     ``layernorm`` to a first (round_a then rounds the normalised rows).
+    ``act="swiglu"`` (float32 W, no residual, gain, dropout or trans_w) gates the
+    product's interleaved columns, y[:, j] = silu(pre[:, 2j]) * pre[:, 2j
+    + 1], so y is (M, N / 2) and ``want_pre`` returns the whole (M, N)
+    pre-activation; it runs on the ``tf32_wgmma`` route at any row count,
+    and operands that route cannot take raise.
 
     On the card, up to LINEAR_ROWS_MAX rows with W not transposed take the
     few-rows route (``linear_rows``), which alone folds ``ln``; asking for
@@ -429,7 +467,8 @@ def linear(a, w, bias, act: str = "none", residual=None, round_a: bool = False,
     if not _on_card(a, w, bias, residual, gain, *_ln_tensors(ln)):
         return linear_plain(a, w, bias, act, residual, round_a, trans_w, drop,
                             round_out, want_pre, gain, ln)
-    if a.shape[0] <= LINEAR_ROWS_MAX and not trans_w:
+    gated = act == "swiglu"
+    if a.shape[0] <= LINEAR_ROWS_MAX and not trans_w and not gated:
         return _linear_rows_launch(a, w, bias, act, residual, round_a, drop, round_out,
                                    want_pre, gain, ln)
     if ln is not None:
@@ -437,12 +476,17 @@ def linear(a, w, bias, act: str = "none", residual=None, round_a: bool = False,
                          f"{LINEAR_ROWS_MAX} rows, W not transposed), not at "
                          f"{a.shape[0]} rows{' with trans_w' if trans_w else ''}")
     M, K, N = _linear_check(a, w, bias, residual, gain, trans_w)
-    y = torch.empty((M, N), device=a.device, dtype=torch.float32)
-    pre = torch.empty_like(y) if want_pre else None
+    if gated:
+        _swiglu_check(N, w.dtype, residual, round_a, drop, gain, trans_w)
+    y = torch.empty((M, N // 2 if gated else N), device=a.device, dtype=torch.float32)
+    pre = torch.empty((M, N), device=a.device, dtype=torch.float32) if want_pre else None
     bf16 = w.dtype == torch.bfloat16
     lib = load_library()
     route = LINEAR_ROUTES[lib.pd_linear_route(
         K, N, int(bf16), int(round_a), int(a.data_ptr() % 16 == 0), int(w.data_ptr() % 16 == 0))]
+    if gated and route != "tf32_wgmma":
+        raise ValueError(f"act swiglu runs on the tf32_wgmma route only (a and W on 16-byte "
+                         f"boundaries, K and N multiples of 4), not on {route} at K {K}, N {N}")
     # W's TF32 halves for this call only (2 N K floats, at most 4.7 MB on the
     # train path): nothing split outlives the call
     split = (torch.empty((2 * N, K), device=a.device, dtype=torch.float32)
@@ -590,6 +634,9 @@ def linear_rows(a, w, bias, act: str = "none", residual=None,
 def _linear_rows_launch(a, w, bias, act, residual, round_a, drop, round_out, want_pre,
                         gain, ln):
     M, K, N = _linear_check(a, w, bias, residual, gain, False)
+    if act == "swiglu":
+        raise ValueError("the few-rows route has no swiglu gate: linear takes it on the "
+                         "tensor-core routes at any row count")
     if M > LINEAR_ROWS_MAX:
         raise ValueError(f"the few-rows route takes at most {LINEAR_ROWS_MAX} rows, not {M}")
     g, b, eps = (None, None, 0.0) if ln is None else ln
@@ -1323,10 +1370,11 @@ def layernorm_bwd_plain(x, g, dh, eps: float, residual=None,
 
 
 # csrc/layernorm.cu: LNB_MAX_D, 32 columns of a row in each lane's
-# registers; the grid is at most LNB_BLOCKS blocks of LNB_WARPS warps (two
-# blocks on each of the H100's SMs), one dg / db partial each, whatever the
-# rows: a warp walks rows blocks x 8 apart.
-LAYERNORM_BWD_MAX_D = 1024
+# registers (LNB_WIDE_MAX_D, ViT-g/14's 1,536, past that: 48 columns a lane,
+# the dg / db sums in shared memory); the grid is at most LNB_BLOCKS blocks of LNB_WARPS warps
+# (two blocks on each of the H100's SMs), one dg / db partial each, whatever
+# the rows: a warp walks rows blocks x 8 apart.
+LAYERNORM_BWD_MAX_D = 1536
 LAYERNORM_BWD_WARPS = 8
 LAYERNORM_BWD_MAX_BLOCKS = 2 * _SMS
 
@@ -1475,7 +1523,7 @@ def layerscale_bwd_plain(dy, o_pre, gamma, drop: Optional[Drop] = None):
 # times, each at least this many rows.
 _LS_MIN_ROWS = 64
 _LS_TARGET_BLOCKS = 4 * _SMS
-LAYERSCALE_MAX_D = 1024  # csrc/train.cu: one thread per column of a block
+LAYERSCALE_MAX_D = 1536  # csrc/train.cu: ViT-g/14's D; a thread per column, at most 1,024 a block
 
 
 def layerscale_rows(M: int) -> int:
@@ -1510,6 +1558,45 @@ def layerscale_bwd(dy, o_pre, gamma, drop: Optional[Drop] = None):
 layerscale_bwd.launches = 0
 
 
+def swiglu_bwd_plain(dh, pre):
+    """(dx1, dx2) = (dh x2 silu'(x1), dh silu(x1)), interleaved as ``pre``
+    is, with silu'(x) = s (1 + x (1 - s)), s = 1 / (1 + exp(-x))."""
+    x1, x2 = pre[..., 0::2], pre[..., 1::2]
+    s = 1.0 / (1.0 + torch.exp(-x1))
+    out = torch.empty_like(pre)
+    out[..., 0::2] = dh * x2 * (s * (1.0 + x1 * (1.0 - s)))
+    out[..., 1::2] = dh * (x1 * s)
+    return out
+
+
+SWIGLU_BWD_MAX = 1 << 31  # csrc/train.cu: 32-bit indices of the hidden elements
+
+
+def swiglu_bwd(dh, pre):
+    """Backward of the gate of ``linear(..., act="swiglu")``: from the
+    cotangent dh (M, H) of its output and the pre-activation ``pre`` (M, 2H)
+    (x1, x2 of hidden column j at columns 2j, 2j + 1) -> the cotangent of
+    ``pre``, the same layout. One pass over dh, pre and the result (20 bytes
+    a hidden element; csrc/train.cu swiglu_bwd_kernel). Counts its launches
+    in ``swiglu_bwd.launches``."""
+    if not _on_card(dh, pre):
+        return swiglu_bwd_plain(dh, pre)
+    M, H = dh.shape
+    _check(dh, "dh", (M, H))
+    _check(pre, "pre", (M, 2 * H))
+    if dh.numel() >= SWIGLU_BWD_MAX:
+        raise ValueError(f"swiglu_bwd: {dh.numel()} hidden elements, at most "
+                         f"{SWIGLU_BWD_MAX - 1} (32-bit indices)")
+    out = torch.empty_like(pre)
+    _launch(load_library().pd_swiglu_bwd, _ptr(dh), _ptr(pre), _ptr(out), dh.numel(),
+            _stream(dh))
+    swiglu_bwd.launches += 1
+    return out
+
+
+swiglu_bwd.launches = 0
+
+
 # ------------------------------------------------------------------- tables
 KERNELS = SimpleNamespace(
     layernorm=layernorm, linear=linear, linear_rows=linear_rows, attention=attention,
@@ -1520,7 +1607,7 @@ KERNELS = SimpleNamespace(
     superglue_matches=superglue_matches,
     attention_bwd=attention_bwd, layernorm_bwd=layernorm_bwd,
     linear_wgrad=linear_wgrad, act_dropout_bwd=act_dropout_bwd,
-    layerscale_bwd=layerscale_bwd,
+    layerscale_bwd=layerscale_bwd, swiglu_bwd=swiglu_bwd,
 )
 PLAIN = SimpleNamespace(
     layernorm=layernorm_plain, linear=linear_plain, linear_rows=linear_rows_plain,
@@ -1534,7 +1621,7 @@ PLAIN = SimpleNamespace(
     superglue_matches=superglue_matches_plain,
     attention_bwd=attention_bwd_plain, layernorm_bwd=layernorm_bwd_plain,
     linear_wgrad=linear_wgrad_plain, act_dropout_bwd=act_dropout_bwd_plain,
-    layerscale_bwd=layerscale_bwd_plain,
+    layerscale_bwd=layerscale_bwd_plain, swiglu_bwd=swiglu_bwd_plain,
 )
 
 

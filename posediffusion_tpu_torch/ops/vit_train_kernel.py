@@ -31,6 +31,24 @@ so here each layer is a sequence of launches over the whole batch:
   (``linear_wgrad``), the attention backward (``attention_bwd``), the
   activation and dropout backward (``act_dropout_bwd``) and the LayerNorm
   backward with the residual cotangent added (``layernorm_bwd``).
+* DINOv2 ViT-g/14's SwiGLU feed-forward (``act="swiglu"``, which the TPU
+  kernels do not have): the stacks hold w12's two halves interleaved by
+  column (``stack_vit_params_train``: x1 and x2 of hidden column j at
+  columns 2j and 2j + 1 of ``wfc1``), so the first FF product gates its
+  column pairs in its epilogue (``linear(..., act="swiglu")``) and writes
+  the (rows, H) hidden, never the (rows, 2H) x12; the backward recomputes
+  that product with its pre-activation, and ``swiglu_bwd`` takes the place
+  of ``act_dropout_bwd``: (dx1, dx2) = (dh x2 silu'(x1), dh silu(x1)), in
+  front of the same dgrad and wgrad products. No dropout and no bf16 mode
+  with it (the trunk refuses both).
+* spans (``utils/profiling.span``, on a card): ``pd.<name>.ffn.fwd`` /
+  ``.bwd`` around each layer's feed-forward half (LayerNorm 2, both FF
+  products with the activation or gate, the residual and LayerScale
+  epilogue; in the backward the recompute, the gain's, activation's or
+  gate's backward, the dgrads, the wgrads and ``layernorm_bwd``), and with
+  SwiGLU ``pd.<name>.gate.fwd`` / ``.bwd`` around the gated product, its
+  recompute and ``swiglu_bwd``. On the CPU (the plain route launches
+  nothing on a card) the trunk opens only ``pd.<name>.fwd`` / ``.bwd``.
 
 Weights are float32 stacks (the optimizer's precision); ``act_bf16`` feeds
 the products bf16 copies of them and rounds their activation operands, as
@@ -52,7 +70,7 @@ import dataclasses
 import torch
 
 from posediffusion_tpu_torch.ops.kernels import KERNELS, PLAIN, drop_args
-from posediffusion_tpu_torch.utils.profiling import span
+from posediffusion_tpu_torch.utils.profiling import NO_SPAN, span
 
 WEIGHT_KEYS = ("g1", "b1", "wqkv", "bqkv", "wproj", "bproj",
                "g2", "b2", "wfc1", "bfc1", "wfc2", "bfc2")
@@ -65,7 +83,7 @@ class TrunkSpec:
 
     nhead: int
     eps: float
-    act: str  # "gelu" (ViT) or "relu" (denoiser)
+    act: str  # "gelu" (ViT), "swiglu" (ViT-g/14's gated FF) or "relu" (denoiser)
     act_bf16: bool = False
     residual_bf16: bool = False
     dropout: float = 0.0
@@ -74,8 +92,18 @@ class TrunkSpec:
     layer_scale: bool = False  # DINOv2's ls1 / ls2 gains (``LS_KEYS``)
     name: str = "trunk"  # its spans pd.<name>.fwd / .bwd (``utils/profiling.span``)
 
+    def __post_init__(self):
+        if self.act == "swiglu" and (self.act_bf16 or self.residual_bf16 or self.dropout):
+            raise NotImplementedError("the SwiGLU trunk has no bf16 mode and no dropout: "
+                                      "dinov2_vitg14 trains at float32")
+
     def drop(self, layer: int, site: str):
         return drop_args(self.seed, layer, site, self.dropout)
+
+    def span(self, part: str, x: torch.Tensor):
+        """The span ``pd.<name>.<part>`` where the trunk runs on a card (its
+        device time is what the span is for), else the null context."""
+        return span(f"{self.name}.{part}") if x.is_cuda else NO_SPAN
 
     @property
     def keys(self):
@@ -88,10 +116,25 @@ class TrunkSpec:
 
 
 # ---------------------------------------------------------------- stacking
+def interleave_halves(t: torch.Tensor) -> torch.Tensor:
+    """The last axis of (..., 2H) [x1 | x2] as (..., H, 2), a view: x1[j]
+    and x2[j] side by side, so a flattened copy has them at 2j and 2j + 1."""
+    return t.unflatten(-1, (2, t.shape[-1] // 2)).transpose(-1, -2)
+
+
+def _stack_interleaved(tensors):
+    """Stack (..., 2H) tensors with their halves interleaved
+    (``interleave_halves``), in one copy: (L, ..., 2H) float32."""
+    return torch.stack([interleave_halves(t) for t in tensors]).flatten(-2).to(torch.float32)
+
+
 def stack_vit_params_train(vit) -> dict:
     """``VisionTransformer`` blocks -> float32 per-array stacks (matrices
     (in, out)), built differentiably so gradients reach the parameters; with
-    the LayerScale gains ``ls1`` / ``ls2`` (L, D) when the blocks have them."""
+    the LayerScale gains ``ls1`` / ``ls2`` (L, D) when the blocks have them.
+    SwiGLU blocks (``vit.ffn == "swiglu"``) give ``wfc1`` / ``bfc1`` from
+    w12 with its halves interleaved by column, (L, D, 2H) / (L, 2H), and
+    ``wfc2`` / ``bfc2`` from w3."""
     b = vit.blocks
     stacks = {
         "g1": _stack_grad([x.norm1.weight for x in b]),
@@ -102,11 +145,17 @@ def stack_vit_params_train(vit) -> dict:
         "bproj": _stack_grad([x.attn.proj.bias for x in b]),
         "g2": _stack_grad([x.norm2.weight for x in b]),
         "b2": _stack_grad([x.norm2.bias for x in b]),
-        "wfc1": _stack_grad([x.mlp.fc1.weight.t() for x in b]),
-        "bfc1": _stack_grad([x.mlp.fc1.bias for x in b]),
-        "wfc2": _stack_grad([x.mlp.fc2.weight.t() for x in b]),
-        "bfc2": _stack_grad([x.mlp.fc2.bias for x in b]),
     }
+    if vit.ffn == "swiglu":
+        stacks.update(wfc1=_stack_interleaved([x.mlp.w12.weight.t() for x in b]),
+                      bfc1=_stack_interleaved([x.mlp.w12.bias for x in b]),
+                      wfc2=_stack_grad([x.mlp.w3.weight.t() for x in b]),
+                      bfc2=_stack_grad([x.mlp.w3.bias for x in b]))
+    else:
+        stacks.update(wfc1=_stack_grad([x.mlp.fc1.weight.t() for x in b]),
+                      bfc1=_stack_grad([x.mlp.fc1.bias for x in b]),
+                      wfc2=_stack_grad([x.mlp.fc2.weight.t() for x in b]),
+                      bfc2=_stack_grad([x.mlp.fc2.bias for x in b]))
     if vit.layer_scale:
         stacks["ls1"] = _stack_grad([x.ls1.gamma for x in b])
         stacks["ls2"] = _stack_grad([x.ls2.gamma for x in b])
@@ -175,22 +224,30 @@ def _attn_half(ops, s: TrunkSpec, l, w, x, B, N, attn_bias, key_bias):
         round_out=s.residual_bf16, gain=w.get("ls1"), want_pre=s.layer_scale))
 
 
+def _gate_span(s: TrunkSpec, way: str, x):
+    """``pd.<name>.gate.<way>`` around the gate's calls (SwiGLU only)."""
+    return s.span("gate." + way, x) if s.act == "swiglu" else NO_SPAN
+
+
 def _mlp_branch(ops, s: TrunkSpec, l, w, x1, want_pre=False):
     """x1 -> (h, hidden) (with ``want_pre``, (h, hidden, pre-activation)):
-    LayerNorm and the first FF product with its activation and dropout."""
+    LayerNorm and the first FF product with its activation and dropout, or
+    its gate (the backward's recompute with ``want_pre``)."""
     h = ops.layernorm(x1, w["g2"], w["b2"], s.eps)
-    hm = ops.linear(h, w["wfc1"], w["bfc1"], act=s.act, round_a=s.act_bf16,
-                    drop=s.drop(l, "mff"), want_pre=want_pre)
+    with _gate_span(s, "bwd" if want_pre else "fwd", x1):
+        hm = ops.linear(h, w["wfc1"], w["bfc1"], act=s.act, round_a=s.act_bf16,
+                        drop=s.drop(l, "mff"), want_pre=want_pre)
     return (h, *hm) if want_pre else (h, hm)
 
 
 def _mlp_half(ops, s: TrunkSpec, l, w, x1):
     """x1 -> (y, o_pre): the MLP branch, then the second FF product [x ls2]
     + x1; o_pre as in ``_attn_half``."""
-    hm = _mlp_branch(ops, s, l, w, x1)[1]
-    return _with_pre(s, ops.linear(
-        hm, w["wfc2"], w["bfc2"], residual=x1, round_a=s.act_bf16, drop=s.drop(l, "m2"),
-        round_out=s.residual_bf16, gain=w.get("ls2"), want_pre=s.layer_scale))
+    with s.span("ffn.fwd", x1):
+        hm = _mlp_branch(ops, s, l, w, x1)[1]
+        return _with_pre(s, ops.linear(
+            hm, w["wfc2"], w["bfc2"], residual=x1, round_a=s.act_bf16, drop=s.drop(l, "m2"),
+            round_out=s.residual_bf16, gain=w.get("ls2"), want_pre=s.layer_scale))
 
 
 def trunk_forward(s: TrunkSpec, x, weights, attn_bias=None, key_bias=None,
@@ -231,16 +288,21 @@ def _drop_bwd(ops, s: TrunkSpec, l, w, dy, site, o_pre, grads):
 
 def _mlp_half_bwd(ops, s: TrunkSpec, l, w, x1, dy, grads, o_pre=None):
     """``_mlp_residual_bwd``: cotangent dy of y -> cotangent of x1."""
-    h, hm, a1 = _mlp_branch(ops, s, l, w, x1, want_pre=True)
-    do = _drop_bwd(ops, s, l, w, dy, "m2", o_pre, grads)
-    grads["wfc2"][l], grads["bfc2"][l] = ops.linear_wgrad(hm, do, s.act_bf16)
-    dhm = ops.linear(do, w["wfc2"], None, trans_w=True, round_a=s.act_bf16)
-    da1 = ops.act_dropout_bwd(dhm, a1, s.act, s.drop(l, "mff"))
-    grads["wfc1"][l], grads["bfc1"][l] = ops.linear_wgrad(h, da1, s.act_bf16)
-    dh = ops.linear(da1, w["wfc1"], None, trans_w=True, round_a=s.act_bf16)
-    dx1, grads["g2"][l], grads["b2"][l] = ops.layernorm_bwd(
-        x1, w["g2"], dh, s.eps, residual=dy, round_out=s.residual_bf16)
-    return dx1
+    with s.span("ffn.bwd", x1):
+        h, hm, a1 = _mlp_branch(ops, s, l, w, x1, want_pre=True)
+        do = _drop_bwd(ops, s, l, w, dy, "m2", o_pre, grads)
+        grads["wfc2"][l], grads["bfc2"][l] = ops.linear_wgrad(hm, do, s.act_bf16)
+        dhm = ops.linear(do, w["wfc2"], None, trans_w=True, round_a=s.act_bf16)
+        if s.act == "swiglu":
+            with _gate_span(s, "bwd", x1):
+                da1 = ops.swiglu_bwd(dhm, a1)
+        else:
+            da1 = ops.act_dropout_bwd(dhm, a1, s.act, s.drop(l, "mff"))
+        grads["wfc1"][l], grads["bfc1"][l] = ops.linear_wgrad(h, da1, s.act_bf16)
+        dh = ops.linear(da1, w["wfc1"], None, trans_w=True, round_a=s.act_bf16)
+        dx1, grads["g2"][l], grads["b2"][l] = ops.layernorm_bwd(
+            x1, w["g2"], dh, s.eps, residual=dy, round_out=s.residual_bf16)
+        return dx1
 
 
 def _attn_half_bwd(ops, s: TrunkSpec, l, w, x, dx1, B, N, attn_bias, key_bias,
@@ -337,12 +399,14 @@ def fused_vit_trunk_train(
     act_bf16: bool = False,
     residual_bf16: bool = False,
     layer_scale: bool = False,
+    act: str = "gelu",
 ) -> torch.Tensor:
-    """Differentiable ViT trunk (GELU, LayerNorm eps 1e-6, shared (N, N)
-    bias, no dropout; with ``layer_scale`` DINOv2's gains ``ls1`` / ``ls2``
-    from the stacks): forward and backward on the kernels. Gradients reach
-    x and the stacks."""
-    spec = TrunkSpec(nhead=nhead, eps=1e-6, act="gelu", act_bf16=act_bf16,
+    """Differentiable ViT trunk (GELU, or with ``act="swiglu"`` DINOv2's
+    gated feed-forward over interleaved ``wfc1`` stacks; LayerNorm eps 1e-6,
+    shared (N, N) bias, no dropout; with ``layer_scale`` DINOv2's gains
+    ``ls1`` / ``ls2`` from the stacks): forward and backward on the kernels.
+    Gradients reach x and the stacks."""
+    spec = TrunkSpec(nhead=nhead, eps=1e-6, act=act, act_bf16=act_bf16,
                      residual_bf16=residual_bf16, layer_scale=layer_scale,
                      name="vit_trunk")
     return train_trunk(x, stacks, spec, attn_bias=attn_bias.contiguous())

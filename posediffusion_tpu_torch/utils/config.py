@@ -115,14 +115,17 @@ def model_config_from_cfg(model_cfg: Config):
     diff = model_cfg.get("DIFFUSER", Config())
     extractor = model_cfg.get("IMAGE_FEATURE_EXTRACTOR", Config())
     modelname = extractor.get("modelname", "dino_vits16")
+    # the backbone's width, depth and heads (posediffusion_tpu/utils/config.py
+    # :131-132; ViT-g/14's from DINOv2's vit_giant2)
+    z_dim, depth, heads = {"dino_vitb16": (768, 12, 12),
+                           "dinov2_vitg14": (1536, 40, 24)}.get(modelname, (384, 12, 6))
     config = PoseDiffusionConfig(
         pose_encoding_type=model_cfg.get("pose_encoding_type", "absT_quaR_logFL"),
         modelname=modelname,
-        # the backbone's width and heads (posediffusion_tpu/utils/config.py:131-132)
-        z_dim=768 if modelname == "dino_vitb16" else 384,
-        vit_heads=12 if modelname == "dino_vitb16" else 6,
+        z_dim=z_dim,
+        vit_heads=heads,
         freeze_extractor=bool(extractor.get("freeze", False)),
-        vit_depth=int(extractor.get("depth", 12)),
+        vit_depth=int(extractor.get("depth", depth)),
         scale_factors=tuple(extractor.get("scale_factors", (1.0, 1.0 / 2, 1.0 / 3))),
         compute_dtype=str(extractor.get("compute_dtype", "float32")),
         d_model=int(tr.get("d_model", 512)),

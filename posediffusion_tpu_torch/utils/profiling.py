@@ -23,7 +23,7 @@ from typing import Dict
 import torch
 
 SPAN_PREFIX = "pd."
-_NO_SPAN = contextlib.nullcontext()
+NO_SPAN = contextlib.nullcontext()  # the one null context of every idle span
 
 
 def span(name: str):
@@ -34,7 +34,7 @@ def span(name: str):
     that enters no dispatcher."""
     if torch.autograd._profiler_enabled():
         return torch.profiler.record_function(SPAN_PREFIX + name)
-    return _NO_SPAN
+    return NO_SPAN
 
 
 @contextlib.contextmanager

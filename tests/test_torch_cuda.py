@@ -394,12 +394,13 @@ def test_wrappers_check_their_inputs(cuda):
         K.layernorm(a, torch.ones(15, device=cuda), torch.zeros(16, device=cuda), 1e-5)
     with pytest.raises(ValueError, match="head width"):
         K.attention(torch.randn(1, 8, 3 * 256, device=cuda), 1)
-    wide = torch.randn(4, 1056, device=cuda)
-    g = torch.ones(1056, device=cuda)
-    with pytest.raises(ValueError, match="1024"):
+    wide = torch.randn(4, K.LAYERNORM_BWD_MAX_D + 32, device=cuda)
+    g = torch.ones(wide.shape[1], device=cuda)
+    with pytest.raises(ValueError, match=str(K.LAYERNORM_BWD_MAX_D)):
         K.layernorm_bwd(wide, g, wide, 1e-6)
-    with pytest.raises(ValueError, match="1024"):
-        K.layerscale_bwd(wide, wide, g)
+    wider = torch.randn(4, K.LAYERSCALE_MAX_D + 32, device=cuda)
+    with pytest.raises(ValueError, match=str(K.LAYERSCALE_MAX_D)):
+        K.layerscale_bwd(wider, wider, torch.ones(wider.shape[1], device=cuda))
     with pytest.raises(ValueError, match="shape"):
         K.linear(a, w, b, gain=torch.ones(5, device=cuda))
 
@@ -1060,7 +1061,8 @@ def test_attention_bwd_shared_memory_and_refusals(cuda):
 # 264 x 8 warps of the grid (several rows a warp)
 @pytest.mark.parametrize("rows,D", [(5000, 384), (37, 512), (3, 64), (3000, 768), (40, 1000),
                                     (2113, 16), (1001, 100), (20000, 384), (5, 1024),
-                                    (4321, 512), (2112, 1024)])
+                                    (4321, 512), (2112, 1024), (3001, 1536), (9, 1536),
+                                    (777, 1100), (40, 1500)])
 @pytest.mark.parametrize("round_out", [False, True])
 def test_layernorm_bwd(cuda, rows, D, round_out):
     r = _gen(rows)
@@ -1074,7 +1076,7 @@ def test_layernorm_bwd(cuda, rows, D, round_out):
         _close(out[2], ref[2], TOL_F32)
 
 
-@pytest.mark.parametrize("rows,D", [(135168, 384), (3001, 768), (999, 100)])
+@pytest.mark.parametrize("rows,D", [(135168, 384), (3001, 768), (999, 100), (33408, 1536)])
 def test_layernorm_bwd_repeats_bitwise(cuda, rows, D):
     """dx, dg and db bit for bit across calls: per-block partials summed in
     a fixed order, no atomics."""
@@ -1497,7 +1499,8 @@ def test_linear_gain(cuda, M, K_, N, wdtype, round_a):
     _close(pre, prep, TOL_F32)
 
 
-@pytest.mark.parametrize("M,D", [(999, 77), (17400, 384), (3000, 768)])
+@pytest.mark.parametrize("M,D", [(999, 77), (17400, 384), (3000, 768), (2999, 1536),
+                                 (65, 1100)])
 @pytest.mark.parametrize("drop", [0.0, 0.1])
 def test_layerscale_bwd(cuda, M, D, drop):
     r = _gen(M)
@@ -1900,3 +1903,122 @@ def test_dinov2_bf16_serving_matches_the_cpu(cuda):
     assert counts["attention"] == 12 and counts["layernorm"] == 0 and counts["linear"] == 0
     assert out.shape == (1, 4, 384)
     _close(out.cpu(), ref, TOL_BF16)
+
+
+# ------------------------------ ViT-g/14's SwiGLU gate: linear's gated
+# epilogue (act="swiglu", csrc/linear.cu) and swiglu_bwd (csrc/train.cu)
+# ViT-g's w12 at a slice of its 33,408 rows and at ragged row counts; the
+# (K, N) of a narrow SwiGLU too
+SWIGLU_SHAPES = [(4176, 1536, 8192), (33, 1536, 8192), (1000, 1536, 8192), (7, 64, 352),
+                 (2999, 384, 2048)]
+
+
+@pytest.mark.parametrize("M,K_,N", SWIGLU_SHAPES)
+@pytest.mark.parametrize("want_pre", [False, True])
+def test_linear_swiglu_matches_plain(cuda, M, K_, N, want_pre):
+    """The gated product on TF32 wgmma against plain: float32 sums in
+    another order (1e-5); y is (M, N / 2), pre the whole (M, N); every row
+    count takes the tensor-core route (no few-rows route for the gate)."""
+    r = _gen(M + N)
+    a = _t(r.normal(size=(M, K_)), cuda)
+    w = _t(r.normal(size=(K_, N)) / np.sqrt(K_), cuda)
+    b = _t(0.1 * r.normal(size=N), cuda)
+    K.reset_launch_counts()
+    out = K.linear(a, w, b, act="swiglu", want_pre=want_pre)
+    assert K.linear.by_route == {"tf32_wgmma": 1} and K.launch_counts()["linear_rows"] == 0
+    ref = K.linear_plain(a, w, b, act="swiglu", want_pre=want_pre)
+    for o, p in zip(out, ref) if want_pre else [(out, ref)]:
+        assert o.shape == p.shape
+        _close(o, p, TOL_F32)
+
+
+@pytest.mark.parametrize("M,K_,N", [(1000, 1536, 8192), (77, 130, 70), (300, 64, 354)])
+def test_linear_swiglu_refuses_operands_tma_cannot_address(cuda, M, K_, N):
+    """The gate runs on the TF32 wgmma tile only: a one float off a 16-byte
+    boundary, or K or N off 4, would take mma.sync, so linear refuses it
+    before any launch."""
+    r = _gen(M)
+    buf = _t(r.normal(size=M * K_ + 1), cuda)
+    a = buf[1:].view(M, K_)
+    w = _t(r.normal(size=(K_, N)) / np.sqrt(K_), cuda)
+    b = _t(0.1 * r.normal(size=N), cuda)
+    K.reset_launch_counts()
+    with pytest.raises(ValueError, match="tf32_wgmma route only"):
+        K.linear(a, w, b, act="swiglu", want_pre=True)
+    assert K.launch_counts()["linear"] == 0 and K.linear.by_route == {}
+
+
+def test_linear_swiglu_refuses_what_it_has_not(cuda):
+    a = torch.randn(64, 32, device=cuda)
+    w = torch.randn(32, 64, device=cuda)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        K.linear(a, w.to(torch.bfloat16), None, act="swiglu", round_a=True)
+    with pytest.raises(ValueError, match="no residual"):
+        K.linear(a, w, None, act="swiglu", residual=torch.zeros(64, 64, device=cuda))
+    with pytest.raises(ValueError, match="trans_w"):
+        K.linear(a, w.t().contiguous(), None, act="swiglu", trans_w=True)
+    with pytest.raises(ValueError, match="odd"):
+        K.linear(a, torch.randn(32, 63, device=cuda), None, act="swiglu")
+    with pytest.raises(ValueError, match="few-rows"):
+        K.linear_rows(a[:8], w, None, act="swiglu")
+
+
+@pytest.mark.parametrize("M,H", [(4176, 4096), (33, 4096), (999, 88), (3, 1)])
+def test_swiglu_bwd_matches_plain(cuda, M, H):
+    """The gate's backward against plain (1e-5 of max(1, |plain|)), its
+    float4 instance and the scalar one (an odd count, and operands off a
+    16-byte boundary)."""
+    r = _gen(M * H)
+    dh = _t(r.normal(size=(M, H)), cuda)
+    pre = _t(2 * r.normal(size=(M, 2 * H)), cuda)
+    K.reset_launch_counts()
+    _close(K.swiglu_bwd(dh, pre), K.swiglu_bwd_plain(dh, pre), TOL_F32)
+    assert K.launch_counts()["swiglu_bwd"] == 1
+    bufs = [_t(r.normal(size=n + 1), cuda) for n in (M * H, 2 * M * H)]
+    dh1, pre1 = bufs[0][1:].view(M, H), bufs[1][1:].view(M, 2 * H)
+    _close(K.swiglu_bwd(dh1, pre1), K.swiglu_bwd_plain(dh1, pre1), TOL_F32)
+
+
+def test_swiglu_train_trunk_matches_plain(cuda):
+    """The SwiGLU train trunk (LayerScale, interleaved w12), forward and
+    backward, kernel route against the plain route through 2 layers at
+    ViT-g's width (D 1,536, 24 heads, hidden 4,096) on 4 images of 348
+    tokens: 1e-4, as the other trunks; and the per-layer spans."""
+    from posediffusion_tpu_torch.ops import vit_train_kernel as V
+
+    r = _gen(11)
+    B, N, D, H, F = 4, 348, 1536, 24, 4096
+    L = 2
+    st = {"g1": 1 + 0.1 * r.normal(size=(L, D)), "b1": 0.1 * r.normal(size=(L, D)),
+          "wqkv": r.normal(size=(L, D, 3 * D)) / np.sqrt(D), "bqkv": 0.1 * r.normal(size=(L, 3 * D)),
+          "wproj": r.normal(size=(L, D, D)) / np.sqrt(D), "bproj": 0.1 * r.normal(size=(L, D)),
+          "g2": 1 + 0.1 * r.normal(size=(L, D)), "b2": 0.1 * r.normal(size=(L, D)),
+          "wfc1": r.normal(size=(L, D, 2 * F)) / np.sqrt(D), "bfc1": 0.1 * r.normal(size=(L, 2 * F)),
+          "wfc2": r.normal(size=(L, F, D)) / np.sqrt(F), "bfc2": 0.1 * r.normal(size=(L, D))}
+    st.update({k: 1 + 0.1 * r.normal(size=(L, D)) for k in V.LS_KEYS})
+    x = r.normal(size=(B, N, D))
+    cot = _t(r.normal(size=(B, N, D)), cuda)
+    seg = np.arange(N) * 3 // N
+    bias = _t(np.where(seg[:, None] == seg[None], 0.0, K.NEG), cuda)
+
+    def run(plain):
+        xt = _t(x, cuda).requires_grad_(True)
+        sd = {k: _t(v, cuda).requires_grad_(True) for k, v in st.items()}
+        with V.plain_route() if plain else contextlib.nullcontext():
+            y = V.fused_vit_trunk_train(xt, sd, bias, H, layer_scale=True, act="swiglu")
+        y.backward(cot)
+        return [y.detach(), xt.grad] + [sd[k].grad for k in st]
+
+    K.reset_launch_counts()
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        kern = run(False)
+        torch.cuda.synchronize()
+    assert K.launch_counts()["swiglu_bwd"] == L and K.launch_counts()["act_dropout_bwd"] == 0
+    assert K.linear.by_shape[(B * N, D, 2 * F, False)] == 2 * L  # forward and recompute
+    names = {e.name for e in prof.events()}
+    assert {"pd.vit_trunk.ffn.fwd", "pd.vit_trunk.ffn.bwd", "pd.vit_trunk.gate.fwd",
+            "pd.vit_trunk.gate.bwd"} <= names
+    for out, ref in zip(kern, run(True)):
+        _close(out, ref, 1e-4)
