@@ -174,11 +174,14 @@ Phases (any failure exits non-zero and prints no result line):
              line;
   5f. vitg   DINOv2 ViT-g/14 at the benchmark cell's step (96 images, 348
              tokens, D 1,536, 40 blocks): one train step's launches (the
-             gated w12 products, swiglu_bwd and layerscale_bwd required),
-             then the gated product, swiglu_bwd, layernorm_bwd and
-             layerscale_bwd at D 1,536 against their plain versions at its
-             33,408 rows, each in the kernels line with its device time
-             and bound;
+             gated w12 products, swiglu_bwd and layerscale_bwd required,
+             every weight gradient on linear_wgrad.by_route's tf32_wgmma),
+             then the gated product, swiglu_bwd, layernorm_bwd,
+             layerscale_bwd at D 1,536 and the float32 weight gradients of
+             w12 and w3 against their plain versions at its 33,408 rows,
+             each in the kernels line with its device time and bound (the
+             weight gradients also beside torch.matmul with TF32 off and
+             on, and their route);
   6. timing  CUDA-event medians of the inferences, the conditioned tail,
              the match extraction stages, and each kernel beside its plain
              version, its bound (bytes or operations over the H100's peaks)
@@ -334,6 +337,8 @@ TRAIN_KERNELS = ("attention_bwd", "layernorm_bwd", "linear_wgrad", "act_dropout_
 # the kernels of linear's float32 tensor-core routes (kernels.linear_route):
 # mma.sync, or TF32 wgmma after its split of W
 LINEAR_F32_KERNELS = ("linear_tf32_kernel", "tf32_split_kernel", "linear_tf32_wgmma_kernel")
+# the kernels of linear_wgrad's float32 routes (csrc/linear.cu): mma.sync and TF32 wgmma
+WGRAD_F32_KERNELS = ("wgrad_tf32_kernel", "wgrad_tf32_wgmma_kernel")
 # DDIM (sampling_timesteps 10 of 100) on samples/apple: the ViT, kernel 3 a
 # step, and at t < DDIM_COND_START (its last step) the GGS phases
 DDIM_STEPS = 10
@@ -373,9 +378,11 @@ VITG = "MODEL.IMAGE_FEATURE_EXTRACTOR.modelname=dinov2_vitg14"
 VITG_IMAGES = 96
 VITG_D, VITG_HIDDEN, VITG_DEPTH = 1536, 4096, 40
 # a ViT-g step: the gated w12 product forward and recompute, swiglu_bwd, 2
-# LayerScale sites a block
+# LayerScale sites a block, and the weight gradients of w12 and w3, one each
+# a block
 VITG_PER_STEP = {"gated": 2 * VITG_DEPTH, "swiglu_bwd": VITG_DEPTH,
-                 "layerscale_bwd": 2 * VITG_DEPTH}
+                 "layerscale_bwd": 2 * VITG_DEPTH, "wgrad w12": VITG_DEPTH,
+                 "wgrad w3": VITG_DEPTH}
 # ResNet-50 and ResNet-101 (torchvision's Bottleneck ResNets on cuDNN, float32
 # with TF32 off, or their bf16 convolutions): serving on the sampler, GGS and
 # denoiser kernels with z 2,048 wide, the ViT kernels off the path; training
@@ -959,6 +966,24 @@ def _linear_f32_device(torch, K, fn):
     fn()
     routes = dict(K.linear.by_route)
     return {"device_ms": _kernel_device_ms(torch, fn, LINEAR_F32_KERNELS), "linear_route": routes}
+
+
+def _wgrad_f32_device(torch, K, x, dy):
+    """The device time per call of linear_wgrad's float32 kernel on (x, dy)
+    and of torch.matmul(x^T, dy) with allow_tf32 False and True (library
+    yardsticks the port never calls), and the route one call took
+    (``linear_wgrad.by_route``)."""
+    fn = lambda: K.linear_wgrad(x, dy)  # noqa: E731
+    K.linear_wgrad.by_route.clear()
+    fn()
+    route = dict(K.linear_wgrad.by_route)
+    out = {"device_ms": _kernel_device_ms(torch, fn, WGRAD_F32_KERNELS), "wgrad_route": route}
+    for tf32 in (False, True):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        out[f"library_device_ms_tf32_{'on' if tf32 else 'off'}"] = _kernel_device_ms(
+            torch, lambda: torch.matmul(x.t(), dy), None)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return out
 
 
 def _kernel_split_ms(torch, fn, calls=20):
@@ -2523,13 +2548,15 @@ def train_slice(report, dev, work, smi, t_start, dev_ms):
                               for k in ("attn_bwd_dq_kernel", "attn_bwd_dkv_kernel")}
         elif e["name"].startswith("linear_wgrad"):
             dy = dy_fc if e["name"] == "linear_wgrad" else dy_q
-            e["device_ms"] = _kernel_device_ms(torch, kern, "wgrad_tf32_kernel")
-            e["library_device_ms"] = _kernel_device_ms(
-                torch, lambda dy=dy: torch.matmul(x_fc.t(), dy), None)
+            e.update(_wgrad_f32_device(torch, K, x_fc, dy))
+            e["library_device_ms"] = e["library_device_ms_tf32_off"]
         if "device_ms" in e:
             print(f"  {e['name']} by device time: {e['device_ms']}, library "
                   f"{e.get('library_device_ms')}"
-                  + (f", route {e['linear_route']}" if "linear_route" in e else ""))
+                  + (f", TF32 on {e['library_device_ms_tf32_on']}"
+                     if "library_device_ms_tf32_on" in e else "")
+                  + (f", route {e['linear_route']}" if "linear_route" in e else "")
+                  + (f", route {e['wgrad_route']}" if "wgrad_route" in e else ""))
     timings["peak memory of a train step (GB)"] = peak_gb
     # the bf16 train mode: one DINO step, then its weight gradients (csrc/wgrad.cu)
     # at the step's shapes, their device times read in a child process
@@ -3926,14 +3953,15 @@ def dinov2_bf16_slice(report, dev, work, smi, t_start):
 def vitg_slice(report, dev, work, smi, t_start):
     """[vitg] DINOv2 ViT-g/14's train path at the cell dinov2g-train-f32's
     shapes: one train step of 96 images (after a warm-up step; launch counts
-    reset just before it, the gate's launches required), then the kernels
-    the path adds or widens against their plain versions at its 33,408 rows
-    with TOL_F32 -- the gated w12 product (forward, and with its
-    pre-activation as the recompute takes it), swiglu_bwd, layernorm_bwd at
-    D 1,536 (the wide kernel, with the residual) and layerscale_bwd at D
-    1,536 -- each timed beside its plain version, with its device time and
-    a bound from its inputs. Returns (kernels-line entries, timings, the
-    step's launches)."""
+    reset just before it, the gate's launches required, every weight
+    gradient on TF32 wgmma), then the kernels the path adds or widens
+    against their plain versions at its 33,408 rows with TOL_F32 -- the
+    gated w12 product (forward, and with its pre-activation as the
+    recompute takes it), swiglu_bwd, layernorm_bwd at D 1,536 (the wide
+    kernel, with the residual), layerscale_bwd at D 1,536 and the float32
+    weight gradients of w12 and w3 -- each timed beside its plain version,
+    with its device time and a bound from its inputs. Returns
+    (kernels-line entries, timings, the step's launches)."""
     import torch
 
     from posediffusion_tpu_torch.models.pose_diffusion import (
@@ -3967,17 +3995,26 @@ def vitg_slice(report, dev, work, smi, t_start):
     launches = _step_launches(K, step)
     step_ms = (time.perf_counter() - t0) * 1e3
     routes, shapes = dict(K.linear.by_route), dict(K.linear.by_shape)
+    wgrad_routes, wgrad_shapes = dict(K.linear_wgrad.by_route), dict(K.linear_wgrad.by_shape)
     timings = {"[vitg] train step ms (host clock, one step)": step_ms,
                "[vitg] peak memory of a train step (GB)": torch.cuda.max_memory_allocated() / 1e9}
     rows = images * 348
     gated = shapes.get((rows, VITG_D, 2 * VITG_HIDDEN, False), 0)
+    # the step's weight gradients of w12 (D -> 2H) and w3 (H -> D), by (M, K, N)
+    wgrads = {"w12": wgrad_shapes.get((rows, VITG_D, 2 * VITG_HIDDEN), 0),
+              "w3": wgrad_shapes.get((rows, VITG_HIDDEN, VITG_D), 0)}
     print(f"  {images} images ({rows} trunk rows, {n_rows} denoiser rows); launches of one step: "
-          f"{launches}; linear by route {routes}; gated w12 products {gated}")
+          f"{launches}; linear by route {routes}; linear_wgrad by route {wgrad_routes}; gated "
+          f"w12 products {gated}; weight gradients of w12 and w3 {wgrads}")
+    report.require(f"[vitg] every weight gradient of the step on TF32 wgmma "
+                   f"({launches['linear_wgrad']})",
+                   wgrad_routes == {"tf32_wgmma": launches["linear_wgrad"]}, f"({wgrad_routes})")
     report.require(f"[vitg] the step's images are the cell's {VITG_IMAGES}",
                    images == VITG_IMAGES, f"({images})")
     report.require("[vitg] train step loss finite", np.isfinite(m["loss"]), f"({m['loss']:.5f})")
+    counted = {"gated": gated, "wgrad w12": wgrads["w12"], "wgrad w3": wgrads["w3"]}
     for key, want in VITG_PER_STEP.items():
-        got = gated if key == "gated" else launches[key]
+        got = counted[key] if key in counted else launches[key]
         report.require(f"[vitg] a step launches {want} {key}", got == want, f"({got})")
     del model, opt, batch, draws, m
     torch.cuda.empty_cache()
@@ -4065,11 +4102,37 @@ def vitg_slice(report, dev, work, smi, t_start):
               bound(nbytes(dy, o_pre, g) + nbytes(dy) + D * 4, 3 * M * D),
               {"device_ms": _kernel_device_ms(torch, call, None)})
         del dy, o_pre, g
+        torch.cuda.empty_cache()
+        # the weight gradients of w12 (D -> 2H, the interleaved halves) and w3
+        # (H -> D), float32
+        for name, Kw, Nw in (("w12", D, 2 * H), ("w3", H, D)):
+            x, dy = rnd(M, Kw), rnd(M, Nw)
+            dw, db = K.linear_wgrad(x, dy)
+            dw_p, db_p = K.linear_wgrad_plain(x, dy)
+            err = max(_close_rel(report, f"[vitg] linear_wgrad {name} dW ({M}x{Kw})^T ({M}x{Nw})",
+                                 dw, dw_p, TOL_F32),
+                      _close_rel(report, f"[vitg] linear_wgrad {name} db", db, db_p, TOL_F32))
+            report.require(f"[vitg] linear_wgrad {name} repeats bitwise",
+                           torch.equal(dw, K.linear_wgrad(x, dy)[0]))
+            del dw, db, dw_p, db_p
+            call = lambda x=x, dy=dy: K.linear_wgrad(x, dy)  # noqa: E731
+            entry("linear_wgrad", f"linear_wgrad f32 vitg {name}", f"({M}x{Kw})^T ({M}x{Nw}) "
+                  "(launches: a step's at this shape)", err, wgrads[name], call,
+                  lambda x=x, dy=dy: K.linear_wgrad_plain(x, dy), wgrad_bound(x, dy),
+                  _wgrad_f32_device(torch, K, x, dy))
+            e = entries[-1]
+            e["library_ms"] = e["library_device_ms_tf32_off"]
+            print(f"    library by device time: TF32 off {e['library_device_ms_tf32_off']:.4f} ms, "
+                  f"on {e['library_device_ms_tf32_on']:.4f} ms; route {e['wgrad_route']}",
+                  flush=True)
+            del x, dy
+            torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     timings["[vitg] seconds"] = time.perf_counter() - t_phase
     print(f"  [vitg] done at {time.perf_counter() - t_start:.0f} s, card {smi}", flush=True)
     return entries, timings, {"train step": launches, "linear by route": routes,
-                              "gated w12 products": gated}
+                              "linear_wgrad by route": wgrad_routes, "gated w12 products": gated,
+                              "weight gradients of w12 and w3": wgrads}
 
 
 def learnability_module():

@@ -6,6 +6,8 @@
     python3 kernel_probes.py --linear [--few-tiles] [--root DIR]
         # linear's float32 train products (or products of fewer 128 x 128
         # tiles than SMs), timed; the port imported from DIR
+    python3 kernel_probes.py --wgrad [--root DIR]
+        # linear_wgrad's float32 train weight gradients, timed
 
 --stream times act_dropout_bwd's computation (dh x mask x GELU'(a), and the
 mask alone) at the ViT's fc1 (135,168 x 1,536 float32) in layouts that
@@ -33,6 +35,16 @@ one card, one after the other. With --few-tiles it times products of
 fewer 128 x 128 tiles than the card has SMs instead (the f32 serving ViT's
 N 384 products, a learnability-sized trunk, few rows with trans_w), by CUDA
 events and by CUDA-graph replay (the device's time without the host's).
+
+--wgrad times ``linear_wgrad`` in float32 mode at the train cells' weight
+gradients (ViT-S at 512 x 264 rows, ViT-g at 96 x 348, the encoder at
+2,880 x 16): the weight-gradient kernel's device time and the whole call's
+(its partials summed) by torch.profiler, CUDA-event time, the plain
+version's, the 3xTF32 bound (x and dy read once, the partials' traffic not
+counted), torch.matmul(x^T, dy) with allow_tf32 False and True (library
+yardsticks the port never calls), the route (``linear_wgrad.by_route``,
+where the port has it) and the largest difference from the plain version
+relative to its largest value. --root DIR as for --linear.
 
 The probe kernels are built here with nvcc into build/probes/ (they are not
 part of the port). Times are CUDA-event medians after warm-up, with the
@@ -311,6 +323,68 @@ def linear_probe(torch, time_ms, few_tiles=False):
     print(json.dumps({"linear_probe": rows}))
 
 
+# (name, M, K, N) of the float32 train weight gradients
+WGRAD_CASES = [
+    ("vit-s fc1", 135168, 384, 1536),
+    ("vit-s qkv", 135168, 384, 1152),
+    ("vit-s proj", 135168, 384, 384),
+    ("vit-s fc2", 135168, 1536, 384),
+    ("encoder linear1", 46080, 512, 1024),
+    ("vit-g w12", 33408, 1536, 8192),
+    ("vit-g w3", 33408, 4096, 1536),
+    ("vit-g qkv", 33408, 1536, 4608),
+    ("vit-g proj", 33408, 1536, 1536),
+]
+WGRAD_KERNELS = ("wgrad_tf32_kernel", "wgrad_tf32_wgmma_kernel")
+
+
+def wgrad_probe(torch, time_ms):
+    import json
+
+    from chip_smoke import _kernel_device_ms
+    from posediffusion_tpu_torch.ops import kernels as K
+
+    print(f"[wgrad] port from {os.path.dirname(os.path.dirname(os.path.dirname(K.__file__)))}")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = []
+    for name, M, Kd, N in WGRAD_CASES:
+        x = torch.randn((M, Kd), generator=g, device=dev)
+        dy = torch.randn((M, N), generator=g, device=dev)
+        call = lambda: K.linear_wgrad(x, dy)  # noqa: E731
+        K.reset_launch_counts()
+        dw, db = call()
+        route = dict(getattr(K.linear_wgrad, "by_route", {})) or "tf32_mma (no by_route)"
+        rw, rb = K.linear_wgrad_plain(x, dy)
+        err = max(((dw - rw).abs().max() / rw.abs().max()).item(),
+                  ((db - rb).abs().max() / rb.abs().max()).item())
+        del dw, db, rw, rb
+        io = (M * Kd + M * N + Kd * N + N) * 4
+        bound = max(io / 3.35e12, 3 * 2 * M * Kd * N / 495e12) * 1e3
+        kernel_ms = _kernel_device_ms(torch, call, WGRAD_KERNELS, calls=10)
+        call_ms = _kernel_device_ms(torch, call, None, calls=10)
+        ms = time_ms(torch, call, reps=10)
+        plain_ms = time_ms(torch, lambda: K.linear_wgrad_plain(x, dy), reps=5)
+        lib = {}
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            lib[f"allow_tf32={tf32}"] = time_ms(torch, lambda: torch.matmul(x.t(), dy), reps=10)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        row = dict(case=name, M=M, K=Kd, N=N, route=route, rows=K.wgrad_rows(M, Kd, N),
+                   kernel_device_ms=kernel_ms, call_device_ms=call_ms, ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound, pct_of_3xtf32=100 * bound / kernel_ms, library_ms=lib,
+                   max_rel_err=err)
+        rows.append(row)
+        print(f"  {name} ({M}x{Kd})^T ({M}x{N}): {route}, kernel {kernel_ms:.4f} ms by device "
+              f"time ({100 * bound / kernel_ms:.1f}% of the 3xTF32 bound {bound:.4f} ms), call "
+              f"{call_ms:.4f} (events {ms:.4f}); plain {plain_ms:.4f}; torch f32 "
+              f"{lib['allow_tf32=False']:.4f}, TF32 {lib['allow_tf32=True']:.4f}; rel err "
+              f"{err:.2e}", flush=True)
+        del x, dy
+    print(json.dumps({"wgrad_probe": rows}))
+
+
 def main(argv) -> int:
     if "--root" in argv:  # before the port's first import
         sys.path.insert(0, os.path.abspath(argv[argv.index("--root") + 1]))
@@ -327,6 +401,9 @@ def main(argv) -> int:
     print(f"card: {smi.strip()}")
     if "--linear" in argv:
         linear_probe(torch, _time_ms, few_tiles="--few-tiles" in argv)
+        return 0
+    if "--wgrad" in argv:
+        wgrad_probe(torch, _time_ms)
         return 0
     so = build()
     if "--mma" not in argv:

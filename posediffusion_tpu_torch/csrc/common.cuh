@@ -111,10 +111,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// x rounded to TF32, to nearest with ties away from zero: what
+// cvt.rna.tf32.f32 gives for every finite x, by an integer add and a mask
+// (the instruction compiles to these two and a NaN test and select; a NaN x
+// still gives a NaN lo below, so a product with it stays NaN)
 __device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
 // x ~ hi + lo (about 2^-21 relative): hi rounded to TF32, lo = x - hi

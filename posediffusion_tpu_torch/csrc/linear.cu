@@ -76,17 +76,19 @@
 // writes an f32 partial (S, K, N), and a second pass (train.cu,
 // pd_sum_partials) sums the S partials in order. That is the TPU kernel's
 // per-batch-chunk partials (:937-940): deterministic, no atomics. In float32
-// mode its products are 3xTF32 tensor-core MMAs (wgrad_tf32_kernel below, a
-// 128 x 128 tile fed by a cp.async ring), in bf16 mode bf16 wgmma
-// (wgrad_bf16_wgmma_kernel in wgrad.cu, a 128 x 128 tile fed by TMA, both
-// operands rounded into shared memory); db is the column sum of dY in the
-// same pass. TF32 wgmma reads B from shared memory only K-major: A ((M, K)
-// row-major: a in the forward, dY in the dgrad) and the dgrad's W (N, K)
-// are K-major as they lie, the forward's W (K, N) is MN-major and is
-// transposed as its TF32 halves are written; both operands of the weight
-// gradient (X and dY, contracted over rows) are M-major, so it stays on
-// mma.sync. bf16 wgmma takes MN-major operands, so the bf16 routes read W
-// (K, N), X and dY as they lie.
+// mode its products are 3xTF32, on TF32 wgmma where TMA can address X and
+// dY (wgrad_tf32_wgmma_kernel below), else on mma.sync (wgrad_tf32_kernel);
+// in bf16 mode bf16 wgmma (wgrad_bf16_wgmma_kernel in wgrad.cu, both
+// operands rounded into shared memory); all three are 128 x 128 tiles and
+// take db, the column sum of dY, in the same pass. TF32 wgmma reads B from
+// shared memory only K-major: A ((M, K) row-major: a in the forward, dY in
+// the dgrad) and the dgrad's W (N, K) are K-major as they lie, the
+// forward's W (K, N) is MN-major and is transposed as its TF32 halves are
+// written; both operands of the weight gradient (X and dY, contracted over
+// rows) are M-major, so its wgmma tile takes X^T as A from registers and
+// transposes dY into K-major TF32 halves inside the tile. bf16 wgmma takes
+// MN-major operands, so the bf16 routes read W (K, N), X and dY as they
+// lie.
 #include <cooperative_groups.h>
 #include <cuda_pipeline.h>
 
@@ -1493,13 +1495,14 @@ int launch_rows_bn(const float* a, const WT* w, const Epilogue& ep,
 // Block (n tile, k tile, split s). X is (M, K), dY (M, N); the partial
 // (S, K, N) and, from the blocks of k tile 0, the bias partial (S, N).
 
-// ---- float32 mode: 3xTF32 on the tensor cores (mma.sync m16n8k8)
+// ---- float32 mode's fallback: 3xTF32 on mma.sync m16n8k8
 //
 // dW[k][n] = sum_m X[m][k] dY[m][n]: MMA rows are dW's k, MMA columns its n,
-// the MMA depth runs over data rows m. Both operands contract over rows, so
-// both are MN-major in memory; TF32 wgmma reads only K-major operands from
-// shared memory and would need a transposing stage, so this tile uses
-// mma.sync, which takes its fragments from registers in any order.
+// the MMA depth runs over data rows m. mma.sync takes its fragments from
+// registers in any order, so this tile needs no transposing stage, and its
+// cp.async ring takes rows TMA cannot address (K or N off 4, a base off 16
+// bytes: element copies). It stays for those operands (wgrad_route); it
+// tops out at the TF32 mma.sync issue ceiling (kernel_probes.py --mma).
 //   * Block: a 128 x 128 tile of dW (WG_BK x WG_BN), 8 warps of 64 (k) x 32
 //     (n), 16 MMA tiles a warp. The split's rows stream through a ring of
 //     WG_STAGES slices of 32 rows of X (32 x 128) and dY (32 x 128) with
@@ -1684,6 +1687,305 @@ wgrad_tf32_kernel(const float* __restrict__ X, const float* __restrict__ dY,
   }
 }
 
+// ---- float32 mode on TF32 wgmma (sm_90a): 3xTF32, dY transposed in the tile
+//
+// partial[s] = X[rows of s]^T dY[rows of s], X (M, K) and dY (M, N) float32
+// on 16-byte boundaries with K % 4 == N % 4 == 0 (wgrad_route: rows TMA can
+// address). Bound: compute, three TF32 products of 2 M K N operations at 495
+// TFLOP/s. wgrad_tf32_kernel's mma.sync ran at 30-33% of that rate at the
+// train trunks' widths; this tile at 62-66% (kernel_probes.py --wgrad, an
+// H100 at 700 W), where shared memory bounds it (below).
+//   * The transpose: dW's rows k are the MMA's rows and the data rows m its
+//     depth, so both X^T (k by m) and dY (m by n) lie M-major. TF32 wgmma
+//     takes A from registers in any order, but reads B from shared memory
+//     only K-major (no transpose bit for 32-bit types), and a transposed
+//     copy of dY made before the call would take 1.7-2.2 GB at the train
+//     trunks' widest products. So dY is transposed inside the tile: from
+//     each float32 slot, warpgroup 2 writes dY's TF32 hi and lo halves as
+//     128 rows of n by 32 data rows with the 128-byte swizzle (wgmma's
+//     K-major B) into one of two buffers, while the tensor cores run the
+//     other.
+//   * Roles: warpgroups 0 and 1 consume (64 rows of dW each; setmaxnreg
+//     232); warpgroup 2 (40) converts, thread n of it column n of dY, and
+//     warp 8's lane 0 also keeps the TMA loads in flight. A consumer warp
+//     stalls at each wgmma until the tensor cores take it (1,600 of a
+//     slot's ~2,400 clocks, clock64 in the loop), so conversion by the
+//     consumers themselves ran at 61-62% between their products and at
+//     57-59% after them. Barriers, no block-wide sync: full and empty a
+//     ring slot (loaded; its X and dY read), conv and done a buffer
+//     (converted; its products done).
+//   * Grid: one block per (row split, 128 x 128 tile of dW), the split
+//     slowest (kernels.wgrad_rows, as for the other tiles); within a split
+//     the tiles go in bands of WT_BAND n tiles, k fastest in a band, so the
+//     blocks that run at once read a near-square set of X's and dY's
+//     columns from the L2 (with n fastest a wave of ViT-g's w12, 12 x 64
+//     tiles, read all 8,192 columns of dY; it measured the same).
+//   * A ring slot (Wt) holds 32 data rows: X's 128 columns as four 32 x
+//     32-float boxes with the 128-byte swizzle, dY's 128 as one box of
+//     512-byte rows; zeros past M, K and N, and rows past the split are
+//     zeroed as they are read.
+//   * A = X^T from registers: a consumer thread's fragment rows g and g + 8
+//     are dW rows 2g and 2g + 1 of its warp's 16, and MMA depths t and t + 4
+//     of k8 step kk are data rows 8 kk + 2t and 8 kk + 2t + 1, so a thread
+//     reads its four values a step with two 8-byte loads, a half-warp's 16
+//     loads on 32 distinct banks (the chunk (g / 2) ^ (m % 8) differs across
+//     its lanes), and splits them in registers. The next slot's X is read
+//     while a slot's products run.
+//   * B = dY: a converter thread reads its column down the slot (a warp
+//     reads 32 adjacent floats), splits each value, writes 16-byte runs of
+//     four depths (the data rows the A layout puts at adjacent depths; a
+//     quarter-warp's 8 rows of n hit 8 distinct chunks) and adds the
+//     unsplit values into db's column sum, a slot's sum at a time.
+//   * Shared memory is the bound: a slot moves ~192 KB through it (wgmma's
+//     reads of B 96 KB, TMA 32, the conversion 48, X's fragments 16) against
+//     ~1,536 clocks of tensor work at full rate. Without the converters'
+//     stores the tile ran 70-76%, without X's loads 69-71%; the forward
+//     tile moves 160 KB a slot and runs at 60-74%.
+//   * Products: each k8 step runs lo.hi, hi.lo, hi.hi (wgmma m64n128k8) into
+//     one accumulator; lo.lo (~2^-22) is dropped.
+//   * Precision: the tensor core truncates its sums, so each WT_GROUP slots
+//     (64 data rows) go into an accumulator zeroed by scale-d = 0 that is
+//     then added, rounded to nearest, into the running one (128 rows ran a
+//     point faster and doubled the emulated error: tests/test_torch_tf32.py).
+//     With 64, the benchmark's correct read grad <= 7.5e-5 at ViT-g (limit
+//     5e-4) and <= 2.8e-5 at ViT-S (2e-4), change <= 9.1e-4 (1.5e-3, 5e-3).
+//     A fixed order, no atomics: the result repeats bitwise.
+//   * Epilogue: the accumulators go straight to the partial as float2
+//     stores, db from the converter threads.
+constexpr int WT_SLICE = 32;  // data rows of a ring slot: four k8 steps
+constexpr int WT_GROUP = 2;   // slots summed into one fresh accumulator: 64 rows
+constexpr int WT_BAND = 8;    // n tiles of a band of the block order
+
+// the tile's shared memory (pd_linear_wgrad_tf32_smem_bytes; a test works it
+// by hand): 1,024 bytes of alignment slack, STAGES ring slots (X's four
+// swizzled boxes, dY's 32 x 128 floats), two buffers of dY's TF32 hi and lo
+// halves (128 rows of 128 bytes each), then the full and empty barriers of
+// the slots and the conv and done barriers of the buffers
+struct Wt {
+  static constexpr int TILE = 128;                      // dW tile: 128 (k) x 128 (n)
+  static constexpr int X_BOX = WT_SLICE * 128;          // 32 rows of 32 floats
+  static constexpr int X_BYTES = (TILE / 32) * X_BOX;   // X's 128 columns
+  static constexpr int D_BYTES = WT_SLICE * TILE * 4;   // dY's 128 columns
+  static constexpr int SLOT = X_BYTES + D_BYTES;
+  static constexpr int STAGES = 5;
+  static constexpr int HALF = TILE * 128;  // one TF32 half of dY^T: 128 rows of n
+  static constexpr int BUF = 2 * HALF;     // hi, then lo
+  static constexpr int BUFS = 2;           // slot q's halves in buffer q % 2
+  static constexpr int SMEM = 1024 + STAGES * SLOT + BUFS * BUF + 2 * (STAGES + BUFS) * 8;
+};
+
+__global__ void __launch_bounds__(BW_THREADS, 1)
+wgrad_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                        const __grid_constant__ CUtensorMap tm_d, float* __restrict__ pw,
+                        float* __restrict__ pb, int M, int K, int N, int rows) {
+  using S = Wt;
+  extern __shared__ __align__(1024) unsigned char wt_smem[];
+  unsigned char* smem = wt_smem + ((1024 - (smem_u32(wt_smem) & 1023)) & 1023);
+  unsigned char* bufs = smem + S::STAGES * S::SLOT;
+  uint64_t* full = reinterpret_cast<uint64_t*>(bufs + S::BUFS * S::BUF);
+  uint64_t* empty = full + S::STAGES;
+  uint64_t* conv = empty + S::STAGES;  // buffer b holds its slot's halves
+  uint64_t* done = conv + S::BUFS;     // buffer b's products are done
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tiles_k = (K + S::TILE - 1) / S::TILE, tiles_n = (N + S::TILE - 1) / S::TILE;
+  const int tiles = tiles_k * tiles_n;
+  const int tile = (int)(blockIdx.x % tiles), split = (int)(blockIdx.x / tiles);
+  const int band = tile / (WT_BAND * tiles_k), in = tile % (WT_BAND * tiles_k);
+  const int width = min(WT_BAND, tiles_n - band * WT_BAND);  // n tiles of this band
+  const int k0 = (in / width) * S::TILE, n0 = (band * WT_BAND + in % width) * S::TILE;
+  const int r0 = split * rows, r1 = min(M, r0 + rows);
+  const int slices = (r1 - r0 + WT_SLICE - 1) / WT_SLICE;
+
+  if (tid == 0) {
+    for (int s = 0; s < S::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 12);  // the 8 consumer warps (X) and 4 converter warps (dY)
+    }
+    for (int b = 0; b < S::BUFS; ++b) {
+      mbar_init(&conv[b], 4);  // the converter warps
+      mbar_init(&done[b], 8);  // the consumer warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // warpgroup 2: converts dY; warp 8's lane 0 also loads with TMA
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    const int boxes = min(S::TILE / 32, (K - k0 + 31) / 32);  // X's boxes inside K
+    auto load = [&](int p) {  // slot p into its stage
+      const int stage = p % S::STAGES;
+      unsigned char* sx = smem + stage * S::SLOT;
+      const int m0 = r0 + p * WT_SLICE;
+      mbar_expect_tx(&full[stage], boxes * S::X_BOX + S::D_BYTES);
+      for (int b = 0; b < boxes; ++b)
+        tma_load_2d(sx + b * S::X_BOX, &tm_x, k0 + 32 * b, m0, &full[stage]);
+      tma_load_2d(sx + S::X_BYTES, &tm_d, n0, m0, &full[stage]);
+    };
+    if (warp == 8 && lane == 0)
+      for (int p = 0; p < min(slices, S::STAGES); ++p) load(p);
+    const int cn = tid - 256;  // this thread's column of dY
+    float bsum = 0.f;
+    for (int q = 0; q < slices; ++q) {
+      const int stage = q % S::STAGES, b = q % S::BUFS;
+      mbar_wait(&full[stage], (q / S::STAGES) & 1);
+      if (q >= S::BUFS) mbar_wait(&done[b], ((q / S::BUFS) - 1) & 1);
+      const float* sd = reinterpret_cast<const float*>(smem + stage * S::SLOT + S::X_BYTES);
+      unsigned char* hi = bufs + b * S::BUF;
+      const int live = r1 - (r0 + q * WT_SLICE);  // rows of the slot inside the split
+      // 16-byte chunk c of row cn holds depths 4c .. 4c + 3 of the slot, data
+      // rows 8 (c / 2) + 2i + c % 2
+      float slot_sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        uint32_t h[4], l[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = 8 * (c >> 1) + 2 * i + (c & 1);
+          const float v = r < live ? sd[r * S::TILE + cn] : 0.f;
+          slot_sum += v;
+          split_tf32(v, h[i], l[i]);
+        }
+        const int o = bw_swz(cn, 16 * c);
+        *reinterpret_cast<uint4*>(hi + o) = make_uint4(h[0], h[1], h[2], h[3]);
+        *reinterpret_cast<uint4*>(hi + S::HALF + o) = make_uint4(l[0], l[1], l[2], l[3]);
+      }
+      bsum += slot_sum;
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // generic stores, async reads
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive(&conv[b]);
+        mbar_arrive(&empty[stage]);
+      }
+      // refill the stage once the consumers have read slot q's X too
+      if (warp == 8 && q + S::STAGES < slices) {
+        mbar_wait(&empty[stage], (q / S::STAGES) & 1);
+        if (lane == 0) load(q + S::STAGES);
+        __syncwarp();
+      }
+    }
+    if (pb != nullptr && k0 == 0 && n0 + cn < N) pb[(size_t)split * N + n0 + cn] = bsum;
+    return;
+  }
+
+  // the consumer warpgroups
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+  // A: fragment rows g and g + 8 are dW rows xr and xr + 1, in X's box
+  // xr / 32 at byte xc of its rows
+  const int xr = 64 * wg + 16 * (warp & 3) + 2 * g;
+  const int xb = (xr >> 5) * S::X_BOX, xc = 4 * (xr & 31);
+  float acc[S::TILE / 2], part[S::TILE / 2];
+#pragma unroll
+  for (int j = 0; j < S::TILE / 2; ++j) acc[j] = 0.f;
+  // X of slot q at depths t and t + 4 of k8 step kk: data rows 8 kk + 2t + e;
+  // the slot's stage is released once read
+  float2 xv[4][2];
+  auto load_x = [&](int q) {
+    const int stage = q % S::STAGES;
+    mbar_wait(&full[stage], (q / S::STAGES) & 1);
+    const unsigned char* sx = smem + stage * S::SLOT;
+    const int live = r1 - (r0 + q * WT_SLICE);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int m = 8 * kk + 2 * t + e;
+        xv[kk][e] = m < live ? *reinterpret_cast<const float2*>(sx + xb + bw_swz(m, xc))
+                             : make_float2(0.f, 0.f);
+      }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[stage]);
+  };
+  // a0 (row g, depth t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+  uint32_t ah[4][4], al[4][4];
+  auto split_x = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      split_tf32(xv[kk][0].x, ah[kk][0], al[kk][0]);
+      split_tf32(xv[kk][0].y, ah[kk][1], al[kk][1]);
+      split_tf32(xv[kk][1].x, ah[kk][2], al[kk][2]);
+      split_tf32(xv[kk][1].y, ah[kk][3], al[kk][3]);
+    }
+  };
+  load_x(0);
+  split_x();
+  for (int q = 0; q < slices; ++q) {
+    const int b = q % S::BUFS;
+    mbar_wait(&conv[b], (q / S::BUFS) & 1);
+    wgmma_fence();
+    const uint32_t bh = smem_u32(bufs + b * S::BUF), bl = bh + S::HALF;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      // k8 step kk: 32 bytes into each K-major row of B
+      const uint64_t dh = bw_desc(bh + 32 * kk, 16, 1024);
+      const uint64_t dl = bw_desc(bl + 32 * kk, 16, 1024);
+      wgmma_tf32(part, al[kk], dh, (q % WT_GROUP) | kk);  // 0 at a group's start
+      wgmma_tf32(part, ah[kk], dl, 1);
+      wgmma_tf32(part, ah[kk], dh, 1);
+    }
+    wgmma_commit();
+    const bool next = q + 1 < slices;
+    if (next) load_x(q + 1);
+    wgmma_wait_all();  // slot q's products are done: A's registers and the buffer are free
+    reg_fence(part);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&done[b]);
+    if ((q + 1) % WT_GROUP == 0 || !next) {  // a group of slots ends with slot q
+#pragma unroll
+      for (int j = 0; j < S::TILE / 2; ++j) acc[j] += part[j];
+    }
+    if (next) split_x();
+  }
+
+  // accumulator 4j + 2h + c is dW row k0 + xr + h, column n0 + 8j + 2t + c
+  float* out = pw + (size_t)split * K * N;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int k = k0 + xr + h;
+    if (k >= K) continue;
+#pragma unroll
+    for (int j = 0; j < S::TILE / 8; ++j) {
+      const int n = n0 + 8 * j + 2 * t;  // N % 4 == 0: n < N holds n + 1 too
+      if (n < N)
+        *reinterpret_cast<float2*>(out + (size_t)k * N + n) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+int launch_wgrad_tf32_wgmma(const float* x, const float* dy, float* pw, float* pb, int M, int K,
+                            int N, int rows, cudaStream_t s) {
+  using S = Wt;
+  static_assert(S::SMEM <= BW_MAX_SMEM, "the ring does not fit");
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      wgrad_tf32_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  static const bool regs_ok = wgmma_regs_ok((const void*)wgrad_tf32_wgmma_kernel);
+  if (!regs_ok) return (int)cudaErrorInvalidConfiguration;
+  const long long tiles =
+      (long long)((K + S::TILE - 1) / S::TILE) * ((N + S::TILE - 1) / S::TILE);
+  const long long blocks = tiles * ((M + rows - 1) / rows);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  CUtensorMap tm_x{}, tm_d{};
+  if (!tmap_2d(&tm_x, x, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, M, K, WT_SLICE, 32) ||
+      !tmap_2d(&tm_d, dy, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, M, N, WT_SLICE, S::TILE,
+               CU_TENSOR_MAP_SWIZZLE_NONE))
+    return (int)cudaErrorInvalidValue;
+  wgrad_tf32_wgmma_kernel<<<(unsigned)blocks, BW_THREADS, S::SMEM, s>>>(tm_x, tm_d, pw, pb, M, K,
+                                                                       N, rows);
+  return (int)cudaGetLastError();
+}
+
+// The route of pd_linear_wgrad (pd_linear_wgrad_route returns it; the tests
+// hold a table of it): bf16 wgmma in bf16 mode (wgrad.cu, which also loads rows off 16
+// bytes); TF32 wgmma for float32 operands whose rows TMA can address
+// (16-byte aligned X and dY, K and N multiples of 4); mma.sync for the rest.
+int wgrad_route(int K, int N, int round_in, int x_aligned, int dy_aligned) {
+  if (round_in) return ROUTE_BF16_WGMMA;
+  if (x_aligned && dy_aligned && K % 4 == 0 && N % 4 == 0) return ROUTE_TF32_WGMMA;
+  return ROUTE_TF32_MMA;
+}
+
 }  // namespace
 
 // bf16 mode's weight gradient (wgrad.cu)
@@ -1771,20 +2073,38 @@ PD_API int pd_linear_route(int K, int N, int w_bf16, int round_a, int a_aligned,
 }
 
 // The dW tile of a block (ops/kernels.py WGRAD_TILE holds the same): 128 x
-// 128 in both modes.
-PD_API int pd_linear_wgrad_tile(int round_in) { return round_in ? wgrad_bf16_tile() : WG_BK; }
+// 128 on every route.
+PD_API int pd_linear_wgrad_tile(int round_in) {
+  static_assert(Wt::TILE == WG_BK && WG_BK == WG_BN, "the float32 routes share one tile");
+  return round_in ? wgrad_bf16_tile() : WG_BK;
+}
+
+// Shared memory of the TF32 wgmma weight-gradient tile.
+PD_API int pd_linear_wgrad_tf32_smem_bytes() { return Wt::SMEM; }
+
+// pd_linear_wgrad's route for these operands (0 TF32 mma.sync, 1 TF32 wgmma,
+// 2 bf16 wgmma; ops/kernels.py linear_wgrad asks it to count its launches by
+// route).
+PD_API int pd_linear_wgrad_route(int K, int N, int round_in, int x_aligned, int dy_aligned) {
+  return wgrad_route(K, N, round_in, x_aligned, dy_aligned);
+}
 
 // X (M, K), dY (M, N) -> partials pw (S, K, N) and pb (S, N) (pb may be
-// null), S = ceil(M / rows). round_in: both operands rounded to bf16 (the
-// bf16 mode, wgmma in wgrad.cu); else float32 as 3xTF32 MMAs.
+// null), S = ceil(M / rows), on wgrad_route's route. round_in: both
+// operands rounded to bf16 (the bf16 mode, wgmma in wgrad.cu); else float32
+// as 3xTF32 MMAs, on TF32 wgmma where TMA can address X and dY.
 PD_API int pd_linear_wgrad(const void* x, const void* dy, void* pw, void* pb,
                            int M, int K, int N, int rows, int round_in,
                            void* stream) {
   if (rows < 1 || M < 1 || K < 1 || N < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (round_in)
+  const int route = wgrad_route(K, N, round_in, aligned(x, 16), aligned(dy, 16));
+  if (route == ROUTE_BF16_WGMMA)
     return launch_wgrad_bf16((const float*)x, (const float*)dy, (float*)pw, (float*)pb, M, K,
                              N, rows, s);
+  if (route == ROUTE_TF32_WGMMA)
+    return launch_wgrad_tf32_wgmma((const float*)x, (const float*)dy, (float*)pw, (float*)pb, M,
+                                   K, N, rows, s);
   static const cudaError_t attr = cudaFuncSetAttribute(
       wgrad_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
   if (attr != cudaSuccess) return (int)attr;

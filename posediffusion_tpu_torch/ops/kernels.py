@@ -117,6 +117,8 @@ _SIGNATURES = {
     "pd_layernorm_bwd_blocks": [_I],
     "pd_linear_wgrad": [_P] * 4 + [_I] * 5 + [_P],
     "pd_linear_wgrad_tile": [_I],
+    "pd_linear_wgrad_route": [_I] * 5,
+    "pd_linear_wgrad_tf32_smem_bytes": [],
     "pd_act_dropout_bwd": [_P, _P, _P, _L, _I, *_DROP, _P],
     "pd_sum_partials": [_P, _P, _I, _L, _P],
     "pd_layerscale_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, *_DROP, _P],
@@ -1420,10 +1422,10 @@ def linear_wgrad_plain(x, dy, round_in: bool = False):
 
 # Row split of the weight gradient (csrc/linear.cu pd_linear_wgrad; bf16
 # mode csrc/wgrad.cu): one block per (split, dW tile), each split at least
-# _WGRAD_MIN_ROWS rows. Both modes take a 128 x 128 tile, one block an SM
-# (float32 mode's accumulators take most of the registers, bf16 mode's ring
-# most of the shared memory), so a call takes about waves x (rows of a split
-# + a block's fixed cost, _WGRAD_BLOCK_ROWS rows' worth): the split is the
+# _WGRAD_MIN_ROWS rows. Every route takes a 128 x 128 tile, one block an SM
+# (the accumulators take most of the registers, the wgmma tiles' rings most
+# of the shared memory), so a call takes about waves x (rows of a split + a
+# block's fixed cost, _WGRAD_BLOCK_ROWS rows' worth): the split is the
 # cheapest by that count among those with at least one block per SM (fc1 at
 # 135,168 rows: 11 splits, 396 blocks, three whole waves).
 WGRAD_TILE = {False: 128, True: 128}
@@ -1445,10 +1447,25 @@ def wgrad_rows(M: int, K: int, N: int, round_in: bool = False) -> int:
 def linear_wgrad(x, dy, round_in: bool = False):
     """Weight and bias gradients of ``y = x @ W + b``: (x^T dy (K, N),
     colsum(dy) (N,)), float32. On the card the product runs on the tensor
-    cores: 3xTF32 MMAs (about 2^-21 relative a product) in float32 mode;
-    with ``round_in`` both operands rounded to bf16 (the bf16 mode) on bf16
-    ``wgmma``, every product exact and each 64 rows summed apart. The bias
-    gradient sums the unrounded dy, as the TPU kernel does."""
+    cores, on the route csrc/linear.cu wgrad_route takes for the operands
+    (``pd_linear_wgrad_route`` returns it):
+
+    * ``tf32_wgmma``: float32 x and dy on 16-byte boundaries with K and N
+      multiples of 4 (rows TMA can address): 3xTF32 on TF32 ``wgmma``
+      (wgrad_tf32_wgmma_kernel: x^T split in registers, dy transposed into
+      its K-major TF32 halves inside the tile; about 2^-21 relative a
+      product, each 64 rows summed apart). Every float32 train-trunk weight
+      gradient takes it.
+    * ``tf32_mma``: other float32 operands (K or N off 4, a base off 16
+      bytes): 3xTF32 ``mma.sync`` (wgrad_tf32_kernel, each 32 rows summed
+      apart).
+    * ``bf16_wgmma``: ``round_in``, both operands rounded to bf16 (the bf16
+      mode) on bf16 ``wgmma``, every product exact and each 64 rows summed
+      apart.
+
+    The bias gradient sums the unrounded dy, as the TPU kernel does. Counts
+    its launches in ``linear_wgrad.launches``, per (M, K, N) in
+    ``linear_wgrad.by_shape`` and per route in ``linear_wgrad.by_route``."""
     if not _on_card(x, dy):
         return linear_wgrad_plain(x, dy, round_in)
     M, K = x.shape
@@ -1459,14 +1476,19 @@ def linear_wgrad(x, dy, round_in: bool = False):
     S = -(-M // rows)
     pw = torch.empty((S, K, N), device=x.device, dtype=torch.float32)
     pb = torch.empty((S, N), device=x.device, dtype=torch.float32)
-    _launch(load_library().pd_linear_wgrad, _ptr(x), _ptr(dy), _ptr(pw), _ptr(pb),
+    lib = load_library()
+    route = LINEAR_ROUTES[lib.pd_linear_wgrad_route(
+        K, N, int(round_in), int(x.data_ptr() % 16 == 0), int(dy.data_ptr() % 16 == 0))]
+    _launch(lib.pd_linear_wgrad, _ptr(x), _ptr(dy), _ptr(pw), _ptr(pb),
             M, K, N, rows, int(round_in), _stream(x))
     linear_wgrad.launches += 1
     linear_wgrad.by_shape[(M, K, N)] = linear_wgrad.by_shape.get((M, K, N), 0) + 1
+    linear_wgrad.by_route[route] = linear_wgrad.by_route.get(route, 0) + 1
     return _sum_partials(pw), _sum_partials(pb)
 
 
 linear_wgrad.by_shape = {}
+linear_wgrad.by_route = {}
 linear_wgrad.launches = 0
 
 
@@ -1638,4 +1660,5 @@ def reset_launch_counts() -> None:
     linear.by_route.clear()
     linear_rows.by_shape.clear()
     linear_wgrad.by_shape.clear()
+    linear_wgrad.by_route.clear()
     act_dropout_bwd.by_shape.clear()

@@ -1358,7 +1358,7 @@ def test_train_step_products_take_the_wgmma_route(cuda):
     """One DINO train step (12 blocks, 8 encoder layers) at 4 x 8 frames,
     batch_repeat 130 (8,448 ViT rows; 4,160 encoder rows, 33 x 4 tiles at
     its narrowest N): every trunk forward, recompute and dgrad product (200
-    launches) goes to TF32 wgmma. The denoiser's first product (K 702) and
+    launches) and every weight gradient (80) goes to TF32 wgmma. The denoiser's first product (K 702) and
     its head (N 9) are torch.nn.Linear in a train step; through ``linear``
     their shapes take mma.sync."""
     from posediffusion_tpu_torch.models.pose_diffusion import (
@@ -1385,11 +1385,22 @@ def test_train_step_products_take_the_wgmma_route(cuda):
     assert np.isfinite(out["loss"])
     assert K.linear.launches == 200
     assert K.linear.by_route == {"tf32_wgmma": 200}
+    assert K.linear_wgrad.by_route == {"tf32_wgmma": 80}
     for M, K_, N in ((B * rep * F, 702, 512), (B * rep * F, 128, 9)):
         a, w, bias, _, _ = _tf32_case(M, K_, N, torch.float32, False, cuda)
         K.reset_launch_counts()
         _close(K.linear(a, w, bias), K.linear_plain(a, w, bias), TOL_F32)
         assert K.linear.by_route == {"tf32_mma": 1}
+
+
+def _wgrad_route(K_, N, round_in, aligned=True):
+    """csrc/linear.cu wgrad_route, as tests/test_torch_tf32.py wgrad_route
+    holds it to the source: bf16 mode on bf16 wgmma; float32 operands TMA
+    can address (16-byte bases, K and N multiples of 4) on TF32 wgmma; the
+    rest on mma.sync."""
+    if round_in:
+        return "bf16_wgmma"
+    return "tf32_wgmma" if aligned and K_ % 4 == 0 and N % 4 == 0 else "tf32_mma"
 
 
 # ragged K x N (130 x 70), M off the 32-row slice and split (4,133), the
@@ -1400,11 +1411,15 @@ def test_train_step_products_take_the_wgmma_route(cuda):
 def test_linear_wgrad(cuda, M, K_, N, round_in):
     r = _gen(M)
     x, dy = _t(r.normal(size=(M, K_)), cuda), _t(r.normal(size=(M, N)), cuda)
+    K.reset_launch_counts()
     dw, db = K.linear_wgrad(x, dy, round_in)
+    # K 130 and N 70 are off 4: float32 mode's fallback, mma.sync
+    assert K.linear_wgrad.by_route == {_wgrad_route(K_, N, round_in): 1}
     rw, rb = K.linear_wgrad_plain(x, dy, round_in)
     # the tensor cores' float32 accumulation does not round each partial sum
-    # to nearest: bf16 mode sums each 64 rows apart, float32 mode each 32,
-    # and adds them into the running sum rounded to nearest.
+    # to nearest: bf16 mode and float32 mode's wgmma tile sum each 64 rows
+    # apart, its mma.sync tile each 32, and add them into the running sum
+    # rounded to nearest.
     _close(dw, rw, TOL_WGRAD_TC if round_in else TOL_F32)
     _close(db, rb, TOL_F32)
     assert torch.equal(dw, K.linear_wgrad(x, dy, round_in)[0])
@@ -1419,10 +1434,86 @@ def test_linear_wgrad_misaligned_operands(cuda, round_in):
     fx = _t(r.normal(size=M * K_ + 1), cuda)
     fd = _t(r.normal(size=M * N + 3), cuda)
     x, dy = fx[1:].view(M, K_), fd[3:].view(M, N)
+    K.reset_launch_counts()
     dw, db = K.linear_wgrad(x, dy, round_in)
+    assert K.linear_wgrad.by_route == {"bf16_wgmma" if round_in else "tf32_mma": 1}
     rw, rb = K.linear_wgrad_plain(x, dy, round_in)
     _close(dw, rw, TOL_WGRAD_TC if round_in else TOL_F32)
     _close(db, rb, TOL_F32)
+
+
+# float32 mode's TF32 wgmma tile at the three train cells' widths: ViT-S
+# qkv, proj, fc1 and fc2; the encoder's in_proj, out_proj, linear1 and
+# linear2; ViT-g's w12, w3 and qkv; and 132 x 68, which TMA addresses and the
+# 128 x 128 tile does not cover. Rows off the 32-row slot and the 64-row
+# group; the ViT-S and encoder widths over several splits.
+WGRAD_WGMMA_WIDTHS = [(384, 1152), (384, 384), (384, 1536), (1536, 384),
+                      (512, 1536), (512, 512), (512, 1024), (1024, 512),
+                      (1536, 8192), (4096, 1536), (1536, 4608), (132, 68)]
+
+
+@pytest.mark.parametrize("K_,N", WGRAD_WGMMA_WIDTHS)
+def test_linear_wgrad_tf32_wgmma_widths(cuda, K_, N):
+    M = 4133 if K_ * N > 4_000_000 else 20011
+    r = _gen(K_ + N)
+    x, dy = _t(r.normal(size=(M, K_)), cuda), _t(r.normal(size=(M, N)), cuda)
+    K.reset_launch_counts()
+    dw, db = K.linear_wgrad(x, dy)
+    assert K.linear_wgrad.by_route == {"tf32_wgmma": 1}
+    rw, rb = K.linear_wgrad_plain(x, dy)
+    _close(dw, rw, TOL_F32)
+    _close(db, rb, TOL_F32)
+    again = K.linear_wgrad(x, dy)
+    assert torch.equal(dw, again[0]) and torch.equal(db, again[1])
+
+
+# rows under, at and over a slot and a group; a row split whose boundaries
+# fall inside slots (9,001 rows of 384 x 256: 9 splits of 1,001 rows)
+@pytest.mark.parametrize("M", [1, 31, 33, 63, 65, 97, 9001])
+@pytest.mark.parametrize("K_,N", [(132, 68), (384, 256)])
+def test_linear_wgrad_tf32_wgmma_rows(cuda, M, K_, N):
+    r = _gen(M + K_)
+    x, dy = _t(r.normal(size=(M, K_)), cuda), _t(r.normal(size=(M, N)), cuda)
+    K.reset_launch_counts()
+    dw, db = K.linear_wgrad(x, dy)
+    assert K.linear_wgrad.by_route == {"tf32_wgmma": 1}
+    _close(dw, K.linear_wgrad_plain(x, dy)[0], TOL_F32)
+    _close(db, dy.sum(0), TOL_F32)
+    assert torch.equal(dw, K.linear_wgrad(x, dy)[0])
+
+
+def test_linear_wgrad_tf32_wgmma_zero_cotangent_and_offset_views(cuda):
+    """An all-zero dY gives exact zeros (no stale slot or buffer leaks in);
+    row-offset views on 16-byte boundaries take the wgmma tile, views off
+    them the mma.sync tile, and both equal plain."""
+    r = _gen(11)
+    x = _t(r.normal(size=(9001, 384)), cuda)
+    K.linear_wgrad(x, _t(r.normal(size=(9001, 1536)), cuda))
+    dw, db = K.linear_wgrad(x, torch.zeros(9001, 1536, device=cuda))
+    assert not dw.any() and not db.any()
+    M, K_, N = 3001, 384, 256
+    fx, fd = _t(r.normal(size=(M + 4, K_)), cuda), _t(r.normal(size=M * N + 1), cuda)
+    for x, dy, route in ((fx[4:], fd[:-1].view(M, N), "tf32_wgmma"),
+                         (fx[4:], fd[1:].view(M, N), "tf32_mma")):
+        K.reset_launch_counts()
+        dw, db = K.linear_wgrad(x, dy)
+        assert K.linear_wgrad.by_route == {route: 1}
+        _close(dw, K.linear_wgrad_plain(x, dy)[0], TOL_F32)
+        _close(db, dy.sum(0), TOL_F32)
+
+
+def test_linear_wgrad_route_and_shared_memory_mirror_the_kernel(cuda):
+    """The library's route is the rule tests/test_torch_tf32.py holds to
+    the source, and the tile's shared memory the figure it works by hand."""
+    lib = K.load_library()
+    assert lib.pd_linear_wgrad_tf32_smem_bytes() == 230512
+    for K_ in (1, 4, 6, 130, 384):
+        for N in (2, 68, 70, 1536):
+            for round_in in (False, True):
+                for x_ok, d_ok in ((1, 1), (0, 1), (1, 0)):
+                    code = lib.pd_linear_wgrad_route(K_, N, int(round_in), x_ok, d_ok)
+                    assert K.LINEAR_ROUTES[code] == _wgrad_route(
+                        K_, N, round_in, bool(x_ok and d_ok))
 
 
 # the bf16 train path's widths (ViT-S qkv and fc2, the encoder's in_proj and

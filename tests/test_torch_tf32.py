@@ -2,7 +2,8 @@
 arithmetic they share with their Python wrappers, on the CPU.
 
 ``linear`` (csrc/linear.cu, linear_tf32_kernel: the forward and dgrad
-products of float32 a), ``linear_wgrad`` (wgrad_tf32_kernel) and
+products of float32 a), ``linear_wgrad`` (wgrad_tf32_wgmma_kernel and
+its fallback wgrad_tf32_kernel) and
 ``attention_bwd`` (csrc/attention_bwd.cu) run their float32 products as
 3xTF32 MMAs: each operand x splits into hi = tf32(x) (round to nearest at 10
 mantissa bits, cvt.rna) and lo = x - hi, which the tensor core truncates to
@@ -12,9 +13,12 @@ float64 on the path's products, the card tests' float32 tolerance, and that
 one TF32 product (hi.hi alone) does not; that a bf16 W or a bf16-rounded a
 has lo = 0, so the kernel's two products equal three bitwise; and, with the
 tensor core's truncating accumulation emulated, that a fresh accumulator per
-slice of K (64 wide in ``linear``, 32 rows in ``linear_wgrad``) is what
+slice of K (64 wide in ``linear``, 32 rows in wgrad_tf32_kernel) is what
 keeps K 1,536 within 1e-5. SuperGlue's scores (csrc/superglue.cu) take the
-same three products; the scores' scratch size mirrors the kernel's.
+same three products; the scores' scratch size mirrors the kernel's. The
+weight gradient's TF32 wgmma tile (wgrad_tf32_wgmma_kernel) sums each 64
+rows apart: its order, emulated over whole row splits and their partials,
+holds float64 as closely.
 """
 
 import re
@@ -342,6 +346,169 @@ def test_wgrad_split_fills_the_card(M, K_, N):
     blocks = -(-K_ // tile) * -(-N // tile) * splits
     assert blocks >= 132
     assert blocks / (132 * -(-blocks // 132)) >= 0.9
+
+
+# the ViT-g cell's trunk (96 x 348 rows: qkv, proj, w12 and w3)
+VITG_SHAPES = [(96 * 348, k, n) for k, n in ((1536, 4608), (1536, 1536), (1536, 8192),
+                                              (4096, 1536))]
+
+
+@pytest.mark.parametrize("M,K_,N", VITG_SHAPES)
+def test_wgrad_split_fills_the_card_at_vitg(M, K_, N):
+    """The same at ViT-g's widths: w12 (768 tiles) and w3 (384) run one
+    split of all 33,408 rows in near-whole waves; qkv and proj split."""
+    test_wgrad_split_fills_the_card(M, K_, N)
+    want = {8192: 33408, 1536: 33408 if K_ == 4096 else 4176, 4608: 11136}[N]
+    assert K.wgrad_rows(M, K_, N) == want
+
+
+# (rows, K, N) of the float32 train weight gradients of all three cells, the
+# ViT-g cell's encoder (6 x 90 x 16 rows) included
+CELL_WGRADS = PATH_SHAPES + VITG_SHAPES + [
+    (8640, k, n) for k, n in ((512, 1536), (512, 512), (512, 1024), (1024, 512))]
+
+
+@pytest.mark.parametrize("M,K_,N", CELL_WGRADS)
+def test_cell_weight_gradients_take_the_wgmma_route(M, K_, N):
+    """Every float32 train weight gradient of the three cells is one TMA can
+    address: it goes to TF32 wgmma (the operands are whole contiguous
+    tensors, on the allocator's 512-byte boundaries); bf16 mode to bf16
+    wgmma. Both split the rows alike, each row in exactly one split."""
+    assert wgrad_route(K_, N, False) == "tf32_wgmma"
+    assert wgrad_route(K_, N, True) == "bf16_wgmma"
+    rows = K.wgrad_rows(M, K_, N)
+    assert rows == K.wgrad_rows(M, K_, N, True)
+    splits = -(-M // rows)
+    assert splits * rows >= M and (splits - 1) * rows < M
+    assert splits <= -(-M // 1024)
+    assert -(-K_ // 128) * -(-N // 128) * splits >= 132
+
+
+def wgrad_route(K_: int, N: int, round_in: bool, aligned: bool = True) -> str:
+    """The route csrc/linear.cu wgrad_route gives ``linear_wgrad`` (the
+    wrapper asks pd_linear_wgrad_route; test_wgrad_route_and_tile_mirror_the_kernel
+    holds this to the source, a card test to the library): ``bf16_wgmma``
+    in bf16 mode; ``tf32_wgmma`` for float32 operands whose rows TMA can
+    address (``aligned``: x and dy on 16-byte boundaries; K and N multiples
+    of 4); ``tf32_mma`` for the rest."""
+    if round_in:
+        return "bf16_wgmma"
+    if aligned and K_ % 4 == 0 and N % 4 == 0:
+        return "tf32_wgmma"
+    return "tf32_mma"
+
+
+# (K, N, round_in, aligned) -> route: K or N off 4 or a base off 16 bytes
+# fall back to mma.sync in float32 mode; bf16 mode takes any
+WGRAD_ROUTE_TABLE = [
+    (384, 1536, False, True, "tf32_wgmma"),
+    (132, 68, False, True, "tf32_wgmma"),
+    (4, 4, False, True, "tf32_wgmma"),
+    (130, 70, False, True, "tf32_mma"),
+    (384, 70, False, True, "tf32_mma"),
+    (702, 512, False, True, "tf32_mma"),
+    (384, 256, False, False, "tf32_mma"),
+    (384, 256, True, True, "bf16_wgmma"),
+    (130, 70, True, False, "bf16_wgmma"),
+]
+
+
+@pytest.mark.parametrize("K_,N,round_in,aligned,route", WGRAD_ROUTE_TABLE)
+def test_wgrad_route_table(K_, N, round_in, aligned, route):
+    assert wgrad_route(K_, N, round_in, aligned) == route
+
+
+# wgrad_tf32_wgmma_kernel's tile (csrc/linear.cu struct Wt): a ring slot
+# holds 32 data rows of X (128 columns, four 32 x 32-float boxes) and of dY
+# (128 columns); two buffers hold dY's TF32 hi and lo halves transposed
+WGRAD_TF32_SLICE, WGRAD_TF32_STAGES, WGRAD_TF32_BUFS = 32, 5, 2
+# its shared memory, worked by hand below (the card test holds
+# pd_linear_wgrad_tf32_smem_bytes to it)
+WGRAD_TF32_SMEM = 230512
+
+
+def test_wgrad_route_and_tile_mirror_the_kernel():
+    """wgrad_route and the tile's constants hold what csrc/linear.cu holds (a
+    card test compares pd_linear_wgrad_route and the shared memory)."""
+    src = LINEAR_CU.read_text()
+    body = re.search(r"int wgrad_route\(int K, int N, int round_in, int x_aligned, "
+                     r"int dy_aligned\) \{(.*?)\n\}", src, re.S).group(1)
+    assert "if (round_in) return ROUTE_BF16_WGMMA;" in body
+    assert "if (x_aligned && dy_aligned && K % 4 == 0 && N % 4 == 0) return ROUTE_TF32_WGMMA;" \
+        in body
+    assert "return ROUTE_TF32_MMA;" in body
+    assert f"constexpr int WT_SLICE = {WGRAD_TF32_SLICE};" in src
+    assert "constexpr int WT_GROUP = 2;" in src
+    assert re.search(rf"struct Wt \{{[^}}]*static constexpr int STAGES = {WGRAD_TF32_STAGES};",
+                     src)
+    assert re.search(rf"struct Wt \{{[^}}]*static constexpr int BUFS = {WGRAD_TF32_BUFS};", src)
+    assert "static constexpr int TILE = 128;" in src and K.WGRAD_TILE[False] == 128
+
+
+def test_wgrad_tile_shared_memory_worked_by_hand():
+    """5 slots of 32 KB (X's and dY's 32 x 128 floats), two buffers of dY's
+    hi and lo halves (16 KB each), 14 barriers, 1,024 bytes of slack: under
+    the 232,448 bytes a Hopper block may use, and a sixth slot or a third
+    buffer would not fit; slots, boxes and halves on 1,024-byte swizzle
+    atoms."""
+    tile = K.WGRAD_TILE[False]
+    slot = 2 * WGRAD_TF32_SLICE * tile * 4
+    buf = 2 * tile * WGRAD_TF32_SLICE * 4
+    smem = (1024 + WGRAD_TF32_STAGES * slot + WGRAD_TF32_BUFS * buf
+            + 2 * (WGRAD_TF32_STAGES + WGRAD_TF32_BUFS) * 8)
+    assert smem == 1024 + 5 * 32768 + 2 * 2 * 16384 + 14 * 8 == WGRAD_TF32_SMEM
+    assert smem <= 232448 < smem + 32768
+    assert 32768 % 1024 == 0 and 4096 % 1024 == 0 and 16384 % 1024 == 0
+
+
+def _wgrad_wgmma_chain(x: torch.Tensor, dy: torch.Tensor, rows: int) -> torch.Tensor:
+    """x^T dy as wgrad_tf32_wgmma_kernel and sum_partials sum it: per split
+    of ``rows`` rows, 32-row slots of four k8 wgmma steps (zeros past the
+    split), each running lo.hi, hi.lo and hi.hi into one accumulator that
+    truncates its sums, zeroed (scale-d 0) at the first step of every
+    other slot and added, rounded to nearest, into the split's running sum
+    after every second slot and after the last; then the splits' partials
+    added in order in float32. A k8 step's eight depths are data rows in
+    another order than the rows' (8 kk + 2t and + 1): its eight products
+    are exact, so their sum does not depend on it."""
+    M = x.shape[0]
+    out = None
+    for r0 in range(0, M, rows):
+        (xh, xl), (dh, dl) = _split(x[r0:r0 + rows].t()), _split(dy[r0:r0 + rows])
+        n = xh.shape[1]
+        acc = torch.zeros(x.shape[1], dy.shape[1])
+        part = None
+        slots = -(-n // 32)
+        for q in range(slots):
+            for kk in range(4):
+                ks = slice(min(n, 32 * q + 8 * kk), min(n, 32 * q + 8 * kk + 8))
+                for i, (a, b) in enumerate(((xl, dh), (xh, dl), (xh, dh))):
+                    prod = a[:, ks].double() @ b[ks].double()
+                    zero = i == 0 and kk == 0 and q % 2 == 0
+                    part = _rz(prod if zero else part.double() + prod)
+            if q % 2 == 1 or q == slots - 1:
+                acc = acc + part
+        out = acc if out is None else out + acc
+    return out
+
+
+# (M, K, N, rows a split): one split of 4,096 rows; three splits whose
+# boundaries fall inside slots; a split under one group
+@pytest.mark.parametrize("M,K_,N,rows", [(4096, 64, 96, 4096), (3001, 96, 64, 1001),
+                                         (1100, 32, 64, 1056)])
+def test_wgrad_wgmma_accumulation_holds_float64(M, K_, N, rows):
+    """The wgmma tile's order (a fresh accumulator per 64 rows) stays near
+    float32's own rounding over thousands of rows; one truncating
+    accumulator over the same 4,096 rows drifts past 1e-5."""
+    r = np.random.default_rng(M + K_)
+    x = torch.tensor(r.normal(size=(M, K_)).astype(np.float32))
+    dy = torch.tensor(r.normal(size=(M, N)).astype(np.float32))
+    ref = x.double().t() @ dy.double()
+    out = _wgrad_wgmma_chain(x, dy, rows)
+    assert _rel(out.double(), ref) <= TOL / 10, _rel(out.double(), ref)
+    if M == rows:
+        running = _rel(_mma_chain(x.t(), dy, 0).double(), ref)
+        assert running > TOL, running
 
 
 @pytest.mark.parametrize("M,K_,N", [(77, 130, 70), (1000, 384, 1536), (5000, 64, 64),
